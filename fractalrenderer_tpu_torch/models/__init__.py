@@ -1,0 +1,32 @@
+"""Fractal family renderers (the port's counterpart of
+``fractalrenderer_tpu/models/__init__.py``).
+
+``render(scene, width, height, device=...)`` returns an f32 RGB tensor
+(H, W, 3) in [0, 1] on ``device``; only the Mandelbrot family is ported.
+"""
+from __future__ import annotations
+
+from ..scene import FractalType, Scene
+
+# ROADMAP Queue 1 item that ports each family not ported yet
+_NOT_PORTED = {
+    FractalType.JULIA: 2,
+    FractalType.BURNING_SHIP: 2,
+    FractalType.PHOENIX: 2,
+    FractalType.DEEP_ZOOM: 6,
+    FractalType.MANDELBULB: 7,
+}
+
+
+def render(scene: Scene, width: int, height: int, **kw):
+    from ..utils.diag import validate_scene
+
+    scene = validate_scene(scene)  # compute_effect_manager.h:335-345 repairs
+    ft = scene.fractal_type
+    if ft == FractalType.MANDELBROT:
+        from . import mandelbrot
+
+        return mandelbrot.render(scene, width, height, **kw)
+    raise NotImplementedError(
+        f"{ft.display_name} is not ported yet (ROADMAP Queue 1 item "
+        f"{_NOT_PORTED[ft]})")

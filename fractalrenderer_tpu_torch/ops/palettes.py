@@ -1,0 +1,200 @@
+"""Colour palettes on tensors (the port's counterpart of the static-mode
+planar half of ``fractalrenderer_tpu/ops/palettes.py``).
+
+- ``classic``  (6): shaders/mandelbrot.comp:60-141 — fire, electric,
+  grayscale, nebula, solar, ocean.
+- ``enhanced`` (10): shaders/julia.comp:20-181 == shaders/burning_ship.comp —
+  ultra_fire, electric, ocean_enhanced, sunset, cosmic, gold, vaporwave,
+  forest, lava, grayscale.
+
+The deep-zoom and mandelbulb palettes are not ported yet.  ``palette_table``
+flattens one spec into the f32 constant table the CUDA escape kernel reads,
+so the kernel and the plain path use the same rounded constants (Python
+folds ``hi - lo`` in double before it reaches f32; the kernel must not
+recompute it in f32).
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+def _f32(v, device) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
+def _fract(t):
+    return t - torch.floor(t)
+
+
+def _clamp(t, lo, hi):
+    return torch.minimum(torch.maximum(t, _f32(lo, t.device)),
+                         _f32(hi, t.device))
+
+
+def _smoothstep(t):
+    t = _clamp(t, 0.0, 1.0)
+    return t * t * (3.0 - 2.0 * t)
+
+
+def _piecewise5_planar(t, cols: Sequence[Tuple[float, float, float]],
+                       bounds: Sequence[float]):
+    """Planar 5-stop gradient: segment i spans [bounds[i], bounds[i+1])
+    mixing cols[i]→cols[i+1]; t >= bounds[-1] returns cols[-1].  Returns
+    (r, g, b) planes shaped like ``t``."""
+    out = [torch.full_like(t, float(np.float32(cols[-1][ch])))
+           for ch in range(3)]
+    # Build from the last segment backwards so earlier segments win.
+    for i in reversed(range(len(bounds) - 1)):
+        lo, hi = bounds[i], bounds[i + 1]
+        f = (t - lo) / _f32(hi - lo, t.device)
+        sel = t < hi
+        for ch in range(3):
+            seg = (1.0 - f) * float(np.float32(cols[i][ch])) \
+                + f * float(np.float32(cols[i + 1][ch]))
+            out[ch] = torch.where(sel, seg, out[ch])
+    return tuple(out)
+
+
+# Gradient specs: (pre-transform tag, stops, bounds).  Pre-transforms: a
+# (kind, value) tag interpreted by _pre (pow / smoothstep / fract /
+# fract-then-pow).
+_CLASSIC_SPECS = (
+    # mandelbrot.comp:60-72
+    (("pow", 0.7),
+     [(0.0, 0.0, 0.1), (0.8, 0.0, 0.0), (1.0, 0.3, 0.0),
+      (1.0, 0.9, 0.0), (1.0, 1.0, 0.95)],
+     [0.0, 0.2, 0.4, 0.6, 0.8]),
+    # mandelbrot.comp:74-85
+    (("smoothstep", None),
+     [(0.0, 0.0, 0.05), (0.0, 0.1, 0.4), (0.0, 0.5, 1.0),
+      (0.3, 0.8, 1.0), (0.8, 1.0, 1.0)],
+     [0.0, 0.25, 0.5, 0.75, 1.0]),
+    # mandelbrot.comp:87-89 — grayscale, no gradient
+    (("gray", None), None, None),
+    # mandelbrot.comp:91-102
+    (("fract", None),
+     [(0.02, 0.00, 0.05), (0.15, 0.00, 0.25), (0.00, 0.40, 0.60),
+      (0.00, 0.90, 1.00), (0.90, 0.95, 1.00)],
+     [0.0, 0.25, 0.5, 0.75, 1.0]),
+    # mandelbrot.comp:104-115
+    (("fract_pow", 0.9),
+     [(0.1, 0.0, 0.1), (0.5, 0.0, 0.2), (0.9, 0.3, 0.0),
+      (1.0, 0.8, 0.3), (1.0, 1.0, 0.9)],
+     [0.0, 0.25, 0.5, 0.75, 1.0]),
+    # mandelbrot.comp:117-128
+    (("fract_pow", 0.85),
+     [(0.0, 0.05, 0.08), (0.0, 0.3, 0.5), (0.0, 0.7, 0.9),
+      (0.2, 0.9, 1.0), (0.9, 1.0, 1.0)],
+     [0.0, 0.25, 0.5, 0.75, 1.0]),
+)
+
+_ENHANCED_SPECS = (
+    # julia.comp:20-34 — ultra_fire
+    (("pow", 0.7),
+     [(0.0, 0.0, 0.1), (0.8, 0.0, 0.0), (1.0, 0.3, 0.0),
+      (1.0, 0.9, 0.0), (1.0, 1.0, 0.95)],
+     [0.0, 0.2, 0.4, 0.6, 0.8]),
+    # julia.comp:37-50 — electric (same as classic)
+    _CLASSIC_SPECS[1],
+    # julia.comp:53-66 — ocean
+    (("smoothstep", None),
+     [(0.0, 0.0, 0.1), (0.0, 0.1, 0.3), (0.0, 0.4, 0.7),
+      (0.0, 0.7, 1.0), (0.5, 1.0, 1.0)],
+     [0.0, 0.25, 0.5, 0.75, 1.0]),
+    # julia.comp:69-81 — sunset
+    (("id", None),
+     [(0.1, 0.0, 0.2), (0.5, 0.1, 0.3), (1.0, 0.3, 0.2),
+      (1.0, 0.7, 0.3), (1.0, 0.95, 0.7)],
+     [0.0, 0.2, 0.4, 0.6, 0.8]),
+    # julia.comp:84-97 — cosmic, non-uniform breakpoints
+    (("pow", 0.8),
+     [(0.0, 0.0, 0.0), (0.2, 0.0, 0.4), (0.4, 0.0, 0.6),
+      (0.8, 0.3, 0.9), (1.0, 0.7, 1.0)],
+     [0.0, 0.3, 0.5, 0.7, 1.0]),
+    # julia.comp:100-113 — gold
+    (("smoothstep", None),
+     [(0.1, 0.05, 0.0), (0.4, 0.2, 0.0), (0.8, 0.5, 0.1),
+      (1.0, 0.8, 0.3), (1.0, 1.0, 0.9)],
+     [0.0, 0.25, 0.5, 0.75, 1.0]),
+    # julia.comp:116-127 — vaporwave
+    (("id", None),
+     [(0.1, 0.0, 0.2), (0.5, 0.0, 0.5), (1.0, 0.0, 0.8),
+      (0.0, 0.8, 1.0), (1.0, 0.5, 1.0)],
+     [0.0, 0.25, 0.5, 0.75, 1.0]),
+    # julia.comp:130-141 — forest
+    (("id", None),
+     [(0.0, 0.05, 0.0), (0.0, 0.2, 0.1), (0.1, 0.5, 0.2),
+      (0.3, 0.8, 0.4), (0.8, 1.0, 0.6)],
+     [0.0, 0.25, 0.5, 0.75, 1.0]),
+    # julia.comp:144-157 — lava, segment spans 0.2/0.2/0.3/0.3
+    (("pow", 0.6),
+     [(0.1, 0.0, 0.0), (0.6, 0.0, 0.0), (1.0, 0.2, 0.0),
+      (1.0, 0.6, 0.0), (1.0, 1.0, 0.5)],
+     [0.0, 0.2, 0.4, 0.7, 1.0]),
+    # julia.comp:160-162 — grayscale
+    _CLASSIC_SPECS[2],
+)
+
+
+def _pre(t, tag):
+    kind, val = tag
+    if kind == "pow":
+        return torch.pow(t, float(np.float32(val)))
+    if kind == "smoothstep":
+        return _smoothstep(t)
+    if kind == "fract":
+        return _fract(t)
+    if kind == "fract_pow":
+        return torch.pow(_fract(t), float(np.float32(val)))
+    return t  # "gray" / identity
+
+
+def _spec_planar(t, spec):
+    tag, cols, bounds = spec
+    t = _pre(t, tag)
+    if cols is None:  # grayscale
+        return t, t, t
+    return _piecewise5_planar(t, cols, bounds)
+
+
+def _spec(mode: int, family: str):
+    specs = {"classic": _CLASSIC_SPECS, "enhanced": _ENHANCED_SPECS}[family]
+    idx = int(mode)
+    return specs[idx] if 0 <= idx < len(specs) else specs[0]
+
+
+def palette_color_planar(t: torch.Tensor, mode: int,
+                         family: str = "classic"):
+    """GLSL get_palette_color for a static mode: fract(t), then the
+    palette's planar gradient — returns (r, g, b) planes."""
+    return _spec_planar(_fract(t), _spec(mode, family))
+
+
+# Flat table layout read by csrc/escape.cu (keep the two in sync).
+T_KIND, T_EXPO, T_GRAY, T_LO, T_SPAN, T_HI, T_COL = 0, 1, 2, 3, 7, 11, 15
+TABLE_LEN = 30
+_KIND_CODES = {"id": 0, "gray": 0, "pow": 1, "smoothstep": 2, "fract": 3,
+               "fract_pow": 4}
+
+
+def palette_table(mode: int, family: str = "classic") -> np.ndarray:
+    """One palette spec as f32 constants: pre-transform kind and exponent,
+    a grayscale flag, the segments' lower bounds, spans (``hi - lo`` folded
+    in double, as _piecewise5_planar does) and upper bounds, and the five
+    RGB stops."""
+    (kind, val), cols, bounds = _spec(mode, family)
+    tab = np.zeros(TABLE_LEN, np.float32)
+    tab[T_KIND] = _KIND_CODES[kind]
+    tab[T_EXPO] = val if val is not None else 0.0
+    if cols is None:
+        tab[T_GRAY] = 1.0
+        return tab
+    for i in range(4):
+        tab[T_LO + i] = bounds[i]
+        tab[T_SPAN + i] = bounds[i + 1] - bounds[i]
+        tab[T_HI + i] = bounds[i + 1]
+    tab[T_COL:T_COL + 15] = np.asarray(cols, np.float32).reshape(-1)
+    return tab

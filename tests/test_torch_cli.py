@@ -1,0 +1,117 @@
+"""The port's CLI ``render`` verb on the CPU device, and its rejection of
+everything not ported yet (exit code 2, one line on stderr)."""
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import fractalrenderer_tpu as fr
+from fractalrenderer_tpu.utils.png import _prepare_rows, read_png
+from fractalrenderer_tpu_torch import cli
+
+
+def _golden_png_pixels(scene, w, h, bit_depth):
+    ref = fr.render_numpy(scene, w, h)[::-1]
+    rows = _prepare_rows(ref, bit_depth)
+    if bit_depth == 16:
+        rows = rows.view(">u2")
+    return rows.reshape(h, w, 3).astype(np.int64)
+
+
+@pytest.mark.parametrize("bit_depth", [8, 16])
+def test_render_png_matches_golden(tmp_path, capsys, bit_depth):
+    out = str(tmp_path / "m.png")
+    rc = cli.main(["render", "--device", "cpu", "--width", "96", "--height",
+                   "64", "--bit-depth", str(bit_depth), "--out", out])
+    assert rc == 0
+    assert "Rendered 96x64 Mandelbrot on cpu" in capsys.readouterr().out
+    img = read_png(out)
+    assert img.shape == (64, 96, 3)
+    assert img.dtype == (np.uint8 if bit_depth == 8 else np.uint16)
+    want = _golden_png_pixels(fr.Scene(), 96, 64, bit_depth)
+    assert np.abs(img.astype(np.int64) - want).max() <= 1
+
+
+def test_render_preset_and_metadata(tmp_path):
+    out = str(tmp_path / "sea.png")
+    rc = cli.main(["render", "--device", "cpu", "--preset", "Seahorse Valley",
+                   "--width", "32", "--height", "16", "--iters", "64",
+                   "--out", out])
+    assert rc == 0
+    raw = open(out, "rb").read()
+    assert b"Zoom\x000.008000000" in raw
+    assert b"Software\x00fractalrenderer_tpu_torch" in raw
+    scene = fr.presets.find_preset("Seahorse Valley").apply(fr.Scene())
+    want = _golden_png_pixels(scene.with_(max_iterations=64), 32, 16, 8)
+    assert np.abs(read_png(out).astype(np.int64) - want).max() <= 1
+
+
+def test_render_scene_file_written_by_jax(tmp_path, capsys):
+    sf = tmp_path / "s.json"
+    scene = fr.Scene(palette_mode=3, interior_style=1, color_offset=0.25,
+                     color_scale=2.0, max_iterations=48)
+    sf.write_text(scene.to_json())
+    out = str(tmp_path / "s.png")
+    rc = cli.main(["render", "--device", "cpu", "--scene", str(sf),
+                   "--width", "40", "--height", "24", "--debug",
+                   "--out", out])
+    assert rc == 0
+    assert "palette=3" in capsys.readouterr().err
+    want = _golden_png_pixels(scene, 40, 24, 8)
+    assert np.abs(read_png(out).astype(np.int64) - want).max() <= 1
+
+
+UNPORTED = [
+    ["--aa", "2"], ["--orbit-trap"], ["--stripes"],
+    ["--interior-style", "2"], ["--type", "julia"],
+    ["--type", "burning-ship"], ["--type", "phoenix"],
+    ["--type", "mandelbulb"], ["--type", "deep-zoom"],
+    ["--julia-preset", "San Marco"], ["--precision", "dd"], ["--sharded"],
+    ["--golden"], ["--exact-dust"], ["--width", "0"],
+]
+
+
+@pytest.mark.parametrize("extra", UNPORTED, ids=" ".join)
+def test_unported_render_options_exit_2(tmp_path, capsys, extra):
+    out = tmp_path / "x.png"
+    rc = cli.main(["render", "--device", "cpu", "--width", "16", "--height",
+                   "8", *extra, "--out", str(out)])
+    assert rc == 2
+    err = capsys.readouterr().err.strip()
+    assert err.startswith("error:") and "\n" not in err
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("verb", sorted(cli._UNPORTED_VERBS))
+def test_unported_verbs_exit_2(capsys, verb):
+    rc = cli.main([verb, "--out", "x", "positional"])
+    assert rc == 2
+    err = capsys.readouterr().err.strip()
+    assert err.startswith("error:") and "not ported yet" in err
+
+
+def test_cuda_device_without_cuda_exits_2(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = cli.main(["render", "--width", "16", "--height", "8", "--out",
+                   str(tmp_path / "x.png")])
+    assert rc == 2
+    assert "CUDA is not available" in capsys.readouterr().err
+
+
+def test_unknown_render_flag_is_an_argparse_error():
+    with pytest.raises(SystemExit) as e:
+        cli.main(["render", "--device", "cpu", "--no-such-flag"])
+    assert e.value.code == 2
+
+
+def test_scene_args_match_jax_cli():
+    # the port keeps the JAX CLI's scene flags, so a command line written
+    # for one parses in the other
+    from fractalrenderer_tpu import cli as jax_cli
+
+    argv = ["render", "--preset", "Triple Spiral", "--palette", "2",
+            "--iters", "77", "--center", "0.1", "0.2", "--brightness", "1.3"]
+    mine = cli.scene_from_args(cli.build_parser().parse_args(argv))
+    ref = jax_cli.scene_from_args(jax_cli.build_parser().parse_args(argv))
+    assert json.loads(mine.to_json()) == json.loads(ref.to_json())

@@ -1,0 +1,76 @@
+"""The port's import boundary and its device dispatch: it loads neither jax
+nor the JAX package, its kernel-build module imports without a CUDA
+toolkit, and a CUDA device never falls back to the CPU path."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import fractalrenderer_tpu_torch as frt
+from fractalrenderer_tpu_torch.ops import _cuda, escape
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import sys
+import fractalrenderer_tpu_torch
+import fractalrenderer_tpu_torch.cli
+import fractalrenderer_tpu_torch.models.mandelbrot
+import fractalrenderer_tpu_torch.ops._cuda
+import fractalrenderer_tpu_torch.ops.escape
+import fractalrenderer_tpu_torch.utils.png
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "fractalrenderer_tpu")]
+print(",".join(sorted(bad)))
+"""
+
+
+def test_import_loads_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == ""
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(_cuda.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_cuda, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _cuda.build()
+    assert not (tmp_path / "build").exists()
+
+
+def test_library_name_follows_the_sources(tmp_path, monkeypatch):
+    (tmp_path / "k.cu").write_text("// v1\n")
+    monkeypatch.setattr(_cuda, "CSRC_DIR", str(tmp_path))
+    first = _cuda.library_path()
+    assert first == _cuda.library_path()
+    (tmp_path / "k.cu").write_text("// v2\n")
+    assert _cuda.library_path() != first
+    assert os.path.dirname(first) == _cuda.BUILD_DIR
+
+
+def test_kernel_sources_ship_in_the_package():
+    assert [os.path.basename(s) for s in _cuda.sources()] == ["escape.cu"]
+
+
+def test_cuda_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = escape.escape_fields_cuda.launches
+    kw = dict(center_x=-0.5, center_y=0.0, zoom=3.0, max_iter=16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        escape.escape_fields("mandelbrot", 8, 8, device="cuda", **kw)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        frt.render(frt.Scene(max_iterations=16), 8, 8, device="cuda")
+    assert escape.escape_fields_cuda.launches == before
+
+
+def test_cpu_path_launches_no_kernel():
+    before = escape.escape_fields_cuda.launches
+    img = frt.render(frt.Scene(max_iterations=16), 8, 4, device="cpu")
+    assert img.device.type == "cpu"
+    assert escape.escape_fields_cuda.launches == before

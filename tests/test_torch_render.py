@@ -1,0 +1,128 @@
+"""The port's whole main path (``render`` on the CPU device, i.e. the plain
+kernel version) against the numpy golden render and the JAX render.
+
+Counts are exact on the port, so against ``render_numpy`` every pixel must
+agree within atol 1e-5; against the JAX ``fr.render`` (interpret mode, not
+count-exact on CPU) the bad-pixel fraction bound of test_golden_vs_kernel.py
+applies (|diff| > 2e-2 on < 1% of pixels).
+"""
+import numpy as np
+import pytest
+import torch
+
+import fractalrenderer_tpu as fr
+import fractalrenderer_tpu_torch as frt
+from fractalrenderer_tpu.models import common as jax_common
+from fractalrenderer_tpu_torch.models import common
+
+SCENES = {
+    "default": {},
+    "palette3_interior1": dict(palette_mode=3, interior_style=1,
+                               color_offset=0.25, color_scale=2.0),
+}
+W, H = 160, 90
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_render_matches_golden(name):
+    kw = SCENES[name]
+    img = frt.render(frt.Scene(**kw), W, H, device="cpu")
+    assert img.shape == (H, W, 3) and img.dtype == torch.float32
+    ref = fr.render_numpy(fr.Scene(**kw), W, H)
+    np.testing.assert_allclose(img.numpy(), ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_render_close_to_jax(name):
+    kw = SCENES[name]
+    img = frt.render(frt.Scene(**kw), W, H, device="cpu").numpy()
+    ref = np.asarray(fr.render(fr.Scene(**kw), W, H))
+    bad = (np.abs(img - ref) > 2e-2).any(axis=-1)
+    assert bad.mean() < 0.01, f"bad colour fraction {bad.mean()}"
+
+
+@pytest.mark.parametrize("bit_depth", [8, 16])
+def test_quantized_render_matches_jax_quantize(bit_depth):
+    s = frt.Scene(max_iterations=64)
+    img = frt.render(s, 48, 32, device="cpu")
+    q = frt.render(s, 48, 32, device="cpu", quantize=bit_depth)
+    want = np.asarray(jax_common.quantize_image(img.numpy(),
+                                                bit_depth=bit_depth))
+    assert q.shape == (32, 48, 3)
+    assert q.numpy().dtype == want.dtype
+    np.testing.assert_array_equal(q.numpy(), want)
+
+
+@pytest.mark.parametrize("kw", [
+    {},
+    dict(center_x=-0.743643887037151, center_y=0.13182590420533,
+         zoom=0.008, max_iterations=1024, palette_mode=4),
+    dict(fractal_type=fr.FractalType.JULIA, julia_c_real=-0.4,
+         julia_c_imag=0.6, color_brightness=1.3, color_saturation=0.7,
+         color_contrast=1.2, antialiasing_samples=2, stripe_enabled=True),
+    dict(max_iterations=9_000_000, interior_style=2, orbit_trap_enabled=True,
+         hp_zoom="1e-12", use_perturbation=True),
+])
+def test_scene_json_from_jax_gives_same_params(kw):
+    jax_scene = fr.Scene(**kw)
+    scene = frt.Scene.from_json(jax_scene.to_json())
+    assert scene.to_dict() == jax_scene.to_dict()
+    assert common.scene_dyn_params(scene) == \
+        jax_common.scene_dyn_params(jax_scene)
+    assert common.DYN_KEYS == jax_common.DYN_KEYS
+    mine = common.scene_static_cfg(scene, 64, 32, "mandelbrot", "centered",
+                                   False)
+    ref = jax_common.scene_static_cfg(jax_scene, 64, 32, "mandelbrot",
+                                      "centered", False)
+    for field in ("max_iter", "aa", "palette_mode", "interior_style",
+                  "orbit_trap_enabled", "stripe_enabled", "clamp_mins",
+                  "aa_convention"):
+        assert getattr(mine, field) == getattr(ref, field), field
+    assert common._interior_skip_ok(mine) == jax_common._interior_skip_ok(ref)
+    assert common.planar_export_ok(mine) == jax_common.planar_export_ok(ref)
+
+
+def test_iter_bucket_matches_jax():
+    for mi in (1, 255, 256, 257, 300, 1024, 9_000_000, (1 << 24) - 1):
+        assert common._iter_bucket(mi) == jax_common._iter_bucket(mi)
+
+
+def test_oversized_iter_limit_colors_interior_consistently():
+    # twin: a limit beyond the static cap colours like the cap itself
+    s = frt.Scene(max_iterations=96)
+    cfg = common.scene_static_cfg(s, 32, 16, "mandelbrot", "centered", False,
+                                  device="cpu")
+    fn = common.render_fn(cfg)
+    dyn = common.scene_dyn_params(s)
+    over = fn(dict(dyn, iter_limit=float(cfg.max_iter) + 1000.0))
+    at_cap = fn(dict(dyn, iter_limit=float(cfg.max_iter)))
+    assert torch.equal(over, at_cap)
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(fractal_type=frt.FractalType.JULIA), 2),
+    (dict(fractal_type=frt.FractalType.BURNING_SHIP), 2),
+    (dict(fractal_type=frt.FractalType.PHOENIX), 2),
+    (dict(fractal_type=frt.FractalType.DEEP_ZOOM), 6),
+    (dict(fractal_type=frt.FractalType.MANDELBULB), 7),
+    (dict(antialiasing_samples=2), 2),
+    (dict(orbit_trap_enabled=True), 2),
+    (dict(stripe_enabled=True), 2),
+    (dict(interior_style=2), 2),
+])
+def test_unported_scenes_raise(kw, item):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP Queue 1 item {item}"):
+        frt.render(frt.Scene(**kw), 16, 8, device="cpu")
+
+
+def test_validate_scene_repairs_like_jax():
+    from fractalrenderer_tpu.utils.diag import validate_scene as jax_validate
+    from fractalrenderer_tpu_torch.utils.diag import validate_scene
+
+    s = dict(zoom=float("nan"), bailout=-1.0, max_iterations=0)
+    assert validate_scene(frt.Scene(**s)).to_dict() == \
+        jax_validate(fr.Scene(**s)).to_dict()
+    img = frt.render(frt.Scene(zoom=0.0, max_iterations=16), 16, 8,
+                     device="cpu")
+    assert torch.isfinite(img).all()
