@@ -6,13 +6,19 @@ toolkit:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from csrc/, holds each against its plain
-PyTorch version on the card, drives the main path (``cli render`` of a
-1920x1080 Mandelbrot frame) and times kernel against plain version with
-CUDA events.  Each phase prints one line; any failure raises, so the exit
-code is non-zero and no result line is printed.  On success the last three
-lines are the card's name and power limit, a JSON line describing each
-kernel, and ``{"ok": true, "device": {...}}``.  Imports no JAX.
+It builds the port's CUDA kernels from csrc/ (K1, the escape kernel of the
+four 2D families, and K2, the double-double Mandelbrot kernel), holds every
+kernel instance against its plain PyTorch version on the card at 1920x1080,
+drives each ported path through ``cli render`` (the default Mandelbrot
+frame, Julia, Burning Ship with traps and stripes, Phoenix, AA 2 and
+``--precision dd``) and the distance field through its library call, checks
+that each path launched its kernel and that each PNG is within 1 LSB of the
+same pipeline run on the plain versions, and times kernel against plain
+version with CUDA events.  Each phase prints one line; any failure raises,
+so the exit code is non-zero and no result line is printed.  On success the
+last three lines are the card's name and power limit, a JSON line
+describing each kernel instance, and ``{"ok": true, "device": {...}}``.
+Imports no JAX.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -32,7 +39,30 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 W, H, ITERS = 1920, 1080, 256
 SEAHORSE = dict(center_x=-0.743643887037151, center_y=0.13182590420533,
                 zoom=0.008, max_iter=1024)
+DD_VIEW = dict(cx="-0.743643887037151", cy="0.13182590420533", zoom="1e-9",
+               iters=1500)
 COLOR_ATOL = 1e-5  # the colour contract of the reference's own tests
+ESCAPE_SRC = "fractalrenderer_tpu_torch/csrc/escape.cu"
+DD_SRC = "fractalrenderer_tpu_torch/csrc/dd_escape.cu"
+K1_TPU = "fractalrenderer_tpu/ops/escape.py:155"
+K2_TPU = "fractalrenderer_tpu/ops/dd_escape.py:35"
+
+# The families' views at full width (the JAX package's defaults for the
+# view each family is shown at) and the outputs their fields mode tracks.
+FAMILIES = {
+    "mandelbrot": dict(view=dict(center_x=-0.5, center_y=0.0, zoom=3.0),
+                       track=dict(track_trap=True, track_deriv=True)),
+    "julia": dict(view=dict(center_x=0.0, center_y=0.0, zoom=3.0,
+                            julia_c=(-0.7, 0.27015)),
+                  track=dict(track_trap=True, track_stripe=True)),
+    "burning_ship": dict(view=dict(center_x=-0.5, center_y=-0.6, zoom=2.0,
+                                   trap_radius=0.5, stripe_density=10.0),
+                         track=dict(track_trap=True, track_stripe=True)),
+    "phoenix": dict(view=dict(center_x=0.0, center_y=0.0, zoom=3.0,
+                              julia_c=(0.5667, 0.0), phoenix_p=0.0,
+                              phoenix_r=-0.5, stripe_density=10.0),
+                    track=dict(track_trap=True, track_stripe=True)),
+}
 
 
 def card_line() -> str:
@@ -85,6 +115,43 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def ptxas_report(log: str) -> dict:
+    """Registers, stack frame and spill bytes of each kernel instance from
+    the ``-Xptxas=-v`` build log, by instance name."""
+    families = list(FAMILIES)
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"escape_kernelILi(\d)ELb([01])E", m.group(1))
+            if k:
+                name = (f"escape_{families[int(k.group(1))]}_"
+                        + ("fused" if k.group(2) == "1" else "fields"))
+            else:
+                name = ("dd_escape_mandelbrot" if "dd_escape_kernel"
+                        in m.group(1) else m.group(1))
+            report[name] = dict(regs=None, stack=None, spill=None)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            report[name].update(stack=int(m.group(1)),
+                                spill=int(m.group(2)) + int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name]["regs"] = int(m.group(1))
+    return report
+
+
+def same_bits(a, b) -> bool:
+    """Equal values (NaN at the same places: dz overflows in some interior
+    pixels outside the skipped bulbs)."""
+    import torch
+
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(nan_a, nan_b)
+                and torch.equal(a[~nan_a], b[~nan_b]))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "fractalrenderer_tpu_torch")):
         print("error: run chip_smoke.py from a checkout of the repository "
@@ -99,13 +166,16 @@ def main() -> int:
         return 1
     from fractalrenderer_tpu_torch import Scene, cli, models
     from fractalrenderer_tpu_torch.models import common
-    from fractalrenderer_tpu_torch.ops import _cuda, escape
+    from fractalrenderer_tpu_torch.models.mandelbrot import (distance_field,
+                                                             render_dd)
+    from fractalrenderer_tpu_torch.ops import _cuda, dd, dd_escape, escape
     from fractalrenderer_tpu_torch.utils import png
     from fractalrenderer_tpu_torch.utils.image import to_export_orientation
 
     assert not any(m == "jax" or m.startswith(("jax.", "fractalrenderer_tpu."))
                    or m == "fractalrenderer_tpu" for m in sys.modules), \
         "the port imported JAX or the JAX package"
+    t_start = time.monotonic()
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
@@ -116,31 +186,47 @@ def main() -> int:
     _cuda.load_library()
     build_s = time.monotonic() - t0
     log = _cuda.library_path()[:-3] + ".log"
-    ptxas = ""
-    if os.path.exists(log):
-        with open(log) as f:
-            ptxas = " | ".join(" ".join(ln.split()[2:]) for ln in f
-                               if "registers" in ln or "stack frame" in ln)
-    print(f"build: {build_s:.2f} s ({ptxas or 'no ptxas report'})",
-          flush=True)
+    with open(log) as f:
+        report = ptxas_report(f.read())
+    assert report, "the build log has no ptxas report"
+    assert all(r["spill"] == 0 for r in report.values()), \
+        f"local-memory spills: {report}"
+    print(f"build: {build_s:.2f} s, one nvcc per source in parallel; "
+          "ptxas (registers/stack frame bytes/spill bytes): " + ", ".join(
+              f"{k} {r['regs']}/{r['stack']}/{r['spill']}"
+              for k, r in sorted(report.items())), flush=True)
 
-    def launch(impl, width, height, fused=None, skip=True, row0=0,
-               map_height=None, max_iter=ITERS, **view):
-        view = dict(dict(center_x=-0.5, center_y=0.0, zoom=3.0), **view)
-        params = escape.pack_params(iter_limit=max_iter, row0=row0, **view)
+    def launch(impl, width, height, family="mandelbrot", fused=None,
+               skip=None, row0=0, map_height=None, max_iter=ITERS,
+               track=None, use_julia=False, **view):
+        view = dict(FAMILIES[family]["view"], **view)
+        params = escape.pack_params(family=family, iter_limit=max_iter,
+                                    row0=row0, **view)
         outs = impl(params, width=width, height=height,
                     map_height=map_height or height, row0=row0,
-                    max_iter_cap=max_iter, interior_skip=skip,
-                    fused_color=fused, device=dev)
+                    max_iter_cap=max_iter,
+                    interior_skip=(family == "mandelbrot" if skip is None
+                                   else skip),
+                    fused_color=fused, device=dev, family=family,
+                    use_julia=use_julia, **(track or {}))
         torch.cuda.synchronize()
         return outs
 
-    # -- fields: counts and z bit-exact against the plain version ------------
+    kernels = {}  # instance name -> its entry of the kernels JSON line
+
+    def entry(name, source, replaces, err):
+        e = kernels.setdefault(name, {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
+            "ms": None, "plain_ms": None})
+        e["max_abs_err"] = max(e["max_abs_err"], float(err))
+        return e
+
+    # -- Mandelbrot fields: counts and z bit-exact against the plain version --
     cases = [
         (f"{W}x{H}x{ITERS} default", dict(width=W, height=H)),
         (f"{W}x{H} seahorse x{SEAHORSE['max_iter']}",
          dict(width=W, height=H, **SEAHORSE)),
-        ("1000x563x256 default", dict(width=1000, height=563)),
         ("1000x563x256 no skip", dict(width=1000, height=563, skip=False)),
     ]
     for name, kw in cases:
@@ -150,9 +236,9 @@ def main() -> int:
         assert mism == 0, f"{name}: {mism} iteration-count mismatches"
         assert torch.equal(zx_k, zx_p) and torch.equal(zy_k, zy_p), \
             f"{name}: zx/zy not bit-equal"
-        print(f"fields {name}: 0 count mismatches, zx/zy bit-equal "
-              f"(n mean {n_k.float().mean().item():.2f})", flush=True)
-    # a row band equals the same rows of the whole frame
+        print(f"fields mandelbrot {name}: 0 count mismatches, zx/zy "
+              f"bit-equal (n mean {n_k.float().mean().item():.2f})",
+              flush=True)
     r0, r1 = H // 4, H // 2
     full = launch(escape.escape_fields_cuda, W, H)
     band = launch(escape.escape_fields_cuda, W, r1 - r0, row0=r0,
@@ -162,63 +248,197 @@ def main() -> int:
     print(f"fields band rows {r0}-{r1} of {H}: equal to the whole frame",
           flush=True)
 
-    # -- fused colour against the plain version --------------------------------
-    max_err = 0.0
-    for name, fused, extra in (
-            ("default", (0, 0, False, True), {}),
-            ("palette 3, interior 1, offset .25, scale 2", (3, 1, False, True),
-             dict(color_offset=0.25, color_scale=2.0)),
-            ("palette 4, clamp floors", (4, 0, True, True),
-             dict(brightness=0.05, saturation=-0.5, contrast=1.3)),
-            ("palette 2, interior 1, no post chain", (2, 1, False, False),
-             {})):
+    # -- every family's fields with its tracked outputs ----------------------
+    stripe_err = 0.0
+    for family, spec in FAMILIES.items():
+        for use_julia in ((False, True) if family == "phoenix" else (False,)):
+            kw = dict(width=W, height=H, family=family, skip=False,
+                      track=spec["track"], use_julia=use_julia)
+            got = launch(escape.escape_fields_cuda, **kw)
+            want = launch(escape.escape_fields_plain, **kw)
+            names = escape.output_names(family, False, **spec["track"])
+            err = 0.0
+            for nm, g, w in zip(names, got, want):
+                if nm == "stripe":
+                    d = (g - w).abs().max().item()
+                    bound = (1e-3 * w.abs() + 2e-4 * ITERS)
+                    assert bool(((g - w).abs() <= bound).all()), \
+                        f"{family}: stripe outside rtol 1e-3, atol 2e-4*iters"
+                    stripe_err = max(stripe_err, d)
+                    err = max(err, d)
+                else:
+                    assert same_bits(g, w), f"{family}: {nm} not bit-equal"
+            label = family + (" julia-mode" if use_julia else "")
+            entry(f"escape_{family}_fields", ESCAPE_SRC, K1_TPU, err)
+            print(f"fields {label} {W}x{H}x{ITERS} with {'/'.join(names)}: "
+                  f"{'/'.join(n for n in names if n != 'stripe')} bit-equal"
+                  + (f", stripe max |diff| {err:.3g}" if "stripe" in names
+                     else "") + f" (n mean {got[0].float().mean():.2f})",
+                  flush=True)
+
+    # -- every family's fused colour against the plain version ---------------
+    fused_cases = [
+        ("mandelbrot", "default", (0, 0, False, True), {}),
+        ("mandelbrot", "palette 3, interior 1, offset .25, scale 2",
+         (3, 1, False, True), dict(color_offset=0.25, color_scale=2.0)),
+        ("mandelbrot", "palette 2, no post chain", (2, 1, False, False), {}),
+        ("julia", "default", (0, 0, True, True), {}),
+        ("julia", "palette 7, floors, no post chain", (7, 0, True, False),
+         dict(brightness=0.05, saturation=-0.5)),
+        ("burning_ship", "default", (0, 0, True, True), {}),
+        ("burning_ship", "palette 5, interior 3", (5, 3, True, True),
+         dict(color_offset=0.1, color_scale=1.5)),
+        ("phoenix", "default", (0, 0, True, True), {}),
+        ("phoenix", "palette 2, p 0.1, r -0.4, stripes 8, no post chain",
+         (2, 0, True, False), dict(phoenix_p=0.1, phoenix_r=-0.4,
+                                   stripe_density=8.0)),
+    ]
+    for family, name, fused, extra in fused_cases:
         rgb_k = torch.stack(launch(escape.escape_fields_cuda, W, H,
-                                   fused=fused, **extra))
+                                   family=family, fused=fused, **extra))
         rgb_p = torch.stack(launch(escape.escape_fields_plain, W, H,
-                                   fused=fused, **extra))
+                                   family=family, fused=fused, **extra))
         assert torch.isfinite(rgb_k).all(), f"fused {name}: non-finite"
         err = (rgb_k - rgb_p).abs().max().item()
         q_k = common.quantize_image(rgb_k, bit_depth=8).int()
         q_p = common.quantize_image(rgb_p, bit_depth=8).int()
         lsb = (q_k - q_p).abs().max().item()
-        assert err <= COLOR_ATOL, f"fused {name}: max |diff| {err}"
-        assert lsb <= 1, f"fused {name}: uint8 differs by {lsb} LSB"
-        max_err = max(max_err, err)
-        print(f"fused {name}: max |diff| {err:.3g}, uint8 max "
+        assert err <= COLOR_ATOL, f"fused {family} {name}: max |diff| {err}"
+        assert lsb <= 1, f"fused {family} {name}: uint8 differs by {lsb} LSB"
+        entry(f"escape_{family}_fused", ESCAPE_SRC, K1_TPU, err)
+        print(f"fused {family} {name}: max |diff| {err:.3g}, uint8 max "
               f"{lsb} LSB", flush=True)
 
-    # -- main path: cli render, default 1920x1080 frame ------------------------
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "frame.png")
-        escape.escape_fields_cuda.launches = 0
-        t0 = time.monotonic()
-        rc = cli.main(["render", "--width", str(W), "--height", str(H),
-                       "--out", out])
-        wall = time.monotonic() - t0
-        launches = escape.escape_fields_cuda.launches
-        assert rc == 0, f"cli render exited {rc}"
-        assert launches > 0, "the main path did not launch the CUDA kernel"
-        img = read_png_rgb8(out)
-    assert img.shape == (H, W, 3), img.shape
-    scene = Scene()
-    ref = common.quantize_image(torch.stack(launch(
-        escape.escape_fields_plain, W, H, fused=(0, 0, False, True),
-        brightness=scene.color_brightness,
-        saturation=scene.color_saturation, contrast=scene.color_contrast),
-        dim=-1), bit_depth=8).flip(0).cpu().numpy()
-    lsb = int(np.abs(img.astype(np.int32) - ref.astype(np.int32)).max())
-    assert lsb <= 1, f"PNG differs from the plain render by {lsb} LSB"
-    assert 0 < img.mean() < 255, "degenerate image"
-    print(f"main path: cli render {W}x{H} -> PNG {img.shape}, kernel "
-          f"launches {launches}, {wall * 1e3:.1f} ms wall (first call), "
-          f"max {lsb} LSB from the plain render", flush=True)
+    # -- K2: the double-double kernel at the Seahorse view, 1e-9 -------------
+    dd_params = dd_escape.pack_dd_params(
+        center_x_dd=dd.dd_from_string(DD_VIEW["cx"]),
+        center_y_dd=dd.dd_from_string(DD_VIEW["cy"]),
+        zoom_dd=dd.dd_from_string(DD_VIEW["zoom"]),
+        iter_limit=DD_VIEW["iters"])
+    dd_frame = dict(width=W, height=H, map_height=H, row0=0, device=dev)
+    got = dd_escape.dd_escape_fields_cuda(dd_params, **dd_frame)
+    want = dd_escape.dd_escape_fields_plain(dd_params, **dd_frame)
+    torch.cuda.synchronize()
+    for nm, g, w in zip(("n", "zx", "zy"), got, want):
+        assert torch.equal(g, w), f"dd: {nm} not bit-equal"
+    entry("dd_escape_mandelbrot", DD_SRC, K2_TPU, 0.0)
+    print(f"dd fields {W}x{H} seahorse at {DD_VIEW['zoom']} x"
+          f"{DD_VIEW['iters']}: n/zx/zy bit-equal (n mean "
+          f"{got[0].float().mean():.1f}, {int((got[0] < DD_VIEW['iters']).sum())}"
+          " escaped)", flush=True)
 
-    # -- where a warm main-path frame's host time goes -------------------------
+    # -- the paths, through the entry points a user calls --------------------
+    @contextlib.contextmanager
+    def plain_kernels():
+        """Run the same pipeline with the plain versions on the card."""
+        saved = escape.escape_fields_cuda, dd_escape.dd_escape_fields_cuda
+        escape.escape_fields_cuda = escape.escape_fields_plain
+        dd_escape.dd_escape_fields_cuda = dd_escape.dd_escape_fields_plain
+        try:
+            yield
+        finally:
+            escape.escape_fields_cuda, dd_escape.dd_escape_fields_cuda = saved
+
+    def reset_counts():
+        escape.escape_fields_cuda.launches = 0
+        dd_escape.dd_escape_fields_cuda.launches = 0
+
+    paths = [
+        # (label, cli flags, kernel instance it runs, wrapper)
+        ("default", [], "escape_mandelbrot_fused", escape),
+        ("--type julia", ["--type", "julia"], "escape_julia_fused", escape),
+        ("--type burning-ship --orbit-trap --stripes --interior-style 2",
+         ["--type", "burning-ship", "--orbit-trap", "--stripes",
+          "--interior-style", "2"], "escape_burning_ship_fields", escape),
+        ("--type burning-ship", ["--type", "burning-ship"],
+         "escape_burning_ship_fused", escape),
+        ("--type phoenix", ["--type", "phoenix"], "escape_phoenix_fused",
+         escape),
+        ("--aa 2", ["--aa", "2"], "escape_mandelbrot_fused", escape),
+        ("--orbit-trap --interior-style 2",
+         ["--orbit-trap", "--interior-style", "2"],
+         "escape_mandelbrot_fields", escape),
+        ("--precision dd --hp-zoom 1e-9 --iters 1500",
+         ["--precision", "dd", "--hp-zoom", "1e-9", "--iters", "1500",
+          "--preset", "Seahorse Valley"], "dd_escape_mandelbrot", dd_escape),
+    ]
+    main_wall = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, flags, instance, module in paths:
+            out = os.path.join(tmp, "frame.png")
+            argv = ["render", "--width", str(W), "--height", str(H), *flags,
+                    "--out", out]
+            reset_counts()
+            t0 = time.monotonic()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(argv)
+            wall = time.monotonic() - t0
+            counter = (escape.escape_fields_cuda if module is escape
+                       else dd_escape.dd_escape_fields_cuda)
+            launches = counter.launches
+            other = (dd_escape.dd_escape_fields_cuda if module is escape
+                     else escape.escape_fields_cuda).launches
+            assert rc == 0, f"cli render {label} exited {rc}"
+            assert launches > 0, f"{label}: the path did not launch its kernel"
+            assert other == 0, f"{label}: launched another kernel"
+            img = read_png_rgb8(out)
+            assert img.shape == (H, W, 3), img.shape
+            scene = cli.scene_from_args(cli.build_parser().parse_args(argv))
+            with plain_kernels():
+                if "dd" in flags:
+                    ref = common.quantize_image(
+                        render_dd(scene, W, H, device=dev), bit_depth=8)
+                else:
+                    ref = models.render(scene, W, H, device=dev, quantize=8)
+            ref = to_export_orientation(ref).cpu().numpy()
+            lsb = int(np.abs(img.astype(np.int32)
+                             - ref.astype(np.int32)).max())
+            assert lsb <= 1, f"{label}: PNG differs from the plain pipeline " \
+                f"by {lsb} LSB"
+            assert 0 < img.mean() < 255, f"{label}: degenerate image"
+            e = entry(instance, DD_SRC if module is dd_escape else ESCAPE_SRC,
+                      K2_TPU if module is dd_escape else K1_TPU, 0.0)
+            e["launches"] += launches
+            main_wall[label] = wall
+            print(f"path cli render {label}: {W}x{H} PNG, {launches} "
+                  f"launch(es) of {instance}, {wall * 1e3:.1f} ms wall "
+                  f"(first call), max {lsb} LSB from the plain pipeline",
+                  flush=True)
+
+    # the distance field (library entry point: K1 with the derivative)
+    scene = Scene()
+    reset_counts()
+    dist = distance_field(scene, W, H, device=dev)
+    torch.cuda.synchronize()
+    launches = escape.escape_fields_cuda.launches
+    assert launches == 1, "distance_field did not launch K1"
+    with plain_kernels():
+        ref = distance_field(scene, W, H, device=dev)
+    assert same_bits(dist, ref), "distance field differs from plain"
+    kernels["escape_mandelbrot_fields"]["launches"] += launches
+    print(f"path models.mandelbrot.distance_field {W}x{H}: 1 launch, equal "
+          f"to the plain pipeline ({int((dist > 0).sum())} exterior pixels)",
+          flush=True)
+    # the Julia and Phoenix fields instances: no render path tracks their
+    # (constant) traps, so their entry point is escape_fields itself
+    for family in ("julia", "phoenix"):
+        v = dict(FAMILIES[family]["view"])
+        reset_counts()
+        f = escape.escape_fields(family, W, H, max_iter=ITERS, device=dev,
+                                 **v, **FAMILIES[family]["track"])
+        torch.cuda.synchronize()
+        assert escape.escape_fields_cuda.launches == 1
+        kernels[f"escape_{family}_fields"]["launches"] += 1
+        assert f["n"].shape == (H, W) and (f["trap"] == 0).all()
+    print("path ops.escape.escape_fields julia/phoenix with trap+stripe: "
+          "1 launch each", flush=True)
+
+    # -- where a warm main-path frame's host time goes -----------------------
     stages = {"render+quantize": [], "flip+fetch": [], "png write": [],
               "cli render": []}
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "frame.png")
-        for _ in range(5):
+        for _ in range(3):
             t0 = time.perf_counter()
             img = models.render(scene, W, H, device=dev, quantize=8)
             torch.cuda.synchronize()
@@ -230,7 +450,7 @@ def main() -> int:
             stages["render+quantize"].append(t1 - t0)
             stages["flip+fetch"].append(t2 - t1)
             stages["png write"].append(t3 - t2)
-        for _ in range(3):
+        for _ in range(2):
             with contextlib.redirect_stdout(io.StringIO()):
                 t0 = time.perf_counter()
                 assert cli.main(["render", "--out", out]) == 0
@@ -239,35 +459,53 @@ def main() -> int:
         f"{k} {statistics.median(v) * 1e3:.2f}" for k, v in stages.items()),
         flush=True)
 
-    # -- time per 1080p frame --------------------------------------------------
-    params = escape.pack_params(center_x=-0.5, center_y=0.0, zoom=3.0,
-                                iter_limit=ITERS)
-    frame = dict(width=W, height=H, map_height=H, row0=0,
-                 max_iter_cap=ITERS, interior_skip=True, device=dev)
-    fused = (0, 0, False, True)
-    ms = {}
-    for label, impl, reps in (("plain", escape.escape_fields_plain, 3),
-                              ("kernel", escape.escape_fields_cuda, 50),
-                              ("kernel", escape.escape_fields_cuda, 50),
-                              ("plain", escape.escape_fields_plain, 3)):
-        t = cuda_ms(lambda: impl(params, fused_color=fused, **frame), reps)
-        ms.setdefault(label, []).append(t)
-    fields_ms = cuda_ms(lambda: escape.escape_fields_cuda(
-        params, fused_color=None, **frame), 50)
-    k_ms = statistics.median(ms["kernel"])
-    p_ms = statistics.median(ms["plain"])
-    print(f"time per {W}x{H}x{ITERS} frame: kernel fused {k_ms:.4f} ms "
-          f"(runs {ms['kernel']}), kernel fields {fields_ms:.4f} ms, plain "
-          f"fused {p_ms:.3f} ms (runs {ms['plain']}); "
-          f"{W * H / k_ms / 1e3:.0f} Mpix/s", flush=True)
+    # -- time per 1080p frame, each instance against its plain version -------
+    def timed(name, kernel_fn, plain_fn, kernel_reps=20, plain_reps=1):
+        ms = {}
+        for label, fn, reps in (("plain", plain_fn, plain_reps),
+                                ("kernel", kernel_fn, kernel_reps),
+                                ("kernel", kernel_fn, kernel_reps),
+                                ("plain", plain_fn, plain_reps)):
+            ms.setdefault(label, []).append(cuda_ms(fn, reps))
+        e = kernels[name]
+        e["ms"] = statistics.median(ms["kernel"])
+        e["plain_ms"] = statistics.median(ms["plain"])
+        print(f"time per {W}x{H} frame, {name}: kernel {e['ms']:.4f} ms "
+              f"(runs {[round(t, 4) for t in ms['kernel']]}), plain "
+              f"{e['plain_ms']:.3f} ms (runs "
+              f"{[round(t, 3) for t in ms['plain']]}); "
+              f"{W * H / e['ms'] / 1e3:.0f} Mpix/s", flush=True)
 
+    for family, spec in FAMILIES.items():
+        params = escape.pack_params(family=family, iter_limit=ITERS,
+                                    **spec["view"])
+        frame = dict(width=W, height=H, map_height=H, row0=0,
+                     max_iter_cap=ITERS, interior_skip=family == "mandelbrot",
+                     device=dev, family=family)
+        fused = (0, 0, family != "mandelbrot", True)
+        timed(f"escape_{family}_fused",
+              lambda: escape.escape_fields_cuda(params, fused_color=fused,
+                                                **frame),
+              lambda: escape.escape_fields_plain(params, fused_color=fused,
+                                                 **frame),
+              kernel_reps=50 if family == "mandelbrot" else 20)
+        frame.update(interior_skip=False, **spec["track"])
+        timed(f"escape_{family}_fields",
+              lambda: escape.escape_fields_cuda(params, fused_color=None,
+                                                **frame),
+              lambda: escape.escape_fields_plain(params, fused_color=None,
+                                                 **frame))
+    timed("dd_escape_mandelbrot",
+          lambda: dd_escape.dd_escape_fields_cuda(dd_params, **dd_frame),
+          lambda: dd_escape.dd_escape_fields_plain(dd_params, **dd_frame),
+          kernel_reps=5)
+
+    missing = [k for k, e in kernels.items() if e["launches"] == 0]
+    assert not missing, f"instances no path launched: {missing}"
+    print(f"smoke wall time {time.monotonic() - t_start:.1f} s (build "
+          f"included)", flush=True)
     print(card_line())
-    print(json.dumps({"kernels": [{
-        "name": "escape_mandelbrot", "route": "cuda",
-        "source": "fractalrenderer_tpu_torch/csrc/escape.cu",
-        "replaces": "fractalrenderer_tpu/ops/escape.py:155",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms}]}))
+    print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

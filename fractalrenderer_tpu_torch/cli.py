@@ -1,7 +1,9 @@
 """Command-line interface of the PyTorch port (counterpart of
-``fractalrenderer_tpu/cli.py``).  Only the ``render`` verb is ported; the
-other verbs and the unported render options exit with code 2 and a
-one-line message naming the ROADMAP item that ports them.
+``fractalrenderer_tpu/cli.py``).  Only the ``render`` verb is ported, for
+the four 2D families (every AA, trap, stripe, interior-style and Julia
+option) and ``--precision dd``; the other verbs and the unported render
+options exit with code 2 and a one-line message naming the ROADMAP item
+that ports them.
 
 Usage examples:
   python -m fractalrenderer_tpu_torch.cli render --out m.png
@@ -9,6 +11,10 @@ Usage examples:
       --width 1920 --height 1080 --out sea.png
   python -m fractalrenderer_tpu_torch.cli render --device cpu --width 320 \\
       --height 180 --out small.png
+  python -m fractalrenderer_tpu_torch.cli render --type julia \\
+      --julia-preset "Douady's Rabbit" --aa 2 --out rabbit.png
+  python -m fractalrenderer_tpu_torch.cli render --precision dd \\
+      --preset "Seahorse Valley" --hp-zoom 1e-9 --iters 1500 --out dd.png
 """
 from __future__ import annotations
 
@@ -199,14 +205,15 @@ def cmd_render(args) -> int:
             print(f"error: {flag} is not ported yet (ROADMAP Queue 1 item "
                   f"{item})", file=sys.stderr)
             return 2
-    if args.precision == "dd":
-        print("error: --precision dd is not ported yet (ROADMAP Queue 1 "
-              "item 5)", file=sys.stderr)
-        return 2
     dev = _device_or_none(args.device)
     if dev is None:
         return 2
     scene = scene_from_args(args)
+    if args.precision == "dd" and scene.fractal_type != FractalType.MANDELBROT:
+        print("error: --precision dd is the double-double MANDELBROT kernel "
+              f"(got --type {scene.fractal_type.name.lower()})",
+              file=sys.stderr)
+        return 2
     if args.debug:
         from .utils.diag import scene_debug_summary
 
@@ -216,8 +223,16 @@ def cmd_render(args) -> int:
     t0 = time.monotonic()
     try:
         # quantized on the device; the interleave and flip are tensor glue
-        img = models.render(scene, args.width, args.height, device=dev,
-                            quantize=args.bit_depth)
+        if args.precision == "dd":
+            from .models.common import quantize_image
+            from .models.mandelbrot import render_dd
+
+            img = quantize_image(render_dd(scene, args.width, args.height,
+                                           device=dev),
+                                 bit_depth=args.bit_depth)
+        else:
+            img = models.render(scene, args.width, args.height, device=dev,
+                                quantize=args.bit_depth)
     except NotImplementedError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -254,7 +269,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--golden", action="store_true",
                    help="render with the CPU golden reference (not ported)")
     p.add_argument("--precision", default="f32", choices=("f32", "dd"),
-                   help="dd = double-double kernel (not ported)")
+                   help="dd = double-double Mandelbrot kernel")
     p.add_argument("--debug", action="store_true",
                    help="print a scene debug summary")
     p.add_argument("--sharded", action="store_true",

@@ -1,32 +1,37 @@
-// K1 on Hopper: the Mandelbrot escape-time kernel with the analytic interior
-// skip and the fused colour epilogue.
+// K1 on Hopper: the escape-time kernel of the four 2D families (Mandelbrot,
+// Julia, Burning Ship, Phoenix) with the trap, stripe and derivative
+// outputs, the analytic interior skip and the fused colour epilogue.
 //
-// Replaces fractalrenderer_tpu/ops/escape.py:_make_kernel (family
-// "mandelbrot", with _iter_chunk and _cardioid_or_bulb).  The plain PyTorch
-// version is fractalrenderer_tpu_torch/ops/escape.py:escape_fields_plain;
-// the two agree bit for bit on n, zx and zy.
+// Replaces fractalrenderer_tpu/ops/escape.py:_make_kernel (with _iter_chunk
+// and _cardioid_or_bulb).  The plain PyTorch version is
+// fractalrenderer_tpu_torch/ops/escape.py:escape_fields_plain; the two agree
+// bit for bit on n, zx, zy, trap and dzx/dzy (the stripe goes through sinf,
+// which may differ from torch.sin by an ulp per term).
 //
 // Design.  One thread per pixel in 32x8 blocks, so the threads of a warp
 // write neighbouring addresses of one row.  Each thread leaves its own loop
 // when its pixel escapes: the TPU kernel's CHUNK bursts with a tile-wide
 // any() exit existed because a vector unit has no per-lane branch, and a
-// warp already retires lanes one by one.  Nothing is staged through shared
-// memory; the 19 scalar parameters and the colour table arrive by value as
-// kernel arguments (constant bank).
+// warp already retires lanes one by one.  The family and fields-vs-fused
+// mode are template parameters (8 instances); the remaining options arrive
+// as warp-uniform flags.  Nothing is staged through shared memory; the 19
+// scalar parameters, the colour table and the output pointers arrive by
+// value as kernel arguments (constant bank).
 //
-// What bounds it.  The f32 ALU work of the loop (one compare, six mul/add
-// per iteration), and divergence inside a warp: a warp runs until its
-// slowest lane escapes, so warps that straddle the set boundary idle most
-// of their lanes.  Memory is minor: 12 B per pixel written in either mode
-// (n, zx, zy or r, g, b).  Making it fast (warp-level work redistribution,
-// persistent blocks) is later work.
+// What bounds it.  The f32 ALU work of the loop (one compare and six to ten
+// mul/add per iteration, plus a sqrt or a sinf when a trap or the stripe is
+// tracked), and divergence inside a warp: a warp runs until its slowest
+// lane escapes, so warps that straddle the set boundary idle most of their
+// lanes.  Memory is minor: 12 to 28 B per pixel written.  Making it fast
+// (warp-level work redistribution, persistent blocks) is later work.
 //
 // Exactness.  Build with -fmad=false and without --use_fast_math: the
 // reference counts rest on the shaders' operation order with no fused
 // multiply-add, IEEE division in the mapping and subnormals kept (the
 // colour floors of 1e-38 are subnormal).  Every literal is an f32 equal to
 // numpy.float32 of the Python constant; constants Python folds in double
-// (palette spans, 1/gamma, ln 2) come in the table from the wrapper.
+// (palette spans, 1/gamma, ln 2) come in the table from the wrapper.  min,
+// max and clamp propagate NaN as torch.minimum/maximum/clamp do.
 
 #include <cuda_runtime.h>
 
@@ -37,8 +42,9 @@ namespace {
 // Parameter layout: fractalrenderer_tpu/ops/escape.py:46-52.
 constexpr int kNParams = 19;
 constexpr int P_CX = 0, P_CY = 1, P_ZOOM = 2, P_OFFX = 3, P_OFFY = 4,
-              P_BAIL2 = 5, P_LIMIT = 6, P_COFF = 12, P_CSCALE = 13,
-              P_BRIGHT = 14, P_SAT = 15, P_CONTRAST = 16;
+              P_BAIL2 = 5, P_LIMIT = 6, P_A0 = 7, P_A1 = 8, P_A2 = 9,
+              P_A3 = 10, P_COFF = 12, P_CSCALE = 13, P_BRIGHT = 14,
+              P_SAT = 15, P_CONTRAST = 16, P_BAILOUT = 17, P_STRIPE = 18;
 
 // Colour table layout: ops/palettes.py:palette_table plus two constants
 // appended by ops/escape.py:color_table.
@@ -46,7 +52,21 @@ constexpr int kTableLen = 32;
 constexpr int T_KIND = 0, T_EXPO = 1, T_GRAY = 2, T_LO = 3, T_SPAN = 7,
               T_HI = 11, T_COL = 15, T_INV_GAMMA = 30, T_LOG2 = 31;
 
+// Families (ops/escape.py:FAMILIES) and launch flags (ops/escape.py:F_*).
+constexpr int kMandelbrot = 0, kJulia = 1, kBurningShip = 2, kPhoenix = 3;
+constexpr int F_FUSED = 1, F_SKIP = 2, F_JULIA = 4, F_TRAP = 8,
+              F_STRIPE = 16, F_DERIV = 32, F_CLAMP = 64, F_POST = 128;
+// Output slots (ops/escape.py:OUTPUT_SLOTS); fused mode writes r, g, b to
+// slots 0-2.
+constexpr int O_N = 0, O_ZX = 1, O_ZY = 2, O_TRAP = 3, O_STRIPE = 4,
+              O_DZX = 5, O_DZY = 6;
+constexpr int kMaxOutputs = 7;
+
 constexpr int kMaxLimit = (1 << 24) - 1;  // f32 counter ceiling
+
+// numpy.float32(math.pi) and numpy.float32(math.pi / 2) (ops/trig.py).
+constexpr float kPi = 3.14159274f;
+constexpr float kPi2 = 1.57079637f;
 
 struct Params {
   float v[kNParams];
@@ -56,11 +76,28 @@ struct ColorTable {
   float v[kTableLen];
 };
 
-__device__ __forceinline__ float fract(float t) { return t - floorf(t); }
+struct Outputs {
+  void* p[kMaxOutputs];
+};
 
-__device__ __forceinline__ float clip01(float x) {
-  return fminf(fmaxf(x, 0.0f), 1.0f);
+__device__ __forceinline__ bool isnan_(float x) { return x != x; }
+
+// torch.minimum / torch.maximum: NaN-propagating.
+__device__ __forceinline__ float tmin(float a, float b) {
+  return isnan_(a) ? a : (isnan_(b) ? b : fminf(a, b));
 }
+__device__ __forceinline__ float tmax(float a, float b) {
+  return isnan_(a) ? a : (isnan_(b) ? b : fmaxf(a, b));
+}
+// torch.clamp(x, lo, hi) and clamp_min: NaN stays NaN.
+__device__ __forceinline__ float clamp_lo(float x, float lo) {
+  return isnan_(x) ? x : fmaxf(x, lo);
+}
+__device__ __forceinline__ float clip01(float x) {
+  return isnan_(x) ? x : fminf(fmaxf(x, 0.0f), 1.0f);
+}
+
+__device__ __forceinline__ float fract(float t) { return t - floorf(t); }
 
 // _cardioid_or_bulb: main cardioid or period-2 bulb (exact interior).
 __device__ __forceinline__ bool cardioid_or_bulb(float cr, float ci) {
@@ -73,9 +110,53 @@ __device__ __forceinline__ bool cardioid_or_bulb(float cr, float ci) {
   return in_cardioid || in_bulb;
 }
 
+// Mandelbrot's combined orbit trap on z (mandelbrot.comp:162-166), given
+// sqx = zx*zx and sqy = zy*zy.
+__device__ __forceinline__ float combined_trap(float zx, float zy, float sqx,
+                                               float sqy, float cr,
+                                               float ci) {
+  const float mag = sqrtf(sqx + sqy);
+  const float d_axes = tmin(fabsf(zx), fabsf(zy));
+  const float dxc = zx - cr;
+  const float dyc = zy - ci;
+  const float d_c = sqrtf(dxc * dxc + dyc * dyc);
+  return tmin(mag, tmin(d_axes, d_c));
+}
+
+// ops/trig.py atan / atan2: the 11-term odd polynomial with the reciprocal
+// range reduction (the JAX package's Phoenix stripes use it on every path).
+__device__ __forceinline__ float poly_atan(float x) {
+  const float ax = fabsf(x);
+  const bool inv = ax > 1.0f;
+  const float t = inv ? 1.0f / tmax(ax, 1e-38f) : ax;
+  const float s = t * t;
+  float p = -0.0117212f;
+  p = p * s + 0.05265332f;
+  p = p * s + -0.11643287f;
+  p = p * s + 0.19354346f;
+  p = p * s + -0.33262348f;
+  p = p * s + 0.99997726f;
+  float r = t * p;
+  r = inv ? kPi2 - r : r;
+  return x < 0.0f ? -r : r;
+}
+
+__device__ __forceinline__ float poly_atan2(float y, float x) {
+  const float safe_x =
+      fabsf(x) < 1e-38f ? (x < 0.0f ? -1e-38f : 1e-38f) : x;
+  const float base = poly_atan(y / safe_x);
+  const float add = y >= 0.0f ? kPi : -kPi;
+  float r = x < 0.0f ? base + add : base;
+  if (x == 0.0f && y > 0.0f) r = kPi2;
+  if (x == 0.0f && y < 0.0f) r = -kPi2;
+  if (x == 0.0f && y == 0.0f) r = 0.0f;
+  return r;
+}
+
 // palettes.palette_color_planar for one static spec: fract, pre-transform,
 // then the first segment whose upper bound exceeds t.
-__device__ void palette_rgb(const ColorTable& tb, float t, float rgb[3]) {
+__device__ __forceinline__ void palette_rgb(const ColorTable& tb, float t,
+                                            float rgb[3]) {
   t = fract(t);
   const int kind = static_cast<int>(tb.v[T_KIND]);
   if (kind == 1) {
@@ -114,26 +195,120 @@ __device__ __forceinline__ float aces(float c) {
   return clip01((c * (2.51f * c + 0.03f)) / (c * (2.43f * c + 0.59f) + 0.14f));
 }
 
-template <bool kFused>
+// coloring.smooth_nu_loglog (Mandelbrot, Phoenix).
+__device__ __forceinline__ float smooth_loglog(float nf, float zx, float zy,
+                                               float max_iter, float log2c) {
+  const float mag2 = zx * zx + zy * zy;
+  const float log_zn = logf(clamp_lo(mag2, 1e-38f)) / 2.0f;
+  const float mu = logf(clamp_lo(log_zn, 1e-38f) / log2c) / log2c;
+  return (nf < max_iter) ? nf + 1.0f - mu : nf;
+}
+
+// coloring.smooth_nu_bailout (Julia, Burning Ship).
+__device__ __forceinline__ float smooth_bailout(float nf, float zx, float zy,
+                                                float max_iter, float bailout,
+                                                float log2c) {
+  const float len_sq = zx * zx + zy * zy;
+  const float quot = logf(clamp_lo(len_sq, 1e-38f)) / logf(bailout);
+  const float smooth = nf + 1.0f - logf(clamp_lo(quot, 1e-38f)) / log2c;
+  return (nf < max_iter) ? smooth : nf;
+}
+
+// The per-family planar colourers of ops/coloring.py as the fused path
+// calls them: no trap or stripe consumers (Mandelbrot's trap placeholder is
+// 1e20, the ship's 1e10 with stripe 0).
+template <int kFamily>
+__device__ __forceinline__ void color_pixel(const Params& p, const ColorTable& tb, int n,
+                            float zx, float zy, float max_iter,
+                            int interior_style, float rgb[3]) {
+  const float log2c = tb.v[T_LOG2];
+  const float nf = static_cast<float>(n);
+  const bool interior = nf >= max_iter;
+  if (kFamily == kMandelbrot) {
+    // color_mandelbrot_planar, styles 0 and 1
+    const float nu = smooth_loglog(nf, zx, zy, max_iter, log2c);
+    const float t = clip01(nu / max_iter * p.v[P_CSCALE]);
+    palette_rgb(tb, t + p.v[P_COFF], rgb);
+    if (interior_style == 1 && interior) rgb[0] = rgb[1] = rgb[2] = 0.0f;
+  } else if (kFamily == kJulia) {
+    // color_julia_planar
+    const float s = smooth_bailout(nf, zx, zy, max_iter, p.v[P_BAILOUT],
+                                   log2c);
+    palette_rgb(tb, p.v[P_COFF] + (s / max_iter) * p.v[P_CSCALE], rgb);
+    if (interior) rgb[0] = rgb[1] = rgb[2] = 0.0f;
+  } else if (kFamily == kBurningShip) {
+    // color_burning_ship_planar without the trap blend: styles 1 and 2
+    // need the trap or the stripe, so they colour the interior black
+    const float s = smooth_bailout(nf, zx, zy, max_iter, p.v[P_BAILOUT],
+                                   log2c);
+    palette_rgb(tb, p.v[P_COFF] + (s / max_iter) * p.v[P_CSCALE], rgb);
+    if (interior) {
+      if (interior_style == 3) {
+        const float dist = sqrtf(zx * zx + zy * zy);
+        palette_rgb(tb, clip01(dist * 0.5f), rgb);
+        for (int ch = 0; ch < 3; ++ch) rgb[ch] = rgb[ch] * 0.4f;
+      } else {
+        rgb[0] = rgb[1] = rgb[2] = 0.0f;
+      }
+    }
+  } else {
+    // color_phoenix_planar: pow(t, 0.8) and the flow stripes, with the
+    // control > 0.01 gate folded into the weight
+    const float s = smooth_loglog(nf, zx, zy, max_iter, log2c);
+    const float t = powf(clamp_lo(s / max_iter, 0.0f), 0.8f);
+    palette_rgb(tb, t, rgb);
+    const float control = clamp_lo(p.v[P_STRIPE], 0.0f);
+    const float amplitude = clip01(control * 0.05f);
+    const float angle = poly_atan2(zy, zx);
+    const float stripe_mod = 0.5f + 0.5f * sinf(angle * control + s * 0.25f);
+    const float adaptive = amplitude * (1.0f - expf(-0.004f * s * s));
+    float st[3];
+    palette_rgb(tb, fract(t + 0.1f * stripe_mod), st);
+    const float w = adaptive * stripe_mod * (control > 0.01f ? 1.0f : 0.0f);
+    for (int ch = 0; ch < 3; ++ch) rgb[ch] = rgb[ch] * (1.0f - w) + st[ch] * w;
+  }
+}
+
+template <int kFamily, bool kFused>
 __global__ void __launch_bounds__(256)
-    escape_mandelbrot_kernel(Params p, ColorTable tb, int width, int height,
-                             int map_height, int row0, int max_iter_cap,
-                             int interior_skip, int interior_style,
-                             int clamp_mins, int with_post, void* out0,
-                             void* out1, void* out2) {
+    escape_kernel(Params p, ColorTable tb, int width, int height,
+                  int map_height, int row0, int max_iter_cap, int flags,
+                  int interior_style, Outputs out) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int lrow = blockIdx.y * blockDim.y + threadIdx.y;
   if (col >= width || lrow >= height) return;
 
-  // ops/mapping.map_centered at the global row.
+  // Tracking exists only in fields mode; the fused instances drop it at
+  // compile time.
+  const bool track_trap = !kFused && (flags & F_TRAP);
+  const bool track_stripe = !kFused && (flags & F_STRIPE);
+  const bool track_deriv =
+      !kFused && kFamily == kMandelbrot && (flags & F_DERIV);
+  const bool skip_ok = kFamily == kMandelbrot && (flags & F_SKIP);
+
+  // ops/mapping.map_centered (== map_uv) at the global row.
   const float pxf = static_cast<float>(col);
   const float pyf = static_cast<float>(lrow + row0);
   const float w = static_cast<float>(width);
   const float h = static_cast<float>(map_height);
   const float ux = (pxf + p.v[P_OFFX] - 0.5f * w) / h;
   const float uy = (pyf + p.v[P_OFFY] - 0.5f * h) / h;
-  const float cr = p.v[P_CX] + ux * p.v[P_ZOOM];
-  const float ci = p.v[P_CY] + uy * p.v[P_ZOOM];
+  const float mx = p.v[P_CX] + ux * p.v[P_ZOOM];
+  const float my = p.v[P_CY] + uy * p.v[P_ZOOM];
+
+  // Julia iterates from the pixel with a fixed c; the others from 0 with
+  // c = the pixel.  Phoenix in Julia mode adds (a0, a1) instead of c.
+  const bool julia = kFamily == kJulia;
+  const float zx0 = julia ? mx : 0.0f;
+  const float zy0 = julia ? my : 0.0f;
+  const float cr = julia ? p.v[P_A0] : mx;
+  const float ci = julia ? p.v[P_A1] : my;
+  const bool phoenix_julia = kFamily == kPhoenix && (flags & F_JULIA);
+  const float add_re = phoenix_julia ? p.v[P_A0] : cr;
+  const float add_im = phoenix_julia ? p.v[P_A1] : ci;
+  const float pp = p.v[P_A2], rr = p.v[P_A3];
+  const float trap_r = kFamily == kBurningShip ? p.v[P_A0] : 0.0f;
+  const float stripe_d = p.v[P_A1];
 
   // The static cap is real: the limit is clamped to it and to the f32
   // counter ceiling.
@@ -142,68 +317,111 @@ __global__ void __launch_bounds__(256)
   const int limit = static_cast<int>(limit_f);
   const float bail2 = p.v[P_BAIL2];
 
+  // Peel update 0 (always applied: the shaders update before the first
+  // escape check).
+  const float sqx0 = zx0 * zx0, sqy0 = zy0 * zy0;
+  float x1, y1;
+  if (kFamily == kBurningShip) {
+    x1 = sqx0 - sqy0 + cr;
+    y1 = fabsf((2.0f * zx0) * zy0) + ci;
+  } else if (kFamily == kPhoenix) {
+    x1 = sqx0 - sqy0 + add_re + rr * 0.0f + pp * zx0;
+    y1 = (2.0f * zx0) * zy0 + add_im + rr * 0.0f + pp * zy0;
+  } else {
+    x1 = sqx0 - sqy0 + cr;
+    y1 = (2.0f * zx0) * zy0 + ci;
+  }
+
+  // Initial aux values (escape.py:272-294).
+  float trap = 0.0f, stripe = 0.0f, dzx = 1.0f, dzy = 0.0f;
+  if (track_trap) {
+    if (kFamily == kMandelbrot) {
+      trap = tmin(1e20f, combined_trap(x1, y1, x1 * x1, y1 * y1, cr, ci));
+    } else {
+      trap = 1.0f * tmin(1e10f, fabsf(0.0f - trap_r));
+    }
+  }
+
   int n;
   float zx, zy;
-  if (interior_skip && cardioid_or_bulb(cr, ci)) {
-    // Provably interior: n = limit, z = 0.
+  if (skip_ok && cardioid_or_bulb(cr, ci)) {
+    // Provably interior: n = limit, z = 0, aux at their initial values.
     n = limit;
     zx = 0.0f;
     zy = 0.0f;
   } else {
-    // Update 0 is always applied (the shaders update before the first
-    // escape check).
-    const float zx0 = 0.0f, zy0 = 0.0f;
-    const float sqx0 = zx0 * zx0, sqy0 = zy0 * zy0;
-    zx = sqx0 - sqy0 + cr;
-    zy = (2.0f * zx0) * zy0 + ci;
+    zx = x1;
+    zy = y1;
     float sqx = zx * zx, sqy = zy * zy;
+    float px = zx0, py = zy0;
     int survived = 0;
     for (int i = 1; i < limit; ++i) {
       // Escape latch on the frozen z: the escaping update is applied while
       // the pre-update z was still inside.
-      if (!(sqx + sqy <= bail2)) break;
+      const float mag2 = sqx + sqy;
+      if (!(mag2 <= bail2)) break;
       ++survived;
-      const float x = sqx - sqy + cr;
-      const float y = (2.0f * zx) * zy + ci;
+      float x, y;
+      if (kFamily == kBurningShip) {
+        // traps and stripes use the pre-update z
+        if (track_trap) trap = tmin(trap, fabsf(sqrtf(mag2) - trap_r));
+        if (track_stripe) stripe = stripe + sinf(zy * stripe_d);
+        x = sqx - sqy + cr;
+        y = fabsf((2.0f * zx) * zy) + ci;
+      } else if (kFamily == kPhoenix) {
+        x = sqx - sqy + add_re + rr * px + pp * zx;
+        y = (2.0f * zx) * zy + add_im + rr * py + pp * zy;
+        px = zx;
+        py = zy;
+      } else {
+        x = sqx - sqy + cr;
+        y = (2.0f * zx) * zy + ci;
+      }
+      if (track_deriv) {
+        // dz <- 2*z*dz + 1 with the pre-update z
+        const float ndx = 2.0f * (zx * dzx - zy * dzy) + 1.0f;
+        const float ndy = 2.0f * (zx * dzy + zy * dzx);
+        dzx = ndx;
+        dzy = ndy;
+      }
       zx = x;
       zy = y;
       sqx = zx * zx;
       sqy = zy * zy;
+      if (kFamily == kMandelbrot && track_trap) {
+        // combined trap on the updated z
+        trap = tmin(trap, combined_trap(zx, zy, sqx, sqy, cr, ci));
+      }
     }
     n = (sqx + sqy <= bail2) ? limit : survived;
   }
 
   const size_t idx = static_cast<size_t>(lrow) * width + col;
   if (!kFused) {
-    static_cast<int*>(out0)[idx] = n;
-    static_cast<float*>(out1)[idx] = zx;
-    static_cast<float*>(out2)[idx] = zy;
+    // fixed slots, so the pointer array is never indexed at run time
+    static_cast<int*>(out.p[O_N])[idx] = n;
+    static_cast<float*>(out.p[O_ZX])[idx] = zx;
+    static_cast<float*>(out.p[O_ZY])[idx] = zy;
+    if (track_trap) static_cast<float*>(out.p[O_TRAP])[idx] = trap;
+    if (track_stripe) static_cast<float*>(out.p[O_STRIPE])[idx] = stripe;
+    if (track_deriv) {
+      static_cast<float*>(out.p[O_DZX])[idx] = dzx;
+      static_cast<float*>(out.p[O_DZY])[idx] = dzy;
+    }
     return;
   }
 
-  // coloring.color_mandelbrot_planar with max_iterations = the clamped
-  // limit.
-  const float log2c = tb.v[T_LOG2];
-  const float max_iter = limit_f;
-  const float nf = static_cast<float>(n);
-  const float mag2 = zx * zx + zy * zy;
-  const float log_zn = logf(fmaxf(mag2, 1e-38f)) / 2.0f;
-  const float mu = logf(fmaxf(log_zn, 1e-38f) / log2c) / log2c;
-  const float nu = (nf < max_iter) ? nf + 1.0f - mu : nf;
-  const float t = clip01(nu / max_iter * p.v[P_CSCALE]);
+  // Colour with max_iterations = the clamped limit.
   float rgb[3];
-  palette_rgb(tb, t + p.v[P_COFF], rgb);
-  if (interior_style == 1 && nf >= max_iter) {
-    rgb[0] = rgb[1] = rgb[2] = 0.0f;
-  }
+  color_pixel<kFamily>(p, tb, n, zx, zy, limit_f, interior_style, rgb);
 
-  if (with_post) {
+  if (flags & F_POST) {
     // coloring.post_chain_planar: enhance -> ACES -> gamma.
     float bri = p.v[P_BRIGHT], sat = p.v[P_SAT], con = p.v[P_CONTRAST];
-    if (clamp_mins) {
-      bri = fmaxf(bri, 0.1f);
-      sat = fmaxf(sat, 0.0f);
-      con = fmaxf(con, 0.1f);
+    if (flags & F_CLAMP) {
+      bri = clamp_lo(bri, 0.1f);
+      sat = clamp_lo(sat, 0.0f);
+      con = clamp_lo(con, 0.1f);
     }
     float e[3];
     for (int ch = 0; ch < 3; ++ch) e[ch] = (rgb[ch] * bri - 0.5f) * con + 0.5f;
@@ -211,43 +429,81 @@ __global__ void __launch_bounds__(256)
     const float inv_gamma = tb.v[T_INV_GAMMA];
     for (int ch = 0; ch < 3; ++ch) {
       const float c = clip01(gray * (1.0f - sat) + e[ch] * sat);
-      rgb[ch] = powf(fmaxf(aces(c), 0.0f), inv_gamma);
+      rgb[ch] = powf(clamp_lo(aces(c), 0.0f), inv_gamma);
     }
   }
-  static_cast<float*>(out0)[idx] = rgb[0];
-  static_cast<float*>(out1)[idx] = rgb[1];
-  static_cast<float*>(out2)[idx] = rgb[2];
+  static_cast<float*>(out.p[0])[idx] = rgb[0];
+  static_cast<float*>(out.p[1])[idx] = rgb[1];
+  static_cast<float*>(out.p[2])[idx] = rgb[2];
+}
+
+template <int kFamily>
+void launch_family(bool fused, dim3 grid, dim3 block, cudaStream_t s,
+                   const Params& p, const ColorTable& tb, int width,
+                   int height, int map_height, int row0, int max_iter_cap,
+                   int flags, int interior_style, const Outputs& out) {
+  if (fused) {
+    escape_kernel<kFamily, true><<<grid, block, 0, s>>>(
+        p, tb, width, height, map_height, row0, max_iter_cap, flags,
+        interior_style, out);
+  } else {
+    escape_kernel<kFamily, false><<<grid, block, 0, s>>>(
+        p, tb, width, height, map_height, row0, max_iter_cap, flags,
+        interior_style, out);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch K1 on `stream`.  `params` (19 floats) and `table` (32 floats) are
-// host arrays copied into the kernel's by-value arguments.  fused = 0 writes
-// n (int32), zx, zy (f32); fused = 1 writes r, g, b (f32); each (height,
-// width), row-major.  Returns the cudaError_t of the launch.
-int fr_escape_mandelbrot(const float* params, const float* table, int width,
-                         int height, int map_height, int row0,
-                         int max_iter_cap, int interior_skip, int fused,
-                         int interior_style, int clamp_mins, int with_post,
-                         void* out0, void* out1, void* out2, void* stream) {
+// Launch K1 on `stream`.  `family` indexes ops/escape.py:FAMILIES; `params`
+// (19 floats) and `table` (32 floats) are host arrays copied into the
+// kernel's by-value arguments; `flags` is a sum of the F_* bits.  Fields
+// mode writes n (int32) to out0, zx and zy (f32) to out1 and out2, and the
+// tracked trap, stripe, dzx and dzy (f32) to out3 to out6; fused mode
+// writes r, g, b (f32) to out0 to out2; each (height, width), row-major.
+// The pointers of outputs not written may be null.
+// Returns the cudaError_t of the launch (cudaErrorInvalidValue for an
+// unknown family).
+int fr_escape(int family, const float* params, const float* table, int width,
+              int height, int map_height, int row0, int max_iter_cap,
+              int flags, int interior_style, void* out0, void* out1,
+              void* out2, void* out3, void* out4, void* out5, void* out6,
+              void* stream) {
   Params p;
   std::memcpy(p.v, params, sizeof(p.v));
   ColorTable tb;
   std::memcpy(tb.v, table, sizeof(tb.v));
+  const Outputs out = {{out0, out1, out2, out3, out4, out5, out6}};
   const dim3 block(32, 8);
   const dim3 grid((width + block.x - 1) / block.x,
                   (height + block.y - 1) / block.y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fused) {
-    escape_mandelbrot_kernel<true><<<grid, block, 0, s>>>(
-        p, tb, width, height, map_height, row0, max_iter_cap, interior_skip,
-        interior_style, clamp_mins, with_post, out0, out1, out2);
-  } else {
-    escape_mandelbrot_kernel<false><<<grid, block, 0, s>>>(
-        p, tb, width, height, map_height, row0, max_iter_cap, interior_skip,
-        interior_style, clamp_mins, with_post, out0, out1, out2);
+  const bool fused = flags & F_FUSED;
+  switch (family) {
+    case kMandelbrot:
+      launch_family<kMandelbrot>(fused, grid, block, s, p, tb, width, height,
+                                 map_height, row0, max_iter_cap, flags,
+                                 interior_style, out);
+      break;
+    case kJulia:
+      launch_family<kJulia>(fused, grid, block, s, p, tb, width, height,
+                            map_height, row0, max_iter_cap, flags,
+                            interior_style, out);
+      break;
+    case kBurningShip:
+      launch_family<kBurningShip>(fused, grid, block, s, p, tb, width,
+                                  height, map_height, row0, max_iter_cap,
+                                  flags, interior_style, out);
+      break;
+    case kPhoenix:
+      launch_family<kPhoenix>(fused, grid, block, s, p, tb, width, height,
+                              map_height, row0, max_iter_cap, flags,
+                              interior_style, out);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

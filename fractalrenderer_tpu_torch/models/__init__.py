@@ -2,17 +2,23 @@
 ``fractalrenderer_tpu/models/__init__.py``).
 
 ``render(scene, width, height, device=...)`` returns an f32 RGB tensor
-(H, W, 3) in [0, 1] on ``device``; only the Mandelbrot family is ported.
+(H, W, 3) in [0, 1] on ``device`` for the four 2D escape-time families.
 """
 from __future__ import annotations
 
+import importlib
+
 from ..scene import FractalType, Scene
+
+_MODULES = {
+    FractalType.MANDELBROT: "mandelbrot",
+    FractalType.JULIA: "julia",
+    FractalType.BURNING_SHIP: "burning_ship",
+    FractalType.PHOENIX: "phoenix",
+}
 
 # ROADMAP Queue 1 item that ports each family not ported yet
 _NOT_PORTED = {
-    FractalType.JULIA: 2,
-    FractalType.BURNING_SHIP: 2,
-    FractalType.PHOENIX: 2,
     FractalType.DEEP_ZOOM: 6,
     FractalType.MANDELBULB: 7,
 }
@@ -23,10 +29,9 @@ def render(scene: Scene, width: int, height: int, **kw):
 
     scene = validate_scene(scene)  # compute_effect_manager.h:335-345 repairs
     ft = scene.fractal_type
-    if ft == FractalType.MANDELBROT:
-        from . import mandelbrot
-
-        return mandelbrot.render(scene, width, height, **kw)
+    if ft in _MODULES:
+        module = importlib.import_module(f".{_MODULES[ft]}", __name__)
+        return module.render(scene, width, height, **kw)
     raise NotImplementedError(
         f"{ft.display_name} is not ported yet (ROADMAP Queue 1 item "
         f"{_NOT_PORTED[ft]})")

@@ -1,11 +1,18 @@
 """Shared render pipeline for the 2D escape-time families (the port's
 counterpart of ``fractalrenderer_tpu/models/common.py``).
 
-Ported so far: the Mandelbrot family with one AA sample and no trap,
-stripe or trap-glow consumers — exactly the configurations the fused
-kernel path serves (escape kernel with the interior skip, colour and post
-chain in the kernel epilogue, quantization as tensor glue).  Everything
-else raises NotImplementedError naming its ROADMAP item.
+Pipeline per frame (mirrors the shader main() structure):
+  for each AA offset: escape kernel → per-sample colouring
+  average samples → enhance/ACES/gamma post chain
+
+Two branches, chosen per static configuration as the JAX package chooses:
+the fused branch colours in the kernel's epilogue (and applies the post
+chain there too when there is one sample); the unfused branch takes the
+fields (with the trap and stripe planes its colouring reads) and colours,
+averages and post-chains them as tensor glue.  Every scalar is rounded
+to f32 first, as the JAX pipeline casts its traced values: the kernel's
+parameter vector (ops/escape.pack_params) and the glue's f32 tensors on
+the device.
 
 PyTorch runs eagerly, so there is no compiled-function cache: ``render_fn``
 builds the per-configuration closure directly.
@@ -13,13 +20,14 @@ builds the per-configuration closure directly.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Tuple
 
 import torch
 
-from ..ops import mapping
+from ..ops import coloring, mapping
+from ..ops.coloring import ColorParams
 from ..ops.escape import escape_fields
-from ..scene import FractalType, Scene
+from ..scene import Scene
 
 
 @dataclass(frozen=True)
@@ -33,20 +41,10 @@ class StaticCfg:
     interior_style: int
     orbit_trap_enabled: bool
     stripe_enabled: bool
+    use_julia: bool
     clamp_mins: bool          # julia/bs/phoenix clamp brightness/sat/contrast
     aa_convention: str        # 'centered' (mandelbrot) or 'uv'
     device: str = "cuda"
-
-
-# fractal type → (kernel family, AA convention, post-chain clamp) for the
-# four 2D escape-time families (mandelbulb/deep-zoom have their own models).
-def family_map():
-    return {
-        FractalType.MANDELBROT: ("mandelbrot", "centered", False),
-        FractalType.JULIA: ("julia", "uv", True),
-        FractalType.BURNING_SHIP: ("burning_ship", "uv", True),
-        FractalType.PHOENIX: ("phoenix", "uv", True),
-    }
 
 
 # Dynamic parameters: plain dict of floats.
@@ -79,6 +77,7 @@ def scene_static_cfg(scene: Scene, width: int, height: int,
         interior_style=int(scene.interior_style),
         orbit_trap_enabled=bool(scene.orbit_trap_enabled),
         stripe_enabled=bool(scene.stripe_enabled),
+        use_julia=bool(scene.use_julia_set),
         clamp_mins=clamp_mins, aa_convention=aa_convention, **kw)
 
 
@@ -99,6 +98,38 @@ def scene_dyn_params(scene: Scene) -> dict:
     }
 
 
+def _track_flags(cfg: StaticCfg) -> Tuple[bool, bool]:
+    if cfg.family == "mandelbrot":
+        track_trap = cfg.orbit_trap_enabled or cfg.interior_style == 2
+        return track_trap, False
+    if cfg.family == "burning_ship":
+        track_trap = cfg.orbit_trap_enabled
+        track_stripe = cfg.stripe_enabled and cfg.interior_style == 2
+        return track_trap, track_stripe
+    return False, False
+
+
+def _color_params(cfg: StaticCfg, dyn: dict) -> ColorParams:
+    """ColorParams of the unfused branch from the f32 dynamic scalars;
+    max_iterations is the iteration limit clamped to the static cap, as
+    the kernel clamps n."""
+    cap = torch.tensor(float(cfg.max_iter), dtype=torch.float32,
+                       device=dyn["iter_limit"].device)
+    return ColorParams(
+        max_iterations=torch.minimum(dyn["iter_limit"], cap),
+        bailout=dyn["bailout"],
+        palette_mode=cfg.palette_mode,
+        color_offset=dyn["color_offset"],
+        color_scale=dyn["color_scale"],
+        interior_style=cfg.interior_style,
+        orbit_trap_enabled=cfg.orbit_trap_enabled,
+        orbit_trap_radius=dyn["orbit_trap_radius"],
+        stripe_enabled=cfg.stripe_enabled,
+        stripe_density=dyn["stripe_density"],
+        phoenix_stripe_control=dyn["stripe_density"],
+    )
+
+
 def _interior_skip_ok(cfg: StaticCfg) -> bool:
     """The analytic interior skip is exact for n but zeroes the interior z,
     so it is only safe when nothing reads interior z.  Also the Mandelbrot
@@ -110,9 +141,14 @@ def _interior_skip_ok(cfg: StaticCfg) -> bool:
 
 
 def _fused_ok(cfg: StaticCfg) -> bool:
-    """The in-kernel fused-colouring eligibility predicate.  Of the JAX
-    package's fused families only Mandelbrot is ported."""
-    return _interior_skip_ok(cfg)
+    """The in-kernel fused-colouring eligibility predicate: no trap or
+    stripe consumers and no interior-z reader.  Julia and Phoenix fuse
+    unconditionally."""
+    track_trap, track_stripe = _track_flags(cfg)
+    return (cfg.family in ("julia", "phoenix")
+            or _interior_skip_ok(cfg)
+            or (cfg.family == "burning_ship"
+                and not track_trap and not track_stripe))
 
 
 def planar_export_ok(cfg: StaticCfg) -> bool:
@@ -122,55 +158,111 @@ def planar_export_ok(cfg: StaticCfg) -> bool:
     return _fused_ok(cfg) and cfg.aa == 1
 
 
-def unsupported_reason(cfg: StaticCfg) -> Optional[str]:
-    """Why the port cannot render ``cfg`` yet, or None."""
-    if cfg.family != "mandelbrot":
-        return (f"the {cfg.family} family is not ported yet (ROADMAP "
-                "Queue 1 item 2)")
-    if cfg.aa != 1:
-        return (f"antialiasing {cfg.aa} (> 1) is not ported yet (ROADMAP "
-                "Queue 1 item 2)")
-    if cfg.orbit_trap_enabled or cfg.stripe_enabled \
-            or cfg.interior_style not in (0, 1):
-        return ("orbit traps, stripes and interior styles other than 0 and "
-                "1 are not ported yet (ROADMAP Queue 1 item 2)")
-    return None
+def _dyn_f32(dyn: dict, device) -> dict:
+    """The dynamic scalars as f32 tensors on the device (the JAX pipeline
+    casts every value to jnp.float32 before the pipeline sees it), copied
+    to the device in one transfer."""
+    keys = list(dyn)
+    vals = torch.tensor([float(dyn[k]) for k in keys], dtype=torch.float32,
+                        device=device)
+    return {k: vals[i] for i, k in enumerate(keys)}
+
+
+def _sample(cfg: StaticCfg, dyn: dict, band_h: int, full_h: int, row0: int,
+            off, **kw):
+    return escape_fields(
+        cfg.family, cfg.width, band_h,
+        center_x=dyn["center_x"], center_y=dyn["center_y"],
+        zoom=dyn["zoom"], max_iter=cfg.max_iter, bailout=dyn["bailout"],
+        offset=off, julia_c=(dyn["julia_c_real"], dyn["julia_c_imag"]),
+        phoenix_p=dyn["phoenix_p"], phoenix_r=dyn["phoenix_r"],
+        use_julia=cfg.use_julia, trap_radius=dyn["orbit_trap_radius"],
+        stripe_density=dyn["stripe_density"], iter_limit=dyn["iter_limit"],
+        row0=row0, map_height=full_h, interior_skip=_interior_skip_ok(cfg),
+        device=cfg.device, **kw)
+
+
+def _average_then_post(cfg: StaticCfg, dyn: dict, acc: torch.Tensor,
+                       count: int) -> torch.Tensor:
+    """Sample average, divided by a device tensor, then the post chain."""
+    denom = torch.tensor(float(count), dtype=torch.float32,
+                         device=acc.device)
+    return coloring.post_chain_traced(
+        acc / denom, dyn["brightness"], dyn["saturation"], dyn["contrast"],
+        clamp_mins=cfg.clamp_mins)
 
 
 def band_render_fn(cfg: StaticCfg, band_h: int, full_h: int,
                    planar_quantize: int = 0):
     """Build fn(dyn, row0) rendering ``band_h`` local rows whose global
-    first row is ``row0``: the fused branch (one AA sample, colour and post
-    chain in the kernel).  Returns f32 (band_h, W, 3), or with
-    ``planar_quantize`` 8/16 the quantized (3, band_h, W) planes."""
-    reason = unsupported_reason(cfg)
-    if reason is not None:
-        raise NotImplementedError(reason)
+    first row is ``row0``.  Returns f32 (band_h, W, 3), or with
+    ``planar_quantize`` 8/16 the quantized (3, band_h, W) planes (only
+    when ``planar_export_ok(cfg)``)."""
+    if torch.device(cfg.device).type == "cuda":
+        from ..ops._cuda import cuda_device
+
+        cuda_device(cfg.device)  # raises before any tensor is made
+    if planar_quantize and not planar_export_ok(cfg):
+        raise ValueError("planar_quantize requires a fused single-sample "
+                         "config (planar_export_ok)")
     if cfg.aa_convention == "centered":
-        (off,) = mapping.aa_offsets_centered(cfg.aa)
+        offsets = mapping.aa_offsets_centered(cfg.aa)
     else:
-        (off,) = mapping.aa_offsets_uv(cfg.aa, cfg.width)
+        offsets = mapping.aa_offsets_uv(cfg.aa, cfg.width)
+    track_trap, track_stripe = _track_flags(cfg)
 
-    def fn(dyn, row0: int):
-        f = escape_fields(
-            cfg.family, cfg.width, band_h,
-            center_x=dyn["center_x"], center_y=dyn["center_y"],
-            zoom=dyn["zoom"], max_iter=cfg.max_iter,
-            bailout=dyn["bailout"], offset=off,
-            iter_limit=dyn["iter_limit"], row0=row0, map_height=full_h,
-            interior_skip=_interior_skip_ok(cfg),
-            fused_color=(cfg.palette_mode, cfg.interior_style,
-                         cfg.clamp_mins, True),
-            color_offset=dyn["color_offset"],
-            color_scale=dyn["color_scale"],
-            brightness=dyn["brightness"], saturation=dyn["saturation"],
-            contrast=dyn["contrast"], device=cfg.device)
-        if planar_quantize:
-            planes = torch.stack([f["r"], f["g"], f["b"]], dim=0)
-            return quantize_image(planes, bit_depth=planar_quantize)
-        return torch.stack([f["r"], f["g"], f["b"]], dim=-1)
+    if _fused_ok(cfg):
+        # The kernel colours each sample; with one sample it also applies
+        # the post chain, with more it emits pre-post-chain planes that are
+        # summed in offset order and post-chained here.
+        with_post = len(offsets) == 1
 
-    return fn
+        def fused(dyn, row0: int):
+            acc = torch.zeros((band_h, cfg.width, 3), dtype=torch.float32,
+                              device=cfg.device)
+            for off in offsets:
+                f = _sample(cfg, dyn, band_h, full_h, row0, off,
+                            fused_color=(cfg.palette_mode,
+                                         cfg.interior_style, cfg.clamp_mins,
+                                         with_post),
+                            color_offset=dyn["color_offset"],
+                            color_scale=dyn["color_scale"],
+                            brightness=dyn["brightness"],
+                            saturation=dyn["saturation"],
+                            contrast=dyn["contrast"])
+                if planar_quantize:
+                    planes = torch.stack([f["r"], f["g"], f["b"]], dim=0)
+                    return quantize_image(planes, bit_depth=planar_quantize)
+                if with_post:  # the one sample, already post-chained
+                    return torch.stack([f["r"], f["g"], f["b"]], dim=-1)
+                acc = acc + torch.stack([f["r"], f["g"], f["b"]], dim=-1)
+            return _average_then_post(cfg, _dyn_f32(dyn, cfg.device), acc,
+                                      len(offsets))
+
+        return fused
+
+    def unfused(dyn, row0: int):
+        dyn_t = _dyn_f32(dyn, cfg.device)
+        p = _color_params(cfg, dyn_t)
+        acc = torch.zeros((band_h, cfg.width, 3), dtype=torch.float32,
+                          device=cfg.device)
+        for off in offsets:
+            f = _sample(cfg, dyn, band_h, full_h, row0, off,
+                        track_trap=track_trap, track_stripe=track_stripe)
+            if cfg.family == "mandelbrot":
+                trap = f.get("trap", torch.full_like(f["zx"], 1e20))
+                color = coloring.color_mandelbrot(f["n"], f["zx"], f["zy"],
+                                                  trap, p)
+            else:  # burning_ship: the only other family that can't fuse
+                trap = f.get("trap", torch.full_like(f["zx"], 1e10))
+                stripe = f.get("stripe", torch.zeros_like(f["zx"]))
+                color = coloring.color_burning_ship(
+                    f["n"], f["zx"], f["zy"], trap, stripe, p)
+            acc = acc + color
+        # julia.comp:319-322 clamp floors live inside post_chain_traced
+        return _average_then_post(cfg, dyn_t, acc, len(offsets))
+
+    return unfused
 
 
 def quantize_image(img: torch.Tensor, *, bit_depth: int) -> torch.Tensor:
@@ -201,11 +293,13 @@ def render_scene(scene: Scene, width: int, height: int, family: str,
                  aa_convention: str, clamp_mins: bool, *, device="cuda",
                  quantize: int = 0) -> torch.Tensor:
     """Render ``scene`` on ``device``: f32 (H, W, 3) in [0, 1], or with
-    ``quantize`` 8/16 the quantized (H, W, 3) image (planes quantized on
-    the device, then interleaved)."""
+    ``quantize`` 8/16 the quantized (H, W, 3) image (quantized on the
+    device: the fused single-sample planes directly, any other
+    configuration's interleaved image)."""
     cfg = scene_static_cfg(scene, width, height, family, aa_convention,
                            clamp_mins, device=str(device))
     dyn = scene_dyn_params(scene)
-    if quantize:
+    if quantize and planar_export_ok(cfg):
         return planar_render_fn(cfg, quantize)(dyn).permute(1, 2, 0)
-    return render_fn(cfg)(dyn)
+    img = render_fn(cfg)(dyn)
+    return quantize_image(img, bit_depth=quantize) if quantize else img

@@ -1,10 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
 The sources in ``fractalrenderer_tpu_torch/csrc/*.cu`` are compiled at first
-use by ``nvcc`` into one shared library with a plain C interface, which is
-loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).  The
-library lands in ``fractalrenderer_tpu_torch/_build/`` under a name keyed by
-a hash of the sources and flags, written through a temporary file and
+use by ``nvcc``, one process per source, all started together, and linked
+into one shared library with a plain C interface, which is loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds).  The library
+lands in ``fractalrenderer_tpu_torch/_build/`` under a name keyed by a hash
+of the sources and flags, written through a temporary file and
 ``os.replace`` so a concurrent build never loads a partial file.
 
 Importing this module needs no CUDA toolkit; building without ``nvcc``
@@ -26,11 +27,12 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
 # -fmad=false: no multiply-add contraction (the reference counts depend on
-# the shaders' unfused operation order).  No --use_fast_math: it flushes
-# subnormals and approximates division and logf.  -Xptxas=-v writes each
-# kernel's registers and spills into the build log.
+# the shaders' unfused operation order, and the dd error terms on no
+# contraction at all).  No --use_fast_math: it flushes subnormals and
+# approximates division and logf.  -Xptxas=-v writes each kernel's
+# registers and spills into the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
 
 
@@ -60,24 +62,39 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile csrc/ unless a library for these sources exists; returns its
-    path.  The compiler's output is kept beside it as ``<name>.log``."""
+    path.  The compilers' output is kept beside it as ``<name>.log``."""
     path = library_path()
     if os.path.exists(path):
         return path
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *[s for s in sources() if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    with open(path[:-3] + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, path)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        cus = [s for s in sources() if s.endswith(".cu")]
+        objs = [os.path.join(tmpdir, os.path.basename(s)[:-3] + ".o")
+                for s in cus]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(cus, objs)]
+        logs, failed = [], []
+        for s, proc in zip(cus, procs):
+            out, _ = proc.communicate()
+            logs.append(f"== {os.path.basename(s)}\n{out}")
+            if proc.returncode != 0:
+                failed.append(os.path.basename(s))
+        if not failed:
+            so = os.path.join(tmpdir, "lib.so")
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", so,
+                                   *objs], capture_output=True, text=True)
+            logs.append(f"== link\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append("link")
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                               + "".join(logs))
+        with open(path[:-3] + ".log", "w") as f:
+            f.write("".join(logs))
+        os.replace(so, path)
     return path
 
 
@@ -88,8 +105,38 @@ def load_library() -> ctypes.CDLL:
     so 64-bit addresses are not cut to 32 bits)."""
     lib = ctypes.CDLL(build())
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fr_escape_mandelbrot.argtypes = [vp, vp] + [ci] * 10 + [vp] * 4
-    lib.fr_escape_mandelbrot.restype = ci
+    # fr_escape(family, params, table, width, height, map_height, row0,
+    #           max_iter_cap, flags, interior_style, out0..out6, stream)
+    lib.fr_escape.argtypes = [ci, vp, vp] + [ci] * 7 + [vp] * 8
+    lib.fr_escape.restype = ci
+    # fr_dd_escape(params, width, height, map_height, row0, n, zx, zy,
+    #              stream)
+    lib.fr_dd_escape.argtypes = [vp] + [ci] * 4 + [vp] * 4
+    lib.fr_dd_escape.restype = ci
     lib.fr_cuda_error_string.argtypes = [ci]
     lib.fr_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def cuda_device(device):
+    """The CUDA device a kernel wrapper launches on (with its index), or a
+    raise: a wrapper never falls back to the plain version."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs a CUDA device, got {dev}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not "
+                           "available (use device='cpu' for the plain "
+                           "PyTorch path)")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def check(lib, rc: int, what: str) -> None:
+    """Raise on a refused launch (the cudaError_t an entry point returns)."""
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.fr_cuda_error_string(rc).decode())

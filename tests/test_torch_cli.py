@@ -1,5 +1,6 @@
-"""The port's CLI ``render`` verb on the CPU device, and its rejection of
-everything not ported yet (exit code 2, one line on stderr)."""
+"""The port's CLI ``render`` verb on the CPU device (the four families with
+their options, and ``--precision dd``), and its rejection of everything not
+ported yet (exit code 2, one line on stderr)."""
 import json
 
 import numpy as np
@@ -63,13 +64,68 @@ def test_render_scene_file_written_by_jax(tmp_path, capsys):
 
 
 UNPORTED = [
+    ["--type", "mandelbulb"], ["--type", "deep-zoom"], ["--sharded"],
+    ["--golden"], ["--exact-dust"], ["--width", "0"],
+    # the JAX CLI's own refusal: dd is the Mandelbrot kernel
+    ["--precision", "dd", "--type", "julia"],
+]
+
+# every family option of the render verb, alone and combined
+FAMILY_OPTIONS = [
     ["--aa", "2"], ["--orbit-trap"], ["--stripes"],
     ["--interior-style", "2"], ["--type", "julia"],
     ["--type", "burning-ship"], ["--type", "phoenix"],
-    ["--type", "mandelbulb"], ["--type", "deep-zoom"],
-    ["--julia-preset", "San Marco"], ["--precision", "dd"], ["--sharded"],
-    ["--golden"], ["--exact-dust"], ["--width", "0"],
+    ["--julia-preset", "San Marco"],
+    ["--type", "phoenix", "--use-julia-set", "--julia-cr", "0.3",
+     "--julia-ci", "0.2"],
+    ["--type", "burning-ship", "--orbit-trap", "--stripes",
+     "--interior-style", "2", "--center", "-0.5", "-0.6", "--zoom", "2"],
+    ["--type", "julia", "--julia-preset", "Douady's Rabbit", "--aa", "4",
+     "--palette", "7"],
 ]
+
+
+def _jax_scene(argv):
+    from fractalrenderer_tpu import cli as jax_cli
+
+    return jax_cli.scene_from_args(jax_cli.build_parser().parse_args(
+        ["render", *argv]))
+
+
+@pytest.mark.parametrize("extra", FAMILY_OPTIONS, ids=" ".join)
+def test_family_options_render_png_matches_golden(tmp_path, capsys, extra):
+    out = str(tmp_path / "f.png")
+    rc = cli.main(["render", "--device", "cpu", "--width", "40", "--height",
+                   "24", "--iters", "64", *extra, "--out", out])
+    assert rc == 0, capsys.readouterr().err
+    img = read_png(out)
+    assert img.shape == (24, 40, 3)
+    want = _golden_png_pixels(_jax_scene(["--iters", "64", *extra]), 40, 24,
+                              8)
+    assert np.abs(img.astype(np.int64) - want).max() <= 1
+
+
+@pytest.mark.parametrize("extra", [
+    ["--precision", "dd"],
+    ["--precision", "dd", "--preset", "Seahorse Valley", "--hp-zoom",
+     "1e-7", "--iters", "300", "--bit-depth", "16"],
+], ids=" ".join)
+def test_precision_dd_renders_png(tmp_path, extra):
+    from fractalrenderer_tpu_torch.models.mandelbrot import render_dd
+
+    out = str(tmp_path / "dd.png")
+    rc = cli.main(["render", "--device", "cpu", "--width", "40", "--height",
+                   "24", *extra, "--out", out])
+    assert rc == 0
+    bit_depth = 16 if "16" in extra else 8
+    scene = cli.scene_from_args(cli.build_parser().parse_args(
+        ["render", *extra]))
+    ref = render_dd(scene, 40, 24, device="cpu").numpy()[::-1]
+    rows = _prepare_rows(ref, bit_depth)
+    if bit_depth == 16:
+        rows = rows.view(">u2")
+    want = rows.reshape(24, 40, 3).astype(np.int64)
+    assert np.abs(read_png(out).astype(np.int64) - want).max() == 0
 
 
 @pytest.mark.parametrize("extra", UNPORTED, ids=" ".join)

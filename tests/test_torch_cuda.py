@@ -1,5 +1,11 @@
-"""Kernel K1 (csrc/escape.cu) on the card against its plain PyTorch version
-on the same card, at edge shapes and options the main path does not reach.
+"""Kernels K1 (csrc/escape.cu) and K2 (csrc/dd_escape.cu) on the card
+against their plain PyTorch versions on the same card, at edge shapes and
+options the main path does not reach.
+
+Contract: counts, z, trap and dz bit-equal (NaN where the plain version
+has NaN); the Burning Ship stripe (a sum
+of sinf terms) within rtol 1e-3, atol 2e-4·iters (the JAX contract,
+test_golden_vs_kernel.py:98-100); fused colour within 1e-5.
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere.  The GPU machine has no
 jax, so run it there without the suite's conftest:
@@ -9,7 +15,7 @@ jax, so run it there without the suite's conftest:
 import pytest
 import torch
 
-from fractalrenderer_tpu_torch.ops import escape
+from fractalrenderer_tpu_torch.ops import dd, dd_escape, escape
 
 pytestmark = pytest.mark.cuda
 
@@ -21,19 +27,50 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _both(dev, width, height, *, fused=None, skip=True, row0=0,
-          map_height=None, max_iter=256, iter_limit=None, **view):
-    view = dict(dict(center_x=-0.5, center_y=0.0, zoom=3.0), **view)
+_FAMILY_VIEWS = {
+    "mandelbrot": dict(center_x=-0.5, center_y=0.0, zoom=3.0),
+    "julia": dict(center_x=0.0, center_y=0.0, zoom=3.0,
+                  julia_c=(-0.7, 0.27015)),
+    "burning_ship": dict(center_x=-0.5, center_y=-0.6, zoom=2.0,
+                         trap_radius=0.5, stripe_density=10.0),
+    "phoenix": dict(center_x=0.0, center_y=0.0, zoom=3.0,
+                    julia_c=(0.5667, 0.0), phoenix_p=0.1, phoenix_r=-0.5,
+                    stripe_density=8.0),
+}
+
+
+def _both(dev, width, height, *, family="mandelbrot", fused=None,
+          skip=True, row0=0, map_height=None, max_iter=256, iter_limit=None,
+          use_julia=False, track=(), **view):
+    view = dict(_FAMILY_VIEWS[family], **view)
     params = escape.pack_params(
+        family=family,
         iter_limit=max_iter if iter_limit is None else iter_limit,
         row0=row0, **view)
     kw = dict(width=width, height=height, map_height=map_height or height,
-              row0=row0, max_iter_cap=max_iter, interior_skip=skip,
-              fused_color=fused, device=dev)
+              row0=row0, max_iter_cap=max_iter,
+              interior_skip=skip and family == "mandelbrot",
+              fused_color=fused, device=dev, family=family,
+              use_julia=use_julia, track_trap="trap" in track,
+              track_stripe="stripe" in track,
+              track_deriv="deriv" in track)
     got = escape.escape_fields_cuda(params, **kw)
     want = escape.escape_fields_plain(params, **kw)
     torch.cuda.synchronize()
     return got, want
+
+
+def _assert_fields_equal(got, want, names, max_iter):
+    assert len(got) == len(want) == len(names)
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if name == "stripe":
+            torch.testing.assert_close(g, w, rtol=1e-3, atol=2e-4 * max_iter)
+        else:
+            # dz of interior pixels outside the skipped bulbs can overflow
+            # to inf and then NaN; NaN must sit at the same pixels
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"{name} differs")
 
 
 @pytest.mark.parametrize("case", [
@@ -56,33 +93,133 @@ def test_fields_kernel_equals_plain(dev, case):
     assert torch.equal(zx, zx_p) and torch.equal(zy, zy_p)
 
 
-@pytest.mark.parametrize("fused", [
-    (0, 0, False, True), (1, 1, False, True), (2, 0, True, True),
-    (3, 1, False, False), (4, 0, False, True), (5, 1, True, True),
-    (9, 0, False, True),
+@pytest.mark.parametrize("family,case", [
+    ("mandelbrot", dict(width=97, height=61, skip=False,
+                        track=("trap", "stripe", "deriv"))),
+    ("mandelbrot", dict(width=64, height=9, row0=20, map_height=40,
+                        track=("trap", "deriv"))),
+    ("mandelbrot", dict(width=80, height=45, skip=True,
+                        track=("trap", "deriv"))),
+    ("julia", dict(width=97, height=61)),
+    ("julia", dict(width=33, height=7, row0=3, map_height=11,
+                   julia_c=(-0.123, 0.745), track=("trap", "stripe"))),
+    ("julia", dict(width=1, height=1, max_iter=1)),
+    ("burning_ship", dict(width=97, height=61, track=("trap", "stripe"))),
+    ("burning_ship", dict(width=64, height=13, row0=30, map_height=60,
+                          max_iter=512, iter_limit=300,
+                          track=("trap", "stripe"))),
+    ("burning_ship", dict(width=40, height=30, bailout=2.0,
+                          track=("trap",))),
+    ("phoenix", dict(width=97, height=61)),
+    ("phoenix", dict(width=97, height=61, use_julia=True,
+                     julia_c=(0.3, 0.2), track=("trap", "stripe"))),
+    ("phoenix", dict(width=50, height=9, row0=5, map_height=31,
+                     phoenix_p=0.0, phoenix_r=-0.5)),
 ], ids=str)
-def test_fused_kernel_matches_plain(dev, fused):
-    got, want = _both(dev, 200, 120, fused=fused, color_offset=0.3,
-                      color_scale=1.7, brightness=1.2, saturation=0.8,
-                      contrast=1.3)
+def test_family_fields_kernel_equals_plain(dev, family, case):
+    got, want = _both(dev, family=family, **case)
+    track = case.get("track", ())
+    names = escape.output_names(family, False, "trap" in track,
+                                "stripe" in track, "deriv" in track)
+    _assert_fields_equal(got, want, names, case.get("max_iter", 256))
+
+
+@pytest.mark.parametrize("family,fused,extra", [
+    ("mandelbrot", (0, 0, False, True), {}),
+    ("mandelbrot", (1, 1, False, True), {}),
+    ("mandelbrot", (2, 0, True, True), {}),
+    ("mandelbrot", (3, 1, False, False), {}),
+    ("mandelbrot", (4, 0, False, True), {}),
+    ("mandelbrot", (5, 1, True, True), {}),
+    ("mandelbrot", (9, 0, False, True), {}),
+    ("julia", (0, 0, True, True), {}),
+    ("julia", (4, 0, True, False), dict(julia_c=(-0.4, 0.6))),
+    ("julia", (9, 0, True, True), {}),
+    ("burning_ship", (5, 3, True, True), {}),
+    ("burning_ship", (3, 0, True, True), {}),
+    ("burning_ship", (8, 1, True, False), {}),
+    ("burning_ship", (1, 2, True, True), {}),
+    ("phoenix", (2, 0, True, True), {}),
+    ("phoenix", (0, 0, True, True), dict(stripe_density=0.0,
+                                         phoenix_p=0.0)),
+    ("phoenix", (4, 0, True, False), dict(use_julia=True,
+                                          julia_c=(0.3, 0.2))),
+], ids=str)
+def test_fused_kernel_matches_plain(dev, family, fused, extra):
+    got, want = _both(dev, 200, 120, family=family, fused=fused,
+                      color_offset=0.3, color_scale=1.7, brightness=1.2,
+                      saturation=0.8, contrast=1.3, **extra)
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
 
 
+def _dd_both(dev, width, height, *, cx="-0.5", cy="0", zoom="3",
+             iter_limit=96, bailout=4.0, row0=0, map_height=None,
+             offset=(0.0, 0.0)):
+    params = dd_escape.pack_dd_params(
+        center_x_dd=dd.dd_from_string(cx), center_y_dd=dd.dd_from_string(cy),
+        zoom_dd=dd.dd_from_string(zoom), iter_limit=iter_limit,
+        bailout=bailout, offset=offset, row0=row0)
+    kw = dict(width=width, height=height, map_height=map_height or height,
+              row0=row0, device=dev)
+    got = dd_escape.dd_escape_fields_cuda(params, **kw)
+    want = dd_escape.dd_escape_fields_plain(params, **kw)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("case", [
+    dict(width=1, height=1),
+    dict(width=65, height=33),
+    dict(width=96, height=54, cx="-0.743643887037151",
+         cy="0.13182590420533", zoom="1e-9", iter_limit=1500),
+    dict(width=64, height=9, row0=20, map_height=40, offset=(0.5, 0.25)),
+    dict(width=40, height=30, iter_limit=1),
+    dict(width=40, height=30, bailout=2.5, zoom="1e-6",
+         cx="-1.7497591451303665", cy="0.0000000000000000"),
+], ids=str)
+def test_dd_kernel_equals_plain(dev, case):
+    got, want = _dd_both(dev, **case)
+    for name, g, w in zip(("n", "zx", "zy"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), f"{name} differs"
+
+
 def test_launch_counter_counts_kernel_launches(dev):
     before = escape.escape_fields_cuda.launches
-    f = escape.escape_fields("mandelbrot", 16, 8, center_x=-0.5,
-                             center_y=0.0, zoom=3.0, max_iter=32,
+    f = escape.escape_fields("julia", 16, 8, center_x=0.0, center_y=0.0,
+                             zoom=3.0, max_iter=32, julia_c=(-0.7, 0.27),
                              device=dev)
     assert f["n"].device.type == "cuda"
     assert escape.escape_fields_cuda.launches == before + 1
+    before = dd_escape.dd_escape_fields_cuda.launches
+    f = dd_escape.dd_escape_fields(16, 8, center_x_dd=(-0.5, 0.0),
+                                   center_y_dd=(0.0, 0.0),
+                                   zoom_dd=(3.0, 0.0), max_iter=32,
+                                   device=dev)
+    assert f["n"].device.type == "cuda"
+    assert dd_escape.dd_escape_fields_cuda.launches == before + 1
 
 
 def test_kernel_rejects_unported_styles(dev):
+    # interior style 2 reads the tracked trap, so the fused kernel refuses
+    # it as the JAX kernel does; the pipeline renders it unfused
+    import fractalrenderer_tpu_torch as frt
+
+    before = escape.escape_fields_cuda.launches
+    scene = frt.Scene(interior_style=2, max_iterations=64)
+    img = frt.render(scene, 40, 24, device=dev)
+    assert escape.escape_fields_cuda.launches == before + 1
+    torch.testing.assert_close(img.cpu(), frt.render(scene, 40, 24,
+                                                     device="cpu"),
+                               rtol=0, atol=1e-5)
+
+
+def test_kernel_rejects_fused_trap_glow(dev):
     params = escape.pack_params(center_x=-0.5, center_y=0.0, zoom=3.0,
                                 iter_limit=16)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="interior_style 2"):
         escape.escape_fields_cuda(
             params, width=8, height=8, map_height=8, row0=0,
             max_iter_cap=16, interior_skip=False,

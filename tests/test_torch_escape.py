@@ -1,11 +1,13 @@
 """The port's escape kernel K1 (plain PyTorch version on CPU) against the
-numpy golden reference and the JAX package's Pallas kernel.
+numpy golden reference and the JAX package's Pallas kernel, for the four
+families.
 
 Contract:
 - against ``reference/golden.py``: 0 iteration-count mismatches and
   bit-equal zx/zy, at every height (not only powers of two); pixels taken
   by the analytic interior skip are exempt from the z comparison and must
-  report z = 0;
+  report z = 0; bit-equal traps; the Burning Ship stripe within rtol 1e-3,
+  atol 2e-4·iters;
 - against the JAX ``escape_fields`` in interpret mode (XLA:CPU contracts
   FMAs, so it is itself not exact): the mismatch fractions of
   test_golden_vs_kernel.py (0.005 at the default view, 0.08 at Seahorse).
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from fractalrenderer_tpu.ops import escape as jax_escape
+from fractalrenderer_tpu.presets import JULIA_PRESETS
 from fractalrenderer_tpu.reference import golden
 from fractalrenderer_tpu_torch.ops import escape
 
@@ -192,10 +195,194 @@ def test_launch_checks():
         escape.escape_fields("mandelbrot", 8, 8, row0=4, map_height=8, **kw)
     with pytest.raises(ValueError, match="2\\^24"):
         escape.escape_fields("mandelbrot", 8, 8, **dict(kw, max_iter=1 << 24))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        escape.escape_fields("julia", 8, 8, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # every family runs now; an unknown one is refused as in the JAX package
+    f = escape.escape_fields("julia", 8, 8, **kw)
+    assert f["n"].shape == (8, 8)
+    with pytest.raises(ValueError, match="unknown family"):
+        escape.escape_fields("newton", 8, 8, **kw)
+    # the JAX asserts: fused + tracking, fused Mandelbrot trap glow
+    with pytest.raises(ValueError, match="interior_style 2"):
         escape.escape_fields("mandelbrot", 8, 8, fused_color=(0, 2, False),
                              **kw)
+    with pytest.raises(ValueError, match="trap/stripe/deriv"):
+        escape.escape_fields("burning_ship", 8, 8, fused_color=(0, 0, True),
+                             track_trap=True, **kw)
     with pytest.raises(ValueError, match="unsupported device"):
         escape.escape_fields("mandelbrot", 8, 8, device="meta", **kw)
+
+
+# ---------------------------------------------------------------------------
+# The other families and the aux outputs
+# ---------------------------------------------------------------------------
+
+ITERS = 96
+FAMILY_VIEWS = {
+    # (golden function args, port escape_fields kwargs)
+    "julia": dict(cx=0.0, cy=0.0, zoom=3.0, julia_c=(-0.7, 0.27015)),
+    "burning_ship": dict(cx=-0.5, cy=-0.6, zoom=2.0),
+    "phoenix": dict(cx=0.0, cy=0.0, zoom=3.0, julia_c=(0.5667, 0.0),
+                    phoenix_p=0.0, phoenix_r=-0.5, use_julia=False),
+    "phoenix_julia": dict(cx=0.0, cy=0.0, zoom=3.0, julia_c=(0.3, 0.2),
+                          phoenix_p=0.1, phoenix_r=-0.3, use_julia=True),
+}
+
+
+def _golden_family(name, w, h, iters=ITERS):
+    v = FAMILY_VIEWS[name]
+    if name == "julia":
+        return golden.julia_fields(w, h, v["cx"], v["cy"], v["zoom"],
+                                   *v["julia_c"], iters, 4.0)
+    if name == "burning_ship":
+        return golden.burning_ship_fields(w, h, v["cx"], v["cy"], v["zoom"],
+                                          iters, 4.0, True, 0.5, True, 10.0,
+                                          2)
+    return golden.phoenix_fields(w, h, v["cx"], v["cy"], v["zoom"], iters,
+                                 v["julia_c"], v["use_julia"],
+                                 v["phoenix_p"], v["phoenix_r"])
+
+
+def _port_family(name, w, h, iters=ITERS, **kw):
+    v = dict(FAMILY_VIEWS[name])
+    family = "phoenix" if name.startswith("phoenix") else name
+    f = escape.escape_fields(family, w, h, center_x=v.pop("cx"),
+                             center_y=v.pop("cy"), zoom=v.pop("zoom"),
+                             max_iter=iters, **v, **kw)
+    return {k: t.numpy() for k, t in f.items()}
+
+
+@pytest.mark.parametrize("size", [(96, 64), (100, 75)], ids=str)
+@pytest.mark.parametrize("name", sorted(FAMILY_VIEWS))
+def test_family_plain_is_bit_exact_vs_golden(name, size):
+    kw = dict(track_trap=True, track_stripe=True) \
+        if name == "burning_ship" else {}
+    f = _port_family(name, *size, **kw)
+    n, zx, zy = _golden_family(name, *size)[:3]
+    assert int((f["n"] != n).sum()) == 0
+    np.testing.assert_array_equal(f["zx"], zx)
+    np.testing.assert_array_equal(f["zy"], zy)
+    if name == "phoenix_julia":  # the pixel is ignored: one orbit for all
+        assert (f["n"] == f["n"][0, 0]).all()
+
+
+@pytest.mark.parametrize("preset", sorted(JULIA_PRESETS))
+def test_julia_presets_bit_exact_vs_golden(preset):
+    cr, ci = JULIA_PRESETS[preset]
+    f = escape.escape_fields("julia", 64, 32, center_x=0.0, center_y=0.0,
+                             zoom=3.0, max_iter=64, julia_c=(cr, ci))
+    n, zx, zy = golden.julia_fields(64, 32, 0.0, 0.0, 3.0, cr, ci, 64, 4.0)
+    np.testing.assert_array_equal(f["n"].numpy(), n)
+    np.testing.assert_array_equal(f["zx"].numpy(), zx)
+    np.testing.assert_array_equal(f["zy"].numpy(), zy)
+
+
+@pytest.mark.parametrize("size", [(96, 64), (100, 75)], ids=str)
+def test_aux_fields_vs_golden(size):
+    # traps bit-exact; the stripe (a sum of sin terms) within the JAX
+    # contract rtol 1e-3, atol 2e-4 * iters (test_golden_vs_kernel.py)
+    f = _port_family("burning_ship", *size, track_trap=True,
+                     track_stripe=True)
+    _, _, _, trap, stripe = _golden_family("burning_ship", *size)
+    np.testing.assert_array_equal(f["trap"], trap)
+    np.testing.assert_allclose(f["stripe"], stripe, rtol=1e-3,
+                               atol=2e-4 * ITERS)
+    assert np.abs(f["stripe"]).max() > 1.0  # the stripe really accumulates
+    w, h = size
+    m = escape.escape_fields("mandelbrot", w, h, center_x=-0.5,
+                             center_y=0.0, zoom=3.0, max_iter=ITERS,
+                             track_trap=True)
+    _, _, _, mtrap = golden.mandelbrot_fields(w, h, -0.5, 0.0, 3.0, ITERS,
+                                              4.0)
+    np.testing.assert_array_equal(m["trap"].numpy(), mtrap)
+
+
+def test_aux_outputs_follow_the_jax_gating():
+    kw = dict(center_x=0.0, center_y=0.0, zoom=3.0, max_iter=32,
+              track_trap=True, track_stripe=True, track_deriv=True,
+              interior_skip=True)
+    # julia/phoenix: constant trap 0 and stripe 0, no dz, no skip
+    for family in ("julia", "phoenix"):
+        f = escape.escape_fields(family, 24, 16, **kw)
+        assert list(f) == ["n", "zx", "zy", "trap", "stripe"]
+        assert (f["trap"] == 0).all() and (f["stripe"] == 0).all()
+    f = escape.escape_fields("mandelbrot", 24, 16, **kw)
+    assert list(f) == ["n", "zx", "zy", "trap", "stripe", "dzx", "dzy"]
+    assert (f["stripe"] == 0).all()
+    assert torch.isfinite(f["trap"]).all()
+
+
+@pytest.mark.parametrize("name,frac", [("julia", 0.005),
+                                       ("burning_ship", 0.05),
+                                       ("phoenix", 0.005)])
+def test_family_plain_close_to_jax_kernel(name, frac):
+    # the JAX kernel in interpret mode is not count-exact on CPU (XLA:CPU
+    # contracts FMAs): the mismatch fractions of test_golden_vs_kernel.py
+    v = dict(FAMILY_VIEWS[name])
+    kw = dict(center_x=v.pop("cx"), center_y=v.pop("cy"), zoom=v.pop("zoom"),
+              max_iter=ITERS, **v)
+    if name == "burning_ship":
+        kw.update(track_trap=True, track_stripe=True)
+    ref = jax_escape.escape_fields(name, W_JAX, H_JAX, **kw)
+    mine = escape.escape_fields(name, W_JAX, H_JAX, **kw)
+    assert list(mine) == list(ref)
+    assert (mine["n"].numpy() != np.asarray(ref["n"])).mean() <= frac
+
+
+W_JAX, H_JAX = 96, 64
+
+
+def test_derivative_close_to_jax_kernel():
+    # dz compared on pixels where n agrees: XLA:CPU's FMA contraction moves
+    # the orbit by ulps, which the derivative amplifies, so the bound is a
+    # relative difference <= 1e-2 on >= 99% of them, with inf/NaN at the
+    # same pixels
+    kw = dict(center_x=-0.5, center_y=0.0, zoom=3.0, max_iter=ITERS,
+              track_deriv=True, track_trap=True)
+    ref = jax_escape.escape_fields("mandelbrot", W_JAX, H_JAX, **kw)
+    mine = escape.escape_fields("mandelbrot", W_JAX, H_JAX, **kw)
+    same = mine["n"].numpy() == np.asarray(ref["n"])
+    assert same.mean() >= 0.995
+    for k in ("dzx", "dzy"):
+        a, b = np.asarray(ref[k])[same], mine[k].numpy()[same]
+        np.testing.assert_array_equal(np.isfinite(a), np.isfinite(b))
+        fin = np.isfinite(b)
+        rel = np.abs(a[fin] - b[fin]) / np.maximum(np.abs(b[fin]), 1e-30)
+        assert (rel <= 1e-2).mean() >= 0.99, k
+    np.testing.assert_allclose(mine["trap"].numpy()[same],
+                               np.asarray(ref["trap"])[same], rtol=1e-4,
+                               atol=1e-5)
+
+
+_FAMILY_PACK_CASES = [
+    ("julia", dict(center_x=0.0, center_y=0.0, zoom=3.0, max_iter=256,
+                   julia_c=(-0.7, 0.27015), bailout=3.0)),
+    ("burning_ship", dict(center_x=-0.5, center_y=-0.6, zoom=2.0,
+                          max_iter=512, trap_radius=0.3,
+                          stripe_density=12.5, iter_limit=300,
+                          offset=(0.001, -0.002))),
+    ("phoenix", dict(center_x=0.1, center_y=0.2, zoom=3.0, max_iter=256,
+                     julia_c=(0.5667, 0.1), phoenix_p=0.2,
+                     phoenix_r=-0.3, bailout=9.0, stripe_density=5.0,
+                     color_offset=0.2, brightness=1.3, row0=12.0)),
+    ("mandelbrot", dict(center_x=-0.5, center_y=0.0, zoom=3.0, max_iter=256,
+                        julia_c=(0.3, 0.3), trap_radius=0.7,
+                        phoenix_p=0.5)),
+]
+
+
+@pytest.mark.parametrize("family,kw", _FAMILY_PACK_CASES,
+                         ids=[c[0] for c in _FAMILY_PACK_CASES])
+def test_pack_params_matches_jax_layout_per_family(family, kw, monkeypatch):
+    seen = {}
+
+    def fake_call(params, **static):
+        seen["params"] = np.asarray(params)
+        seen["static"] = static
+        return (np.zeros((2, 2), np.int32),) + (np.zeros((2, 2)),) * 2
+
+    monkeypatch.setattr(jax_escape, "_escape_call", fake_call)
+    jax_escape.escape_fields(family, 2, 2, **kw)
+    kw = dict(kw)
+    max_iter = kw.pop("max_iter")
+    kw.setdefault("iter_limit", max_iter)
+    got = escape.pack_params(family=family, **kw)
+    np.testing.assert_array_equal(got, seen["params"].reshape(-1))

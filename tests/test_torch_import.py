@@ -1,6 +1,6 @@
 """The port's import boundary and its device dispatch: it loads neither jax
 nor the JAX package, its kernel-build module imports without a CUDA
-toolkit, and a CUDA device never falls back to the CPU path."""
+toolkit, and a CUDA device never falls back to the CPU path (K1 and K2)."""
 import os
 import subprocess
 import sys
@@ -17,9 +17,16 @@ _PROBE = """
 import sys
 import fractalrenderer_tpu_torch
 import fractalrenderer_tpu_torch.cli
+import fractalrenderer_tpu_torch.models.burning_ship
+import fractalrenderer_tpu_torch.models.julia
 import fractalrenderer_tpu_torch.models.mandelbrot
+import fractalrenderer_tpu_torch.models.phoenix
 import fractalrenderer_tpu_torch.ops._cuda
+import fractalrenderer_tpu_torch.ops.coloring
+import fractalrenderer_tpu_torch.ops.dd
+import fractalrenderer_tpu_torch.ops.dd_escape
 import fractalrenderer_tpu_torch.ops.escape
+import fractalrenderer_tpu_torch.ops.trig
 import fractalrenderer_tpu_torch.utils.png
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "fractalrenderer_tpu")]
@@ -55,7 +62,8 @@ def test_library_name_follows_the_sources(tmp_path, monkeypatch):
 
 
 def test_kernel_sources_ship_in_the_package():
-    assert [os.path.basename(s) for s in _cuda.sources()] == ["escape.cu"]
+    assert [os.path.basename(s) for s in _cuda.sources()] == [
+        "dd_escape.cu", "escape.cu"]
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
@@ -69,8 +77,49 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
     assert escape.escape_fields_cuda.launches == before
 
 
+@pytest.mark.parametrize("scene", [
+    dict(fractal_type=frt.FractalType.JULIA, antialiasing_samples=2),
+    dict(fractal_type=frt.FractalType.BURNING_SHIP, orbit_trap_enabled=True),
+    dict(fractal_type=frt.FractalType.PHOENIX),
+], ids=["julia_aa2", "ship_unfused", "phoenix"])
+def test_cuda_device_never_falls_back(monkeypatch, scene):
+    # every branch of the pipeline reaches a kernel wrapper that raises
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        frt.render(frt.Scene(max_iterations=16, **scene), 8, 8,
+                   device="cuda")
+
+
+def test_dd_cuda_device_without_cuda_raises(monkeypatch):
+    from fractalrenderer_tpu_torch.models.mandelbrot import render_dd
+    from fractalrenderer_tpu_torch.ops import dd_escape
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = dd_escape.dd_escape_fields_cuda.launches
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        render_dd(frt.Scene(max_iterations=16), 8, 8, device="cuda")
+    params = dd_escape.pack_dd_params(center_x_dd=(0.0, 0.0),
+                                      center_y_dd=(0.0, 0.0),
+                                      zoom_dd=(3.0, 0.0), iter_limit=8)
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        dd_escape.dd_escape_fields_cuda(params, width=4, height=4,
+                                        map_height=4, row0=0, device="cpu")
+    assert dd_escape.dd_escape_fields_cuda.launches == before
+
+
 def test_cpu_path_launches_no_kernel():
+    from fractalrenderer_tpu_torch.models.mandelbrot import render_dd
+    from fractalrenderer_tpu_torch.ops import dd_escape
+
     before = escape.escape_fields_cuda.launches
+    before_dd = dd_escape.dd_escape_fields_cuda.launches
     img = frt.render(frt.Scene(max_iterations=16), 8, 4, device="cpu")
     assert img.device.type == "cpu"
+    img = frt.render(frt.Scene(max_iterations=16, antialiasing_samples=2,
+                               fractal_type=frt.FractalType.BURNING_SHIP,
+                               orbit_trap_enabled=True), 8, 4, device="cpu")
+    assert img.device.type == "cpu"
+    assert render_dd(frt.Scene(max_iterations=16), 8, 4,
+                     device="cpu").device.type == "cpu"
     assert escape.escape_fields_cuda.launches == before
+    assert dd_escape.dd_escape_fields_cuda.launches == before_dd
