@@ -7,24 +7,28 @@ toolkit:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (K1, the escape kernel of the
-four 2D families, and K2, the double-double Mandelbrot kernel), holds every
-kernel instance against its plain PyTorch version on the card at 1920x1080,
-drives each ported path through ``cli render`` (the default Mandelbrot
-frame, Julia, Burning Ship with traps and stripes, Phoenix, AA 2 and
-``--precision dd``) and the distance field through its library call, checks
-that each path launched its kernel and that each PNG is within 1 LSB of the
-same pipeline run on the plain versions, and times kernel against plain
-version with CUDA events.  Each phase prints one line; any failure raises,
-so the exit code is non-zero and no result line is printed.  On success the
-last three lines are the card's name and power limit, a JSON line
-describing each kernel instance, and ``{"ok": true, "device": {...}}``.
-Imports no JAX.
+four 2D families; K2, the double-double Mandelbrot kernel; K3, the
+perturbation deep-zoom kernel in its f32, dd and floatexp tiers), holds
+every kernel instance against its plain PyTorch version on the card (K1 and
+K2 at 1920x1080; K3 on the whole frame against a 64-row band of it run on
+the plain version, which is launch-bound), drives each ported path through
+``cli render`` (the default Mandelbrot frame, Julia, Burning Ship with
+traps and stripes, Phoenix, AA 2, ``--precision dd`` and ``--type
+deep-zoom`` at configs 4 and 7) and the distance field and the deep-zoom
+fields through their library calls, checks that each path launched its
+kernel and that each PNG is within 1 LSB of the same pipeline run on the
+plain versions, and times kernel against plain version with CUDA events.
+Each phase prints one line; any failure raises, so the exit code is
+non-zero and no result line is printed.  On success the last three lines
+are the card's name and power limit, a JSON line describing each kernel
+instance, and ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 from __future__ import annotations
 
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -44,8 +48,36 @@ DD_VIEW = dict(cx="-0.743643887037151", cy="0.13182590420533", zoom="1e-9",
 COLOR_ATOL = 1e-5  # the colour contract of the reference's own tests
 ESCAPE_SRC = "fractalrenderer_tpu_torch/csrc/escape.cu"
 DD_SRC = "fractalrenderer_tpu_torch/csrc/dd_escape.cu"
+PERT_SRC = "fractalrenderer_tpu_torch/csrc/perturbation.cu"
 K1_TPU = "fractalrenderer_tpu/ops/escape.py:155"
 K2_TPU = "fractalrenderer_tpu/ops/dd_escape.py:35"
+K3_TPU = "fractalrenderer_tpu/ops/perturbation.py:245"
+
+# Deep-zoom views (decimal strings, as the CLI's --hp-* flags take them):
+# one per K3 delta tier.  Config 4 and config 7 are the benchmark configs
+# of BASELINE.md (1e-12 x 10000 at 1080p; 1e-50 at 960x540).
+DZ_VIEWS = {
+    "seahorse": dict(cx="-0.743643887037151", cy="0.13182590420533",
+                     zoom="1e-6", iters=2000),
+    "config4": dict(cx="-0.74364388703715158", cy="0.13182590420531198",
+                    zoom="1e-12", iters=10000),
+    "config7": dict(cx="0", cy="1", zoom="1e-50", iters=2000),
+}
+# (instance, label, view, width, height, series skip)
+PERT_CASES = [
+    ("pert_mandelbrot_f32", "Seahorse 1e-6 x2000", "seahorse", 1920, 1080,
+     False),
+    ("pert_mandelbrot_dd", "config 4 (1e-12 x10000), series off", "config4",
+     1920, 1080, False),
+    ("pert_mandelbrot_dd", "config 4, series on", "config4", 1920, 1080,
+     True),
+    ("pert_mandelbrot_fx", "config 7 (c = i, 1e-50 x2000)", "config7", 960,
+     540, False),
+    ("pert_mandelbrot_fx", "c = i, 1e-50 x2000", "config7", 1920, 1080,
+     False),
+]
+BAND_ROWS = 64  # rows of the frame's middle the plain version runs
+PERT_TIERS = ("f32", "dd", "fx")
 
 # The families' views at full width (the JAX package's defaults for the
 # view each family is shown at) and the outputs their fields mode tracks.
@@ -124,9 +156,12 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"escape_kernelILi(\d)ELb([01])E", m.group(1))
+            t = re.search(r"pert_mandelbrot_kernelILi(\d)E", m.group(1))
             if k:
                 name = (f"escape_{families[int(k.group(1))]}_"
                         + ("fused" if k.group(2) == "1" else "fields"))
+            elif t:
+                name = "pert_mandelbrot_" + PERT_TIERS[int(t.group(1))]
             else:
                 name = ("dd_escape_mandelbrot" if "dd_escape_kernel"
                         in m.group(1) else m.group(1))
@@ -140,6 +175,12 @@ def ptxas_report(log: str) -> dict:
         if m and name:
             report[name]["regs"] = int(m.group(1))
     return report
+
+
+def dz_flags(view: dict) -> list:
+    v = DZ_VIEWS[view]
+    return ["--type", "deep-zoom", "--hp-center-x", v["cx"], "--hp-center-y",
+            v["cy"], "--hp-zoom", v["zoom"], "--iters", str(v["iters"])]
 
 
 def same_bits(a, b) -> bool:
@@ -164,11 +205,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("error: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    from fractalrenderer_tpu_torch import Scene, cli, models
-    from fractalrenderer_tpu_torch.models import common
+    from fractions import Fraction
+
+    from fractalrenderer_tpu_torch import FractalType, Scene, cli, models
+    from fractalrenderer_tpu_torch.deepzoom import orbit as orbit_mod
+    from fractalrenderer_tpu_torch.deepzoom import series as series_mod
+    from fractalrenderer_tpu_torch.deepzoom.hp import (
+        precision_mode_for_zoom_frac)
+    from fractalrenderer_tpu_torch.models import common, deep_zoom
     from fractalrenderer_tpu_torch.models.mandelbrot import (distance_field,
                                                              render_dd)
-    from fractalrenderer_tpu_torch.ops import _cuda, dd, dd_escape, escape
+    from fractalrenderer_tpu_torch.ops import (_cuda, dd, dd_escape, escape,
+                                               perturbation)
     from fractalrenderer_tpu_torch.utils import png
     from fractalrenderer_tpu_torch.utils.image import to_export_orientation
 
@@ -327,83 +375,208 @@ def main() -> int:
           f"{got[0].float().mean():.1f}, {int((got[0] < DD_VIEW['iters']).sum())}"
           " escaped)", flush=True)
 
+    # -- K3: each delta tier, the kernel's frame against a plain band --------
+    # Every reference orbit the run computes is logged with its engine and
+    # host time (the model computes its own through the same function).
+    orbit_log = []
+    compute_orbit = orbit_mod.compute_orbit
+
+    def logged_orbit(*a, **kw):
+        t0 = time.perf_counter()
+        o = compute_orbit(*a, **kw)
+        orbit_log.append((len(o), time.perf_counter() - t0))
+        return o
+
+    orbit_mod.compute_orbit = logged_orbit
+
+    def orbit_engine() -> str:
+        return ("native C++ (native/orbit.cpp)"
+                if orbit_mod._load_native() is not None else "Python bignum")
+
+    def pert_setup(view, width, height, series):
+        """The orbit, series and tier flags the deep-zoom model derives
+        for ``view`` at width x height (models/deep_zoom.render_fields)."""
+        v = DZ_VIEWS[view]
+        zoom_fr = Fraction(v["zoom"])
+        mode, bits = precision_mode_for_zoom_frac(zoom_fr)
+        bits = -(-bits // 64) * 64
+        scaled = mode.name == "ARBITRARY"
+        orb = orbit_mod.compute_orbit(v["cx"], v["cy"], bits, v["iters"] + 1)
+        skip = None
+        if series:
+            corner = math.hypot(0.5 * width / height + 1.0 / height,
+                                0.5 + 1.0 / height)
+            skip = (series_mod.compute_series_skip_fx(
+                orb, zoom_fr * 4 * Fraction(corner) / height) if scaled
+                else series_mod.compute_series_skip(
+                    orb, float(zoom_fr) * 4.0 / height * corner))
+        kw = dict(center_x_dd=dd.dd_from_string(v["cx"]),
+                  center_y_dd=dd.dd_from_string(v["cy"]),
+                  zoom_dd=dd.dd_from_string(v["zoom"]), max_iter=v["iters"],
+                  series=skip, scaled_delta=scaled, zoom_frac=v["zoom"],
+                  dd_delta=float(zoom_fr) <= 1e-7 and not scaled)
+        return orb, kw, skip
+
+    # (case index, params, device streams, tier, w, h, plain band ms)
+    pert_frames = []
+    for ci, (name, label, view, pw, ph, series) in enumerate(PERT_CASES):
+        orb, kw, skip = pert_setup(view, pw, ph, series)
+        nlen, orbit_s = orbit_log[-1]
+        params, streams, tier = perturbation.pack_pert_operands(
+            orb, pw, ph, **kw)
+        r0 = ph // 2 - BAND_ROWS // 2
+        bparams, _, _ = perturbation.pack_pert_operands(
+            orb, pw, BAND_ROWS, row0=float(r0), map_height=ph, **kw)
+        assert name == f"pert_mandelbrot_{tier}", (name, tier)
+        dstreams = [torch.from_numpy(a).to(dev) for a in streams]
+        launch = dict(tier=tier, width=pw, map_height=ph, max_passes=256,
+                      device=dev)
+        got = perturbation.perturbation_fields_cuda(params, dstreams,
+                                                    height=ph, **launch)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = perturbation.perturbation_fields_plain(
+            bparams, dstreams, height=BAND_ROWS, **launch)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        for nm, g, w in zip(("n", "zx", "zy", "glitch", "want", "rounds"),
+                            got, want):
+            assert torch.equal(g[r0:r0 + BAND_ROWS], w), \
+                f"K3 {label}: {nm} not bit-equal over rows {r0}-" \
+                f"{r0 + BAND_ROWS - 1}"
+        n_k, zx_k, zy_k, _, want_k, rounds_k = got
+        assert int(want_k.sum()) == 0, f"K3 {label}: lanes left wanting"
+        assert torch.isfinite(zx_k).all() and torch.isfinite(zy_k).all()
+        e = entry(name, PERT_SRC, K3_TPU, 0.0)
+        if e["plain_ms"] is None:  # the instance's first (main) frame
+            e["plain_ms"] = plain_ms
+        pert_frames.append((ci, params, dstreams, tier, pw, ph, plain_ms))
+        print(f"K3 {tier} {label} {pw}x{ph}: n/zx/zy/want/rounds bit-equal "
+              f"to the plain version over rows {r0}-{r0 + BAND_ROWS - 1} "
+              f"(plain band {plain_ms / 1e3:.2f} s); n mean "
+              f"{n_k.float().mean():.1f}, max {int(n_k.max())}, interior "
+              f"{float((n_k >= kw['max_iter']).float().mean()):.4f}; rounds "
+              f"max {int(rounds_k.max())}, mean {rounds_k.mean():.2f}; "
+              f"series skip {skip.n_skip if skip else 0}; orbit {nlen} "
+              f"entries by {orbit_engine()} in {orbit_s * 1e3:.1f} ms",
+              flush=True)
+
     # -- the paths, through the entry points a user calls --------------------
+    # the kernel wrappers, each with its plain version, source and TPU kernel
+    wrappers = {
+        escape: ("escape_fields_cuda", "escape_fields_plain", ESCAPE_SRC,
+                 K1_TPU),
+        dd_escape: ("dd_escape_fields_cuda", "dd_escape_fields_plain",
+                    DD_SRC, K2_TPU),
+        perturbation: ("perturbation_fields_cuda",
+                       "perturbation_fields_plain", PERT_SRC, K3_TPU),
+    }
+
     @contextlib.contextmanager
     def plain_kernels():
         """Run the same pipeline with the plain versions on the card."""
-        saved = escape.escape_fields_cuda, dd_escape.dd_escape_fields_cuda
-        escape.escape_fields_cuda = escape.escape_fields_plain
-        dd_escape.dd_escape_fields_cuda = dd_escape.dd_escape_fields_plain
+        saved = {m: getattr(m, w[0]) for m, w in wrappers.items()}
+        for m, (cuda_fn, plain_fn, _, _) in wrappers.items():
+            setattr(m, cuda_fn, getattr(m, plain_fn))
         try:
             yield
         finally:
-            escape.escape_fields_cuda, dd_escape.dd_escape_fields_cuda = saved
+            for m, fn in saved.items():
+                setattr(m, wrappers[m][0], fn)
 
     def reset_counts():
-        escape.escape_fields_cuda.launches = 0
-        dd_escape.dd_escape_fields_cuda.launches = 0
+        for m, w in wrappers.items():
+            getattr(m, w[0]).launches = 0
+
+    def counts():
+        return {m: getattr(m, w[0]).launches for m, w in wrappers.items()}
 
     paths = [
-        # (label, cli flags, kernel instance it runs, wrapper)
-        ("default", [], "escape_mandelbrot_fused", escape),
-        ("--type julia", ["--type", "julia"], "escape_julia_fused", escape),
+        # (label, cli flags, kernel instance it runs, wrapper module, size,
+        #  whether to hold the PNG against the plain pipeline)
+        ("default", [], "escape_mandelbrot_fused", escape, (W, H), True),
+        ("--type julia", ["--type", "julia"], "escape_julia_fused", escape,
+         (W, H), True),
         ("--type burning-ship --orbit-trap --stripes --interior-style 2",
          ["--type", "burning-ship", "--orbit-trap", "--stripes",
-          "--interior-style", "2"], "escape_burning_ship_fields", escape),
+          "--interior-style", "2"], "escape_burning_ship_fields", escape,
+         (W, H), True),
         ("--type burning-ship", ["--type", "burning-ship"],
-         "escape_burning_ship_fused", escape),
+         "escape_burning_ship_fused", escape, (W, H), True),
         ("--type phoenix", ["--type", "phoenix"], "escape_phoenix_fused",
-         escape),
-        ("--aa 2", ["--aa", "2"], "escape_mandelbrot_fused", escape),
+         escape, (W, H), True),
+        ("--aa 2", ["--aa", "2"], "escape_mandelbrot_fused", escape, (W, H),
+         True),
         ("--orbit-trap --interior-style 2",
          ["--orbit-trap", "--interior-style", "2"],
-         "escape_mandelbrot_fields", escape),
+         "escape_mandelbrot_fields", escape, (W, H), True),
         ("--precision dd --hp-zoom 1e-9 --iters 1500",
          ["--precision", "dd", "--hp-zoom", "1e-9", "--iters", "1500",
-          "--preset", "Seahorse Valley"], "dd_escape_mandelbrot", dd_escape),
+          "--preset", "Seahorse Valley"], "dd_escape_mandelbrot", dd_escape,
+         (W, H), True),
+        # the deep zoom: config 4 at full size (its plain pipeline takes
+        # minutes at 1080p), then at 480x270 against the plain pipeline
+        ("--type deep-zoom, config 4 (1e-12 x10000)", dz_flags("config4"),
+         "pert_mandelbrot_dd", perturbation, (W, H), False),
+        ("--type deep-zoom, config 4 (1e-12 x10000)", dz_flags("config4"),
+         "pert_mandelbrot_dd", perturbation, (480, 270), True),
+        ("--type deep-zoom, Seahorse 1e-6 x2000", dz_flags("seahorse"),
+         "pert_mandelbrot_f32", perturbation, (W, H), True),
+        ("--type deep-zoom, config 7 (c = i, 1e-50 x2000)",
+         dz_flags("config7"), "pert_mandelbrot_fx", perturbation, (960, 540),
+         True),
     ]
     main_wall = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for label, flags, instance, module in paths:
+        for label, flags, instance, module, (pw, ph), compare in paths:
             out = os.path.join(tmp, "frame.png")
-            argv = ["render", "--width", str(W), "--height", str(H), *flags,
-                    "--out", out]
+            argv = ["render", "--width", str(pw), "--height", str(ph),
+                    *flags, "--out", out]
             reset_counts()
             t0 = time.monotonic()
-            with contextlib.redirect_stdout(io.StringIO()):
+            with contextlib.redirect_stdout(io.StringIO()) as said:
                 rc = cli.main(argv)
             wall = time.monotonic() - t0
-            counter = (escape.escape_fields_cuda if module is escape
-                       else dd_escape.dd_escape_fields_cuda)
-            launches = counter.launches
-            other = (dd_escape.dd_escape_fields_cuda if module is escape
-                     else escape.escape_fields_cuda).launches
+            launches = counts()
             assert rc == 0, f"cli render {label} exited {rc}"
-            assert launches > 0, f"{label}: the path did not launch its kernel"
-            assert other == 0, f"{label}: launched another kernel"
+            assert launches.pop(module) > 0, \
+                f"{label}: the path did not launch its kernel"
+            assert not any(launches.values()), \
+                f"{label}: launched another kernel"
+            launches = getattr(module, wrappers[module][0]).launches
             img = read_png_rgb8(out)
-            assert img.shape == (H, W, 3), img.shape
-            scene = cli.scene_from_args(cli.build_parser().parse_args(argv))
-            with plain_kernels():
-                if "dd" in flags:
-                    ref = common.quantize_image(
-                        render_dd(scene, W, H, device=dev), bit_depth=8)
-                else:
-                    ref = models.render(scene, W, H, device=dev, quantize=8)
-            ref = to_export_orientation(ref).cpu().numpy()
-            lsb = int(np.abs(img.astype(np.int32)
-                             - ref.astype(np.int32)).max())
-            assert lsb <= 1, f"{label}: PNG differs from the plain pipeline " \
-                f"by {lsb} LSB"
+            assert img.shape == (ph, pw, 3), img.shape
             assert 0 < img.mean() < 255, f"{label}: degenerate image"
-            e = entry(instance, DD_SRC if module is dd_escape else ESCAPE_SRC,
-                      K2_TPU if module is dd_escape else K1_TPU, 0.0)
+            note = "not compared (see the 480x270 run)"
+            if compare:
+                scene = cli.scene_from_args(
+                    cli.build_parser().parse_args(argv))
+                with plain_kernels():
+                    if "dd" in flags:
+                        ref = common.quantize_image(
+                            render_dd(scene, pw, ph, device=dev), bit_depth=8)
+                    else:
+                        ref = models.render(scene, pw, ph, device=dev,
+                                            quantize=8)
+                ref = to_export_orientation(ref).cpu().numpy()
+                lsb = int(np.abs(img.astype(np.int32)
+                                 - ref.astype(np.int32)).max())
+                assert lsb <= 1, f"{label}: PNG differs from the plain " \
+                    f"pipeline by {lsb} LSB"
+                note = f"max {lsb} LSB from the plain pipeline"
+            if module is perturbation:
+                info = said.getvalue().strip().splitlines()[-1].strip()
+                assert "0 HP-fallback, 0 remaining" in info, info
+                note += f"; {info}"
+            e = entry(instance, wrappers[module][2], wrappers[module][3], 0.0)
             e["launches"] += launches
-            main_wall[label] = wall
-            print(f"path cli render {label}: {W}x{H} PNG, {launches} "
+            main_wall[(label, pw, ph)] = wall
+            print(f"path cli render {label}: {pw}x{ph} PNG, {launches} "
                   f"launch(es) of {instance}, {wall * 1e3:.1f} ms wall "
-                  f"(first call), max {lsb} LSB from the plain pipeline",
-                  flush=True)
+                  f"(first call), {note}", flush=True)
 
     # the distance field (library entry point: K1 with the derivative)
     scene = Scene()
@@ -433,6 +606,49 @@ def main() -> int:
     print("path ops.escape.escape_fields julia/phoenix with trap+stripe: "
           "1 launch each", flush=True)
 
+    # the deep-zoom fields of configs 4 and 7 through the model: one K3
+    # launch, no HP fallback, equal to the K3 phase's frame of that view
+    def dz_scene(view, **kw):
+        v = DZ_VIEWS[view]
+        return Scene(fractal_type=FractalType.DEEP_ZOOM, hp_center_x=v["cx"],
+                     hp_center_y=v["cy"], hp_zoom=v["zoom"],
+                     max_iterations=v["iters"], use_perturbation=True, **kw)
+
+    for view, ci in (("config4", 1), ("config7", 3)):
+        _, params, dstreams, tier, pw, ph, _ = pert_frames[ci]
+        scene = dz_scene(view)
+        reset_counts()
+        n_orbits = len(orbit_log)
+        t0 = time.perf_counter()
+        n_f, zx_f, zy_f, _, info = deep_zoom.render_fields(
+            scene, pw, ph, keep_device=True, debug_rounds=True, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        assert launches.pop(perturbation) == 1, "render_fields: not 1 K3 launch"
+        assert not any(launches.values()), "render_fields: other kernels"
+        assert info["fallback_pixels"] == 0, info
+        assert info["glitched_pixels_remaining"] == 0, info
+        assert info["fields_on_device"], info
+        entry(PERT_CASES[ci][0], PERT_SRC, K3_TPU, 0.0)["launches"] += 1
+        ref = perturbation.perturbation_fields_cuda(
+            params, dstreams, tier=tier, width=pw, height=ph, map_height=ph,
+            max_passes=256, device=dev)
+        assert torch.equal(n_f, ref[0]) and torch.equal(zx_f, ref[1]), \
+            f"{view}: the model's fields differ from the K3 phase's frame"
+        (nlen, orbit_s), = orbit_log[n_orbits:]
+        iters = DZ_VIEWS[view]["iters"]
+        print(f"path models.deep_zoom.render_fields {view} {pw}x{ph}: 1 "
+              f"launch, {info['precision_mode']} ({info['precision_bits']} "
+              f"bits), dd_delta {info['dd_delta']}, scaled "
+              f"{info['scaled_delta']}, rebase_passes "
+              f"{info['rebase_passes']}, 0 fallback, 0 remaining; n min "
+              f"{int(n_f.min())}, mean {n_f.float().mean():.2f}, max "
+              f"{int(n_f.max())}, interior "
+              f"{float((n_f >= iters).float().mean()):.4f}; orbit {nlen} "
+              f"entries by {orbit_engine()} in {orbit_s * 1e3:.2f} ms; "
+              f"{wall * 1e3:.1f} ms wall", flush=True)
+
     # -- where a warm main-path frame's host time goes -----------------------
     stages = {"render+quantize": [], "flip+fetch": [], "png write": [],
               "cli render": []}
@@ -458,6 +674,49 @@ def main() -> int:
     print("main path, warm, host clock, median ms: " + ", ".join(
         f"{k} {statistics.median(v) * 1e3:.2f}" for k, v in stages.items()),
         flush=True)
+
+    # -- where a warm config-4 frame's time goes -----------------------------
+    scene = dz_scene("config4")
+    p = deep_zoom.ColorParams(
+        max_iterations=scene.max_iterations, bailout=scene.bailout,
+        palette_mode=scene.palette_mode, color_offset=scene.color_offset,
+        color_scale=scene.color_scale)
+    stages = {"orbit (host)": [], "render_fields (orbit+series+pack+K3)": [],
+              "colour+quantize": [], "flip+fetch": [], "png write": [],
+              "cli render": []}
+    argv = ["render", "--width", str(W), "--height", str(H),
+            *dz_flags("config4")]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "frame.png")
+        for _ in range(3):
+            n_orbits = len(orbit_log)
+            t0 = time.perf_counter()
+            n_f, zx_f, zy_f, _, _ = deep_zoom.render_fields(
+                scene, W, H, keep_device=True, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            img = common.quantize_image(
+                deep_zoom.color_fields_device(n_f, zx_f, zy_f, p),
+                bit_depth=8)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            host = to_export_orientation(img).cpu().numpy()
+            t3 = time.perf_counter()
+            png.write_png(out, host)
+            t4 = time.perf_counter()
+            stages["orbit (host)"].append(orbit_log[n_orbits][1])
+            stages["render_fields (orbit+series+pack+K3)"].append(t1 - t0)
+            stages["colour+quantize"].append(t2 - t1)
+            stages["flip+fetch"].append(t3 - t2)
+            stages["png write"].append(t4 - t3)
+        for _ in range(2):
+            with contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                assert cli.main([*argv, "--out", out]) == 0
+                stages["cli render"].append(time.perf_counter() - t0)
+    print(f"config 4 frame ({W}x{H}, 1e-12 x10000), warm, host clock, median "
+          "ms: " + ", ".join(f"{k} {statistics.median(v) * 1e3:.2f}"
+                              for k, v in stages.items()), flush=True)
 
     # -- time per 1080p frame, each instance against its plain version -------
     def timed(name, kernel_fn, plain_fn, kernel_reps=20, plain_reps=1):
@@ -500,8 +759,33 @@ def main() -> int:
           lambda: dd_escape.dd_escape_fields_plain(dd_params, **dd_frame),
           kernel_reps=5)
 
+    # K3: each case's full frame, one CUDA-event pair per launch, median of
+    # 7; the plain version's time is its 64-row band's in the K3 phase
+    for ci, params, dstreams, tier, pw, ph, plain_ms in pert_frames:
+        name, label = PERT_CASES[ci][:2]
+        runs = []
+        for _ in range(7):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            perturbation.perturbation_fields_cuda(
+                params, dstreams, tier=tier, width=pw, height=ph,
+                map_height=ph, max_passes=256, device=dev)
+            end.record()
+            end.synchronize()
+            runs.append(start.elapsed_time(end))
+        ms = statistics.median(runs)
+        e = kernels[name]
+        if e["ms"] is None:  # the instance's first (main) frame
+            e["ms"] = ms
+        print(f"time per {pw}x{ph} frame, {name} {label}: kernel {ms:.3f} ms "
+              f"(runs {[round(t, 3) for t in runs]}); {pw * ph / ms / 1e3:.2f}"
+              f" Mpix/s; plain version on its {pw}x{BAND_ROWS} band: "
+              f"{plain_ms:.1f} ms", flush=True)
+
     missing = [k for k, e in kernels.items() if e["launches"] == 0]
     assert not missing, f"instances no path launched: {missing}"
+    assert len(kernels) == 12, f"expected K1 x8, K2 and K3 x3: {list(kernels)}"
     print(f"smoke wall time {time.monotonic() - t_start:.1f} s (build "
           f"included)", flush=True)
     print(card_line())

@@ -1,9 +1,10 @@
 """Command-line interface of the PyTorch port (counterpart of
 ``fractalrenderer_tpu/cli.py``).  Only the ``render`` verb is ported, for
 the four 2D families (every AA, trap, stripe, interior-style and Julia
-option) and ``--precision dd``; the other verbs and the unported render
-options exit with code 2 and a one-line message naming the ROADMAP item
-that ports them.
+option), ``--precision dd`` and ``--type deep-zoom`` (the rebasing
+Mandelbrot perturbation path, every depth, with ``--series``); the other
+verbs and the unported render options exit with code 2 and a one-line
+message naming the ROADMAP item that ports them.
 
 Usage examples:
   python -m fractalrenderer_tpu_torch.cli render --out m.png
@@ -15,10 +16,14 @@ Usage examples:
       --julia-preset "Douady's Rabbit" --aa 2 --out rabbit.png
   python -m fractalrenderer_tpu_torch.cli render --precision dd \\
       --preset "Seahorse Valley" --hp-zoom 1e-9 --iters 1500 --out dd.png
+  python -m fractalrenderer_tpu_torch.cli render --type deep-zoom \\
+      --hp-center-x -0.74364388703715158 --hp-center-y 0.13182590420531198 \\
+      --hp-zoom 1e-12 --iters 10000 --out deep.png
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -169,7 +174,7 @@ def _size_ok(args) -> bool:
 _UNPORTED_RENDER_FLAGS = (
     ("golden", "--golden", 4),
     ("sharded", "--sharded", 8),
-    ("exact_dust", "--exact-dust", 6),
+    ("exact_dust", "--exact-dust", "6(f)"),
 )
 
 # verbs of the JAX CLI the port does not run yet → ROADMAP Queue 1 item
@@ -177,6 +182,40 @@ _UNPORTED_VERBS = {
     "export-print": 4, "animate": 4, "encode": 4, "presets": 4, "info": 4,
     "sweep": 3, "zoom-path": 6, "giant": 8, "interactive": 9,
 }
+
+
+@contextlib.contextmanager
+def _orbit_progress():
+    """Print reference-orbit progress to stderr during deep-zoom renders
+    (the reference prints every 5%, deep_zoom_system.cpp:313-318).  A new
+    orbit (done going backwards or a new total) finishes the previous
+    line and restarts the 5% ladder."""
+    from .deepzoom import orbit as _orbit
+
+    st = {"last": -1, "prev_done": None, "total": None}
+
+    def hook(done, total):
+        if (st["total"] != total
+                or (st["prev_done"] is not None and done < st["prev_done"])):
+            if st["last"] >= 0:
+                print(file=sys.stderr)  # finish the previous orbit's line
+            st["last"] = -1
+            st["total"] = total
+        st["prev_done"] = done
+        pct = done * 100 // max(total, 1)
+        if pct // 5 > st["last"]:
+            st["last"] = pct // 5
+            print(f"\r  reference orbit {done}/{total} ({pct}%)",
+                  end="", file=sys.stderr, flush=True)
+
+    prev = _orbit.progress_hook
+    _orbit.progress_hook = hook
+    try:
+        yield
+    finally:
+        _orbit.progress_hook = prev
+        if st["last"] >= 0:
+            print(file=sys.stderr)
 
 
 def _device_or_none(name: str):
@@ -221,9 +260,18 @@ def cmd_render(args) -> int:
     from . import models
 
     t0 = time.monotonic()
+    dz_info = None
     try:
         # quantized on the device; the interleave and flip are tensor glue
-        if args.precision == "dd":
+        if scene.fractal_type == FractalType.DEEP_ZOOM:
+            from .models import deep_zoom
+            from .utils.diag import validate_scene
+
+            with _orbit_progress():
+                img, dz_info = deep_zoom.render(
+                    validate_scene(scene), args.width, args.height,
+                    return_info=True, quantize=args.bit_depth, device=dev)
+        elif args.precision == "dd":
             from .models.common import quantize_image
             from .models.mandelbrot import render_dd
 
@@ -247,6 +295,14 @@ def cmd_render(args) -> int:
     print(f"Rendered {args.width}x{args.height} "
           f"{scene.fractal_type.display_name} on {dev} in {dt*1e3:.1f} ms "
           f"({mpix:.0f} Mpix/s incl. host transfer) -> {args.out}")
+    if dz_info is not None:
+        print(f"  deep zoom: {dz_info['precision_mode']} "
+              f"({dz_info['precision_bits']} bits), rebase x"
+              f"{dz_info['rebase_passes']} passes, "
+              f"{dz_info['references_used']} reference orbit(s), "
+              f"{dz_info['glitched_pixels_initial']} glitch-flagged -> "
+              f"{dz_info['fallback_pixels']} HP-fallback, "
+              f"{dz_info['glitched_pixels_remaining']} remaining")
     return 0
 
 

@@ -1,0 +1,77 @@
+// Double-double (two-f32) device arithmetic shared by K2
+// (csrc/dd_escape.cu) and K3 (csrc/perturbation.cu): one definition of the
+// dd operation order, that of fractalrenderer_tpu/ops/dd.py and of the
+// port's plain versions (fractalrenderer_tpu_torch/ops/dd.py).
+//
+// Exactness.  Build with -fmad=false and without --use_fast_math: the error
+// terms of two_sum and two_prod only hold when no operation is contracted
+// or reassociated.  two_prod keeps the Dekker split (c - (c - a) with
+// 4097) rather than an fmaf, because the plain versions have no fused
+// operation and the kernels must agree with them bit for bit.
+
+#ifndef FR_DD_CUH_
+#define FR_DD_CUH_
+
+struct dd_t {
+  float hi, lo;
+};
+
+// ops/dd.py split: Veltkamp split into 12+12-bit halves.
+static __device__ __forceinline__ void split(float a, float& hi, float& lo) {
+  const float c = 4097.0f * a;
+  hi = c - (c - a);
+  lo = a - hi;
+}
+
+// ops/dd.py two_prod: a * b = p + err exactly (Dekker).
+static __device__ __forceinline__ void two_prod(float a, float b, float& p,
+                                                float& err) {
+  p = a * b;
+  float ah, al, bh, bl;
+  split(a, ah, al);
+  split(b, bh, bl);
+  err = ((ah * bh - p) + ah * bl + al * bh) + al * bl;
+}
+
+// ops/dd.py dd_add.
+static __device__ __forceinline__ dd_t dd_add(dd_t a, dd_t b) {
+  const float s = a.hi + b.hi;
+  const float v = s - a.hi;
+  const float t = ((b.hi - v) + (a.hi - (s - v))) + (a.lo + b.lo);
+  const float hi = s + t;
+  return {hi, t - (hi - s)};
+}
+
+// ops/dd.py dd_neg and dd_sub (an add of the negation, as there).
+static __device__ __forceinline__ dd_t dd_neg(dd_t a) {
+  return {-a.hi, -a.lo};
+}
+static __device__ __forceinline__ dd_t dd_sub(dd_t a, dd_t b) {
+  return dd_add(a, dd_neg(b));
+}
+
+// ops/dd.py dd_mul_float.
+static __device__ __forceinline__ dd_t dd_mul_float(dd_t a, float b) {
+  float p, e;
+  two_prod(a.hi, b, p, e);
+  float lo = a.lo * b + e;
+  const float hi = p + lo;
+  lo = lo - (hi - p);
+  return {hi, lo};
+}
+
+// ops/dd.py dd_mul.
+static __device__ __forceinline__ dd_t dd_mul(dd_t a, dd_t b) {
+  float p, e;
+  two_prod(a.hi, b.hi, p, e);
+  e = e + (a.hi * b.lo + a.lo * b.hi);
+  const float hi = p + e;
+  return {hi, e - (hi - p)};
+}
+
+// ops/dd.py dd_to_float.
+static __device__ __forceinline__ float dd_to_float(dd_t a) {
+  return a.hi + a.lo;
+}
+
+#endif  // FR_DD_CUH_

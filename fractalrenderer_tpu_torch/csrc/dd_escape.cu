@@ -17,15 +17,14 @@
 // times K1's Mandelbrot loop, and divergence at the set boundary.  Memory
 // is 12 B per pixel written.
 //
-// Exactness.  Build with -fmad=false and without --use_fast_math: the error
-// terms of two_sum and two_prod only hold when no operation is contracted
-// or reassociated.  two_prod keeps the Dekker split (c - (c - a) with
-// 4097) rather than an fmaf, because the plain version has no fused
-// operation and the two must agree bit for bit.
+// Exactness.  The dd operations come from csrc/dd.cuh (Dekker two_prod,
+// no contraction: build with -fmad=false).
 
 #include <cuda_runtime.h>
 
 #include <cstring>
+
+#include "dd.cuh"
 
 namespace {
 
@@ -37,55 +36,6 @@ constexpr int D_CXH = 0, D_CXL = 1, D_CYH = 2, D_CYL = 3, D_ZH = 4, D_ZL = 5,
 struct DDParams {
   float v[kND];
 };
-
-struct dd_t {
-  float hi, lo;
-};
-
-// ops/dd.py split: Veltkamp split into 12+12-bit halves.
-__device__ __forceinline__ void split(float a, float& hi, float& lo) {
-  const float c = 4097.0f * a;
-  hi = c - (c - a);
-  lo = a - hi;
-}
-
-// ops/dd.py two_prod: a * b = p + err exactly (Dekker).
-__device__ __forceinline__ void two_prod(float a, float b, float& p,
-                                         float& err) {
-  p = a * b;
-  float ah, al, bh, bl;
-  split(a, ah, al);
-  split(b, bh, bl);
-  err = ((ah * bh - p) + ah * bl + al * bh) + al * bl;
-}
-
-// ops/dd.py dd_add.
-__device__ __forceinline__ dd_t dd_add(dd_t a, dd_t b) {
-  const float s = a.hi + b.hi;
-  const float v = s - a.hi;
-  const float t = ((b.hi - v) + (a.hi - (s - v))) + (a.lo + b.lo);
-  const float hi = s + t;
-  return {hi, t - (hi - s)};
-}
-
-// ops/dd.py dd_mul_float.
-__device__ __forceinline__ dd_t dd_mul_float(dd_t a, float b) {
-  float p, e;
-  two_prod(a.hi, b, p, e);
-  float lo = a.lo * b + e;
-  const float hi = p + lo;
-  lo = lo - (hi - p);
-  return {hi, lo};
-}
-
-// ops/dd.py dd_mul.
-__device__ __forceinline__ dd_t dd_mul(dd_t a, dd_t b) {
-  float p, e;
-  two_prod(a.hi, b.hi, p, e);
-  e = e + (a.hi * b.lo + a.lo * b.hi);
-  const float hi = p + e;
-  return {hi, e - (hi - p)};
-}
 
 // ops/dd.py ddc_square_add: z^2 + c with dd components.
 __device__ __forceinline__ void ddc_square_add(dd_t& zr, dd_t& zi,

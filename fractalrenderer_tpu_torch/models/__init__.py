@@ -2,7 +2,8 @@
 ``fractalrenderer_tpu/models/__init__.py``).
 
 ``render(scene, width, height, device=...)`` returns an f32 RGB tensor
-(H, W, 3) in [0, 1] on ``device`` for the four 2D escape-time families.
+(H, W, 3) in [0, 1] on ``device`` for the four 2D escape-time families and
+the deep zoom (the rebasing Mandelbrot path).
 """
 from __future__ import annotations
 
@@ -15,11 +16,11 @@ _MODULES = {
     FractalType.JULIA: "julia",
     FractalType.BURNING_SHIP: "burning_ship",
     FractalType.PHOENIX: "phoenix",
+    FractalType.DEEP_ZOOM: "deep_zoom",
 }
 
 # ROADMAP Queue 1 item that ports each family not ported yet
 _NOT_PORTED = {
-    FractalType.DEEP_ZOOM: 6,
     FractalType.MANDELBULB: 7,
 }
 

@@ -113,6 +113,11 @@ def load_library() -> ctypes.CDLL:
     #              stream)
     lib.fr_dd_escape.argtypes = [vp] + [ci] * 4 + [vp] * 4
     lib.fr_dd_escape.restype = ci
+    # fr_perturbation(tier, params, ore, oim, orl, oil, width, height,
+    #                 map_height, max_passes, n, zx, zy, want, rounds,
+    #                 stream)
+    lib.fr_perturbation.argtypes = [ci] + [vp] * 5 + [ci] * 4 + [vp] * 6
+    lib.fr_perturbation.restype = ci
     lib.fr_cuda_error_string.argtypes = [ci]
     lib.fr_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -320,6 +320,23 @@ def color_phoenix(n, zx, zy, p: ColorParams):
     return torch.stack(color_phoenix_planar(n, zx, zy, p), -1)
 
 
+def color_deep_zoom(n, zx, zy, p: ColorParams):
+    """test_deep_zoom.comp:73-103, stacked (..., 3).  No post chain (the
+    reference's deep-zoom shader writes raw palette colours)."""
+    dev = zx.device
+    max_iter = _f32(p.max_iterations, dev)
+    log2 = _f32(_LOG2, dev)
+    nf = n.to(torch.float32)
+    lenz = torch.clamp_min(torch.sqrt(zx * zx + zy * zy), 1e-12)
+    log_zn = torch.log(lenz)
+    nu = torch.log(torch.clamp_min(log_zn, 1e-38) / log2) / log2
+    smooth = nf + 1.0 - nu
+    t = smooth * p.color_scale + p.color_offset
+    color = pal.deepzoom_color(t, int(p.palette_mode))
+    inside = (nf >= max_iter - 0.5)[..., None]
+    return torch.where(inside, torch.zeros_like(color), color)
+
+
 def distance_estimate(n, zx, zy, dzx, dzy, max_iterations):
     """Exterior distance estimate d = |z|·ln|z| / |dz| from the derivative
     field (mandelbrot_debug.comp:114-137).  Interior pixels report 0."""

@@ -5,7 +5,8 @@ Coordinates past f32 precision are carried as unevaluated (hi, lo) f32
 pairs (test_deep_zoom.comp:20-51), giving ~48 bits of mantissa.  The
 product error term uses the Dekker/Veltkamp split, not an FMA, as the JAX
 package does: the plain PyTorch version has no fused operation, and the CUDA
-kernel (csrc/dd_escape.cu) must agree with it bit for bit.
+kernels (csrc/dd.cuh, shared by dd_escape.cu and perturbation.cu) must agree
+with it bit for bit.
 
 The tensor functions take f32 tensors (or 0-dim f32 tensors); nothing here
 may be reassociated.  The host-side converters (``dd_from_*``) are
@@ -99,6 +100,11 @@ def dd_neg(a):
 
 def dd_sub(a, b):
     return dd_add(a, dd_neg(b))
+
+
+def dd_to_float(a):
+    """A dd pair as one f32: hi + lo, rounded once."""
+    return a[0] + a[1]
 
 
 def ddc_square_add(zr, zi, cr, ci):

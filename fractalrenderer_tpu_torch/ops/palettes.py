@@ -7,7 +7,10 @@ planar half of ``fractalrenderer_tpu/ops/palettes.py``).
   ultra_fire, electric, ocean_enhanced, sunset, cosmic, gold, vaporwave,
   forest, lava, grayscale.
 
-The deep-zoom and mandelbulb palettes are not ported yet.  ``palette_table``
+- ``deepzoom_color`` (4): shaders/test_deep_zoom.comp:86-100, stacked
+  (..., 3) — deep-zoom colouring is tensor glue, in no kernel.
+
+The mandelbulb palettes are not ported yet.  ``palette_table``
 flattens one spec into the f32 constant table the CUDA escape kernel reads,
 so the kernel and the plain path use the same rounded constants (Python
 folds ``hi - lo`` in double before it reaches f32; the kernel must not
@@ -164,6 +167,47 @@ def _spec(mode: int, family: str):
     specs = {"classic": _CLASSIC_SPECS, "enhanced": _ENHANCED_SPECS}[family]
     idx = int(mode)
     return specs[idx] if 0 <= idx < len(specs) else specs[0]
+
+
+def _vec3(r, g, b, device) -> torch.Tensor:
+    return torch.tensor([r, g, b], dtype=torch.float32, device=device)
+
+
+def _mix(a, b, t):
+    """GLSL mix(a, b, t) with ``t`` broadcast onto the colour axis."""
+    t = t[..., None]
+    return a * (1.0 - t) + b * t
+
+
+def hsv2rgb(h, s, v):
+    """test_deep_zoom.comp:65-69 (the vec4-K formulation), stacked."""
+    kx, ky, kz, kw = 1.0, 2.0 / 3.0, 1.0 / 3.0, 3.0
+    px = torch.abs(_fract(h + kx) * 6.0 - kw)
+    py = torch.abs(_fract(h + ky) * 6.0 - kw)
+    pz = torch.abs(_fract(h + kz) * 6.0 - kw)
+    p = torch.stack([px, py, pz], dim=-1)
+    rgb = torch.ones_like(p) * (1.0 - s[..., None]) \
+        + _clamp(p - 1.0, 0.0, 1.0) * s[..., None]
+    return v[..., None] * rgb
+
+
+def deepzoom_color(t: torch.Tensor, mode: int) -> torch.Tensor:
+    """Palette switch of test_deep_zoom.comp:86-100 for a static mode:
+    (..., 3) f32."""
+    if mode == 0:
+        hue = _fract(t * 0.05)
+        return hsv2rgb(hue, torch.full_like(hue, 0.8),
+                       torch.full_like(hue, 0.9))
+    if mode == 1:
+        s = _fract(t * 0.03)
+        return _mix(_vec3(0.0, 0.1, 0.3, t.device),
+                    _vec3(1.0, 1.0, 1.0, t.device), s)
+    if mode == 2:
+        s = _fract(t * 0.04)
+        return _mix(_vec3(0.1, 0.0, 0.0, t.device),
+                    _vec3(1.0, 0.8, 0.0, t.device), s)
+    s = _fract(t * 0.02)
+    return s[..., None].expand(s.shape + (3,)).contiguous()
 
 
 def palette_color_planar(t: torch.Tensor, mode: int,

@@ -1,6 +1,7 @@
 """The port's CLI ``render`` verb on the CPU device (the four families with
-their options, and ``--precision dd``), and its rejection of everything not
-ported yet (exit code 2, one line on stderr)."""
+their options, ``--precision dd`` and ``--type deep-zoom``), and its
+rejection of everything not ported yet (exit code 2, one line on
+stderr)."""
 import json
 
 import numpy as np
@@ -64,10 +65,17 @@ def test_render_scene_file_written_by_jax(tmp_path, capsys):
 
 
 UNPORTED = [
-    ["--type", "mandelbulb"], ["--type", "deep-zoom"], ["--sharded"],
-    ["--golden"], ["--exact-dust"], ["--width", "0"],
+    ["--type", "mandelbulb"], ["--type", "deep-zoom", "--deep-ship"],
+    ["--sharded"], ["--golden"], ["--exact-dust"], ["--width", "0"],
     # the JAX CLI's own refusal: dd is the Mandelbrot kernel
     ["--precision", "dd", "--type", "julia"],
+]
+
+# deep-zoom options K3 does not run yet → the ROADMAP item named
+DEEP_ZOOM_UNPORTED = [
+    (["--deep-ship"], "6(d)"), (["--deep-julia"], "6(d)"),
+    (["--deep-phoenix"], "6(d)"), (["--spp", "2"], "6(e)"),
+    (["--spp", "4"], "6(e)"), (["--exact-dust"], "6(f)"),
 ]
 
 # every family option of the render verb, alone and combined
@@ -137,6 +145,52 @@ def test_unported_render_options_exit_2(tmp_path, capsys, extra):
     err = capsys.readouterr().err.strip()
     assert err.startswith("error:") and "\n" not in err
     assert not out.exists()
+
+
+@pytest.mark.parametrize("extra,item", DEEP_ZOOM_UNPORTED,
+                         ids=[" ".join(e) for e, _ in DEEP_ZOOM_UNPORTED])
+def test_deep_zoom_unported_options_name_their_item(tmp_path, capsys, extra,
+                                                    item):
+    out = tmp_path / "x.png"
+    rc = cli.main(["render", "--device", "cpu", "--type", "deep-zoom",
+                   "--width", "16", "--height", "8", *extra,
+                   "--out", str(out)])
+    assert rc == 2
+    err = capsys.readouterr().err.strip()
+    assert err.startswith("error:") and "\n" not in err
+    assert f"ROADMAP Queue 1 item {item}" in err
+    assert not out.exists()
+
+
+DEEP_ZOOM_VIEW = ["--type", "deep-zoom", "--hp-center-x",
+                  "0.245670923653024", "--hp-center-y", "0.580340963154017",
+                  "--hp-zoom", "1e-9", "--iters", "400"]
+
+
+@pytest.mark.parametrize("extra", [[], ["--series", "--palette", "2",
+                                        "--bit-depth", "16"]],
+                         ids=["default", "series palette 2 16-bit"])
+def test_deep_zoom_renders_png(tmp_path, capsys, extra):
+    from fractalrenderer_tpu_torch import models
+    from fractalrenderer_tpu_torch.utils.image import to_export_orientation
+
+    out = str(tmp_path / "dz.png")
+    argv = ["render", "--device", "cpu", "--width", "48", "--height", "32",
+            *DEEP_ZOOM_VIEW, *extra, "--out", out]
+    rc = cli.main(argv)
+    assert rc == 0
+    said = capsys.readouterr()
+    assert "Rendered 48x32 Deep_Zoom on cpu" in said.out
+    assert "0 HP-fallback, 0 remaining" in said.out
+    bit_depth = 16 if "16" in extra else 8
+    img = read_png(out)
+    assert img.shape == (32, 48, 3)
+    scene = cli.scene_from_args(cli.build_parser().parse_args(argv))
+    ref = to_export_orientation(models.render(
+        scene, 48, 32, device="cpu", quantize=bit_depth)).numpy()
+    assert ref.dtype == img.dtype
+    np.testing.assert_array_equal(img, ref)
+    assert 0 < img.mean() < (255 if bit_depth == 8 else 65535)
 
 
 @pytest.mark.parametrize("verb", sorted(cli._UNPORTED_VERBS))

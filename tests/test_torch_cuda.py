@@ -1,17 +1,20 @@
-"""Kernels K1 (csrc/escape.cu) and K2 (csrc/dd_escape.cu) on the card
-against their plain PyTorch versions on the same card, at edge shapes and
-options the main path does not reach.
+"""Kernels K1 (csrc/escape.cu), K2 (csrc/dd_escape.cu) and K3
+(csrc/perturbation.cu) on the card against their plain PyTorch versions on
+the same card, at edge shapes and options the main path does not reach.
 
 Contract: counts, z, trap and dz bit-equal (NaN where the plain version
 has NaN); the Burning Ship stripe (a sum
 of sinf terms) within rtol 1e-3, atol 2e-4·iters (the JAX contract,
-test_golden_vs_kernel.py:98-100); fused colour within 1e-5.
+test_golden_vs_kernel.py:98-100); fused colour within 1e-5; K3 bit-equal
+on n, zx, zy, want and rounds in each delta tier.
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere.  The GPU machine has no
 jax, so run it there without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+from fractions import Fraction
+
 import pytest
 import torch
 
@@ -184,6 +187,61 @@ def test_dd_kernel_equals_plain(dev, case):
     for name, g, w in zip(("n", "zx", "zy"), got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         assert torch.equal(g, w), f"{name} differs"
+
+
+_PERT_VIEWS = {
+    # tier: (center x, center y, zoom, iterations, packing options)
+    "f32": ("-0.743643887037151", "0.13182590420533", "1e-6", 800, {}),
+    "dd": ("-0.74364388703715158", "0.13182590420531198", "1e-12", 4000,
+           dict(dd_delta=True)),
+    "fx": ("0", "1", "1e-50", 600, dict(scaled_delta=True,
+                                       zoom_frac="1e-50")),
+}
+
+
+def _pert_both(dev, tier, width, height, *, row0=0, map_height=None,
+               series=False, max_passes=256):
+    from fractalrenderer_tpu_torch.deepzoom.orbit import compute_orbit
+    from fractalrenderer_tpu_torch.deepzoom.series import (
+        compute_series_skip, compute_series_skip_fx)
+    from fractalrenderer_tpu_torch.ops import perturbation
+
+    cx, cy, zoom, iters, kw = _PERT_VIEWS[tier]
+    map_height = map_height or height
+    orb = compute_orbit(cx, cy, 320 if tier == "fx" else 128, iters + 1)
+    skip = None
+    if series:
+        dc_max = Fraction(zoom) * 4 * 2 / map_height
+        skip = (compute_series_skip_fx(orb, dc_max) if tier == "fx"
+                else compute_series_skip(orb, float(dc_max)))
+    params, streams, tier_ = perturbation.pack_pert_operands(
+        orb, width, height, center_x_dd=dd.dd_from_string(cx),
+        center_y_dd=dd.dd_from_string(cy), zoom_dd=dd.dd_from_string(zoom),
+        max_iter=iters, series=skip, row0=float(row0),
+        map_height=map_height, **kw)
+    assert tier_ == tier
+    launch = dict(tier=tier, width=width, height=height,
+                  map_height=map_height, max_passes=max_passes, device=dev)
+    got = perturbation.perturbation_fields_cuda(params, streams, **launch)
+    want = perturbation.perturbation_fields_plain(params, streams, **launch)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("tier", ["f32", "dd", "fx"])
+@pytest.mark.parametrize("case", [
+    dict(width=64, height=48),
+    dict(width=64, height=48, series=True),
+    dict(width=96, height=16, row0=500, map_height=1080),
+    dict(width=33, height=7, max_passes=2),
+], ids=str)
+def test_perturbation_kernel_equals_plain(dev, tier, case):
+    got, want = _pert_both(dev, tier, **case)
+    names = ("n", "zx", "zy", "glitch", "want", "rounds")
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), f"{tier}: {name} differs"
+    assert int(got[5].max()) >= 2  # the views rebase
 
 
 def test_launch_counter_counts_kernel_launches(dev):

@@ -1,6 +1,7 @@
 """The port's import boundary and its device dispatch: it loads neither jax
 nor the JAX package, its kernel-build module imports without a CUDA
-toolkit, and a CUDA device never falls back to the CPU path (K1 and K2)."""
+toolkit, and a CUDA device never falls back to the CPU path (K1, K2 and
+K3)."""
 import os
 import subprocess
 import sys
@@ -17,7 +18,12 @@ _PROBE = """
 import sys
 import fractalrenderer_tpu_torch
 import fractalrenderer_tpu_torch.cli
+import fractalrenderer_tpu_torch.deepzoom
+import fractalrenderer_tpu_torch.deepzoom.hp
+import fractalrenderer_tpu_torch.deepzoom.orbit
+import fractalrenderer_tpu_torch.deepzoom.series
 import fractalrenderer_tpu_torch.models.burning_ship
+import fractalrenderer_tpu_torch.models.deep_zoom
 import fractalrenderer_tpu_torch.models.julia
 import fractalrenderer_tpu_torch.models.mandelbrot
 import fractalrenderer_tpu_torch.models.phoenix
@@ -26,7 +32,9 @@ import fractalrenderer_tpu_torch.ops.coloring
 import fractalrenderer_tpu_torch.ops.dd
 import fractalrenderer_tpu_torch.ops.dd_escape
 import fractalrenderer_tpu_torch.ops.escape
+import fractalrenderer_tpu_torch.ops.perturbation
 import fractalrenderer_tpu_torch.ops.trig
+import fractalrenderer_tpu_torch.utils.native_build
 import fractalrenderer_tpu_torch.utils.png
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "fractalrenderer_tpu")]
@@ -63,7 +71,7 @@ def test_library_name_follows_the_sources(tmp_path, monkeypatch):
 
 def test_kernel_sources_ship_in_the_package():
     assert [os.path.basename(s) for s in _cuda.sources()] == [
-        "dd_escape.cu", "escape.cu"]
+        "dd.cuh", "dd_escape.cu", "escape.cu", "perturbation.cu"]
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
@@ -105,6 +113,25 @@ def test_dd_cuda_device_without_cuda_raises(monkeypatch):
         dd_escape.dd_escape_fields_cuda(params, width=4, height=4,
                                         map_height=4, row0=0, device="cpu")
     assert dd_escape.dd_escape_fields_cuda.launches == before
+
+
+def test_perturbation_cuda_device_without_cuda_raises(monkeypatch):
+    from fractalrenderer_tpu_torch.models import deep_zoom
+    from fractalrenderer_tpu_torch.ops import perturbation
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = perturbation.perturbation_fields_cuda.launches
+    scene = frt.Scene(fractal_type=frt.FractalType.DEEP_ZOOM,
+                      hp_center_x="0", hp_center_y="1", hp_zoom="1e-9",
+                      max_iterations=32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        deep_zoom.render(scene, 8, 8, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        frt.render(scene, 8, 8, device="cuda")
+    assert perturbation.perturbation_fields_cuda.launches == before
+    img = frt.render(scene, 8, 4, device="cpu")
+    assert img.device.type == "cpu" and img.shape == (4, 8, 3)
+    assert perturbation.perturbation_fields_cuda.launches == before
 
 
 def test_cpu_path_launches_no_kernel():
