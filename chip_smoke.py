@@ -8,16 +8,21 @@ toolkit:
 
 It builds the port's CUDA kernels from csrc/ (K1, the escape kernel of the
 four 2D families; K2, the double-double Mandelbrot kernel; K3, the
-perturbation deep-zoom kernel in its f32, dd and floatexp tiers), holds
+perturbation deep-zoom kernel in its f32, dd and floatexp tiers; K4a and
+K4b, the Mandelbulb's cone prepass and march + shading kernels), holds
 every kernel instance against its plain PyTorch version on the card (K1 and
-K2 at 1920x1080; K3 on the whole frame against a 64-row band of it run on
-the plain version, which is launch-bound), drives each ported path through
-``cli render`` (the default Mandelbrot frame, Julia, Burning Ship with
-traps and stripes, Phoenix, AA 2, ``--precision dd`` and ``--type
-deep-zoom`` at configs 4 and 7) and the distance field and the deep-zoom
-fields through their library calls, checks that each path launched its
-kernel and that each PNG is within 1 LSB of the same pipeline run on the
-plain versions, and times kernel against plain version with CUDA events.
+K2 at 1920x1080; K3 and K4b on the whole frame against a 64-row band of it
+run on the plain version, which is launch-bound; K4a on the whole 1080p
+coarse grid; the bulb's other integer powers at 64x48), drives each ported path through ``cli render`` (the default
+Mandelbrot frame, Julia, Burning Ship with traps and stripes, Phoenix, AA
+2, ``--precision dd``, ``--type deep-zoom`` at configs 4 and 7 and ``--type
+mandelbulb`` at config 6, with AA 2, ``--time 1.0`` and ``--power 16``) and
+the distance field and the deep-zoom fields through their library calls,
+checks that each path launched its kernels and that each PNG is within 1
+LSB of the same pipeline run on the plain versions, and times kernel
+against plain version with CUDA events.  For each instance it prints the
+DE or escape iterations the timed frame needs and the bound: the larger of
+their f32 operations over 67 TFLOP/s and the frame's bytes over 3.35 TB/s.
 Each phase prints one line; any failure raises, so the exit code is
 non-zero and no result line is printed.  On success the last three lines
 are the card's name and power limit, a JSON line describing each kernel
@@ -49,9 +54,70 @@ COLOR_ATOL = 1e-5  # the colour contract of the reference's own tests
 ESCAPE_SRC = "fractalrenderer_tpu_torch/csrc/escape.cu"
 DD_SRC = "fractalrenderer_tpu_torch/csrc/dd_escape.cu"
 PERT_SRC = "fractalrenderer_tpu_torch/csrc/perturbation.cu"
+BULB_SRC = "fractalrenderer_tpu_torch/csrc/bulb.cu"
 K1_TPU = "fractalrenderer_tpu/ops/escape.py:155"
 K2_TPU = "fractalrenderer_tpu/ops/dd_escape.py:35"
 K3_TPU = "fractalrenderer_tpu/ops/perturbation.py:245"
+K4A_TPU = "fractalrenderer_tpu/ops/bulb_kernel.py:210"
+K4B_TPU = "fractalrenderer_tpu/ops/bulb_kernel.py:637"
+
+# The bound of an instance: the
+# larger of its f32 operations over the H100's 67 TFLOP/s (the kernels
+# build with -fmad=false, so they issue at most half of that) and the
+# bytes it must move (inputs read once, outputs written once) over 3.35
+# TB/s.  Operations per iteration of each inner loop, counted from the
+# sources: every f32 add, subtract, multiply, divide, square root, compare
+# result used as a value (min/max/abs), and math-library call counts one.
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+OPS_PER_ITER = {
+    # csrc/escape.cu loop body: |z|^2, the update, the squares; the fields
+    # instances add what they track (Mandelbrot: trap 14 + dz 9; Burning
+    # Ship: trap 4 + stripe 3; the Julia and Phoenix traps are constant)
+    "escape_mandelbrot_fused": 8, "escape_mandelbrot_fields": 31,
+    "escape_julia_fused": 8, "escape_julia_fields": 8,
+    "escape_burning_ship_fused": 9, "escape_burning_ship_fields": 16,
+    "escape_phoenix_fused": 16, "escape_phoenix_fields": 16,
+    # csrc/dd_escape.cu: ddc_square_add (3 dd_mul of 24, 3 dd_add of 11,
+    # 2) + ddc_mag2 (8)
+    "dd_escape_mandelbrot": 115,
+    # csrc/perturbation.cu, one delta step: f32; dd (4 dd_mul pairs, 6
+    # dd_add, the rebase test); floatexp (the dd step + alignment)
+    "pert_mandelbrot_f32": 29, "pert_mandelbrot_dd": 267,
+    "pert_mandelbrot_fx": 291,
+}
+# per pixel outside the loop: the mapping, and the fused colour + post chain
+OPS_PER_PIXEL = {"fused": 90, "fields": 12, "dd": 60, "pert": 80}
+# csrc/bulb.cu: one DE step (de_step_int<p>: 10 + 2 square-and-multiply
+# chains + r^(p-1) + 14; the trig step 79), one march evaluation's update
+# (de_finish, threshold, relaxation, the next position: 30) and a hit
+# lane's esc recovery + 11 shading-tap events (12 x 20)
+OPS_BULB_EVAL, OPS_BULB_HIT = 30, 240
+
+
+def bulb_ops_per_iter(p) -> int:
+    """Operations of one DE step of the bulb's instance ``p`` (0 = trig)."""
+    if not p:
+        return 79
+
+    def rpow(k):
+        return 0 if k <= 2 else rpow(k // 2) + 1 + (k & 1)
+
+    chains = 5 * (p.bit_length() - 1) + 6 * (bin(p).count("1") - 1)
+    return 10 + 2 * chains + rpow(p - 1) + 14
+
+
+# Mandelbulb views: config 6 of BASELINE.md (the default bulb, power 8,
+# 256 iterations, kernel-shaded) and the two other DE-step instances the
+# slice runs: a non-integer dynamic power (time 1.0: power 8.32, the trig
+# step) and power 16 (the "Extreme (16)" preset's, dr frozen at inf).
+BULB_CASES = [
+    ("p8", "config 6 (power 8, time 0)", {}),
+    ("trig", "time 1.0 (dynamic power 8.32, trig step)", dict(time=1.0)),
+    ("p16", "power 16", dict(power=16.0)),
+]
+BULB_BAND = (508, 64)  # rows 508-571 of 1080: through the bulb's middle
+CONE = 8
 
 # Deep-zoom views (decimal strings, as the CLI's --hp-* flags take them):
 # one per K3 delta tier.  Config 4 and config 7 are the benchmark configs
@@ -157,7 +223,11 @@ def ptxas_report(log: str) -> dict:
         if m:
             k = re.search(r"escape_kernelILi(\d)ELb([01])E", m.group(1))
             t = re.search(r"pert_mandelbrot_kernelILi(\d)E", m.group(1))
-            if k:
+            b = re.search(r"bulb_(cone|march)_kernelILi(\d+)E", m.group(1))
+            if b:
+                p = int(b.group(2))
+                name = f"bulb_{b.group(1)}_" + (f"p{p}" if p else "trig")
+            elif k:
                 name = (f"escape_{families[int(k.group(1))]}_"
                         + ("fused" if k.group(2) == "1" else "fields"))
             elif t:
@@ -193,6 +263,23 @@ def same_bits(a, b) -> bool:
                 and torch.equal(a[~nan_a], b[~nan_b]))
 
 
+def skip_mask(params):
+    """The pixels of a W x H Mandelbrot frame that K1's interior skip
+    leaves out: the plain K1's own mapping and interior predicate."""
+    import torch
+
+    from fractalrenderer_tpu_torch.ops import escape, mapping
+
+    v = torch.from_numpy(params).cuda()
+    col = torch.arange(W, dtype=torch.float32, device=v.device)
+    row = torch.arange(H, dtype=torch.float32, device=v.device)
+    cr, ci = mapping.map_centered(
+        col[None, :].expand(H, W), row[:, None].expand(H, W), W, H,
+        v[escape.P_CX], v[escape.P_CY], v[escape.P_ZOOM], v[escape.P_OFFX],
+        v[escape.P_OFFY])
+    return escape._cardioid_or_bulb(cr, ci)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "fractalrenderer_tpu_torch")):
         print("error: run chip_smoke.py from a checkout of the repository "
@@ -215,7 +302,9 @@ def main() -> int:
     from fractalrenderer_tpu_torch.models import common, deep_zoom
     from fractalrenderer_tpu_torch.models.mandelbrot import (distance_field,
                                                              render_dd)
-    from fractalrenderer_tpu_torch.ops import (_cuda, dd, dd_escape, escape,
+    from fractalrenderer_tpu_torch.models import mandelbulb
+    from fractalrenderer_tpu_torch.ops import (_cuda, bulb_kernel, bulb_math,
+                                               dd, dd_escape, escape,
                                                perturbation)
     from fractalrenderer_tpu_torch.utils import png
     from fractalrenderer_tpu_torch.utils.image import to_export_orientation
@@ -239,10 +328,17 @@ def main() -> int:
     assert report, "the build log has no ptxas report"
     assert all(r["spill"] == 0 for r in report.values()), \
         f"local-memory spills: {report}"
+    # the bulb's 32 instances: the three the slice runs, then the range
+    shown = {k: r for k, r in report.items()
+             if not k.startswith("bulb_")
+             or k.rsplit("_", 1)[1] in ("p8", "trig", "p16")}
+    rest = [r["regs"] for k, r in report.items() if k not in shown]
     print(f"build: {build_s:.2f} s, one nvcc per source in parallel; "
           "ptxas (registers/stack frame bytes/spill bytes): " + ", ".join(
               f"{k} {r['regs']}/{r['stack']}/{r['spill']}"
-              for k, r in sorted(report.items())), flush=True)
+              for k, r in sorted(shown.items()))
+          + f"; the other {len(rest)} bulb instances {min(rest)}-"
+          f"{max(rest)} registers, no spills", flush=True)
 
     def launch(impl, width, height, family="mandelbrot", fused=None,
                skip=None, row0=0, map_height=None, max_iter=ITERS,
@@ -266,9 +362,29 @@ def main() -> int:
         e = kernels.setdefault(name, {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
-            "ms": None, "plain_ms": None})
+            "ms": None, "plain_ms": None, "bound_ms": None,
+            "bound_by": None,
+            # no single PyTorch call computes an escape loop, a
+            # perturbation loop or a raymarch
+            "library_ms": None})
         e["max_abs_err"] = max(e["max_abs_err"], float(err))
         return e
+
+    def set_bound(name, iters, ops_per_iter, pixel_ops, nbytes, extra=""):
+        """The instance's bound for its timed frame: ``iters`` loop
+        iterations of ``ops_per_iter`` operations, plus ``pixel_ops``, or
+        ``nbytes`` bytes moved."""
+        ops = float(iters) * ops_per_iter + pixel_ops
+        t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        e = kernels[name]
+        e["bound_ms"] = max(t_ops, t_bytes)
+        e["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"bound {name}: {float(iters):.6g} iterations{extra} x "
+              f"{ops_per_iter} ops + {pixel_ops:.4g} = {ops:.4g} ops -> "
+              f"{t_ops:.5f} ms; {nbytes:.4g} bytes -> {t_bytes:.5f} ms; "
+              f"bound {e['bound_ms']:.5f} ms by {e['bound_by']}, "
+              f"{e['bound_ms'] / e['ms']:.1%} of the kernel's "
+              f"{e['ms']:.4f} ms", flush=True)
 
     # -- Mandelbrot fields: counts and z bit-exact against the plain version --
     cases = [
@@ -370,6 +486,8 @@ def main() -> int:
     for nm, g, w in zip(("n", "zx", "zy"), got, want):
         assert torch.equal(g, w), f"dd: {nm} not bit-equal"
     entry("dd_escape_mandelbrot", DD_SRC, K2_TPU, 0.0)
+    dd_work = (float(got[0].double().sum()),
+               sum(t.numel() * t.element_size() for t in got))
     print(f"dd fields {W}x{H} seahorse at {DD_VIEW['zoom']} x"
           f"{DD_VIEW['iters']}: n/zx/zy bit-equal (n mean "
           f"{got[0].float().mean():.1f}, {int((got[0] < DD_VIEW['iters']).sum())}"
@@ -419,6 +537,8 @@ def main() -> int:
 
     # (case index, params, device streams, tier, w, h, plain band ms)
     pert_frames = []
+    # instance -> (sum(n - n_skip), n_skip, pixels, bytes) of its first frame
+    pert_work = {}
     for ci, (name, label, view, pw, ph, series) in enumerate(PERT_CASES):
         orb, kw, skip = pert_setup(view, pw, ph, series)
         nlen, orbit_s = orbit_log[-1]
@@ -453,6 +573,12 @@ def main() -> int:
         e = entry(name, PERT_SRC, K3_TPU, 0.0)
         if e["plain_ms"] is None:  # the instance's first (main) frame
             e["plain_ms"] = plain_ms
+            n_skip = skip.n_skip if skip else 0
+            pert_work[name] = (
+                float(torch.clamp_min(n_k.double() - n_skip, 0).sum()),
+                n_skip, pw * ph,
+                sum(t.numel() * t.element_size() for t in got[:5])
+                + sum(t.numel() * t.element_size() for t in dstreams))
         pert_frames.append((ci, params, dstreams, tier, pw, ph, plain_ms))
         print(f"K3 {tier} {label} {pw}x{ph}: n/zx/zy/want/rounds bit-equal "
               f"to the plain version over rows {r0}-{r0 + BAND_ROWS - 1} "
@@ -464,74 +590,217 @@ def main() -> int:
               f"entries by {orbit_engine()} in {orbit_s * 1e3:.1f} ms",
               flush=True)
 
+    # -- K4a / K4b: the Mandelbulb kernels, config 6 and two more instances --
+    # K4a over the whole 1080p coarse grid against its plain version; K4b
+    # over the whole frame (with its stats planes), and on the band of rows
+    # 508-571 (t0 from the band's own K4a grid, as march_fields computes
+    # it) against the plain version, and the band's rows against the frame
+    bulb_frames = {}
+    names = ["hit", "t", "d", "esc", "nx", "ny", "nz", "ao", "msteps",
+             "work"]
+    r0, bh = BULB_BAND
+
+    def cuda_event_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    for tag, label, kw in BULB_CASES:
+        bp = bulb_math.BulbParams(**kw).clamped()
+        ro, dyn = bulb_math.camera_setup(bp)
+        ip = bulb_kernel.resolve_int_power(dyn)
+        params = bulb_kernel.pack_march_params(
+            ro=ro, fov=bp.fov, power=dyn, max_iter=bp.max_iterations)
+        cparams = bulb_kernel.pack_cone_params(params, CONE, H)
+        ckw = dict(coarse_w=-(-W // CONE), coarse_h=-(-H // CONE) + 1,
+                   width=W, map_height=H, int_power=ip, device=dev)
+        tc = bulb_kernel.cone_fields_cuda(cparams, **ckw)
+        (tc_p, c_evals, c_work), cone_plain_ms = cuda_event_ms(
+            lambda: bulb_kernel.cone_fields_plain(cparams, stats=True,
+                                                  **ckw))
+        assert torch.equal(tc, tc_p), f"K4a {label}: not bit-equal"
+        mkw = dict(width=W, height=H, map_height=H, cone=CONE, shade=True,
+                   int_power=ip, device=dev)
+        full = bulb_kernel.march_fields_cuda(params, tc, stats=True, **mkw)
+        bparams = bulb_kernel.pack_march_params(
+            ro=ro, fov=bp.fov, power=dyn, max_iter=bp.max_iterations,
+            row0=r0)
+        bcparams = bulb_kernel.pack_cone_params(bparams, CONE, H)
+        bckw = dict(ckw, coarse_h=-(-bh // CONE) + 1)
+        btc = bulb_kernel.cone_fields_cuda(bcparams, **bckw)
+        assert torch.equal(btc, bulb_kernel.cone_fields_plain(bcparams,
+                                                              **bckw))
+        bkw = dict(mkw, height=bh, stats=True)
+        got = bulb_kernel.march_fields_cuda(bparams, btc, **bkw)
+        want, band_plain_ms = cuda_event_ms(
+            lambda: bulb_kernel.march_fields_plain(bparams, btc, **bkw))
+        for nm, g, w, f in zip(names, got, want, full):
+            assert torch.equal(g, w), f"K4b {label}: {nm} not bit-equal " \
+                f"to the plain version over rows {r0}-{r0 + bh - 1}"
+            assert torch.equal(g, f[r0:r0 + bh]), \
+                f"K4b {label}: band {nm} != the whole frame's rows"
+        hit, msteps, work = full[0], full[8], full[9]
+        warp = bulb_kernel.warp_max(work)
+        st = dict(hits=int(hit.sum()), cap=int((msteps >= 200).sum()),
+                  evals=float(msteps.double().sum()),
+                  work=float(work.double().sum()),
+                  warp=float(warp.double().sum()),
+                  c_evals=float(c_evals.double().sum()),
+                  c_work=float(c_work.double().sum()))
+        assert torch.isfinite(torch.stack(full[1:8])).all()
+        assert 0.05 < st["hits"] / (W * H) < 0.95, "no bulb in the frame"
+        e = entry(f"bulb_cone_{tag}", BULB_SRC, K4A_TPU, 0.0)
+        e["plain_ms"] = cone_plain_ms
+        e = entry(f"bulb_march_{tag}", BULB_SRC, K4B_TPU, 0.0)
+        e["plain_ms"] = band_plain_ms
+        bulb_frames[tag] = (params, cparams, ckw, mkw, ip, st)
+        print(f"K4 {tag} {label} {W}x{H}: K4a grid {ckw['coarse_h']}x"
+              f"{ckw['coarse_w']} bit-equal to the plain version (plain "
+              f"{cone_plain_ms:.1f} ms; {st['c_evals']:.0f} evaluations, "
+              f"{st['c_work']:.0f} DE iterations); K4b hit/t/d/esc/nx/ny/"
+              f"nz/ao/msteps/work bit-equal to the plain version over rows "
+              f"{r0}-{r0 + bh - 1} (plain band {band_plain_ms / 1e3:.2f} "
+              f"s) and equal to the whole frame's rows; hit fraction "
+              f"{st['hits'] / (W * H):.4f}, lanes at the 200-step cap "
+              f"{st['cap']}, msteps max {int(msteps.max())}, sum(work) "
+              f"{st['work']:.6g} DE iterations ({st['work'] / (W * H):.2f} "
+              f"per pixel, max {int(work.max())}), warp-max waste "
+              f"sum(warp max)/sum(work) {st['warp'] / st['work']:.3f}",
+              flush=True)
+
+    # every other integer-power instance (`--power N`, time 0) at 64x48,
+    # 64 iterations: K4a and K4b with shading and stats against the plain
+    # versions, each unrolling its own exponent chains
+    swept = sorted(set(range(2, 17)) - {8, 16})
+    for p in swept:
+        bp = bulb_math.BulbParams(power=float(p), max_iterations=64).clamped()
+        ro, dyn = bulb_math.camera_setup(bp)
+        assert bulb_kernel.resolve_int_power(dyn) == p
+        sparams = bulb_kernel.pack_march_params(
+            ro=ro, fov=bp.fov, power=dyn, max_iter=bp.max_iterations)
+        scp = bulb_kernel.pack_cone_params(sparams, CONE, 48)
+        skw = dict(coarse_w=64 // CONE, coarse_h=48 // CONE + 1, width=64,
+                   map_height=48, int_power=p, device=dev)
+        stc = bulb_kernel.cone_fields_cuda(scp, **skw)
+        assert torch.equal(stc, bulb_kernel.cone_fields_plain(scp, **skw)), \
+            f"K4a power {p}: not bit-equal"
+        smkw = dict(width=64, height=48, map_height=48, cone=CONE, shade=True,
+                    int_power=p, stats=True, device=dev)
+        got = bulb_kernel.march_fields_cuda(sparams, stc, **smkw)
+        want = bulb_kernel.march_fields_plain(sparams, stc, **smkw)
+        for nm, g, w in zip(names, got, want, strict=True):
+            assert torch.equal(g, w), f"K4b power {p}: {nm} not bit-equal"
+        assert 0.0 < float(got[0].mean()) < 1.0, f"power {p}: no bulb"
+    print(f"K4 integer powers {swept} at 64x48: K4a and K4b (all "
+          f"{len(names)} planes) bit-equal to the plain versions", flush=True)
+
     # -- the paths, through the entry points a user calls --------------------
     # the kernel wrappers, each with its plain version, source and TPU kernel
-    wrappers = {
-        escape: ("escape_fields_cuda", "escape_fields_plain", ESCAPE_SRC,
-                 K1_TPU),
-        dd_escape: ("dd_escape_fields_cuda", "dd_escape_fields_plain",
-                    DD_SRC, K2_TPU),
-        perturbation: ("perturbation_fields_cuda",
-                       "perturbation_fields_plain", PERT_SRC, K3_TPU),
-    }
+    wrappers = [
+        (escape, "escape_fields_cuda", "escape_fields_plain", ESCAPE_SRC,
+         K1_TPU),
+        (dd_escape, "dd_escape_fields_cuda", "dd_escape_fields_plain",
+         DD_SRC, K2_TPU),
+        (perturbation, "perturbation_fields_cuda",
+         "perturbation_fields_plain", PERT_SRC, K3_TPU),
+        (bulb_kernel, "cone_fields_cuda", "cone_fields_plain", BULB_SRC,
+         K4A_TPU),
+        (bulb_kernel, "march_fields_cuda", "march_fields_plain", BULB_SRC,
+         K4B_TPU),
+    ]
+    source_of = {w[1]: (w[3], w[4]) for w in wrappers}
 
     @contextlib.contextmanager
     def plain_kernels():
         """Run the same pipeline with the plain versions on the card."""
-        saved = {m: getattr(m, w[0]) for m, w in wrappers.items()}
-        for m, (cuda_fn, plain_fn, _, _) in wrappers.items():
-            setattr(m, cuda_fn, getattr(m, plain_fn))
+        saved = [(m, c, getattr(m, c)) for m, c, *_ in wrappers]
+        for m, c, plain, _, _ in wrappers:
+            setattr(m, c, getattr(m, plain))
         try:
             yield
         finally:
-            for m, fn in saved.items():
-                setattr(m, wrappers[m][0], fn)
+            for m, c, fn in saved:
+                setattr(m, c, fn)
 
     def reset_counts():
-        for m, w in wrappers.items():
-            getattr(m, w[0]).launches = 0
+        for m, c, *_ in wrappers:
+            getattr(m, c).launches = 0
 
     def counts():
-        return {m: getattr(m, w[0]).launches for m, w in wrappers.items()}
+        return {c: getattr(m, c).launches for m, c, *_ in wrappers}
 
+    esc_w, dd_w = "escape_fields_cuda", "dd_escape_fields_cuda"
+    pert_w = "perturbation_fields_cuda"
+    cone_w, march_w = "cone_fields_cuda", "march_fields_cuda"
+
+    def bulb(tag, n=1):
+        """A bulb path's launches: n of each of K4a and K4b (instance
+        ``tag``)."""
+        return {cone_w: (f"bulb_cone_{tag}", n),
+                march_w: (f"bulb_march_{tag}", n)}
+
+    bulb_flags = ["--type", "mandelbulb"]
     paths = [
-        # (label, cli flags, kernel instance it runs, wrapper module, size,
-        #  whether to hold the PNG against the plain pipeline)
-        ("default", [], "escape_mandelbrot_fused", escape, (W, H), True),
-        ("--type julia", ["--type", "julia"], "escape_julia_fused", escape,
-         (W, H), True),
+        # (label, cli flags, {wrapper: (instance it runs, exact launches or
+        #  None for at least one)}, size, whether to hold the PNG against
+        #  the plain pipeline)
+        ("default", [], {esc_w: ("escape_mandelbrot_fused", None)}, (W, H),
+         True),
+        ("--type julia", ["--type", "julia"],
+         {esc_w: ("escape_julia_fused", None)}, (W, H), True),
         ("--type burning-ship --orbit-trap --stripes --interior-style 2",
          ["--type", "burning-ship", "--orbit-trap", "--stripes",
-          "--interior-style", "2"], "escape_burning_ship_fields", escape,
-         (W, H), True),
+          "--interior-style", "2"],
+         {esc_w: ("escape_burning_ship_fields", None)}, (W, H), True),
         ("--type burning-ship", ["--type", "burning-ship"],
-         "escape_burning_ship_fused", escape, (W, H), True),
-        ("--type phoenix", ["--type", "phoenix"], "escape_phoenix_fused",
-         escape, (W, H), True),
-        ("--aa 2", ["--aa", "2"], "escape_mandelbrot_fused", escape, (W, H),
-         True),
+         {esc_w: ("escape_burning_ship_fused", None)}, (W, H), True),
+        ("--type phoenix", ["--type", "phoenix"],
+         {esc_w: ("escape_phoenix_fused", None)}, (W, H), True),
+        ("--aa 2", ["--aa", "2"], {esc_w: ("escape_mandelbrot_fused", None)},
+         (W, H), True),
         ("--orbit-trap --interior-style 2",
          ["--orbit-trap", "--interior-style", "2"],
-         "escape_mandelbrot_fields", escape, (W, H), True),
+         {esc_w: ("escape_mandelbrot_fields", None)}, (W, H), True),
         ("--precision dd --hp-zoom 1e-9 --iters 1500",
          ["--precision", "dd", "--hp-zoom", "1e-9", "--iters", "1500",
-          "--preset", "Seahorse Valley"], "dd_escape_mandelbrot", dd_escape,
-         (W, H), True),
+          "--preset", "Seahorse Valley"],
+         {dd_w: ("dd_escape_mandelbrot", None)}, (W, H), True),
         # the deep zoom: config 4 at full size (its plain pipeline takes
         # minutes at 1080p), then at 480x270 against the plain pipeline
         ("--type deep-zoom, config 4 (1e-12 x10000)", dz_flags("config4"),
-         "pert_mandelbrot_dd", perturbation, (W, H), False),
+         {pert_w: ("pert_mandelbrot_dd", None)}, (W, H), False),
         ("--type deep-zoom, config 4 (1e-12 x10000)", dz_flags("config4"),
-         "pert_mandelbrot_dd", perturbation, (480, 270), True),
+         {pert_w: ("pert_mandelbrot_dd", None)}, (480, 270), True),
         ("--type deep-zoom, Seahorse 1e-6 x2000", dz_flags("seahorse"),
-         "pert_mandelbrot_f32", perturbation, (W, H), True),
+         {pert_w: ("pert_mandelbrot_f32", None)}, (W, H), True),
         ("--type deep-zoom, config 7 (c = i, 1e-50 x2000)",
-         dz_flags("config7"), "pert_mandelbrot_fx", perturbation, (960, 540),
+         dz_flags("config7"), {pert_w: ("pert_mandelbrot_fx", None)},
+         (960, 540), True),
+        # the bulb: config 6, AA 2 and the trig step at full size (the
+        # plain pipeline is launch-bound), each also smaller against the
+        # plain pipeline, and power 16
+        ("--type mandelbulb, config 6", bulb_flags, bulb("p8"), (W, H),
+         False),
+        ("--type mandelbulb, config 6", bulb_flags, bulb("p8"), (480, 270),
          True),
+        ("--type mandelbulb --aa 2", [*bulb_flags, "--aa", "2"],
+         bulb("p8", 4), (W, H), False),
+        ("--type mandelbulb --aa 2", [*bulb_flags, "--aa", "2"],
+         bulb("p8", 4), (320, 180), True),
+        ("--type mandelbulb --time 1.0", [*bulb_flags, "--time", "1.0"],
+         bulb("trig"), (W, H), False),
+        ("--type mandelbulb --time 1.0", [*bulb_flags, "--time", "1.0"],
+         bulb("trig"), (480, 270), True),
+        ("--type mandelbulb --power 16", [*bulb_flags, "--power", "16"],
+         bulb("p16"), (480, 270), True),
     ]
     main_wall = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for label, flags, instance, module, (pw, ph), compare in paths:
+        for label, flags, runs, (pw, ph), compare in paths:
             out = os.path.join(tmp, "frame.png")
             argv = ["render", "--width", str(pw), "--height", str(ph),
                     *flags, "--out", out]
@@ -542,15 +811,21 @@ def main() -> int:
             wall = time.monotonic() - t0
             launches = counts()
             assert rc == 0, f"cli render {label} exited {rc}"
-            assert launches.pop(module) > 0, \
-                f"{label}: the path did not launch its kernel"
+            ran = {}
+            for w, (instance, n) in runs.items():
+                ran[instance] = launches.pop(w)
+                assert ran[instance] > 0 if n is None \
+                    else ran[instance] == n, \
+                    f"{label}: {ran[instance]} launches of {w}, expected " \
+                    f"{n or 'some'}"
+                entry(instance, *source_of[w], 0.0)["launches"] += \
+                    ran[instance]
             assert not any(launches.values()), \
-                f"{label}: launched another kernel"
-            launches = getattr(module, wrappers[module][0]).launches
+                f"{label}: launched another kernel: {launches}"
             img = read_png_rgb8(out)
             assert img.shape == (ph, pw, 3), img.shape
             assert 0 < img.mean() < 255, f"{label}: degenerate image"
-            note = "not compared (see the 480x270 run)"
+            note = "not compared (see the smaller run)"
             if compare:
                 scene = cli.scene_from_args(
                     cli.build_parser().parse_args(argv))
@@ -567,16 +842,15 @@ def main() -> int:
                 assert lsb <= 1, f"{label}: PNG differs from the plain " \
                     f"pipeline by {lsb} LSB"
                 note = f"max {lsb} LSB from the plain pipeline"
-            if module is perturbation:
+            if pert_w in runs:
                 info = said.getvalue().strip().splitlines()[-1].strip()
                 assert "0 HP-fallback, 0 remaining" in info, info
                 note += f"; {info}"
-            e = entry(instance, wrappers[module][2], wrappers[module][3], 0.0)
-            e["launches"] += launches
             main_wall[(label, pw, ph)] = wall
-            print(f"path cli render {label}: {pw}x{ph} PNG, {launches} "
-                  f"launch(es) of {instance}, {wall * 1e3:.1f} ms wall "
-                  f"(first call), {note}", flush=True)
+            print(f"path cli render {label}: {pw}x{ph} PNG, " + ", ".join(
+                f"{n} launch(es) of {i}" for i, n in ran.items())
+                + f", {wall * 1e3:.1f} ms wall (first call), {note}",
+                flush=True)
 
     # the distance field (library entry point: K1 with the derivative)
     scene = Scene()
@@ -625,7 +899,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = counts()
-        assert launches.pop(perturbation) == 1, "render_fields: not 1 K3 launch"
+        assert launches.pop(pert_w) == 1, "render_fields: not 1 K3 launch"
         assert not any(launches.values()), "render_fields: other kernels"
         assert info["fallback_pixels"] == 0, info
         assert info["glitched_pixels_remaining"] == 0, info
@@ -649,31 +923,35 @@ def main() -> int:
               f"entries by {orbit_engine()} in {orbit_s * 1e3:.2f} ms; "
               f"{wall * 1e3:.1f} ms wall", flush=True)
 
-    # -- where a warm main-path frame's host time goes -----------------------
-    stages = {"render+quantize": [], "flip+fetch": [], "png write": [],
-              "cli render": []}
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "frame.png")
-        for _ in range(3):
-            t0 = time.perf_counter()
-            img = models.render(scene, W, H, device=dev, quantize=8)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            host = to_export_orientation(img).cpu().numpy()
-            t2 = time.perf_counter()
-            png.write_png(out, host)
-            t3 = time.perf_counter()
-            stages["render+quantize"].append(t1 - t0)
-            stages["flip+fetch"].append(t2 - t1)
-            stages["png write"].append(t3 - t2)
-        for _ in range(2):
-            with contextlib.redirect_stdout(io.StringIO()):
+    # -- where a warm frame's host time goes: the main path and config 6 ----
+    for label, scene, flags in (
+            ("main path", Scene(), []),
+            ("config 6 bulb frame (1920x1080, power 8)",
+             Scene(fractal_type=FractalType.MANDELBULB), bulb_flags)):
+        stages = {"render+quantize": [], "flip+fetch": [], "png write": [],
+                  "cli render": []}
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "frame.png")
+            for _ in range(3):
                 t0 = time.perf_counter()
-                assert cli.main(["render", "--out", out]) == 0
-                stages["cli render"].append(time.perf_counter() - t0)
-    print("main path, warm, host clock, median ms: " + ", ".join(
-        f"{k} {statistics.median(v) * 1e3:.2f}" for k, v in stages.items()),
-        flush=True)
+                img = models.render(scene, W, H, device=dev, quantize=8)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                host = to_export_orientation(img).cpu().numpy()
+                t2 = time.perf_counter()
+                png.write_png(out, host)
+                t3 = time.perf_counter()
+                stages["render+quantize"].append(t1 - t0)
+                stages["flip+fetch"].append(t2 - t1)
+                stages["png write"].append(t3 - t2)
+            for _ in range(2):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    t0 = time.perf_counter()
+                    assert cli.main(["render", *flags, "--out", out]) == 0
+                    stages["cli render"].append(time.perf_counter() - t0)
+        print(f"{label}, warm, host clock, median ms: " + ", ".join(
+            f"{k} {statistics.median(v) * 1e3:.2f}"
+            for k, v in stages.items()), flush=True)
 
     # -- where a warm config-4 frame's time goes -----------------------------
     scene = dz_scene("config4")
@@ -748,16 +1026,37 @@ def main() -> int:
               lambda: escape.escape_fields_plain(params, fused_color=fused,
                                                  **frame),
               kernel_reps=50 if family == "mandelbrot" else 20)
+        rgb = escape.escape_fields_cuda(params, fused_color=fused, **frame)
         frame.update(interior_skip=False, **spec["track"])
         timed(f"escape_{family}_fields",
               lambda: escape.escape_fields_cuda(params, fused_color=None,
                                                 **frame),
               lambda: escape.escape_fields_plain(params, fused_color=None,
                                                  **frame))
+        # the iterations each frame needs: sum(n), less the pixels the
+        # fused Mandelbrot frame skips as provably interior
+        fields = escape.escape_fields_cuda(params, fused_color=None, **frame)
+        torch.cuda.synchronize()
+        n = fields[0].double()
+        skipped = (skip_mask(params) if family == "mandelbrot"
+                   else torch.zeros_like(n, dtype=torch.bool))
+        for kind, iters, outs in (
+                ("fused", float(n[~skipped].sum()), rgb),
+                ("fields", float(n.sum()), fields)):
+            name = f"escape_{family}_{kind}"
+            set_bound(name, iters, OPS_PER_ITER[name],
+                      W * H * OPS_PER_PIXEL[kind],
+                      sum(t.numel() * t.element_size() for t in outs),
+                      extra=f" (sum n; {int(skipped.sum())} skipped pixels "
+                      "excluded)" if kind == "fused" and skipped.any()
+                      else " (sum n)")
     timed("dd_escape_mandelbrot",
           lambda: dd_escape.dd_escape_fields_cuda(dd_params, **dd_frame),
           lambda: dd_escape.dd_escape_fields_plain(dd_params, **dd_frame),
           kernel_reps=5)
+    set_bound("dd_escape_mandelbrot", dd_work[0],
+              OPS_PER_ITER["dd_escape_mandelbrot"], W * H * OPS_PER_PIXEL["dd"],
+              dd_work[1], extra=" (sum n)")
 
     # K3: each case's full frame, one CUDA-event pair per launch, median of
     # 7; the plain version's time is its 64-row band's in the K3 phase
@@ -782,10 +1081,50 @@ def main() -> int:
               f"(runs {[round(t, 3) for t in runs]}); {pw * ph / ms / 1e3:.2f}"
               f" Mpix/s; plain version on its {pw}x{BAND_ROWS} band: "
               f"{plain_ms:.1f} ms", flush=True)
+    for name, (iters, n_skip, pixels, nbytes) in pert_work.items():
+        set_bound(name, iters, OPS_PER_ITER[name],
+                  pixels * OPS_PER_PIXEL["pert"], nbytes,
+                  extra=f" (sum(n - n_skip), n_skip {n_skip})")
+
+    # K4a and K4b: each instance's 1080p frame, one CUDA-event pair per
+    # launch, median of 7; the plain versions' times are the K4 phase's
+    # (K4a's whole coarse grid, K4b's 64-row band)
+    for tag, label, _ in BULB_CASES:
+        params, cparams, ckw, mkw, ip, st = bulb_frames[tag]
+        tc = bulb_kernel.cone_fields_cuda(cparams, **ckw)
+        for name, fn in (
+                (f"bulb_cone_{tag}",
+                 lambda: bulb_kernel.cone_fields_cuda(cparams, **ckw)),
+                (f"bulb_march_{tag}",
+                 lambda: bulb_kernel.march_fields_cuda(params, tc,
+                                                       stats=False, **mkw))):
+            fn()
+            runs = [cuda_event_ms(fn)[1] for _ in range(7)]
+            kernels[name]["ms"] = statistics.median(runs)
+            print(f"time per {W}x{H} frame, {name} {label}: kernel "
+                  f"{kernels[name]['ms']:.4f} ms (runs "
+                  f"{[round(t, 4) for t in runs]}); plain version "
+                  f"{kernels[name]['plain_ms']:.1f} ms on "
+                  + ("the whole coarse grid" if "cone" in name else
+                     f"its {W}x{bh} band"), flush=True)
+        ops_de = bulb_ops_per_iter(ip)
+        set_bound(f"bulb_cone_{tag}", st["c_work"], ops_de,
+                  st["c_evals"] * OPS_BULB_EVAL,
+                  4 * ckw["coarse_w"] * ckw["coarse_h"] + 4 * len(cparams),
+                  extra=f" (sum(work) of the plain version; "
+                  f"{st['c_evals']:.0f} evaluations x {OPS_BULB_EVAL})")
+        set_bound(f"bulb_march_{tag}", st["work"], ops_de,
+                  st["evals"] * OPS_BULB_EVAL + st["hits"] * OPS_BULB_HIT,
+                  8 * 4 * W * H + 4 * tc.numel() + 4 * len(params),
+                  extra=f" (sum(work); {st['evals']:.0f} evaluations x "
+                  f"{OPS_BULB_EVAL}, {st['hits']} hits x {OPS_BULB_HIT})")
 
     missing = [k for k, e in kernels.items() if e["launches"] == 0]
     assert not missing, f"instances no path launched: {missing}"
-    assert len(kernels) == 12, f"expected K1 x8, K2 and K3 x3: {list(kernels)}"
+    assert len(kernels) == 18, \
+        f"expected K1 x8, K2, K3 x3, K4a x3 and K4b x3: {list(kernels)}"
+    assert all(e["bound_ms"] and e["ms"] and e["plain_ms"]
+               for e in kernels.values()), kernels
     print(f"smoke wall time {time.monotonic() - t_start:.1f} s (build "
           f"included)", flush=True)
     print(card_line())

@@ -1,8 +1,9 @@
 """Command-line interface of the PyTorch port (counterpart of
 ``fractalrenderer_tpu/cli.py``).  Only the ``render`` verb is ported, for
 the four 2D families (every AA, trap, stripe, interior-style and Julia
-option), ``--precision dd`` and ``--type deep-zoom`` (the rebasing
-Mandelbrot perturbation path, every depth, with ``--series``); the other
+option), ``--precision dd``, ``--type deep-zoom`` (the rebasing
+Mandelbrot perturbation path, every depth, with ``--series``) and ``--type
+mandelbulb`` (``--power``, ``--time``, ``--aa``, ``--palette``); the other
 verbs and the unported render options exit with code 2 and a one-line
 message naming the ROADMAP item that ports them.
 
@@ -19,6 +20,8 @@ Usage examples:
   python -m fractalrenderer_tpu_torch.cli render --type deep-zoom \\
       --hp-center-x -0.74364388703715158 --hp-center-y 0.13182590420531198 \\
       --hp-zoom 1e-12 --iters 10000 --out deep.png
+  python -m fractalrenderer_tpu_torch.cli render --type mandelbulb \\
+      --time 1.0 --aa 2 --out bulb.png
 """
 from __future__ import annotations
 

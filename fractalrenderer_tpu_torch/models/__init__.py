@@ -2,8 +2,9 @@
 ``fractalrenderer_tpu/models/__init__.py``).
 
 ``render(scene, width, height, device=...)`` returns an f32 RGB tensor
-(H, W, 3) in [0, 1] on ``device`` for the four 2D escape-time families and
-the deep zoom (the rebasing Mandelbrot path).
+(H, W, 3) in [0, 1] on ``device`` for every family: the four 2D
+escape-time families, the Mandelbulb and the deep zoom (the rebasing
+Mandelbrot path).
 """
 from __future__ import annotations
 
@@ -16,12 +17,8 @@ _MODULES = {
     FractalType.JULIA: "julia",
     FractalType.BURNING_SHIP: "burning_ship",
     FractalType.PHOENIX: "phoenix",
+    FractalType.MANDELBULB: "mandelbulb",
     FractalType.DEEP_ZOOM: "deep_zoom",
-}
-
-# ROADMAP Queue 1 item that ports each family not ported yet
-_NOT_PORTED = {
-    FractalType.MANDELBULB: 7,
 }
 
 
@@ -29,10 +26,6 @@ def render(scene: Scene, width: int, height: int, **kw):
     from ..utils.diag import validate_scene
 
     scene = validate_scene(scene)  # compute_effect_manager.h:335-345 repairs
-    ft = scene.fractal_type
-    if ft in _MODULES:
-        module = importlib.import_module(f".{_MODULES[ft]}", __name__)
-        return module.render(scene, width, height, **kw)
-    raise NotImplementedError(
-        f"{ft.display_name} is not ported yet (ROADMAP Queue 1 item "
-        f"{_NOT_PORTED[ft]})")
+    module = importlib.import_module(f".{_MODULES[scene.fractal_type]}",
+                                     __name__)
+    return module.render(scene, width, height, **kw)

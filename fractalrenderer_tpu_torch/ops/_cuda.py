@@ -118,6 +118,15 @@ def load_library() -> ctypes.CDLL:
     #                 stream)
     lib.fr_perturbation.argtypes = [ci] + [vp] * 5 + [ci] * 4 + [vp] * 6
     lib.fr_perturbation.restype = ci
+    # fr_bulb_cone(power, params, coarse_w, coarse_h, width, map_height,
+    #              t0, stream)
+    lib.fr_bulb_cone.argtypes = [ci, vp] + [ci] * 4 + [vp] * 2
+    lib.fr_bulb_cone.restype = ci
+    # fr_bulb_march(power, params, tc, coarse_w, cone, width, height,
+    #               map_height, shade, hit, t, d, esc, nx, ny, nz, ao,
+    #               msteps, work, stream)
+    lib.fr_bulb_march.argtypes = [ci, vp, vp] + [ci] * 6 + [vp] * 11
+    lib.fr_bulb_march.restype = ci
     lib.fr_cuda_error_string.argtypes = [ci]
     lib.fr_cuda_error_string.restype = ctypes.c_char_p
     return lib

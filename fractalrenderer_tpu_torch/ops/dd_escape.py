@@ -154,7 +154,7 @@ def dd_escape_fields(width: int, height: int, *, center_x_dd: DD,
                      offset: Tuple[float, float] = (0.0, 0.0),
                      iter_limit=None, row0: int = 0,
                      map_height: Optional[int] = None,
-                     device="cpu") -> Dict[str, torch.Tensor]:
+                     device="cuda") -> Dict[str, torch.Tensor]:
     """Double-double escape fields {"n", "zx", "zy"} on ``device`` (the JAX
     ``dd_escape_fields`` signature, with ``device`` for ``interpret``);
     zx/zy are the hi + lo sums of the final z."""

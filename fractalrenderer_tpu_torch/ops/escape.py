@@ -33,7 +33,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from . import coloring, mapping
+from . import coloring, mapping, trig
 from . import palettes as pal
 
 # Scalar-parameter vector layout, identical to the JAX package's
@@ -65,6 +65,7 @@ OUTPUT_SLOTS = {"n": 0, "zx": 1, "zy": 2, "trap": 3, "stripe": 4, "dzx": 5,
 
 _MAX_LIMIT = (1 << 24) - 1  # the f32 counter ceiling of the JAX kernel
 _EARLY_EXIT_EVERY = 16  # plain path: test for live pixels this often
+_sqrt = trig.sqrt  # the IEEE root on both devices
 # CUDA grid limits for the (32, 8) blocks: grid.y <= 65535
 _MAX_HEIGHT = 65535 * 8
 
@@ -360,15 +361,6 @@ def escape_fields_plain(params: np.ndarray, *, width: int, height: int,
     return tuple(rgb)
 
 
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """The IEEE (correctly rounded) f32 square root.  CUDA's is; PyTorch's
-    vectorised CPU sqrt is not, but the f64 root of an f32 value rounded
-    once to f32 is."""
-    if x.device.type == "cpu":
-        return torch.sqrt(x.double()).float()
-    return torch.sqrt(x)
-
-
 def _combined_trap(zx, zy, cr, ci, sqx=None, sqy=None):
     """Mandelbrot's combined orbit trap: min(|z|, distance to the axes,
     |z - c|)."""
@@ -449,7 +441,7 @@ def escape_fields(family: str, width: int, height: int, *,
                   interior_skip: bool = False, track_deriv: bool = False,
                   fused_color=None, color_offset=0.0, color_scale=1.0,
                   brightness=1.0, saturation=1.2, contrast=1.1,
-                  device="cpu") -> Dict[str, torch.Tensor]:
+                  device="cuda") -> Dict[str, torch.Tensor]:
     """Compute escape-time fields for one AA sample on ``device`` (the JAX
     ``escape_fields`` signature, with ``device`` for ``interpret``).
 

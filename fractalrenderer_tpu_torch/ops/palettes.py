@@ -9,8 +9,11 @@ planar half of ``fractalrenderer_tpu/ops/palettes.py``).
 
 - ``deepzoom_color`` (4): shaders/test_deep_zoom.comp:86-100, stacked
   (..., 3) — deep-zoom colouring is tensor glue, in no kernel.
+- ``bulb_color`` (6): shaders/mandelbulb.comp:34-75 — procedural dynamic /
+  fire_and_ice / lava / neon with hash noise, stacked (..., 3); the
+  Mandelbulb's shading is tensor glue after its kernels.
 
-The mandelbulb palettes are not ported yet.  ``palette_table``
+``palette_table``
 flattens one spec into the f32 constant table the CUDA escape kernel reads,
 so the kernel and the plain path use the same rounded constants (Python
 folds ``hi - lo`` in double before it reaches f32; the kernel must not
@@ -208,6 +211,93 @@ def deepzoom_color(t: torch.Tensor, mode: int) -> torch.Tensor:
                     _vec3(1.0, 0.8, 0.0, t.device), s)
     s = _fract(t * 0.02)
     return s[..., None].expand(s.shape + (3,)).contiguous()
+
+
+def _piecewise5(t, cols, bounds):
+    """The stacked (..., 3) form of _piecewise5_planar."""
+    return torch.stack(_piecewise5_planar(t, cols, bounds), dim=-1)
+
+
+def _bulb_hsv2rgb(h, s, v):
+    """mandelbulb.comp:17-20 (the mod-based formulation), stacked."""
+    base = torch.stack([h * 6.0 + 0.0, h * 6.0 + 4.0, h * 6.0 + 2.0], dim=-1)
+    rgb = _clamp(torch.abs(torch.remainder(base, 6.0) - 3.0) - 1.0, 0.0, 1.0)
+    one = torch.ones_like(rgb)
+    return v[..., None] * (one * (1.0 - s[..., None]) + rgb * s[..., None])
+
+
+def _hash(px, py):
+    """mandelbulb.comp:25."""
+    return _fract(torch.sin(px * 127.1 + py * 311.7) * 43758.5453123)
+
+
+def _noise(px, py):
+    """mandelbulb.comp:26-32: value noise from four corner hashes."""
+    ix, iy = torch.floor(px), torch.floor(py)
+    fx, fy = px - ix, py - iy
+    a = _hash(ix, iy)
+    b = _hash(ix + 1.0, iy)
+    c = _hash(ix, iy + 1.0)
+    d = _hash(ix + 1.0, iy + 1.0)
+    ux = fx * fx * (3.0 - 2.0 * fx)
+    uy = fy * fy * (3.0 - 2.0 * fy)
+    return (a * (1.0 - ux) + b * ux) + (c - a) * uy * (1.0 - ux) \
+        + (d - b) * ux * uy
+
+
+def bulb_dynamic(t):
+    """mandelbulb.comp:34-39."""
+    hue = _fract(t + 0.3 * torch.sin(t * 12.0))
+    sat = 0.6 + 0.4 * torch.sin(t * 7.0)
+    val = torch.pow(t, float(np.float32(0.4)))
+    return _bulb_hsv2rgb(hue, sat, val)
+
+
+def bulb_fire_and_ice(t):
+    """mandelbulb.comp:41-46."""
+    blend = _smoothstep(t)
+    zeros, ones = torch.zeros_like(blend), torch.ones_like(blend)
+    fire = torch.stack([torch.pow(blend, 2.0), blend * 0.5, zeros], dim=-1)
+    ice = torch.stack([zeros, 0.5 + 0.5 * blend, ones], dim=-1)
+    return _mix(fire * 1.0, ice * 1.0, _fract(t * 3.0))
+
+
+def bulb_lava(t):
+    """mandelbulb.comp:48-55."""
+    return _piecewise5(
+        t, [(0.1, 0.0, 0.0), (0.8, 0.1, 0.0), (1.0, 0.5, 0.0),
+            (1.0, 0.9, 0.3), (1.0, 1.0, 0.8)],
+        [0.0, 0.25, 0.5, 0.75, 1.0])
+
+
+def bulb_neon(t):
+    """mandelbulb.comp:57-61."""
+    dev = t.device
+    lo = _mix(_vec3(0.0, 0.0, 0.1, dev), _vec3(0.0, 0.2, 0.6, dev), t)
+    hi = _mix(_vec3(0.0, 0.8, 1.0, dev), _vec3(0.5, 1.0, 1.0, dev), t)
+    return _mix(lo, hi, torch.pow(t, 2.0))
+
+
+def bulb_color(t: torch.Tensor, mode: int) -> torch.Tensor:
+    """mandelbulb.comp:63-75 — fract, add hash noise, dispatch on a static
+    mode: (..., 3) f32."""
+    t = _fract(t)
+    n = _noise(t * 100.0, t * 57.0) * 0.02
+    if mode == 1:
+        return bulb_fire_and_ice(t + n)
+    if mode == 2:
+        return bulb_lava(t + n)
+    if mode == 3:
+        return bulb_neon(t + n)
+    if mode == 4:
+        return bulb_dynamic(torch.pow(t, float(np.float32(0.5))) + n)
+    if mode == 5:
+        return bulb_fire_and_ice(torch.pow(t, float(np.float32(0.6))) + n)
+    return bulb_dynamic(t + n)
+
+
+def num_palettes(family: str) -> int:
+    return {"classic": 6, "enhanced": 10, "deepzoom": 4, "bulb": 6}[family]
 
 
 def palette_color_planar(t: torch.Tensor, mode: int,

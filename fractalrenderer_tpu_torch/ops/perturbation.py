@@ -534,7 +534,7 @@ def perturbation_fields(orbit: np.ndarray, width: int, height: int, *,
                         phoenix_r: float = 0.0, aa_spp: int = 1,
                         orbit_exp: Optional[np.ndarray] = None,
                         track_err: bool = False,
-                        device="cpu") -> Dict[str, torch.Tensor]:
+                        device="cuda") -> Dict[str, torch.Tensor]:
     """Perturbation fields {"n", "zx", "zy", "glitch", "want", "passes",
     "rounds_plane"} on ``device`` against a precomputed reference orbit
     ((L, 2) float64 from deepzoom.orbit), with the JAX signature.  Runs the

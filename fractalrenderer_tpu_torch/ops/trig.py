@@ -4,7 +4,9 @@
 The JAX package uses these polynomials where Mosaic has no atan2 lowering;
 its Phoenix flow stripes read ``atan2`` on both the fused and the unfused
 path, so the port keeps the same expression.  ``csrc/escape.cu`` has the
-same polynomial as a device function (``poly_atan2``).
+same polynomial as a device function (``poly_atan2``); the Mandelbulb's
+non-integer-power DE step reads ``acos`` and ``atan2`` (``csrc/bulb.cu``
+``poly_acos``).
 
 Constants Python would fold in double (π, π/2) are written as the f32
 values the JAX package's weak-typed arithmetic rounds them to, and the one
@@ -23,6 +25,15 @@ PI_2 = float(np.float32(math.pi / 2.0))
 # Remez coefficients for atan(t)/t on [0, 1], highest power first
 ATAN_COEFFS = (-0.0117212, 0.05265332, -0.11643287, 0.19354346,
                -0.33262348, 0.99997726)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The IEEE (correctly rounded) f32 square root.  CUDA's is; PyTorch's
+    vectorised CPU sqrt is not, but the f64 root of an f32 value rounded
+    once to f32 is."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
 
 
 def atan(x: torch.Tensor) -> torch.Tensor:
@@ -57,3 +68,9 @@ def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     r = torch.where(x_zero & (y > 0), torch.full_like(r, PI_2), r)
     r = torch.where(x_zero & (y < 0), torch.full_like(r, -PI_2), r)
     return torch.where(x_zero & (y == 0), torch.zeros_like(r), r)
+
+
+def acos(x: torch.Tensor) -> torch.Tensor:
+    """arccos(x) = atan2(sqrt(1 - x²), x) for x in [-1, 1]."""
+    xc = torch.clamp(x, -1.0, 1.0)
+    return atan2(sqrt(torch.clamp_min(1.0 - xc * xc, 0.0)), xc)

@@ -1,5 +1,6 @@
 """The port's CLI ``render`` verb on the CPU device (the four families with
-their options, ``--precision dd`` and ``--type deep-zoom``), and its
+their options, ``--precision dd`` and ``--type deep-zoom``; ``--type
+mandelbulb`` is in test_torch_bulb.py), and its
 rejection of everything not ported yet (exit code 2, one line on
 stderr)."""
 import json
@@ -65,7 +66,8 @@ def test_render_scene_file_written_by_jax(tmp_path, capsys):
 
 
 UNPORTED = [
-    ["--type", "mandelbulb"], ["--type", "deep-zoom", "--deep-ship"],
+    ["--type", "deep-zoom", "--spp", "2"],
+    ["--type", "deep-zoom", "--deep-ship"],
     ["--sharded"], ["--golden"], ["--exact-dust"], ["--width", "0"],
     # the JAX CLI's own refusal: dd is the Mandelbrot kernel
     ["--precision", "dd", "--type", "julia"],

@@ -131,7 +131,7 @@ def test_color_and_post_chain_match_jax(palette, style, clamp):
 def test_fused_plain_equals_fields_then_color(fused):
     # twin of test_fused_coloring_matches_unfused on the plain path
     base = dict(center_x=-0.5, center_y=0.0, zoom=3.0, max_iter=96,
-                interior_skip=True)
+                interior_skip=True, device="cpu")
     col = dict(color_offset=0.25, color_scale=2.0, brightness=1.05,
                saturation=1.2, contrast=1.1)
     f = escape.escape_fields("mandelbrot", 96, 80, **base)
@@ -349,7 +349,8 @@ def test_fused_coloring_matches_unfused(family, kw):
     kw = dict(kw)
     fused = kw.pop("fused", (0, 0, False))
     base = dict(center_x=kw.pop("cx", -0.5), center_y=kw.pop("cy", 0.0),
-                zoom=kw.pop("zoom", 3.0), max_iter=96, bailout=4.0)
+                zoom=kw.pop("zoom", 3.0), max_iter=96, bailout=4.0,
+                device="cpu")
     coff = kw.pop("color_offset", 0.0)
     cscale = kw.pop("color_scale", 1.0)
     bri, sat, con = 1.05, 1.2, 1.1

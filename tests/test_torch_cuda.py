@@ -1,12 +1,15 @@
-"""Kernels K1 (csrc/escape.cu), K2 (csrc/dd_escape.cu) and K3
-(csrc/perturbation.cu) on the card against their plain PyTorch versions on
-the same card, at edge shapes and options the main path does not reach.
+"""Kernels K1 (csrc/escape.cu), K2 (csrc/dd_escape.cu), K3
+(csrc/perturbation.cu) and K4a/K4b (csrc/bulb.cu) on the card against
+their plain PyTorch versions on the same card, at edge shapes and options
+the main path does not reach.
 
 Contract: counts, z, trap and dz bit-equal (NaN where the plain version
 has NaN); the Burning Ship stripe (a sum
 of sinf terms) within rtol 1e-3, atol 2e-4·iters (the JAX contract,
 test_golden_vs_kernel.py:98-100); fused colour within 1e-5; K3 bit-equal
-on n, zx, zy, want and rounds in each delta tier.
+on n, zx, zy, want and rounds in each delta tier; K4a's start depths and
+K4b's planes (hit, t, d, esc, normals, AO, msteps, work) bit-equal in the
+integer-power and trig instances.
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere.  The GPU machine has no
 jax, so run it there without the suite's conftest:
@@ -18,7 +21,8 @@ from fractions import Fraction
 import pytest
 import torch
 
-from fractalrenderer_tpu_torch.ops import dd, dd_escape, escape
+from fractalrenderer_tpu_torch.ops import (bulb_kernel, bulb_math, dd,
+                                           dd_escape, escape)
 
 pytestmark = pytest.mark.cuda
 
@@ -245,19 +249,25 @@ def test_perturbation_kernel_equals_plain(dev, tier, case):
 
 
 def test_launch_counter_counts_kernel_launches(dev):
+    # the entry points default to the card
     before = escape.escape_fields_cuda.launches
     f = escape.escape_fields("julia", 16, 8, center_x=0.0, center_y=0.0,
-                             zoom=3.0, max_iter=32, julia_c=(-0.7, 0.27),
-                             device=dev)
+                             zoom=3.0, max_iter=32, julia_c=(-0.7, 0.27))
     assert f["n"].device.type == "cuda"
     assert escape.escape_fields_cuda.launches == before + 1
     before = dd_escape.dd_escape_fields_cuda.launches
     f = dd_escape.dd_escape_fields(16, 8, center_x_dd=(-0.5, 0.0),
                                    center_y_dd=(0.0, 0.0),
-                                   zoom_dd=(3.0, 0.0), max_iter=32,
-                                   device=dev)
+                                   zoom_dd=(3.0, 0.0), max_iter=32)
     assert f["n"].device.type == "cuda"
     assert dd_escape.dd_escape_fields_cuda.launches == before + 1
+    cone = bulb_kernel.cone_fields_cuda.launches
+    march = bulb_kernel.march_fields_cuda.launches
+    f = bulb_kernel.march_fields(16, 8, ro=(0.0, 0.0, 3.0), fov=1.0,
+                                 power=8.0, max_iter=16, shade=True)
+    assert f["ao"].device.type == "cuda"
+    assert bulb_kernel.cone_fields_cuda.launches == cone + 1
+    assert bulb_kernel.march_fields_cuda.launches == march + 1
 
 
 def test_kernel_rejects_unported_styles(dev):
@@ -282,3 +292,82 @@ def test_kernel_rejects_fused_trap_glow(dev):
             params, width=8, height=8, map_height=8, row0=0,
             max_iter_cap=16, interior_skip=False,
             fused_color=(0, 2, False, True), device=dev)
+
+
+def _bulb_both(dev, width, height, *, power=8.0, time=0.0, row0=0,
+               map_height=None, shade=True, stats=True, cone=8,
+               int_power="auto", max_iter=64):
+    """K4a then K4b on the card and their plain versions on the same
+    inputs (K4b's plain version takes the kernel's K4a grid)."""
+    p = bulb_math.BulbParams(power=power, time=time).clamped()
+    ro, dyn = bulb_math.camera_setup(p)
+    params = bulb_kernel.pack_march_params(ro=ro, fov=p.fov, power=dyn,
+                                           max_iter=max_iter, row0=row0)
+    map_height = map_height or height
+    ip = bulb_kernel.resolve_int_power(dyn, int_power)
+    tc = None
+    if cone:
+        cparams = bulb_kernel.pack_cone_params(params, cone, map_height)
+        ckw = dict(coarse_w=bulb_kernel.cdiv(width, cone),
+                   coarse_h=bulb_kernel.cdiv(height, cone) + 1, width=width,
+                   map_height=map_height, int_power=ip, device=dev)
+        tc = bulb_kernel.cone_fields_cuda(cparams, **ckw)
+        tc_plain = bulb_kernel.cone_fields_plain(cparams, **ckw)
+        torch.cuda.synchronize()
+        assert torch.equal(tc, tc_plain), "K4a differs from its plain version"
+    kw = dict(width=width, height=height, map_height=map_height, cone=cone,
+              shade=shade, int_power=ip, stats=stats, device=dev)
+    got = bulb_kernel.march_fields_cuda(params, tc, **kw)
+    want = bulb_kernel.march_fields_plain(params, tc, **kw)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("case", [
+    dict(width=64, height=48),
+    dict(width=64, height=48, time=1.0),
+    dict(width=64, height=48, power=3.0),
+    dict(width=64, height=48, power=16.0),
+    dict(width=64, height=48, int_power=None),
+    dict(width=64, height=48, shade=False, stats=False),
+    dict(width=64, height=48, cone=0, max_iter=24),
+    dict(width=33, height=7, power=5.0, time=0.3),
+    dict(width=480, height=16, row0=131, map_height=270),
+    # every other integer power's template instance (csrc/bulb.cu unrolls
+    # each power's exponent chains on its own)
+    *[dict(width=64, height=48, power=float(p))
+      for p in range(2, 16) if p not in (3, 8)],
+], ids=str)
+def test_bulb_kernels_equal_plain(dev, case):
+    got, want = _bulb_both(dev, **case)
+    names = ["hit", "t", "d", "esc"]
+    if case.get("shade", True):
+        names += ["nx", "ny", "nz", "ao"]
+    if case.get("stats", True):
+        names += ["msteps", "work"]
+    assert len(got) == len(want) == len(names)
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape
+        assert torch.equal(g, w), f"{name} differs"
+    assert 0.0 < float(got[0].mean()) < 1.0  # bulb and sky
+
+
+def test_bulb_render_launches_one_cone_and_one_march_per_sample(
+        dev, monkeypatch):
+    import fractalrenderer_tpu_torch as frt
+    from fractalrenderer_tpu_torch.models import mandelbulb
+
+    scene = frt.Scene(fractal_type=frt.FractalType.MANDELBULB,
+                      max_iterations=32, antialiasing_samples=2, time=0.7)
+    cone = bulb_kernel.cone_fields_cuda.launches
+    march = bulb_kernel.march_fields_cuda.launches
+    img = mandelbulb.render(scene, 40, 24)
+    assert img.device.type == "cuda"
+    assert bulb_kernel.cone_fields_cuda.launches == cone + 4
+    assert bulb_kernel.march_fields_cuda.launches == march + 4
+    # the same pipeline on the plain versions, on the card: equal
+    monkeypatch.setattr(bulb_kernel, "cone_fields_cuda",
+                        bulb_kernel.cone_fields_plain)
+    monkeypatch.setattr(bulb_kernel, "march_fields_cuda",
+                        bulb_kernel.march_fields_plain)
+    assert torch.equal(img, mandelbulb.render(scene, 40, 24))

@@ -126,7 +126,8 @@ def test_plain_dd_fields_bit_equal_to_numpy_dd_loop(view):
 def test_row_band_equals_whole_frame_rows():
     kw = dict(center_x_dd=dd.dd_from_string(SEAHORSE[0]),
               center_y_dd=dd.dd_from_string(SEAHORSE[1]),
-              zoom_dd=dd.dd_from_string("1e-6"), max_iter=300)
+              zoom_dd=dd.dd_from_string("1e-6"), max_iter=300,
+              device="cpu")
     full = dd_escape.dd_escape_fields(40, 30, **kw)
     band = dd_escape.dd_escape_fields(40, 10, row0=12, map_height=30, **kw)
     for k in ("n", "zx", "zy"):
@@ -148,7 +149,7 @@ def test_dd_counts_close_to_f64_oracle(cx, cy, zoom, w, h, mi, frac):
     f = dd_escape.dd_escape_fields(
         w, h, center_x_dd=dd.dd_from_string(repr(cx)),
         center_y_dd=dd.dd_from_string(repr(cy)),
-        zoom_dd=dd.dd_from_string(repr(zoom)), max_iter=mi)
+        zoom_dd=dd.dd_from_string(repr(zoom)), max_iter=mi, device="cpu")
     assert (f["n"].numpy() != oracle).mean() < frac
 
 
@@ -185,10 +186,11 @@ def test_dd_launch_checks():
     kw = dict(center_x_dd=(-0.5, 0.0), center_y_dd=(0.0, 0.0),
               zoom_dd=(3.0, 0.0))
     with pytest.raises(ValueError, match="2\\^24"):
-        dd_escape.dd_escape_fields(8, 8, max_iter=1 << 24, **kw)
+        dd_escape.dd_escape_fields(8, 8, max_iter=1 << 24, device="cpu",
+                                   **kw)
     with pytest.raises(ValueError, match="outside the image height"):
         dd_escape.dd_escape_fields(8, 8, max_iter=8, row0=4, map_height=8,
-                                   **kw)
+                                   device="cpu", **kw)
     with pytest.raises(ValueError, match="unsupported device"):
         dd_escape.dd_escape_fields(8, 8, max_iter=8, device="meta", **kw)
 
@@ -214,7 +216,8 @@ def test_render_dd_matches_jax_colour_pipeline_on_the_same_fields(scene_kw):
         center_y_dd=dd.dd_from_string(
             jscene.hp_center_y or repr(jscene.center_y)),
         zoom_dd=dd.dd_from_string(jscene.hp_zoom or repr(jscene.zoom)),
-        max_iter=jscene.max_iterations, bailout=jscene.bailout)
+        max_iter=jscene.max_iterations, bailout=jscene.bailout,
+        device="cpu")
     p = jax_coloring.ColorParams(
         max_iterations=jscene.max_iterations, bailout=jscene.bailout,
         palette_mode=jscene.palette_mode, color_offset=jscene.color_offset,

@@ -59,7 +59,8 @@ def _golden(name):
 def _port(v, **kw):
     f = escape.escape_fields(
         "mandelbrot", v["width"], v["height"], center_x=v["cx"],
-        center_y=v["cy"], zoom=v["zoom"], max_iter=v["iters"], **kw)
+        center_y=v["cy"], zoom=v["zoom"], max_iter=v["iters"], device="cpu",
+        **kw)
     return {k: t.numpy() for k, t in f.items()}
 
 
@@ -114,7 +115,8 @@ def test_plain_close_to_jax_kernel(name, frac):
 def test_partial_sizes_exact():
     # twin of test_partial_tiles: odd sizes, no sentinel leaks
     f = escape.escape_fields("mandelbrot", 37, 23, center_x=-0.5,
-                             center_y=0.0, zoom=3.0, max_iter=32)
+                             center_y=0.0, zoom=3.0, max_iter=32,
+                             device="cpu")
     n, *_ = golden.mandelbrot_fields(37, 23, -0.5, 0.0, 3.0, 32, 4.0)
     np.testing.assert_array_equal(f["n"].numpy(), n)
     assert f["n"].min() >= 0
@@ -122,7 +124,7 @@ def test_partial_sizes_exact():
 
 def test_iter_limit_dynamic():
     # iter_limit below the static cap freezes n at the limit
-    kw = dict(center_x=-0.5, center_y=0.0, zoom=3.0)
+    kw = dict(center_x=-0.5, center_y=0.0, zoom=3.0, device="cpu")
     f_lim = escape.escape_fields("mandelbrot", 64, 32, max_iter=128,
                                  iter_limit=40, **kw)
     f_ref = escape.escape_fields("mandelbrot", 64, 32, max_iter=40, **kw)
@@ -131,7 +133,8 @@ def test_iter_limit_dynamic():
 
 
 def test_oversized_iter_limit_clamps_to_static_cap():
-    kw = dict(center_x=-0.5, center_y=0.0, zoom=3.0, max_iter=96)
+    kw = dict(center_x=-0.5, center_y=0.0, zoom=3.0, max_iter=96,
+              device="cpu")
     f = escape.escape_fields("mandelbrot", 32, 16, iter_limit=10 ** 8, **kw)
     assert int(f["n"].max()) == 96
     f2 = escape.escape_fields("mandelbrot", 32, 16, **kw)
@@ -142,7 +145,7 @@ def test_iter_limit_inside_bucket_is_exact():
     # twin of the second half of test_iteration_counts_share_compile_bucket
     f = escape.escape_fields("mandelbrot", 48, 32, center_x=-0.5,
                              center_y=0.0, zoom=3.0, max_iter=512,
-                             iter_limit=300)
+                             iter_limit=300, device="cpu")
     assert int(f["n"].max()) == 300
     nref, *_ = golden.mandelbrot_fields(48, 32, -0.5, 0.0, 3.0, 300, 4.0)
     np.testing.assert_array_equal(f["n"].numpy(), nref)
@@ -150,7 +153,7 @@ def test_iter_limit_inside_bucket_is_exact():
 
 def test_row_band_equals_whole_frame_rows():
     kw = dict(center_x=-0.5, center_y=0.0, zoom=3.0, max_iter=64,
-              interior_skip=True)
+              interior_skip=True, device="cpu")
     full = escape.escape_fields("mandelbrot", 40, 30, **kw)
     band = escape.escape_fields("mandelbrot", 40, 10, row0=12, map_height=30,
                                 **kw)
@@ -191,22 +194,23 @@ def test_pack_params_matches_jax_layout(kw, monkeypatch):
 
 def test_launch_checks():
     kw = dict(center_x=-0.5, center_y=0.0, zoom=3.0, max_iter=32)
+    cpu = dict(kw, device="cpu")
     with pytest.raises(ValueError, match="outside the image height"):
-        escape.escape_fields("mandelbrot", 8, 8, row0=4, map_height=8, **kw)
+        escape.escape_fields("mandelbrot", 8, 8, row0=4, map_height=8, **cpu)
     with pytest.raises(ValueError, match="2\\^24"):
-        escape.escape_fields("mandelbrot", 8, 8, **dict(kw, max_iter=1 << 24))
+        escape.escape_fields("mandelbrot", 8, 8, **dict(cpu, max_iter=1 << 24))
     # every family runs now; an unknown one is refused as in the JAX package
-    f = escape.escape_fields("julia", 8, 8, **kw)
+    f = escape.escape_fields("julia", 8, 8, **cpu)
     assert f["n"].shape == (8, 8)
     with pytest.raises(ValueError, match="unknown family"):
-        escape.escape_fields("newton", 8, 8, **kw)
+        escape.escape_fields("newton", 8, 8, **cpu)
     # the JAX asserts: fused + tracking, fused Mandelbrot trap glow
     with pytest.raises(ValueError, match="interior_style 2"):
         escape.escape_fields("mandelbrot", 8, 8, fused_color=(0, 2, False),
-                             **kw)
+                             **cpu)
     with pytest.raises(ValueError, match="trap/stripe/deriv"):
         escape.escape_fields("burning_ship", 8, 8, fused_color=(0, 0, True),
-                             track_trap=True, **kw)
+                             track_trap=True, **cpu)
     with pytest.raises(ValueError, match="unsupported device"):
         escape.escape_fields("mandelbrot", 8, 8, device="meta", **kw)
 
@@ -246,7 +250,7 @@ def _port_family(name, w, h, iters=ITERS, **kw):
     family = "phoenix" if name.startswith("phoenix") else name
     f = escape.escape_fields(family, w, h, center_x=v.pop("cx"),
                              center_y=v.pop("cy"), zoom=v.pop("zoom"),
-                             max_iter=iters, **v, **kw)
+                             max_iter=iters, device="cpu", **v, **kw)
     return {k: t.numpy() for k, t in f.items()}
 
 
@@ -268,7 +272,8 @@ def test_family_plain_is_bit_exact_vs_golden(name, size):
 def test_julia_presets_bit_exact_vs_golden(preset):
     cr, ci = JULIA_PRESETS[preset]
     f = escape.escape_fields("julia", 64, 32, center_x=0.0, center_y=0.0,
-                             zoom=3.0, max_iter=64, julia_c=(cr, ci))
+                             zoom=3.0, max_iter=64, julia_c=(cr, ci),
+                             device="cpu")
     n, zx, zy = golden.julia_fields(64, 32, 0.0, 0.0, 3.0, cr, ci, 64, 4.0)
     np.testing.assert_array_equal(f["n"].numpy(), n)
     np.testing.assert_array_equal(f["zx"].numpy(), zx)
@@ -289,7 +294,7 @@ def test_aux_fields_vs_golden(size):
     w, h = size
     m = escape.escape_fields("mandelbrot", w, h, center_x=-0.5,
                              center_y=0.0, zoom=3.0, max_iter=ITERS,
-                             track_trap=True)
+                             track_trap=True, device="cpu")
     _, _, _, mtrap = golden.mandelbrot_fields(w, h, -0.5, 0.0, 3.0, ITERS,
                                               4.0)
     np.testing.assert_array_equal(m["trap"].numpy(), mtrap)
@@ -301,10 +306,10 @@ def test_aux_outputs_follow_the_jax_gating():
               interior_skip=True)
     # julia/phoenix: constant trap 0 and stripe 0, no dz, no skip
     for family in ("julia", "phoenix"):
-        f = escape.escape_fields(family, 24, 16, **kw)
+        f = escape.escape_fields(family, 24, 16, device="cpu", **kw)
         assert list(f) == ["n", "zx", "zy", "trap", "stripe"]
         assert (f["trap"] == 0).all() and (f["stripe"] == 0).all()
-    f = escape.escape_fields("mandelbrot", 24, 16, **kw)
+    f = escape.escape_fields("mandelbrot", 24, 16, device="cpu", **kw)
     assert list(f) == ["n", "zx", "zy", "trap", "stripe", "dzx", "dzy"]
     assert (f["stripe"] == 0).all()
     assert torch.isfinite(f["trap"]).all()
@@ -322,7 +327,7 @@ def test_family_plain_close_to_jax_kernel(name, frac):
     if name == "burning_ship":
         kw.update(track_trap=True, track_stripe=True)
     ref = jax_escape.escape_fields(name, W_JAX, H_JAX, **kw)
-    mine = escape.escape_fields(name, W_JAX, H_JAX, **kw)
+    mine = escape.escape_fields(name, W_JAX, H_JAX, device="cpu", **kw)
     assert list(mine) == list(ref)
     assert (mine["n"].numpy() != np.asarray(ref["n"])).mean() <= frac
 
@@ -338,7 +343,8 @@ def test_derivative_close_to_jax_kernel():
     kw = dict(center_x=-0.5, center_y=0.0, zoom=3.0, max_iter=ITERS,
               track_deriv=True, track_trap=True)
     ref = jax_escape.escape_fields("mandelbrot", W_JAX, H_JAX, **kw)
-    mine = escape.escape_fields("mandelbrot", W_JAX, H_JAX, **kw)
+    mine = escape.escape_fields("mandelbrot", W_JAX, H_JAX, device="cpu",
+                                **kw)
     same = mine["n"].numpy() == np.asarray(ref["n"])
     assert same.mean() >= 0.995
     for k in ("dzx", "dzy"):

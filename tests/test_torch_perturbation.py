@@ -266,7 +266,8 @@ def c_i_runs(orbits):
             orb = orbits(C_I, bits, MI + 1)
             kw = dict(_view_kw(C_I, zoom, MI, opts),
                       float_continuation=False, rebase=True)
-            mine = perturbation.perturbation_fields(orb, 16, 12, **kw)
+            mine = perturbation.perturbation_fields(orb, 16, 12,
+                                                    device="cpu", **kw)
             ref = jax_pert.perturbation_fields(orb, 16, 12, **kw)
             runs[tier] = (mine, {k: np.asarray(v) for k, v in ref.items()})
         return runs[tier]
@@ -315,7 +316,8 @@ def test_rebase_handles_starving_reference(orbits):
     f = perturbation.perturbation_fields(
         orb, W, H, center_x_dd=dd_from_string(cx),
         center_y_dd=dd_from_string(cy), zoom_dd=dd_from_string(zoom),
-        max_iter=MI, float_continuation=False, dd_delta=True, rebase=True)
+        max_iter=MI, float_continuation=False, dd_delta=True, rebase=True,
+        device="cpu")
     n = f["n"].numpy()
     assert not (f["want"] > 0.5).any()
     assert int(f["passes"]) > 2  # really multi-round
@@ -330,9 +332,10 @@ def test_row_band_equals_frame_rows(orbits, tier):
     orb = orbits(center, bits, iters + 1)
     kw = dict(_view_kw(center, zoom, iters, opts), float_continuation=False,
               rebase=True)
-    full = perturbation.perturbation_fields(orb, 20, 14, **kw)
+    full = perturbation.perturbation_fields(orb, 20, 14, device="cpu", **kw)
     band = perturbation.perturbation_fields(orb, 20, 5, row0=6.0,
-                                            map_height=14, **kw)
+                                            map_height=14, device="cpu",
+                                            **kw)
     for k in ("n", "zx", "zy", "want", "rounds_plane"):
         assert torch.equal(band[k], full[k][6:11]), k
 
@@ -343,7 +346,8 @@ def test_max_passes_leaves_want_lanes(orbits):
     kw = dict(center_x_dd=dd_from_string(cx), center_y_dd=dd_from_string(cy),
               zoom_dd=dd_from_string("1e-10"), max_iter=2500,
               float_continuation=False, dd_delta=True, rebase=True)
-    f = perturbation.perturbation_fields(orb, 12, 8, max_passes=1, **kw)
+    f = perturbation.perturbation_fields(orb, 12, 8, max_passes=1,
+                                         device="cpu", **kw)
     assert int(f["passes"]) == 1 and (f["want"] > 0.5).any()
     ref = jax_pert.perturbation_fields(orb, 12, 8, max_passes=1, **kw)
     np.testing.assert_array_equal(f["want"].numpy(), np.asarray(ref["want"]))

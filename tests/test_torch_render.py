@@ -104,7 +104,7 @@ def test_oversized_iter_limit_colors_interior_consistently():
     # the deep zoom runs its rebasing Mandelbrot path; its other options
     # name their sub-item (6(d) the families, 6(e) supersampling)
     (dict(fractal_type=frt.FractalType.DEEP_ZOOM, deep_zoom_ship=True), 6),
-    (dict(fractal_type=frt.FractalType.MANDELBULB), 7),
+    (dict(fractal_type=frt.FractalType.DEEP_ZOOM, deep_zoom_phoenix=True), 6),
     (dict(fractal_type=frt.FractalType.DEEP_ZOOM, samples_per_pixel=2), 6),
 ])
 def test_unported_scenes_raise(kw, item):
