@@ -8,16 +8,22 @@ toolkit:
 
 It builds the port's CUDA kernels from csrc/ (K1, the escape kernel of the
 four 2D families; K2, the double-double Mandelbrot kernel; K3, the
-perturbation deep-zoom kernel in its f32, dd and floatexp tiers; K4a and
-K4b, the Mandelbulb's cone prepass and march + shading kernels), holds
-every kernel instance against its plain PyTorch version on the card (K1 and
-K2 at 1920x1080; K3 and K4b on the whole frame against a 64-row band of it
-run on the plain version, which is launch-bound; K4a on the whole 1080p
-coarse grid; the bulb's other integer powers at 64x48), drives each ported path through ``cli render`` (the default
-Mandelbrot frame, Julia, Burning Ship with traps and stripes, Phoenix, AA
-2, ``--precision dd``, ``--type deep-zoom`` at configs 4 and 7 and ``--type
-mandelbulb`` at config 6, with AA 2, ``--time 1.0`` and ``--power 16``) and
-the distance field and the deep-zoom fields through their library calls,
+perturbation deep-zoom kernel of the Mandelbrot, Julia, Burning Ship and
+Phoenix families in their f32, dd and floatexp tiers, with stacked spp²
+supersampling; K4a and K4b, the Mandelbulb's cone prepass and march +
+shading kernels), holds every kernel instance against its plain PyTorch
+version on the card (K1 and K2 at 1920x1080; K3 and K4b on the whole frame
+against a 64-row band of it run on the plain version, which is
+launch-bound; K3's stacked spp-2 launch segment by segment against
+sequential launches and on a band of every segment against the stacked
+plain version; K4a on the whole 1080p coarse grid; the bulb's other
+integer powers at 64x48), drives each ported path through ``cli render``
+(the default Mandelbrot frame, Julia, Burning Ship with traps and stripes,
+Phoenix, AA 2, ``--precision dd``, ``--type deep-zoom`` at configs 4 and 7,
+with ``--deep-julia``, ``--deep-ship``, ``--deep-phoenix`` and ``--spp 2``,
+and ``--type mandelbulb`` at config 6, with AA 2, ``--time 1.0`` and
+``--power 16``) and the distance field and the deep-zoom fields of every
+K3 instance through their library calls,
 checks that each path launched its kernels and that each PNG is within 1
 LSB of the same pipeline run on the plain versions, and times kernel
 against plain version with CUDA events.  For each instance it prints the
@@ -54,6 +60,11 @@ COLOR_ATOL = 1e-5  # the colour contract of the reference's own tests
 ESCAPE_SRC = "fractalrenderer_tpu_torch/csrc/escape.cu"
 DD_SRC = "fractalrenderer_tpu_torch/csrc/dd_escape.cu"
 PERT_SRC = "fractalrenderer_tpu_torch/csrc/perturbation.cu"
+# each K3 family's translation unit (the kernel body: csrc/pert_kernel.cuh)
+PERT_SOURCES = {"mandelbrot": PERT_SRC,
+                "julia": "fractalrenderer_tpu_torch/csrc/pert_julia.cu",
+                "ship": "fractalrenderer_tpu_torch/csrc/pert_ship.cu",
+                "phoenix": "fractalrenderer_tpu_torch/csrc/pert_phoenix.cu"}
 BULB_SRC = "fractalrenderer_tpu_torch/csrc/bulb.cu"
 K1_TPU = "fractalrenderer_tpu/ops/escape.py:155"
 K2_TPU = "fractalrenderer_tpu/ops/dd_escape.py:35"
@@ -81,10 +92,22 @@ OPS_PER_ITER = {
     # csrc/dd_escape.cu: ddc_square_add (3 dd_mul of 24, 3 dd_add of 11,
     # 2) + ddc_mag2 (8)
     "dd_escape_mandelbrot": 115,
-    # csrc/perturbation.cu, one delta step: f32; dd (4 dd_mul pairs, 6
-    # dd_add, the rebase test); floatexp (the dd step + alignment)
+    # csrc/pert_kernel.cuh, one delta step, with dd_mul 24, dd_add 11,
+    # dd_mul_float 22 (csrc/dd.cuh) and the floatexp ops of csrc/floatexp.cuh
+    # (rfe_add 18, rfe_mul 27, cfe_mul 126, cfe_add 38, a renormalisation
+    # 3-8): Mandelbrot f32; dd (7 dd_mul, 6 dd_add, the rebase test);
+    # floatexp (the dd step + alignment)
     "pert_mandelbrot_f32": 29, "pert_mandelbrot_dd": 267,
     "pert_mandelbrot_fx": 291,
+    # Julia: Z = Z0 + D (f32 2, dd 2 dd_add), no dc; floatexp: two cfe_mul,
+    # a cfe_add and the rfe composition of Z and of rel = D + d
+    "pert_julia_f32": 31, "pert_julia_dd": 271, "pert_julia_fx": 419,
+    # Burning Ship: two diffabs and the dx'/dy' products (dd: 5 dd_mul, 7
+    # dd_add; floatexp: 6 rfe_mul, 9 rfe_add, the sign tests' 4 rfe_add)
+    "pert_ship_f32": 37, "pert_ship_dd": 264, "pert_ship_fx": 398,
+    # Phoenix: the Mandelbrot step + p d + r d_prev (dd: 4 dd_mul_float and
+    # 4 dd_add more)
+    "pert_phoenix_f32": 39, "pert_phoenix_dd": 399, "pert_phoenix_fx": 435,
 }
 # per pixel outside the loop: the mapping, and the fused colour + post chain
 OPS_PER_PIXEL = {"fused": 90, "fields": 12, "dd": 60, "pert": 80}
@@ -120,14 +143,55 @@ BULB_BAND = (508, 64)  # rows 508-571 of 1080: through the bulb's middle
 CONE = 8
 
 # Deep-zoom views (decimal strings, as the CLI's --hp-* flags take them):
-# one per K3 delta tier.  Config 4 and config 7 are the benchmark configs
-# of BASELINE.md (1e-12 x 10000 at 1080p; 1e-50 at 960x540).
+# one per K3 family and delta tier.  Config 4 and config 7 are the
+# benchmark configs of BASELINE.md (1e-12 x 10000 at 1080p; 1e-50 at
+# 960x540); the family views are the JAX package's tests' and gallery's
+# (examples/render_gallery.py): the Julia set of c = -0.7+0.27015i at its
+# repelling fixed point, the Burning Ship's armada dust and antenna tip,
+# and a Phoenix escape-set boundary point (p = 0, r = -0.5 or -0.51).
+JC = ("-0.7", "0.27015")
+JZSTAR = (
+    "1.484292748140190509759902440314769152069911011656749053313607708428926366189",
+    "-0.137230514250178732651450854196740117783619435441039716507673181503075677979")
+PHOENIX = "0.5334632772339566"
+# the boundary at r = -0.51 bisected to 1e-54 (tests/test_deepzoom.py
+# test_deep_phoenix_floatexp_nondyadic_r_matches_exact_oracle)
+PHOENIX_R051 = ("0.5363685622288939118213416621494880258143653450622962128"
+                "740227946683769")
 DZ_VIEWS = {
     "seahorse": dict(cx="-0.743643887037151", cy="0.13182590420533",
                      zoom="1e-6", iters=2000),
     "config4": dict(cx="-0.74364388703715158", cy="0.13182590420531198",
                     zoom="1e-12", iters=10000),
     "config7": dict(cx="0", cy="1", zoom="1e-50", iters=2000),
+    "julia_f32": dict(cx=JZSTAR[0], cy=JZSTAR[1], zoom="1e-6", iters=1000,
+                      family="julia"),
+    "julia_dd": dict(cx=JZSTAR[0], cy=JZSTAR[1], zoom="1e-12", iters=2000,
+                     family="julia"),
+    "julia_fx": dict(cx=JZSTAR[0], cy=JZSTAR[1], zoom="1e-50", iters=1000,
+                     family="julia"),
+    "julia_spp2": dict(cx=JZSTAR[0], cy=JZSTAR[1], zoom="1e-10", iters=200,
+                       family="julia"),
+    # the model takes the dd tier for every ship view (the armada dust
+    # flips f32 counts); this instance runs through perturbation_fields
+    "ship_f32": dict(cx="-1.7623025", cy="-0.028000625", zoom="1e-5",
+                     iters=1500, family="ship", dd=False),
+    "ship_dd": dict(cx="-1.7623025", cy="-0.028000625", zoom="1e-10",
+                    iters=1500, family="ship"),
+    "ship_fx": dict(cx="-2", cy="0", zoom="1e-40", iters=600, family="ship"),
+    "phoenix_f32": dict(cx=PHOENIX, cy="0.05", zoom="1e-6", iters=400,
+                        family="phoenix", r=-0.5),
+    "phoenix_dd": dict(cx=PHOENIX, cy="0.05", zoom="1e-10", iters=400,
+                       family="phoenix", r=-0.5),
+    "phoenix_fx": dict(cx=PHOENIX_R051, cy="0.05", zoom="1e-50", iters=400,
+                       family="phoenix", r=-0.51),
+    # the CLI paths' views, shallower so the plain pipeline stays cheap
+    "julia_cli": dict(cx=JZSTAR[0], cy=JZSTAR[1], zoom="1e-12", iters=500,
+                      family="julia"),
+    "ship_cli": dict(cx="-1.7623025", cy="-0.028000625", zoom="1e-10",
+                     iters=400, family="ship"),
+    "phoenix_cli": dict(cx=PHOENIX, cy="0.05", zoom="1e-10", iters=400,
+                        family="phoenix", r=-0.5),
 }
 # (instance, label, view, width, height, series skip)
 PERT_CASES = [
@@ -141,7 +205,27 @@ PERT_CASES = [
      540, False),
     ("pert_mandelbrot_fx", "c = i, 1e-50 x2000", "config7", 1920, 1080,
      False),
+    ("pert_julia_f32", "Julia at z*, 1e-6 x1000", "julia_f32", 1920, 1080,
+     False),
+    ("pert_julia_dd", "deep_julia_1e12 (z*, 1e-12 x2000)", "julia_dd", 1920,
+     1080, False),
+    ("pert_julia_fx", "Julia at z*, 1e-50 x1000, floatexp drift",
+     "julia_fx", 1920, 1080, False),
+    ("pert_ship_f32", "armada 1e-5 x1500", "ship_f32", 1920, 1080, False),
+    ("pert_ship_dd", "deep_ship_1e10 (armada, 1e-10 x1500)", "ship_dd",
+     1920, 1080, False),
+    ("pert_ship_fx", "antenna tip -2, 1e-40 x600", "ship_fx", 1920, 1080,
+     False),
+    ("pert_phoenix_f32", "Phoenix r -0.5, 1e-6 x400", "phoenix_f32", 1920,
+     1080, False),
+    ("pert_phoenix_dd", "Phoenix r -0.5, 1e-10 x400", "phoenix_dd", 1920,
+     1080, False),
+    ("pert_phoenix_fx", "Phoenix boundary, r -0.51, 1e-50 x400",
+     "phoenix_fx", 1920, 1080, False),
 ]
+PERT_FAMILIES = ("mandelbrot", "julia", "ship", "phoenix")
+STACKED = "pert_mandelbrot_dd_spp2"  # config 4's stacked spp-2 launch
+STACK_ROWS = 16  # rows of each segment the stacked plain version runs
 BAND_ROWS = 64  # rows of the frame's middle the plain version runs
 PERT_TIERS = ("f32", "dd", "fx")
 
@@ -222,7 +306,7 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"escape_kernelILi(\d)ELb([01])E", m.group(1))
-            t = re.search(r"pert_mandelbrot_kernelILi(\d)E", m.group(1))
+            t = re.search(r"pert_kernelILi(\d)ELi(\d)E", m.group(1))
             b = re.search(r"bulb_(cone|march)_kernelILi(\d+)E", m.group(1))
             if b:
                 p = int(b.group(2))
@@ -231,7 +315,8 @@ def ptxas_report(log: str) -> dict:
                 name = (f"escape_{families[int(k.group(1))]}_"
                         + ("fused" if k.group(2) == "1" else "fields"))
             elif t:
-                name = "pert_mandelbrot_" + PERT_TIERS[int(t.group(1))]
+                name = (f"pert_{PERT_FAMILIES[int(t.group(1))]}_"
+                        + PERT_TIERS[int(t.group(2))])
             else:
                 name = ("dd_escape_mandelbrot" if "dd_escape_kernel"
                         in m.group(1) else m.group(1))
@@ -247,10 +332,33 @@ def ptxas_report(log: str) -> dict:
     return report
 
 
-def dz_flags(view: dict) -> list:
+def dz_flags(view: str) -> list:
     v = DZ_VIEWS[view]
+    family = {"julia": ["--deep-julia", "--julia-cr", JC[0], "--julia-ci",
+                        JC[1]],
+              "ship": ["--deep-ship"],
+              "phoenix": ["--deep-phoenix", "--phoenix-p", "0",
+                          "--phoenix-r", str(v.get("r"))]}
     return ["--type", "deep-zoom", "--hp-center-x", v["cx"], "--hp-center-y",
-            v["cy"], "--hp-zoom", v["zoom"], "--iters", str(v["iters"])]
+            v["cy"], "--hp-zoom", v["zoom"], "--iters", str(v["iters"]),
+            *family.get(v.get("family"), [])]
+
+
+def dz_scene(view: str, **kw):
+    """The deep-zoom Scene of a view of DZ_VIEWS (the CLI's scene for
+    ``dz_flags(view)``)."""
+    from fractalrenderer_tpu_torch import FractalType, Scene
+
+    v = DZ_VIEWS[view]
+    fam = {"julia": dict(deep_zoom_julia=True, julia_c_real=float(JC[0]),
+                         julia_c_imag=float(JC[1])),
+           "ship": dict(deep_zoom_ship=True),
+           "phoenix": dict(deep_zoom_phoenix=True, phoenix_p=0.0,
+                           phoenix_r=v.get("r"))}.get(v.get("family"), {})
+    return Scene(fractal_type=FractalType.DEEP_ZOOM, hp_center_x=v["cx"],
+                 hp_center_y=v["cy"], hp_zoom=v["zoom"],
+                 max_iterations=v["iters"], use_perturbation=True, **fam,
+                 **kw)
 
 
 def same_bits(a, b) -> bool:
@@ -502,7 +610,8 @@ def main() -> int:
     def logged_orbit(*a, **kw):
         t0 = time.perf_counter()
         o = compute_orbit(*a, **kw)
-        orbit_log.append((len(o), time.perf_counter() - t0))
+        orbit_log.append((len(o[0] if isinstance(o, tuple) else o),
+                          time.perf_counter() - t0))
         return o
 
     orbit_mod.compute_orbit = logged_orbit
@@ -512,14 +621,37 @@ def main() -> int:
                 if orbit_mod._load_native() is not None else "Python bignum")
 
     def pert_setup(view, width, height, series):
-        """The orbit, series and tier flags the deep-zoom model derives
-        for ``view`` at width x height (models/deep_zoom.render_fields)."""
+        """The orbit, series and packing options the deep-zoom model
+        derives for ``view`` at width x height
+        (models/deep_zoom.render_fields): the family's recurrence, the Julia
+        drift (floatexp-emitted in the ARBITRARY tier) and start Z0."""
         v = DZ_VIEWS[view]
+        family = v.get("family", "mandelbrot")
         zoom_fr = Fraction(v["zoom"])
         mode, bits = precision_mode_for_zoom_frac(zoom_fr)
         bits = -(-bits // 64) * 64
         scaled = mode.name == "ARBITRARY"
-        orb = orbit_mod.compute_orbit(v["cx"], v["cy"], bits, v["iters"] + 1)
+        fam = {}
+        if family == "julia":
+            orb = orbit_mod.compute_orbit(*JC, bits, v["iters"] + 1,
+                                          z0x=v["cx"], z0y=v["cy"],
+                                          emit_rel=True, emit_fx=scaled)
+            fam = dict(julia=True, julia_z0=(float(Fraction(v["cx"])),
+                                             float(Fraction(v["cy"]))))
+            if scaled:
+                orb, fam["orbit_exp"] = orb
+        else:
+            kind = {"mandelbrot": 0, "ship": 1, "phoenix": 2}[family]
+            orb = orbit_mod.compute_orbit(v["cx"], v["cy"], bits,
+                                          v["iters"] + 1, kind=kind,
+                                          pp=0.0, rr=v.get("r", 0.0))
+            if family == "ship":
+                fam = dict(ship=True)
+            elif family == "phoenix":
+                fam = dict(phoenix=True, phoenix_p=0.0, phoenix_r=v["r"])
+        dd_delta = float(zoom_fr) <= 1e-7 and not scaled
+        if family == "ship":
+            dd_delta = not scaled
         skip = None
         if series:
             corner = math.hypot(0.5 * width / height + 1.0 / height,
@@ -532,33 +664,32 @@ def main() -> int:
                   center_y_dd=dd.dd_from_string(v["cy"]),
                   zoom_dd=dd.dd_from_string(v["zoom"]), max_iter=v["iters"],
                   series=skip, scaled_delta=scaled, zoom_frac=v["zoom"],
-                  dd_delta=float(zoom_fr) <= 1e-7 and not scaled)
+                  dd_delta=v.get("dd", dd_delta), **fam)
         return orb, kw, skip
 
-    # (case index, params, device streams, tier, w, h, plain band ms)
+    # (case index, params, device streams, launch geometry, plain band ms)
     pert_frames = []
     # instance -> (sum(n - n_skip), n_skip, pixels, bytes) of its first frame
     pert_work = {}
     for ci, (name, label, view, pw, ph, series) in enumerate(PERT_CASES):
         orb, kw, skip = pert_setup(view, pw, ph, series)
         nlen, orbit_s = orbit_log[-1]
-        params, streams, tier = perturbation.pack_pert_operands(
+        params, streams, launch = perturbation.pack_pert_operands(
             orb, pw, ph, **kw)
         r0 = ph // 2 - BAND_ROWS // 2
-        bparams, _, _ = perturbation.pack_pert_operands(
+        bparams, _, blaunch = perturbation.pack_pert_operands(
             orb, pw, BAND_ROWS, row0=float(r0), map_height=ph, **kw)
-        assert name == f"pert_mandelbrot_{tier}", (name, tier)
+        tier = launch["tier"]
+        assert name == f"pert_{launch['family']}_{tier}", (name, launch)
         dstreams = [torch.from_numpy(a).to(dev) for a in streams]
-        launch = dict(tier=tier, width=pw, map_height=ph, max_passes=256,
-                      device=dev)
-        got = perturbation.perturbation_fields_cuda(params, dstreams,
-                                                    height=ph, **launch)
+        got = perturbation.perturbation_fields_cuda(
+            params, dstreams, max_passes=256, device=dev, **launch)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         want = perturbation.perturbation_fields_plain(
-            bparams, dstreams, height=BAND_ROWS, **launch)
+            bparams, dstreams, max_passes=256, device=dev, **blaunch)
         end.record()
         end.synchronize()
         plain_ms = start.elapsed_time(end)
@@ -569,8 +700,12 @@ def main() -> int:
                 f"{r0 + BAND_ROWS - 1}"
         n_k, zx_k, zy_k, _, want_k, rounds_k = got
         assert int(want_k.sum()) == 0, f"K3 {label}: lanes left wanting"
+        # a warp is 32 pixels of one row (32x8 blocks) and runs as long as
+        # its slowest lane: sum over warps of 32 x max(n) against sum(n)
+        waste = float(n_k.view(ph, -1, 32).amax(-1).double().sum() * 32
+                      / n_k.double().sum())
         assert torch.isfinite(zx_k).all() and torch.isfinite(zy_k).all()
-        e = entry(name, PERT_SRC, K3_TPU, 0.0)
+        e = entry(name, PERT_SOURCES[launch["family"]], K3_TPU, 0.0)
         if e["plain_ms"] is None:  # the instance's first (main) frame
             e["plain_ms"] = plain_ms
             n_skip = skip.n_skip if skip else 0
@@ -579,16 +714,86 @@ def main() -> int:
                 n_skip, pw * ph,
                 sum(t.numel() * t.element_size() for t in got[:5])
                 + sum(t.numel() * t.element_size() for t in dstreams))
-        pert_frames.append((ci, params, dstreams, tier, pw, ph, plain_ms))
+        pert_frames.append((ci, params, dstreams, launch, plain_ms))
         print(f"K3 {tier} {label} {pw}x{ph}: n/zx/zy/want/rounds bit-equal "
               f"to the plain version over rows {r0}-{r0 + BAND_ROWS - 1} "
               f"(plain band {plain_ms / 1e3:.2f} s); n mean "
               f"{n_k.float().mean():.1f}, max {int(n_k.max())}, interior "
               f"{float((n_k >= kw['max_iter']).float().mean()):.4f}; rounds "
               f"max {int(rounds_k.max())}, mean {rounds_k.mean():.2f}; "
-              f"series skip {skip.n_skip if skip else 0}; orbit {nlen} "
+              f"warp-max waste {waste:.3f}; series skip "
+              f"{skip.n_skip if skip else 0}; orbit {nlen} "
               f"entries by {orbit_engine()} in {orbit_s * 1e3:.1f} ms",
               flush=True)
+
+    # -- K3 stacked spp-2: config 4's four subpixel segments in one launch --
+    # each segment equal to a sequential launch at its offset over the whole
+    # frame, and a band of every segment equal to the stacked plain version
+    def pack(view, width, height, **extra):
+        orb, kw, _ = pert_setup(view, width, height, False)
+        params, streams, launch = perturbation.pack_pert_operands(
+            orb, width, height, **kw, **extra)
+        return params, [torch.from_numpy(a).to(dev) for a in streams], launch
+
+    def k3(params, streams, launch, plain=False):
+        fn = (perturbation.perturbation_fields_plain if plain
+              else perturbation.perturbation_fields_cuda)
+        return fn(params, streams, max_passes=256, device=dev, **launch)
+
+    def stacked_check(view, label, name=None):
+        params, dstreams, launch = pack(view, W, H, aa_spp=2)
+        got = k3(params, dstreams, launch)
+        torch.cuda.synchronize()
+        nseg = 4
+        assert got[0].shape == (nseg, H, W)
+        if name:
+            for s in range(nseg):
+                off = ((s % 2) / 2, (s // 2) / 2)
+                seq = k3(*pack(view, W, H, offset=off))
+                for nm, g, q in zip(("n", "zx", "zy", "want", "rounds"),
+                                    (got[i] for i in (0, 1, 2, 4, 5)),
+                                    (seq[i] for i in (0, 1, 2, 4, 5))):
+                    assert torch.equal(g[s], q), \
+                        f"{label}: segment {s} {nm} != its sequential launch"
+        r0 = H // 2 - STACK_ROWS // 2
+        bp, bs, bl = pack(view, W, STACK_ROWS, aa_spp=2, row0=float(r0),
+                          map_height=H)
+        want, plain_ms = cuda_event_ms(lambda: k3(bp, bs, bl, plain=True))
+        for nm, g, w in zip(("n", "zx", "zy", "glitch", "want", "rounds"),
+                            got, want):
+            assert torch.equal(g[:, r0:r0 + STACK_ROWS], w), \
+                f"{label}: {nm} not bit-equal to the stacked plain version"
+        assert int(got[4].sum()) == 0, f"{label}: lanes left wanting"
+        n = got[0]
+        print(f"K3 stacked spp 2, {label}, {W}x{H}: one launch of {nseg} "
+              "segments" + (", each equal to a sequential launch at its "
+                            "offset" if name else "")
+              + f"; rows {r0}-{r0 + STACK_ROWS - 1} of every segment "
+              f"bit-equal to the stacked plain version (plain "
+              f"{plain_ms / 1e3:.2f} s); n mean {n.float().mean():.1f}, "
+              f"rounds max {int(got[5].max())}", flush=True)
+        if name:
+            e = entry(name, PERT_SRC, K3_TPU, 0.0)
+            e["plain_ms"] = plain_ms
+            pert_work[name] = (float(n.double().sum()), 0, nseg * W * H,
+                               sum(t.numel() * t.element_size()
+                                   for t in got[:5])
+                               + sum(t.numel() * t.element_size()
+                                     for t in dstreams))
+        return params, dstreams, launch
+
+    def cuda_event_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    stacked_frame = stacked_check("config4", "config 4 (1e-12 x10000), "
+                                  "series off", STACKED)
+    stacked_check("julia_spp2", "Julia at z*, 1e-10 x200")
 
     # -- K4a / K4b: the Mandelbulb kernels, config 6 and two more instances --
     # K4a over the whole 1080p coarse grid against its plain version; K4b
@@ -599,15 +804,6 @@ def main() -> int:
     names = ["hit", "t", "d", "esc", "nx", "ny", "nz", "ao", "msteps",
              "work"]
     r0, bh = BULB_BAND
-
-    def cuda_event_ms(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        end.synchronize()
-        return out, start.elapsed_time(end)
 
     for tag, label, kw in BULB_CASES:
         bp = bulb_math.BulbParams(**kw).clamped()
@@ -780,6 +976,23 @@ def main() -> int:
         ("--type deep-zoom, config 7 (c = i, 1e-50 x2000)",
          dz_flags("config7"), {pert_w: ("pert_mandelbrot_fx", None)},
          (960, 540), True),
+        # the families (one K3 launch per frame) and config 4 with --spp 2
+        # (one stacked launch), each against the plain pipeline
+        ("--type deep-zoom --deep-julia, z* 1e-12 x500",
+         dz_flags("julia_cli"), {pert_w: ("pert_julia_dd", 1)}, (320, 180),
+         True),
+        ("--type deep-zoom --deep-ship, armada 1e-10 x400",
+         dz_flags("ship_cli"), {pert_w: ("pert_ship_dd", 1)}, (320, 180),
+         True),
+        ("--type deep-zoom --deep-phoenix, r -0.5, 1e-10 x400",
+         dz_flags("phoenix_cli"), {pert_w: ("pert_phoenix_dd", 1)},
+         (320, 180), True),
+        ("--type deep-zoom --spp 2, config 4", [*dz_flags("config4"),
+                                               "--spp", "2"],
+         {pert_w: (STACKED, 1)}, (W, H), False),
+        ("--type deep-zoom --spp 2, config 4", [*dz_flags("config4"),
+                                               "--spp", "2"],
+         {pert_w: (STACKED, 1)}, (240, 136), True),
         # the bulb: config 6, AA 2 and the trig step at full size (the
         # plain pipeline is launch-bound), each also smaller against the
         # plain pipeline, and power 16
@@ -839,8 +1052,10 @@ def main() -> int:
                 ref = to_export_orientation(ref).cpu().numpy()
                 lsb = int(np.abs(img.astype(np.int32)
                                  - ref.astype(np.int32)).max())
-                assert lsb <= 1, f"{label}: PNG differs from the plain " \
-                    f"pipeline by {lsb} LSB"
+                # K3 is bit-equal to its plain version: deep zooms 0 LSB
+                assert lsb <= (0 if pert_w in runs else 1), \
+                    f"{label}: PNG differs from the plain pipeline by {lsb} " \
+                    "LSB"
                 note = f"max {lsb} LSB from the plain pipeline"
             if pert_w in runs:
                 info = said.getvalue().strip().splitlines()[-1].strip()
@@ -881,21 +1096,34 @@ def main() -> int:
           "1 launch each", flush=True)
 
     # the deep-zoom fields of configs 4 and 7 through the model: one K3
-    # launch, no HP fallback, equal to the K3 phase's frame of that view
-    def dz_scene(view, **kw):
-        v = DZ_VIEWS[view]
-        return Scene(fractal_type=FractalType.DEEP_ZOOM, hp_center_x=v["cx"],
-                     hp_center_y=v["cy"], hp_zoom=v["zoom"],
-                     max_iterations=v["iters"], use_perturbation=True, **kw)
-
-    for view, ci in (("config4", 1), ("config7", 3)):
-        _, params, dstreams, tier, pw, ph, _ = pert_frames[ci]
+    # launch, no HP fallback, equal to the K3 phase's frame of that view;
+    # configs 4 and 7 and each family instance's first frame (the ship f32
+    # instance, which the model never picks, through perturbation_fields)
+    lib_cases = [(case[2], ci) for ci, case in enumerate(PERT_CASES)
+                 if ci in (1, 3) or case[2] in DZ_VIEWS
+                 and DZ_VIEWS[case[2]].get("family")]
+    for view, ci in lib_cases:
+        _, params, dstreams, launch, _ = pert_frames[ci]
+        pw, ph = launch["width"], launch["height"]
         scene = dz_scene(view)
         reset_counts()
         n_orbits = len(orbit_log)
         t0 = time.perf_counter()
-        n_f, zx_f, zy_f, _, info = deep_zoom.render_fields(
-            scene, pw, ph, keep_device=True, debug_rounds=True, device=dev)
+        if view == "ship_f32":
+            orb, kw, _ = pert_setup(view, pw, ph, False)
+            f = perturbation.perturbation_fields(
+                orb, pw, ph, rebase=True, float_continuation=False,
+                device=dev, **kw)
+            n_f, zx_f = f["n"], f["zx"]
+            info = dict(precision_mode="through perturbation_fields",
+                        precision_bits=None, dd_delta=False,
+                        scaled_delta=False, rebase_passes=int(f["passes"]),
+                        fallback_pixels=int((f["want"] > 0.5).sum()),
+                        glitched_pixels_remaining=0, fields_on_device=True)
+        else:
+            n_f, zx_f, zy_f, _, info = deep_zoom.render_fields(
+                scene, pw, ph, keep_device=True, debug_rounds=True,
+                device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = counts()
@@ -904,10 +1132,9 @@ def main() -> int:
         assert info["fallback_pixels"] == 0, info
         assert info["glitched_pixels_remaining"] == 0, info
         assert info["fields_on_device"], info
-        entry(PERT_CASES[ci][0], PERT_SRC, K3_TPU, 0.0)["launches"] += 1
+        kernels[PERT_CASES[ci][0]]["launches"] += 1
         ref = perturbation.perturbation_fields_cuda(
-            params, dstreams, tier=tier, width=pw, height=ph, map_height=ph,
-            max_passes=256, device=dev)
+            params, dstreams, max_passes=256, device=dev, **launch)
         assert torch.equal(n_f, ref[0]) and torch.equal(zx_f, ref[1]), \
             f"{view}: the model's fields differ from the K3 phase's frame"
         (nlen, orbit_s), = orbit_log[n_orbits:]
@@ -1060,19 +1287,11 @@ def main() -> int:
 
     # K3: each case's full frame, one CUDA-event pair per launch, median of
     # 7; the plain version's time is its 64-row band's in the K3 phase
-    for ci, params, dstreams, tier, pw, ph, plain_ms in pert_frames:
+    for ci, params, dstreams, launch, plain_ms in pert_frames:
         name, label = PERT_CASES[ci][:2]
-        runs = []
-        for _ in range(7):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            perturbation.perturbation_fields_cuda(
-                params, dstreams, tier=tier, width=pw, height=ph,
-                map_height=ph, max_passes=256, device=dev)
-            end.record()
-            end.synchronize()
-            runs.append(start.elapsed_time(end))
+        pw, ph = launch["width"], launch["height"]
+        runs = [cuda_event_ms(lambda: k3(params, dstreams, launch))[1]
+                for _ in range(7)]
         ms = statistics.median(runs)
         e = kernels[name]
         if e["ms"] is None:  # the instance's first (main) frame
@@ -1081,8 +1300,22 @@ def main() -> int:
               f"(runs {[round(t, 3) for t in runs]}); {pw * ph / ms / 1e3:.2f}"
               f" Mpix/s; plain version on its {pw}x{BAND_ROWS} band: "
               f"{plain_ms:.1f} ms", flush=True)
+    # config 4's stacked spp-2 launch against its spp-1 launch, in turns
+    one, two = [], []
+    c4 = pert_frames[1]
+    for _ in range(7):
+        one.append(cuda_event_ms(lambda: k3(c4[1], c4[2], c4[3]))[1])
+        two.append(cuda_event_ms(lambda: k3(*stacked_frame))[1])
+    kernels[STACKED]["ms"] = statistics.median(two)
+    ratio = statistics.median(two) / statistics.median(one)
+    print(f"time per {W}x{H} frame, {STACKED} config 4, 4 segments in one "
+          f"launch: kernel {statistics.median(two):.3f} ms (runs "
+          f"{[round(t, 3) for t in two]}); the spp-1 launch in turn "
+          f"{statistics.median(one):.3f} ms (runs "
+          f"{[round(t, 3) for t in one]}); spp 2 / spp 1 = {ratio:.3f} (4 "
+          "samples per pixel)", flush=True)
     for name, (iters, n_skip, pixels, nbytes) in pert_work.items():
-        set_bound(name, iters, OPS_PER_ITER[name],
+        set_bound(name, iters, OPS_PER_ITER[name.replace("_spp2", "")],
                   pixels * OPS_PER_PIXEL["pert"], nbytes,
                   extra=f" (sum(n - n_skip), n_skip {n_skip})")
 
@@ -1121,8 +1354,9 @@ def main() -> int:
 
     missing = [k for k, e in kernels.items() if e["launches"] == 0]
     assert not missing, f"instances no path launched: {missing}"
-    assert len(kernels) == 18, \
-        f"expected K1 x8, K2, K3 x3, K4a x3 and K4b x3: {list(kernels)}"
+    assert len(kernels) == 28, \
+        f"expected K1 x8, K2, K3 x12 + its stacked spp-2 launch, K4a x3 " \
+        f"and K4b x3: {list(kernels)}"
     assert all(e["bound_ms"] and e["ms"] and e["plain_ms"]
                for e in kernels.values()), kernels
     print(f"smoke wall time {time.monotonic() - t_start:.1f} s (build "

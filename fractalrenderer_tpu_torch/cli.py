@@ -2,10 +2,12 @@
 ``fractalrenderer_tpu/cli.py``).  Only the ``render`` verb is ported, for
 the four 2D families (every AA, trap, stripe, interior-style and Julia
 option), ``--precision dd``, ``--type deep-zoom`` (the rebasing
-Mandelbrot perturbation path, every depth, with ``--series``) and ``--type
-mandelbulb`` (``--power``, ``--time``, ``--aa``, ``--palette``); the other
-verbs and the unported render options exit with code 2 and a one-line
-message naming the ROADMAP item that ports them.
+perturbation path at every depth: Mandelbrot with ``--series``,
+``--deep-julia``, ``--deep-ship``, ``--deep-phoenix``, and ``--spp 2|4``
+supersampling) and ``--type mandelbulb`` (``--power``, ``--time``,
+``--aa``, ``--palette``); the other verbs and the unported render options
+exit with code 2 and a one-line message naming the ROADMAP item that
+ports them.
 
 Usage examples:
   python -m fractalrenderer_tpu_torch.cli render --out m.png
@@ -20,6 +22,9 @@ Usage examples:
   python -m fractalrenderer_tpu_torch.cli render --type deep-zoom \\
       --hp-center-x -0.74364388703715158 --hp-center-y 0.13182590420531198 \\
       --hp-zoom 1e-12 --iters 10000 --out deep.png
+  python -m fractalrenderer_tpu_torch.cli render --type deep-zoom \\
+      --deep-ship --hp-center-x -1.7623025 --hp-center-y -0.028000625 \\
+      --hp-zoom 1e-10 --iters 1500 --spp 2 --out ship.png
   python -m fractalrenderer_tpu_torch.cli render --type mandelbulb \\
       --time 1.0 --aa 2 --out bulb.png
 """

@@ -1,0 +1,525 @@
+// K3 on Hopper: the perturbation deep-zoom kernel, shared by the four
+// families' translation units (csrc/perturbation.cu: Mandelbrot and the
+// entry point; csrc/pert_julia.cu, pert_ship.cu, pert_phoenix.cu), each of
+// which instantiates its three delta tiers: f32, double-double and floatexp
+// (dd mantissa + i32 exponent, csrc/floatexp.cuh).
+//
+// Replaces fractalrenderer_tpu/ops/perturbation.py:_make_kernel in its
+// in-kernel-rounds rebase form (``rebase=True, inkernel_rounds > 0``):
+// mapping and stacked AA :402-467, series / Julia initialisation :488-636,
+// f32 update :1070-1136, dd update :926-1069, floatexp updates :680-925,
+// outputs :1265-1282.  The plain PyTorch version is
+// fractalrenderer_tpu_torch/ops/perturbation.py:perturbation_fields_plain;
+// the two agree bit for bit on n, zx, zy, want and rounds.
+//
+// Design.  One thread per pixel in 32x8 blocks, grid.z = the spp^2 stacked
+// AA segments (1 without AA): a block never straddles segments, so the TPU
+// kernel's segment padding has no counterpart.  The 41 scalar parameters
+// arrive by value, the reference orbit as 2 (f32 tier), 4 (dd and floatexp:
+// hi and lo of the f64 orbit) or 6 (Julia floatexp: hi, lo and exponent of
+// the drift D = Z - Z0) f32 streams in global memory, read through the
+// read-only cache.  Family and tier are template parameters (12 instances).
+// Each lane iterates its delta against the orbit
+//     Mandelbrot  d <- 2 Z d + d^2 + dc
+//     Julia       d <- 2 Z d + d^2, Z = Z0 + D        (no dc term)
+//     Ship        d <- diffabs recurrence + dc
+//     Phoenix     d <- 2 Z d + d^2 + dc + p d + r d_prev
+// until it escapes, its budget runs out, or its full value drops below |d|
+// (or it reaches the orbit's end): then it rebases (d <- Z_{i+1} + d; Julia
+// d <- D_{i+1} + d; Phoenix d_prev <- Z_i + d_i) and at once restarts at
+// orbit index 0 with z, nf and its state carried over, up to max_passes
+// rounds.  The TPU kernel runs the rounds per tile; a lane's iteration
+// sequence is the same either way, and the rounds plane here is per pixel
+// (its max equals the TPU's passes).  A lane still wanting after max_passes
+// rounds leaves with want = 1 for the host's HP fallback.
+//
+// What bounds it.  f32 ALU work: per iteration ~20-35 operations in the
+// f32 tier, ~270-400 in the dd tier (seven to nine dd products, each a
+// Dekker two_prod with two Veltkamp splits) and ~300-1100 in the floatexp
+// tier (the Julia and Ship floatexp steps renormalise after every
+// operation), times the pixel's iteration count, and divergence between the
+// lanes of a warp.  The orbit (<= 24 B per entry) stays in L2; warps read
+// it at one index until their lanes' first rebases, after which each lane
+// reads its own index.  Memory written: 20 B per pixel.
+//
+// Exactness.  Build with -fmad=false (csrc/dd.cuh); the iteration counter
+// is an f32 compared against the f32 limit; offsets of stacked segments are
+// exact dyadic quotients, so a segment maps bit-identically to a sequential
+// render at its offset.
+
+#ifndef FR_PERT_KERNEL_CUH_
+#define FR_PERT_KERNEL_CUH_
+
+#include <cuda_runtime.h>
+
+#include "dd.cuh"
+#include "floatexp.cuh"
+
+// Parameter layout: fractalrenderer_tpu/ops/perturbation.py:49-54.
+constexpr int kNQ = 41;
+enum {
+  Q_CXH, Q_CXL, Q_CYH, Q_CYL, Q_PSH, Q_PSL, Q_LIMIT, Q_BAIL2, Q_REFLEN,
+  Q_GLITCH_TOL, Q_SHIFTXH, Q_SHIFTXL, Q_SHIFTYH, Q_SHIFTYL, Q_OFFX,
+  Q_OFFY, Q_AR, Q_AI, Q_BR, Q_BI, Q_CR, Q_CI, Q_NSKIP, Q_ROW0,
+  Q_ARL, Q_AIL, Q_BRL, Q_BIL, Q_CRL, Q_CIL, Q_SEXP, Q_M0, Q_FIRST,
+  Q_Z0XH, Q_Z0XL, Q_Z0YH, Q_Z0YL, Q_PP, Q_RR, Q_SE0, Q_AROW0
+};
+
+struct PertParams {
+  float v[kNQ];
+};
+
+// Orbit streams (re, im, re lo, im lo, re exponent, im exponent; the ones a
+// tier does not read may alias stream 0), geometry and output planes.
+struct PertArgs {
+  const float* orbit[6];
+  int width, height, map_height, max_passes, spp;
+  int* n;
+  float *zx, *zy, *want, *rounds;
+};
+
+constexpr int kF32 = 0, kDD = 1, kFX = 2;  // ops/perturbation.py TIERS
+constexpr int kMandelbrot = 0, kJulia = 1, kShip = 2, kPhoenix = 3;
+
+template <int kFamily, int kTier>
+__global__ void __launch_bounds__(256)
+    pert_kernel(PertParams p, PertArgs a) {
+  constexpr bool julia = kFamily == kJulia;
+  constexpr bool ship = kFamily == kShip;
+  constexpr bool phoenix = kFamily == kPhoenix;
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lrow = blockIdx.y * blockDim.y + threadIdx.y;
+  const int seg = blockIdx.z;
+  if (col >= a.width || lrow >= a.height) return;
+  const float* __restrict__ ore = a.orbit[0];
+  const float* __restrict__ oim = a.orbit[1];
+  const float* __restrict__ orl = a.orbit[2];
+  const float* __restrict__ oil = a.orbit[3];
+  const float* __restrict__ rex = a.orbit[4];
+  const float* __restrict__ iex = a.orbit[5];
+
+  const int limit = static_cast<int>(p.v[Q_LIMIT]);
+  const float limit_f = p.v[Q_LIMIT];
+  const float bail2 = p.v[Q_BAIL2];
+  const int pert_end = static_cast<int>(p.v[Q_REFLEN]) - 1;
+  const float pp = p.v[Q_PP], rr = p.v[Q_RR];
+  const dd_t z0x = {p.v[Q_Z0XH], p.v[Q_Z0XL]};
+  const dd_t z0y = {p.v[Q_Z0YH], p.v[Q_Z0YL]};
+
+  // dc = step * (pixel - size/2 + offset) + shift, in dd (:441-467); a
+  // stacked segment maps at offset ((seg mod spp)/spp, (seg div spp)/spp),
+  // its rows from the band's global first row Q_AROW0
+  const bool stacked = a.spp > 1;
+  const int row0 = static_cast<int>(stacked ? p.v[Q_AROW0] : p.v[Q_ROW0]);
+  const float fspp = static_cast<float>(a.spp);
+  const float offx =
+      stacked ? static_cast<float>(seg % a.spp) / fspp : p.v[Q_OFFX];
+  const float offy =
+      stacked ? static_cast<float>(seg / a.spp) / fspp : p.v[Q_OFFY];
+  const dd_t step = {p.v[Q_PSH], p.v[Q_PSL]};
+  const float half_w = static_cast<float>(a.width) * 0.5f;
+  const float half_h = static_cast<float>(a.map_height) * 0.5f;
+  const float nx = (static_cast<float>(col) - half_w) + offx;
+  const float ny = (static_cast<float>(lrow + row0) - half_h) + offy;
+  const dd_t dcx = dd_add(dd_mul_float(step, nx),
+                          {p.v[Q_SHIFTXH], p.v[Q_SHIFTXL]});
+  const dd_t dcy = dd_add(dd_mul_float(step, ny),
+                          {p.v[Q_SHIFTYH], p.v[Q_SHIFTYL]});
+  const float delta_r = dd_to_float(dcx);
+  const float delta_i = dd_to_float(dcy);
+  const int s_exp = static_cast<int>(p.v[Q_SEXP]);
+  const int n0 = static_cast<int>(p.v[Q_NSKIP]);
+
+  // series initial delta d_{n0} = ((C dc + B) dc + A) dc (:500-564); the
+  // families start from A = 1, B = C = 0 (d = dc)
+  float dz0r, dz0i;
+  dd_t dzr, dzi;  // dd tier: the delta; floatexp tier: its mantissa
+  int ex = 0;     // floatexp tier: the delta's exponent
+  if constexpr (kTier == kF32) {
+    float hr = p.v[Q_CR], hi = p.v[Q_CI];
+    float tr = hr * delta_r - hi * delta_i + p.v[Q_BR];
+    float tj = hr * delta_i + hi * delta_r + p.v[Q_BI];
+    hr = tr;
+    hi = tj;
+    tr = hr * delta_r - hi * delta_i + p.v[Q_AR];
+    tj = hr * delta_i + hi * delta_r + p.v[Q_AI];
+    hr = tr;
+    hi = tj;
+    dz0r = hr * delta_r - hi * delta_i;
+    dz0i = hr * delta_i + hi * delta_r;
+  } else {
+    dd_t tr = {p.v[Q_CR], p.v[Q_CRL]}, tj = {p.v[Q_CI], p.v[Q_CIL]};
+    cmul_dd(tr, tj, dcx, dcy, tr, tj);
+    tr = dd_add(tr, {p.v[Q_BR], p.v[Q_BRL]});
+    tj = dd_add(tj, {p.v[Q_BI], p.v[Q_BIL]});
+    cmul_dd(tr, tj, dcx, dcy, tr, tj);
+    tr = dd_add(tr, {p.v[Q_AR], p.v[Q_ARL]});
+    tj = dd_add(tj, {p.v[Q_AI], p.v[Q_AIL]});
+    cmul_dd(tr, tj, dcx, dcy, dzr, dzi);
+    if constexpr (kTier == kFX) {
+      // the Horner value sits at exponent Q_SE0: renormalise (:550-561)
+      const float mag0 = tmax(fabsf(dzr.hi), fabsf(dzi.hi));
+      const bool zero0 = mag0 == 0.0f;
+      const int k0 = zero0 ? 0 : expo(mag0);
+      const float f0 = pow2i(-k0);
+      dzr = scl(dzr, f0);
+      dzi = scl(dzi, f0);
+      ex = zero0 ? kEZero
+                 : clip_exp(k0 + static_cast<int>(p.v[Q_SE0]));
+      const float dfac0 = pow2i(ex);
+      dz0r = dd_to_float(dzr) * dfac0;
+      dz0i = dd_to_float(dzi) * dfac0;
+    } else {
+      dz0r = dd_to_float(dzr);
+      dz0i = dd_to_float(dzi);
+    }
+  }
+  // the full start value (:566-586): Z_{n0} + d; Julia Z0 + D_{n0} + d
+  float zfr, zfi;
+  rfe_t z0fe_x, z0fe_y;  // Julia floatexp: Z0
+  rfe_t dcfe_x, dcfe_y;  // Ship floatexp: the true dc (:475-478)
+  if constexpr (julia && kTier == kFX) {
+    const rfe_t d0r = rfe_norm({__ldg(ore + n0), __ldg(orl + n0)},
+                               static_cast<int>(__ldg(rex + n0)));
+    const rfe_t d0i = rfe_norm({__ldg(oim + n0), __ldg(oil + n0)},
+                               static_cast<int>(__ldg(iex + n0)));
+    zfr = z0x.hi + (z0x.lo + rfe_to_f32(rfe_add(d0r, {dzr, ex})));
+    zfi = z0y.hi + (z0y.lo + rfe_to_f32(rfe_add(d0i, {dzi, ex})));
+    z0fe_x = rfe_from_dd(z0x.hi, z0x.lo);
+    z0fe_y = rfe_from_dd(z0y.hi, z0y.lo);
+  } else if constexpr (julia) {
+    zfr = z0x.hi + (z0x.lo + (__ldg(ore + n0) + dz0r));
+    zfi = z0y.hi + (z0y.lo + (__ldg(oim + n0) + dz0i));
+  } else {
+    zfr = __ldg(ore + n0) + dz0r;
+    zfi = __ldg(oim + n0) + dz0i;
+  }
+  if constexpr (ship && kTier == kFX) {
+    dcfe_x = rfe_norm(dcx, -s_exp);
+    dcfe_y = rfe_norm(dcy, -s_exp);
+  }
+  float dr = dz0r, di = dz0i;  // f32 tier delta
+  float qr = 0.0f, qi = 0.0f;  // f32 tier Phoenix delta_prev
+  dd_t pzr = {0.0f, 0.0f}, pzi = {0.0f, 0.0f};  // dd / floatexp delta_prev
+  int pex = kEZero;                             // floatexp delta_prev exp
+  float nf = static_cast<float>(n0 - 1);
+
+  int i = n0;
+  int rounds = 1;
+  bool want = false;
+  for (;;) {
+    for (;;) {
+      const float mag2 = zfr * zfr + zfi * zfi;
+      if (!(mag2 <= bail2 && i < pert_end && nf < limit_f)) break;
+      nf = nf + 1.0f;
+      float zr = __ldg(ore + i), zi = __ldg(oim + i);
+      const float zr1 = __ldg(ore + i + 1), zi1 = __ldg(oim + i + 1);
+      const bool ends = i + 1 >= pert_end;
+      bool want_now;
+      if constexpr (kTier == kF32) {
+        // :1070-1136
+        if constexpr (julia) {  // the tables hold D = Z - Z0
+          zr = z0x.hi + zr;
+          zi = z0y.hi + zi;
+        }
+        float ndr, ndi;
+        if constexpr (ship) {
+          // dx' = da(2|X|+da) - db(2|Y|+db) + dcx
+          // dy' = 2(|X| db + |Y| da + da db) + dcy
+          const float da = diffabs(zr, dr), db = diffabs(zi, di);
+          const float aa = fabsf(zr), bb = fabsf(zi);
+          ndr = da * (2.0f * aa + da) - db * (2.0f * bb + db) + delta_r;
+          ndi = 2.0f * (aa * db + bb * da + da * db) + delta_i;
+        } else {
+          const float t1r = 2.0f * (zr * dr - zi * di);
+          const float t1i = 2.0f * (zr * di + zi * dr);
+          const float t2r = dr * dr - di * di;
+          const float t2i = (2.0f * dr) * di;
+          if constexpr (phoenix) {
+            ndr = t1r + t2r + delta_r + pp * dr + rr * qr;
+            ndi = t1i + t2i + delta_i + pp * di + rr * qi;
+          } else if constexpr (julia) {
+            ndr = t1r + t2r;
+            ndi = t1i + t2i;
+          } else {
+            ndr = t1r + t2r + delta_r;
+            ndi = t1i + t2i + delta_i;
+          }
+        }
+        // Julia: rel = D_{i+1} + d (the rebased delta and the Zhuoran
+        // distance to Z0); the others: rel is z_full
+        const float relr = zr1 + ndr;
+        const float reli = zi1 + ndi;
+        const float zm2 = relr * relr + reli * reli;
+        const float dm2 = ndr * ndr + ndi * ndi;
+        want_now = (zm2 < dm2 || ends) && nf < limit_f;
+        if constexpr (phoenix) {
+          // delta_prev advances to the old delta; a rebased lane gets the
+          // absolute z_i (Z_{-1} = 0)
+          qr = want_now ? zr + dr : dr;
+          qi = want_now ? zi + di : di;
+        }
+        dr = want_now ? relr : ndr;
+        di = want_now ? reli : ndi;
+        if constexpr (julia) {
+          zfr = z0x.hi + relr;
+          zfi = z0y.hi + reli;
+        } else {
+          zfr = relr;
+          zfi = reli;
+        }
+      } else {
+        const float zrl = __ldg(orl + i), zil = __ldg(oil + i);
+        const float zrl1 = __ldg(orl + i + 1), zil1 = __ldg(oil + i + 1);
+        const dd_t X = {zr, zrl}, Y = {zi, zil};
+        if constexpr (kTier == kDD) {
+          // :926-1069
+          dd_t ndr, ndi;
+          if constexpr (ship) {
+            const dd_t da = dd_diffabs(X, dzr), db = dd_diffabs(Y, dzi);
+            const dd_t a2 = scl(dd_abs_by(X, dd_sign_nonneg(X)), 2.0f);
+            const dd_t b2 = scl(dd_abs_by(Y, dd_sign_nonneg(Y)), 2.0f);
+            ndr = dd_add(dd_sub(dd_mul(da, dd_add(a2, da)),
+                                dd_mul(db, dd_add(b2, db))),
+                         dcx);
+            // 2(|X| db + |Y| da + da db) == A2*db + B2*da + 2*da*db
+            const dd_t t2 = dd_add(dd_add(dd_mul(scl(a2, 0.5f), db),
+                                          dd_mul(scl(b2, 0.5f), da)),
+                                   dd_mul(da, db));
+            ndi = dd_add(scl(t2, 2.0f), dcy);
+          } else {
+            dd_t z2r, z2i;
+            if constexpr (julia) {  // Z = Z0 + D
+              z2r = scl(dd_add(z0x, X), 2.0f);
+              z2i = scl(dd_add(z0y, Y), 2.0f);
+            } else {
+              z2r = scl(X, 2.0f);
+              z2i = scl(Y, 2.0f);
+            }
+            const dd_t t1r = dd_sub(dd_mul(dzr, z2r), dd_mul(dzi, z2i));
+            const dd_t t1i = dd_add(dd_mul(dzi, z2r), dd_mul(dzr, z2i));
+            const dd_t sq_r = dd_sub(dd_mul(dzr, dzr), dd_mul(dzi, dzi));
+            const dd_t sq_i = scl(dd_mul(dzr, dzi), 2.0f);
+            ndr = dd_add(t1r, sq_r);
+            ndi = dd_add(t1i, sq_i);
+            if constexpr (!julia) {
+              ndr = dd_add(ndr, dcx);
+              ndi = dd_add(ndi, dcy);
+            }
+            if constexpr (phoenix) {
+              // dd_mul_float keeps the two-prod error term of p d, r d_prev
+              ndr = dd_add(ndr, dd_add(dd_mul_float(dzr, pp),
+                                       dd_mul_float(pzr, rr)));
+              ndi = dd_add(ndi, dd_add(dd_mul_float(dzi, pp),
+                                       dd_mul_float(pzi, rr)));
+            }
+          }
+          const float rel_r = (zr1 + ndr.hi) + (zrl1 + ndr.lo);
+          const float rel_i = (zi1 + ndi.hi) + (zil1 + ndi.lo);
+          const float zm2 = rel_r * rel_r + rel_i * rel_i;
+          const float dm2 = ndr.hi * ndr.hi + ndi.hi * ndi.hi;
+          want_now = (zm2 < dm2 || ends) && nf < limit_f;
+          if (want_now) {  // rebase: d <- Z_{i+1} + d (Julia D_{i+1} + d)
+            ndr = dd_add({zr1, zrl1}, ndr);
+            ndi = dd_add({zi1, zil1}, ndi);
+          }
+          if constexpr (phoenix) {
+            pzr = want_now ? dd_add(X, dzr) : dzr;
+            pzi = want_now ? dd_add(Y, dzi) : dzi;
+          }
+          dzr = ndr;
+          dzi = ndi;
+          if constexpr (julia) {
+            zfr = z0x.hi + (z0x.lo + rel_r);
+            zfi = z0y.hi + (z0y.lo + rel_i);
+          } else {
+            zfr = rel_r;
+            zfi = rel_i;
+          }
+        } else if constexpr (julia) {
+          // :692-712 and :817-845: d <- 2 Z d + d^2 entirely in floatexp
+          // (Z itself can sit at delta scale near the start); rel = D_{i+1}
+          // + d; z_full = Z0 + rel; the Zhuoran metric |rel| < |d| at full
+          // floatexp precision
+          const rfe_t Dr = rfe_norm(X, static_cast<int>(__ldg(rex + i)));
+          const rfe_t Di = rfe_norm(Y, static_cast<int>(__ldg(iex + i)));
+          cfe_t zc = cfe_from_rr(rfe_add(z0fe_x, Dr), rfe_add(z0fe_y, Di));
+          zc.e = zc.e == kEZero ? zc.e : zc.e + 1;  // 2Z
+          const cfe_t d = {dzr, dzi, ex};
+          const cfe_t nm = cfe_add(cfe_mul(d, zc), cfe_mul(d, d));
+          const rfe_t D1r =
+              rfe_norm({zr1, zrl1}, static_cast<int>(__ldg(rex + i + 1)));
+          const rfe_t D1i =
+              rfe_norm({zi1, zil1}, static_cast<int>(__ldg(iex + i + 1)));
+          const rfe_t rel_r = rfe_add(D1r, {nm.r, nm.e});
+          const rfe_t rel_i = rfe_add(D1i, {nm.i, nm.e});
+          const cfe_t rel_c = cfe_from_rr(rel_r, rel_i);
+          zfr = z0x.hi + (z0x.lo + rfe_to_f32(rel_r));
+          zfi = z0y.hi + (z0y.lo + rfe_to_f32(rel_i));
+          want_now = (cfe_mag2_lt(rel_c, nm) || ends) && nf < limit_f;
+          const cfe_t nd = want_now ? rel_c : nm;
+          dzr = nd.r;
+          dzi = nd.i;
+          ex = nd.e;
+        } else {
+          cfe_t nm;
+          if constexpr (ship) {
+            // :713-756: da is +-d away from the axes and +-(2X + d) on a
+            // sign straddle, each a floatexp at its own scale
+            const rfe_t dxfe = {dzr, ex}, dyfe = {dzi, ex};
+            const bool xpos = dd_sign_nonneg(X), ypos = dd_sign_nonneg(Y);
+            const dd_t ax = dd_abs_by(X, xpos), ay = dd_abs_by(Y, ypos);
+            const rfe_t abs_x = rfe_from_dd(ax.hi, ax.lo);
+            const rfe_t abs_y = rfe_from_dd(ay.hi, ay.lo);
+            const rfe_t ux = rfe_add(rfe_from_dd(X.hi * 2.0f, X.lo * 2.0f),
+                                     dxfe);
+            const rfe_t uy = rfe_add(rfe_from_dd(Y.hi * 2.0f, Y.lo * 2.0f),
+                                     dyfe);
+            const bool sx = rfe_add(rfe_from_dd(X.hi, X.lo), dxfe).m.hi >= 0;
+            const bool sy = rfe_add(rfe_from_dd(Y.hi, Y.lo), dyfe).m.hi >= 0;
+            const rfe_t da =
+                rfe_select(xpos, rfe_select(sx, dxfe, rfe_neg(ux)),
+                           rfe_select(sx, ux, rfe_neg(dxfe)));
+            const rfe_t db =
+                rfe_select(ypos, rfe_select(sy, dyfe, rfe_neg(uy)),
+                           rfe_select(sy, uy, rfe_neg(dyfe)));
+            const rfe_t a2 = rfe_scale_pow2(abs_x, 1);
+            const rfe_t b2 = rfe_scale_pow2(abs_y, 1);
+            // dx' = da(2|X|+da) - db(2|Y|+db) + dcx
+            // dy' = 2(|X| db + |Y| da + da db) + dcy
+            const rfe_t dxp =
+                rfe_add(rfe_add(rfe_mul(da, rfe_add(a2, da)),
+                                rfe_neg(rfe_mul(db, rfe_add(b2, db)))),
+                        dcfe_x);
+            const rfe_t dyp = rfe_add(
+                rfe_scale_pow2(rfe_add(rfe_add(rfe_mul(abs_x, db),
+                                               rfe_mul(abs_y, da)),
+                                       rfe_mul(da, db)),
+                               1),
+                dcfe_y);
+            nm = cfe_from_rr(dxp, dyp);
+          } else {
+            // :764-816: the terms at exponents ex, 2ex and -s (Phoenix: and
+            // ex, pex for p d and r d_prev) aligned to their max by exact
+            // powers of two, then renormalised
+            const dd_t z2r = scl(X, 2.0f), z2i = scl(Y, 2.0f);
+            const dd_t t1r = dd_sub(dd_mul(dzr, z2r), dd_mul(dzi, z2i));
+            const dd_t t1i = dd_add(dd_mul(dzi, z2r), dd_mul(dzr, z2i));
+            const dd_t sq_r = dd_sub(dd_mul(dzr, dzr), dd_mul(dzi, dzi));
+            const dd_t sq_i = scl(dd_mul(dzr, dzi), 2.0f);
+            const int e2 = ex + ex;
+            int emax = max(max(ex, e2), -s_exp);
+            if constexpr (phoenix) {
+              // a stale pex must not shift the real terms down when r = 0
+              emax = max(emax, rr == 0.0f ? kEZero : pex);
+            }
+            const float fa = pow2i(ex - emax), fb = pow2i(e2 - emax);
+            dd_t nmr = dd_add(scl(t1r, fa), scl(sq_r, fb));
+            dd_t nmi = dd_add(scl(t1i, fa), scl(sq_i, fb));
+            const float fc = pow2i(-s_exp - emax);
+            nmr = dd_add(nmr, scl(dcx, fc));
+            nmi = dd_add(nmi, scl(dcy, fc));
+            if constexpr (phoenix) {
+              nmr = dd_add(nmr, scl(dd_mul_float(dzr, pp), fa));
+              nmi = dd_add(nmi, scl(dd_mul_float(dzi, pp), fa));
+              const float fr = pow2i(pex - emax);
+              nmr = dd_add(nmr, scl(dd_mul_float(pzr, rr), fr));
+              nmi = dd_add(nmi, scl(dd_mul_float(pzi, rr), fr));
+            }
+            nm = cfe_norm(nmr, nmi, emax);
+          }
+          // :846-901: z_full = Z + m 2^ex; Zhuoran test; rebase to exp 0
+          const float dfac = pow2i(nm.e);
+          zfr = (zr1 + nm.r.hi * dfac) + (zrl1 + nm.r.lo * dfac);
+          zfi = (zi1 + nm.i.hi * dfac) + (zil1 + nm.i.lo * dfac);
+          const float zm2 = zfr * zfr + zfi * zfi;
+          const float dm2 =
+              (nm.r.hi * nm.r.hi + nm.i.hi * nm.i.hi) * pow2i(nm.e + nm.e);
+          want_now = (zm2 < dm2 || ends) && nf < limit_f;
+          if constexpr (phoenix) {
+            // delta_prev advances to the old delta; a rebased lane gets the
+            // absolute z_i (dd, exponent 0)
+            if (want_now) {
+              const float dfo = pow2i(ex);
+              pzr = dd_add(X, scl(dzr, dfo));
+              pzi = dd_add(Y, scl(dzi, dfo));
+              pex = 0;
+            } else {
+              pzr = dzr;
+              pzi = dzi;
+              pex = ex;
+            }
+          }
+          if (want_now) {
+            dzr = dd_add({zr1, zrl1}, scl(nm.r, dfac));
+            dzi = dd_add({zi1, zil1}, scl(nm.i, dfac));
+            ex = 0;
+          } else {
+            dzr = nm.r;
+            dzi = nm.i;
+            ex = nm.e;
+          }
+        }
+      }
+      ++i;
+      if (want_now) {
+        want = true;
+        break;
+      }
+    }
+    // the lane's next round: restart at orbit index 0, state carried over
+    if (want && rounds < a.max_passes) {
+      want = false;
+      i = 0;
+      ++rounds;
+      continue;
+    }
+    break;
+  }
+
+  // :1265-1282 (the budget ran out = interior)
+  const size_t idx =
+      (static_cast<size_t>(seg) * a.height + lrow) * a.width + col;
+  a.n[idx] = nf >= limit_f ? limit : static_cast<int>(fmaxf(nf, 0.0f));
+  a.zx[idx] = zfr;
+  a.zy[idx] = zfi;
+  a.want[idx] = want ? 1.0f : 0.0f;
+  a.rounds[idx] = static_cast<float>(rounds);
+}
+
+// Launch one family's instance of the given tier: one thread per pixel of
+// the band, grid.z = the spp^2 stacked segments.  Returns the cudaError_t of
+// the launch.
+template <int kFamily>
+int pert_launch(int tier, const PertParams& p, const PertArgs& a,
+                cudaStream_t s) {
+  const dim3 block(32, 8);
+  const dim3 grid((a.width + block.x - 1) / block.x,
+                  (a.height + block.y - 1) / block.y, a.spp * a.spp);
+  switch (tier) {
+    case kF32:
+      pert_kernel<kFamily, kF32><<<grid, block, 0, s>>>(p, a);
+      break;
+    case kDD:
+      pert_kernel<kFamily, kDD><<<grid, block, 0, s>>>(p, a);
+      break;
+    case kFX:
+      pert_kernel<kFamily, kFX><<<grid, block, 0, s>>>(p, a);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One per family, each in its own translation unit (built in parallel).
+int pert_launch_mandelbrot(int tier, const PertParams& p, const PertArgs& a,
+                           cudaStream_t s);
+int pert_launch_julia(int tier, const PertParams& p, const PertArgs& a,
+                      cudaStream_t s);
+int pert_launch_ship(int tier, const PertParams& p, const PertArgs& a,
+                     cudaStream_t s);
+int pert_launch_phoenix(int tier, const PertParams& p, const PertArgs& a,
+                        cudaStream_t s);
+
+#endif  // FR_PERT_KERNEL_CUH_

@@ -1,9 +1,12 @@
 """Deep-zoom renderer: host HP reference orbit + the perturbation kernel K3
 (the port's counterpart of ``fractalrenderer_tpu/models/deep_zoom.py``).
 
-Pipeline (config #4 of BASELINE.md), the rebasing Mandelbrot path:
+Pipeline (config #4 of BASELINE.md), the rebasing path of every family:
 1. Compute the reference orbit at the scene center in arbitrary precision
-   (deepzoom/orbit.py — native C++ fixed-point or Python bignum).
+   (deepzoom/orbit.py — native C++ fixed-point or Python bignum): z² + c
+   from 0 (Mandelbrot), the Burning Ship and Phoenix recurrences (kind 1
+   and 2), or for a deep Julia the drift D = Z − Z0 from the view center
+   with the scene's shared c (floatexp-emitted in the ARBITRARY tier).
 2. Run the perturbation kernel (ops/perturbation.py) with per-pixel
    rebasing: one reference orbit serves the whole image, glitch-free by
    construction; lanes still wanting a rebase after ``max_passes`` rounds
@@ -11,9 +14,12 @@ Pipeline (config #4 of BASELINE.md), the rebasing Mandelbrot path:
 3. Color with the deep-zoom palette set (test_deep_zoom.comp:73-103) on
    the device; no enhance/ACES post chain.
 
-The other families, ``rebasing=False``, ``exact_dust``, supersampling
-(``samples_per_pixel`` > 1) and mesh sharding raise NotImplementedError
-naming their ROADMAP item.
+Supersampling: scene.samples_per_pixel (1/2/4, fractal_state.h:91) renders
+spp² subpixel samples per pixel, stacked into one K3 launch (power-of-two
+spp) and averaged in sample order.
+
+``rebasing=False``, ``exact_dust`` and mesh sharding raise
+NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -51,17 +57,10 @@ def _scene_coords(scene: Scene):
     return cx, cy, zoom
 
 
-def _check_ported(scene: Scene, rebasing: bool = True, exact_dust: bool = False,
-                 aa_spp: int = 1, mesh=None) -> None:
+def _check_ported(rebasing: bool = True, exact_dust: bool = False,
+                  mesh=None) -> None:
     """Raise NotImplementedError for a deep-zoom option K3 does not run
     yet, before any orbit is computed."""
-    if (getattr(scene, "deep_zoom_julia", False)
-            or getattr(scene, "deep_zoom_ship", False)
-            or getattr(scene, "deep_zoom_phoenix", False)):
-        raise _unported("the Julia, Burning Ship and Phoenix deep-zoom "
-                        "families are", "6(d)")
-    if int(aa_spp) > 1 or max(int(scene.samples_per_pixel), 1) > 1:
-        raise _unported("deep-zoom supersampling (spp > 1) is", "6(e)")
     if exact_dust:
         raise _unported("the exact-dust tier is", "6(f)")
     if not rebasing:
@@ -89,11 +88,14 @@ def render_fields(scene: Scene, width: int, height: int,
     case), return ``n/zx/zy`` as tensors on ``device`` (``glitch_remaining``
     is then an all-False host array); otherwise, and without it, they come
     back as host numpy arrays.
+    ``aa_spp``: render the spp² subpixel samples of each pixel in one
+    stacked K3 launch; the planes are then (spp², band_h, width), sample s
+    at offset ((s mod spp)/spp, (s div spp)/spp).
     ``row_band``: optional (row0, band_h) — render only ``band_h`` rows of
     the full ``height``-tall image starting at global row ``row0`` (the
     pixel mapping, series bound and HP fallback keep the full geometry).
-    ``orbit_cache``: optional dict keyed by exact HP center values; reuses
-    reference orbits across calls.
+    ``orbit_cache``: optional dict keyed by exact HP center values and the
+    recurrence; reuses reference orbits across calls.
     ``ref_center``: optional (cx, cy) decimal strings — compute/reuse the
     reference orbit at THIS point and render via the shift mechanism
     (c = ref + pixel-delta + (center - ref)).
@@ -101,7 +103,10 @@ def render_fields(scene: Scene, width: int, height: int,
     ``info["rounds_plane"]`` (a tensor on ``device``).
     ``max_references`` and ``glitch_tol`` belong to the non-rebasing
     pipeline and are accepted for the signature only."""
-    _check_ported(scene, rebasing, exact_dust, aa_spp, mesh)
+    _check_ported(rebasing, exact_dust, mesh)
+    aa_spp = int(aa_spp)
+    if aa_spp > 1 and tuple(offset) != (0.0, 0.0):
+        raise ValueError("aa_spp needs the default offset")
     band_kw = {}
     row_off = 0
     if row_band is not None:
@@ -127,6 +132,15 @@ def render_fields(scene: Scene, width: int, height: int,
     # mode (zoom < 1e-30).
     scaled = mode.name == "ARBITRARY"
     dd_delta = (zoom_f <= 1e-7) and not scaled
+    julia = bool(getattr(scene, "deep_zoom_julia", False))
+    ship = bool(getattr(scene, "deep_zoom_ship", False))
+    phoenix = bool(getattr(scene, "deep_zoom_phoenix", False))
+    if julia + ship + phoenix > 1:
+        raise ValueError("pick ONE of deep_zoom_julia / _ship / _phoenix")
+    if ship:
+        # the armada dust flips f32-tier counts even at 1e-5 — always dd
+        dd_delta = not scaled
+    jc = (repr(float(scene.julia_c_real)), repr(float(scene.julia_c_imag)))
 
     # +1: the kernel's index-consistent escape test reads orbit[i+1], so a
     # full-strength (interior) reference needs max_iter+1 stored entries.
@@ -136,14 +150,29 @@ def render_fields(scene: Scene, width: int, height: int,
             else Fraction(str(v))
 
     def cached_orbit(ocx, ocy):
-        # the key carries every field of the JAX package's key (family
-        # flags False here), so the two caches key alike
-        key = (_ckey(ocx), _ckey(ocy), bits, max_iter, False, None, False,
-               False, None, None)
+        # the orbit depends on the recurrence too: the key carries every
+        # field of the JAX package's key, so the two caches key alike
+        key = (_ckey(ocx), _ckey(ocy), bits, max_iter, julia,
+               jc if julia else None, ship, phoenix,
+               (float(scene.phoenix_p), float(scene.phoenix_r))
+               if phoenix else None,
+               scaled if julia else None)  # drift emission format
         if orbit_cache is not None and key in orbit_cache:
             return orbit_cache[key]
-        o = orbit_mod.compute_orbit(ocx, ocy, bits, max_iter + 1,
-                                    force_python=force_python_orbit)
+        if julia:
+            # z0 = the view point, c = the shared Julia constant; the table
+            # holds the drift D = Z - Z0, floatexp-emitted (mantissa,
+            # exponent) in the ARBITRARY tier so no depth underflows it
+            o = orbit_mod.compute_orbit(jc[0], jc[1], bits, max_iter + 1,
+                                        force_python=force_python_orbit,
+                                        z0x=ocx, z0y=ocy, emit_rel=True,
+                                        emit_fx=scaled)
+        else:
+            o = orbit_mod.compute_orbit(
+                ocx, ocy, bits, max_iter + 1,
+                force_python=force_python_orbit,
+                kind=1 if ship else (2 if phoenix else 0),
+                pp=float(scene.phoenix_p), rr=float(scene.phoenix_r))
         if orbit_cache is not None:
             orbit_cache[key] = o
         return o
@@ -165,12 +194,16 @@ def render_fields(scene: Scene, width: int, height: int,
         shift_kw = dict(ref_shift_x=dd_from_string(sx_s),
                         ref_shift_y=dd_from_string(sy_s),
                         ref_shift_x_frac=sx_s, ref_shift_y_frac=sy_s)
+        orbit_center = (rcx_s, rcy_s)
     else:
         orbit = cached_orbit(cx, cy)
+        orbit_center = (cx, cy)
+    # emit_fx orbits come back as (mantissas, exponents); plain ones bare
+    orbit, orbit_exp = orbit if isinstance(orbit, tuple) else (orbit, None)
 
     series = None
     if scene.use_series_approximation and max(scene.bailout, 2.0) >= 4.0 \
-            and ref_center is None:
+            and ref_center is None and not (julia or ship or phoenix):
         aspect = width / height
         # +1/height: subpixel AA offsets push |dc| up to one pixel past the
         # geometric corner; the series exactness bound must cover them
@@ -194,13 +227,18 @@ def render_fields(scene: Scene, width: int, height: int,
         bailout=scene.bailout, glitch_tol=glitch_tol, offset=offset,
         float_continuation=False, series=series, dd_delta=dd_delta,
         scaled_delta=scaled, zoom_frac=str(zoom), rebase=True,
-        max_passes=max_passes, device=device, **band_kw, **shift_kw)
+        max_passes=max_passes, julia=julia, ship=ship, phoenix=phoenix,
+        phoenix_p=float(scene.phoenix_p), phoenix_r=float(scene.phoenix_r),
+        julia_z0=((float(Fraction(str(orbit_center[0]))),
+                   float(Fraction(str(orbit_center[1])))) if julia else None),
+        orbit_exp=orbit_exp, aa_spp=aa_spp, device=device, **band_kw,
+        **shift_kw)
     want = f["want"] > 0.5
     n_want = int(want.sum())
     info = {"precision_mode": mode.name, "precision_bits": bits,
             "dd_delta": dd_delta, "scaled_delta": scaled,
-            "deep_zoom_julia": False, "deep_zoom_ship": False,
-            "deep_zoom_phoenix": False, "algorithm": "rebase",
+            "deep_zoom_julia": julia, "deep_zoom_ship": ship,
+            "deep_zoom_phoenix": phoenix, "algorithm": "rebase",
             "rebase_passes": int(f["passes"]),
             "reference_iterations": len(orbit), "references_used": 1,
             "series_skip": series.n_skip if series else 0,
@@ -213,7 +251,7 @@ def render_fields(scene: Scene, width: int, height: int,
         info.update(fallback_pixels=0, glitched_pixels_remaining=0,
                     fields_on_device=True)
         return (f["n"], f["zx"], f["zy"],
-                np.zeros((band_h, width), bool), info)
+                np.zeros(tuple(f["n"].shape), bool), info)
     n = f["n"].cpu().numpy()
     zx = f["zx"].cpu().numpy()
     zy = f["zy"].cpu().numpy()
@@ -232,24 +270,41 @@ def render_fields(scene: Scene, width: int, height: int,
         step_fr = Fraction(str(zoom)) * 4 / (height * height)
         bail = max(2.0, float(scene.bailout))
         bail2 = bail * bail
-        for y, x in zip(*np.nonzero(glitch)):
-            y, x = int(y), int(x)
+        if n.ndim == 3:  # stacked AA: per-sample subpixel offsets
+            lanes = [(int(s), int(y), int(x))
+                     for s, y, x in np.argwhere(glitch)]
+        else:
+            lanes = [(None, int(y), int(x))
+                     for y, x in zip(*np.nonzero(glitch))]
+        for smp, y, x in lanes:
+            off = offset if smp is None else \
+                ((smp % aa_spp) / aa_spp, (smp // aa_spp) / aa_spp)
             # y is band-local when row_band is set; the mapping is global
-            dcx = step_fr * (Fraction(x + offset[0]) - Fraction(width, 2))
-            dcy = step_fr * (Fraction(y + row_off + offset[1])
+            dcx = step_fr * (Fraction(x + off[0]) - Fraction(width, 2))
+            dcy = step_fr * (Fraction(y + row_off + off[1])
                              - Fraction(height, 2))
-            o = orbit_mod.compute_orbit(
-                cx_hp + HPFloat(dcx, hp_bits), cy_hp + HPFloat(dcy, hp_bits),
-                hp_bits, max_iter + 1, escape_mag_sq=bail2,
-                force_python=force_python_orbit)
+            pcx, pcy = cx_hp + HPFloat(dcx, hp_bits), \
+                cy_hp + HPFloat(dcy, hp_bits)
+            if julia:
+                o = orbit_mod.compute_orbit(
+                    jc[0], jc[1], hp_bits, max_iter + 1,
+                    escape_mag_sq=bail2, force_python=force_python_orbit,
+                    z0x=pcx, z0y=pcy)
+            else:
+                o = orbit_mod.compute_orbit(
+                    pcx, pcy, hp_bits, max_iter + 1, escape_mag_sq=bail2,
+                    force_python=force_python_orbit,
+                    kind=1 if ship else (2 if phoenix else 0),
+                    pp=float(scene.phoenix_p), rr=float(scene.phoenix_r))
             zfx, zfy = float(o[-1, 0]), float(o[-1, 1])
             escaped = zfx * zfx + zfy * zfy > bail2
             # kernel count convention: n = #{i >= 1 : |z_i| <= bail} — the
             # first escaped index k gives n = k - 1; interior reports the
             # limit
-            n[y, x] = (len(o) - 2) if escaped else max_iter
-            zx[y, x] = zfx
-            zy[y, x] = zfy
+            at = (y, x) if smp is None else (smp, y, x)
+            n[at] = (len(o) - 2) if escaped else max_iter
+            zx[at] = zfx
+            zy[at] = zfy
         glitch = np.zeros_like(glitch)
     info["glitched_pixels_remaining"] = int(glitch.sum())
     return n, zx, zy, glitch, info
@@ -270,25 +325,98 @@ def color_fields_device(n, zx, zy, p: ColorParams) -> torch.Tensor:
     return coloring.color_deep_zoom(n, zx, zy, q)
 
 
+def _average(acc: torch.Tensor, nsamp: int) -> torch.Tensor:
+    # divide by an f32 tensor: the same IEEE quotient on every device
+    return acc / torch.tensor(float(nsamp), dtype=torch.float32,
+                              device=acc.device)
+
+
+def color_avg_device(n, zx, zy, p: ColorParams, nsamp: int) -> torch.Tensor:
+    """Colour the ``nsamp`` stacked AA sample planes (nsamp, H, W) on their
+    device and return their average: f32 adds in sample order, then one
+    division by f32(nsamp), the expression of the JAX package's device and
+    host averages (so either gives the same bits)."""
+    acc = color_fields_device(n[0], zx[0], zy[0], p)
+    for s in range(1, int(nsamp)):
+        acc = acc + color_fields_device(n[s], zx[s], zy[s], p)
+    return _average(acc, nsamp)
+
+
+def color_stacked_samples(n, zx, zy, p: ColorParams, nsamp: int,
+                          device="cuda") -> torch.Tensor:
+    """Average the coloured samples of a stacked (nsamp, H, W) field render
+    on ``device``.  Planes from the HP fallback (numpy) are moved there
+    first and coloured with the same expression and sample order, so the
+    average does not depend on where the planes came from."""
+    dev = torch.device(device)
+    n, zx, zy = (torch.as_tensor(a).to(dev) for a in (n, zx, zy))
+    return color_avg_device(n, zx, zy, p, nsamp)
+
+
+class SampleAccumulator:
+    """Colour policy of a sequential AA sample loop (render() with a
+    non-power-of-two spp): each sample's planes are coloured on ``device``
+    (numpy planes from an HP fallback are moved there first) and added to
+    the f32 accumulator in sample order; ``average`` divides once by
+    f32(nsamp), as color_avg_device does."""
+
+    def __init__(self, p: ColorParams, device="cuda"):
+        self._p = p
+        self._dev = torch.device(device)
+        self._acc = None
+
+    def add(self, n, zx, zy):
+        n, zx, zy = (torch.as_tensor(a).to(self._dev) for a in (n, zx, zy))
+        c = color_fields_device(n, zx, zy, self._p)
+        self._acc = c if self._acc is None else self._acc + c
+
+    def average(self, nsamp: int) -> torch.Tensor:
+        """The f32 mean plane."""
+        return _average(self._acc, nsamp)
+
+
 def render(scene: Scene, width: int, height: int,
            return_info: bool = False, orbit_cache: dict = None,
            quantize: int = 0, device="cuda", **kw):
     """Render a deep-zoom scene on ``device``: f32 (H, W, 3) in [0, 1], or
     with ``quantize`` 8/16 the image quantized on the device with the PNG
-    writer's exact expression.  Fields from the HP fallback (host arrays)
-    are colored on the device too, with the same expression."""
+    writer's exact expression.  A power-of-two ``samples_per_pixel`` spp
+    renders the spp² samples in one stacked K3 launch (``info`` then has
+    ``aa_samples`` and ``aa_batched``); another spp renders them one launch
+    each at offsets (sx/spp, sy/spp).  Fields from the HP fallback (host
+    arrays) are colored on the device too, with the same expression."""
     from .common import quantize_image
 
     p = ColorParams(
         max_iterations=scene.max_iterations, bailout=scene.bailout,
         palette_mode=scene.palette_mode, color_offset=scene.color_offset,
         color_scale=scene.color_scale)
-    n, zx, zy, _, info = render_fields(scene, width, height,
-                                       orbit_cache=orbit_cache,
-                                       keep_device=True, device=device, **kw)
-    dev = torch.device(device)
-    n, zx, zy = (torch.as_tensor(a).to(dev) for a in (n, zx, zy))
-    img = color_fields_device(n, zx, zy, p)
+    spp = max(int(scene.samples_per_pixel), 1)
+    cache = orbit_cache if orbit_cache is not None else {}
+    stacked = spp > 1 and (spp & (spp - 1)) == 0 \
+        and kw.get("rebasing", True)
+    if stacked:
+        n, zx, zy, _, info = render_fields(scene, width, height,
+                                           orbit_cache=cache, aa_spp=spp,
+                                           keep_device=True, device=device,
+                                           **kw)
+        img = color_stacked_samples(n, zx, zy, p, spp * spp, device)
+        info = dict(info, aa_samples=spp * spp, aa_batched=True)
+    else:
+        accu = SampleAccumulator(p, device)
+        infos = []
+        for sy in range(spp):
+            for sx in range(spp):
+                off = (sx / spp, sy / spp) if spp > 1 else (0.0, 0.0)
+                n, zx, zy, _, i = render_fields(scene, width, height,
+                                                offset=off,
+                                                orbit_cache=cache,
+                                                keep_device=True,
+                                                device=device, **kw)
+                accu.add(n, zx, zy)
+                infos.append(i)
+        img = accu.average(spp * spp)
+        info = infos[0]
     if quantize in (8, 16):
         img = quantize_image(img, bit_depth=quantize)
     if return_info:

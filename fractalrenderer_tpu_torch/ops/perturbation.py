@@ -1,33 +1,45 @@
 """Perturbation deep zoom, kernel K3 (the port's counterpart of
-``fractalrenderer_tpu/ops/perturbation.py``): the Mandelbrot family with
-per-pixel (Zhuoran) rebasing and the series-skip start, in the three delta
-tiers of the rebasing pipeline.
+``fractalrenderer_tpu/ops/perturbation.py``): the Mandelbrot, Julia,
+Burning Ship and Phoenix families with per-pixel (Zhuoran) rebasing, the
+series-skip start (Mandelbrot) and stacked spp² supersampling, in the three
+delta tiers of the rebasing pipeline.
 
-Every pixel iterates its delta δ ← 2Zδ + δ² + δc against one reference orbit
-Z (``deepzoom/orbit.py``), in f32 (tier ``"f32"``), in double-double
-(``"dd"``, ``dd_delta``) or in floatexp (``"fx"``, ``scaled_delta``: a dd
-mantissa and an i32 exponent, past the f32 exponent range).  A lane whose
-full value |Z + δ| drops below |δ|, or that reaches the end of the orbit
-with budget left, rebases (δ ← Z + δ) and at once restarts at orbit index 0,
-up to ``max_passes`` rounds; a lane still wanting a rebase after that leaves
-``want`` = 1 for the caller's HP fallback (models/deep_zoom.py).  The TPU
-kernel runs these rounds per tile; each lane's iteration sequence is the
-same, and the ``rounds`` plane is per pixel here (its max is the TPU's
-``passes``).
+Every pixel iterates its delta δ against one reference orbit Z
+(``deepzoom/orbit.py``), in f32 (tier ``"f32"``), in double-double (``"dd"``,
+``dd_delta``) or in floatexp (``"fx"``, ``scaled_delta``: a dd mantissa and
+an i32 exponent, past the f32 exponent range):
 
-- ``pack_pert_operands`` builds the 41-float parameter vector and the orbit
-  streams exactly as the JAX ``perturbation_fields`` builds its operands;
+- Mandelbrot: δ ← 2Zδ + δ² + δc;
+- Julia: δ ← 2Zδ + δ², against a drift table D = Z − Z0 (Z = Z0 + D; the
+  floatexp tier reads D as a mantissa and a per-entry exponent);
+- Burning Ship: the diffabs recurrence (|X + d| − |X| by sign cases);
+- Phoenix: δ ← 2Zδ + δ² + δc + p·δ + r·δ_prev, with a second per-lane
+  state δ_prev.
+
+A lane whose full value drops below |δ| (Julia: |D + δ| below |δ|), or that
+reaches the end of the orbit with budget left, rebases (δ ← Z + δ, Julia
+δ ← D + δ, Phoenix δ_prev ← Z_i + δ_i) and at once restarts at orbit index
+0, up to ``max_passes`` rounds; a lane still wanting a rebase after that
+leaves ``want`` = 1 for the caller's HP fallback (models/deep_zoom.py).
+The TPU kernel runs these rounds per tile; each lane's iteration sequence is
+the same, and the ``rounds`` plane is per pixel here (its max is the TPU's
+``passes``).  Stacked supersampling (``aa_spp`` 2 or 4) renders spp²
+subpixel segments of the frame (or of a row band) in one launch, each
+mapped exactly as a sequential render at its offset.
+
+- ``pack_pert_operands`` builds the 41-float parameter vector, the orbit
+  streams and the launch geometry exactly as the JAX
+  ``perturbation_fields`` builds its operands;
 - ``perturbation_fields_cuda`` launches the hand-written CUDA kernel
-  (csrc/perturbation.cu) on the current stream;
+  (csrc/perturbation.cu and csrc/pert_*.cu) on the current stream;
 - ``perturbation_fields_plain`` is the same per-lane computation as plain
-  PyTorch elementwise ops on (H, W) tensors, each lane with its own orbit
-  index;
+  PyTorch elementwise ops, each lane with its own orbit index;
 - ``perturbation_fields`` (the JAX signature, with ``device``) takes the
   plain version for a CPU device only; for a CUDA device it launches the
   kernel or raises.
 
-The other families, stacked spp² AA, the error ledger and the non-rebasing
-path raise NotImplementedError naming their ROADMAP item.
+The error ledger and the non-rebasing path raise NotImplementedError naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -51,14 +63,18 @@ NQ = 41
 
 # The JAX package buckets the orbit length up to a power of two (>= 256) no
 # larger than this, and stores longer orbits whole; Q_REFLEN is the orbit
-# length clamped to that bucket, so the port computes it the same way.
+# length clamped to that bucket, so the port computes it the same way.  The
+# Julia floatexp tier ships 6 streams instead of 4 and its bucket shrinks in
+# proportion (perturbation.py:1620-1621).
 ORBIT_BUCKET_MAX = 32768
+JULIA_FX_BUCKET_MAX = ORBIT_BUCKET_MAX * 4 // 6
 
 # exponent of an exact floatexp zero (far below any real scale, safe from
 # i32 overflow when doubled)
 E_ZERO = -(1 << 24)
 
 TIERS = ("f32", "dd", "fx")  # the kernel's tier ids, in order
+FAMILIES = ("mandelbrot", "julia", "ship", "phoenix")  # its family ids
 
 _EARLY_EXIT_EVERY = 16  # plain path: test for live lanes this often
 _MAX_HEIGHT = 65535 * 8  # CUDA grid.y limit for the (32, 8) blocks
@@ -69,6 +85,23 @@ DD = Tuple[float, float]
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} not ported yet (ROADMAP Queue 1 item {item})")
+
+
+def family_of(julia: bool = False, ship: bool = False,
+              phoenix: bool = False) -> str:
+    """The family name of the JAX package's three flags."""
+    if julia + ship + phoenix > 1:
+        raise ValueError("julia/ship/phoenix are mutually exclusive families")
+    return ("julia" if julia else "ship" if ship
+            else "phoenix" if phoenix else "mandelbrot")
+
+
+def n_streams(tier: str, family: str) -> int:
+    """Orbit streams of a launch: re/im hi (2), + lo parts for dd/floatexp
+    (4), + per-entry drift exponents for the Julia floatexp tier (6)."""
+    if tier == "f32":
+        return 2
+    return 6 if (tier == "fx" and family == "julia") else 4
 
 
 # ---------------------------------------------------------------------------
@@ -83,6 +116,21 @@ def _series_f32_representable(s) -> bool:
     return all(abs(v) < 1e36 and v == v for v in vals)
 
 
+def _fx_streams(vals: np.ndarray, exps: Optional[np.ndarray] = None):
+    """A drift table as floatexp streams (perturbation.py:1654-1663):
+    mantissa hi and lo as f32 and the exponent as an exact f32 integer
+    (E_ZERO for a zero entry); frexp unless the exponents come along."""
+    if exps is None:
+        m, e = np.frexp(vals)  # D = m * 2^e, |m| in [0.5, 1)
+    else:
+        m, e = vals, exps.astype(np.int64)
+    hi = m.astype(np.float32)
+    lo = (m - hi.astype(np.float64)).astype(np.float32)
+    ex = np.where(m == 0.0, float(E_ZERO),
+                  e.astype(np.float64)).astype(np.float32)
+    return hi, lo, ex
+
+
 def pack_pert_operands(orbit: np.ndarray, width: int, height: int, *,
                        center_x_dd: DD, center_y_dd: DD,
                        zoom_dd: DD = (0.0, 0.0), max_iter: int,
@@ -95,15 +143,27 @@ def pack_pert_operands(orbit: np.ndarray, width: int, height: int, *,
                        dd_delta: bool = False, scaled_delta: bool = False,
                        zoom_frac: Union[str, Fraction, None] = None,
                        ref_shift_x_frac: Union[str, Fraction, None] = None,
-                       ref_shift_y_frac: Union[str, Fraction, None] = None
-                       ) -> Tuple[np.ndarray, Tuple[np.ndarray, ...], str]:
-    """The parameters (NQ,) f32, the orbit streams and the tier of one K3
-    launch, packed as the JAX ``perturbation_fields`` packs its operands
-    for the rebasing Mandelbrot path (perturbation.py:1444-1808): the exact
-    rational step zoom·4/map_h², the 2^s pre-scale of the floatexp tier,
-    the series coefficients in either form.  Streams: re and im of the
-    orbit as f32 (f32 tier), plus the lo parts of the f64 orbit (dd and
-    floatexp tiers), each ``cap`` long and zero past the orbit."""
+                       ref_shift_y_frac: Union[str, Fraction, None] = None,
+                       julia: bool = False, julia_z0=None,
+                       ship: bool = False, phoenix: bool = False,
+                       phoenix_p: float = 0.0, phoenix_r: float = 0.0,
+                       aa_spp: int = 1,
+                       orbit_exp: Optional[np.ndarray] = None
+                       ) -> Tuple[np.ndarray, Tuple[np.ndarray, ...], dict]:
+    """The parameters (NQ,) f32, the orbit streams and the launch geometry
+    of one K3 launch, packed as the JAX ``perturbation_fields`` packs its
+    operands for the rebasing path (perturbation.py:1444-1808): the exact
+    rational step zoom·4/map_h² (map_h the logical image height, also under
+    stacked AA), the 2^s pre-scale of the floatexp tier, the series
+    coefficients in either form, the Julia start Z0 and the Phoenix
+    coefficients.  Streams: re and im of the orbit (or Julia drift) as f32,
+    plus the lo parts of the f64 values (dd and floatexp tiers), plus the
+    drift exponents (Julia floatexp), each ``cap`` long and zero (exponent
+    E_ZERO) past the orbit.  The geometry is a dict of the launch's
+    ``tier``, ``family``, ``width``, ``height`` (the band's rows),
+    ``map_height`` (the full image's) and ``spp``."""
+    family = family_of(julia, ship, phoenix)
+    aa_spp = int(aa_spp)
     if scaled_delta:
         if dd_delta:
             raise ValueError("scaled_delta supersedes dd_delta")
@@ -113,6 +173,16 @@ def pack_pert_operands(orbit: np.ndarray, width: int, height: int, *,
             if not isinstance(series, SeriesSkipFX):
                 raise ValueError("scaled-delta series skip requires "
                                  "SeriesSkipFX (compute_series_skip_fx)")
+    if family != "mandelbrot" and series is not None and series.n_skip > 1:
+        raise ValueError("series skip is Mandelbrot-only")
+    if aa_spp > 1:
+        if aa_spp & (aa_spp - 1):
+            raise ValueError("aa_spp must be a power of two (exact dyadic "
+                             "offsets)")
+        if tuple(offset) != (0.0, 0.0):
+            raise ValueError("aa_spp supersedes the offset parameter")
+    if julia and julia_z0 is None:
+        raise ValueError("julia mode requires julia_z0")
     if iter_limit is None:
         iter_limit = max_iter
     map_h = int(map_height if map_height is not None else height)
@@ -121,6 +191,18 @@ def pack_pert_operands(orbit: np.ndarray, width: int, height: int, *,
         zoom_fr = Fraction(zoom_frac)
     else:
         zoom_fr = Fraction(zoom_dd[0]) + Fraction(zoom_dd[1])
+    if julia and scaled_delta and orbit_exp is None \
+            and 0 < zoom_fr < Fraction(1, 10 ** 290):
+        # a plain f64-emitted drift table ends near 1e-308; drifts at pixel
+        # scale below that collapse to 0 (perturbation.py:1561-1569)
+        raise ValueError(
+            "deep-zoom julia below ~1e-290 needs the floatexp drift "
+            "emission: compute_orbit(emit_fx=True) + orbit_exp=")
+    if orbit_exp is not None and not (julia and scaled_delta):
+        raise ValueError(
+            "orbit_exp is only valid with julia=True and scaled_delta="
+            "True (the floatexp drift-table path); pass a plain f64 "
+            "orbit table otherwise")
     step_fr = zoom_fr * 4 / (map_h * map_h)
     s_exp = 0
     if scaled_delta:
@@ -153,28 +235,42 @@ def pack_pert_operands(orbit: np.ndarray, width: int, height: int, *,
             "range; see deepzoom/series.py)")
     bailout = max(2.0, float(bailout))  # comp:114
 
-    if max_iter + 1 > ORBIT_BUCKET_MAX:
+    julia_fx = julia and scaled_delta
+    bucket_max = JULIA_FX_BUCKET_MAX if julia_fx else ORBIT_BUCKET_MAX
+    if max_iter + 1 > bucket_max:
         cap = int(max(max_iter + 1, 2))
     else:
         b = 256
         while b < max_iter + 1:
             b *= 2
-        cap = int(min(b, ORBIT_BUCKET_MAX))
+        cap = int(min(b, bucket_max))
     L = int(min(len(orbit), cap))
     orbit_re = np.zeros(cap, np.float32)
     orbit_im = np.zeros(cap, np.float32)
-    orbit_re[:L] = orbit[:L, 0].astype(np.float32)
-    orbit_im[:L] = orbit[:L, 1].astype(np.float32)
-    streams = (orbit_re, orbit_im)
-    if dd_delta or scaled_delta:
-        # hi/lo split of the f64 orbit: the dd/floatexp loops need dd Z
+    if julia_fx:
         orbit_re_lo = np.zeros(cap, np.float32)
         orbit_im_lo = np.zeros(cap, np.float32)
-        orbit_re_lo[:L] = (orbit[:L, 0] - orbit_re[:L]
-                           .astype(np.float64)).astype(np.float32)
-        orbit_im_lo[:L] = (orbit[:L, 1] - orbit_im[:L]
-                           .astype(np.float64)).astype(np.float32)
-        streams += (orbit_re_lo, orbit_im_lo)
+        orbit_re_ex = np.full(cap, float(E_ZERO), np.float32)
+        orbit_im_ex = np.full(cap, float(E_ZERO), np.float32)
+        (orbit_re[:L], orbit_re_lo[:L], orbit_re_ex[:L]) = _fx_streams(
+            orbit[:L, 0], None if orbit_exp is None else orbit_exp[:L, 0])
+        (orbit_im[:L], orbit_im_lo[:L], orbit_im_ex[:L]) = _fx_streams(
+            orbit[:L, 1], None if orbit_exp is None else orbit_exp[:L, 1])
+        streams = (orbit_re, orbit_im, orbit_re_lo, orbit_im_lo,
+                   orbit_re_ex, orbit_im_ex)
+    else:
+        orbit_re[:L] = orbit[:L, 0].astype(np.float32)
+        orbit_im[:L] = orbit[:L, 1].astype(np.float32)
+        streams = (orbit_re, orbit_im)
+        if dd_delta or scaled_delta:
+            # hi/lo split of the f64 orbit: the dd/floatexp loops need dd Z
+            orbit_re_lo = np.zeros(cap, np.float32)
+            orbit_im_lo = np.zeros(cap, np.float32)
+            orbit_re_lo[:L] = (orbit[:L, 0] - orbit_re[:L]
+                               .astype(np.float64)).astype(np.float32)
+            orbit_im_lo[:L] = (orbit[:L, 1] - orbit_im[:L]
+                               .astype(np.float64)).astype(np.float32)
+            streams += (orbit_re_lo, orbit_im_lo)
 
     params = np.zeros(NQ, np.float32)
     params[Q_CXH], params[Q_CXL] = center_x_dd
@@ -219,14 +315,30 @@ def pack_pert_operands(orbit: np.ndarray, width: int, height: int, *,
         put_dd(Q_CI, Q_CIL, series.c.imag)
         params[Q_NSKIP] = series.n_skip
     else:
-        # peel update 0 (delta_1 = dc, Z_0 = 0); floatexp: A'=1 at e0=-s
-        # reduces the Horner to delta_1 = dc_m · 2^-s exactly
-        params[Q_AR], params[Q_NSKIP] = 1.0, 1.0
+        # Julia iterates from index 0 (delta_0 = dc references Z_0, the
+        # view center); the others peel update 0 (delta_1 = dc, Z_0 = 0).
+        # Floatexp: A'=1 at e0=-s reduces the Horner to dc_m · 2^-s exactly
+        params[Q_AR], params[Q_NSKIP] = 1.0, (0.0 if julia else 1.0)
         params[Q_SE0] = -s_exp
     params[Q_FIRST] = 1.0
-    params[Q_ROW0] = row0
+    if julia:
+        # the orbit tables hold the drift D = Z - Z0, so Z0 comes from the
+        # caller
+        put_dd(Q_Z0XH, Q_Z0XL, float(julia_z0[0]))
+        put_dd(Q_Z0YH, Q_Z0YL, float(julia_z0[1]))
+    params[Q_PP] = phoenix_p
+    params[Q_RR] = phoenix_r
+    if aa_spp > 1:
+        # the stacked map is self-contained (segments start at stacked row
+        # 0); the band's global first row enters the mapping via Q_AROW0
+        params[Q_ROW0] = 0.0
+        params[Q_AROW0] = row0
+    else:
+        params[Q_ROW0] = row0
     tier = "fx" if scaled_delta else ("dd" if dd_delta else "f32")
-    return params, streams, tier
+    launch = dict(tier=tier, family=family, width=int(width),
+                  height=int(height), map_height=map_h, spp=aa_spp)
+    return params, streams, launch
 
 
 # ---------------------------------------------------------------------------
@@ -234,18 +346,20 @@ def pack_pert_operands(orbit: np.ndarray, width: int, height: int, *,
 # ---------------------------------------------------------------------------
 
 def _check_launch(params: np.ndarray, streams: Sequence, tier: str,
-                  width: int, height: int, map_height: int,
-                  max_passes: int) -> Tuple[int, int, int, int]:
+                  family: str, width: int, height: int, map_height: int,
+                  max_passes: int, spp: int) -> Tuple[int, int, int, int]:
     """Validate a launch; returns (limit, ref_len, n0, row0)."""
     if tier not in TIERS:
         raise ValueError(f"tier must be one of {TIERS}, got {tier!r}")
+    if family not in FAMILIES:
+        raise ValueError(f"family must be one of {FAMILIES}, got {family!r}")
     if params.dtype != np.float32 or params.shape != (NQ,):
         raise ValueError(f"params must be float32 of shape ({NQ},), got "
                          f"{params.dtype} {params.shape}")
-    want_streams = 2 if tier == "f32" else 4
+    want_streams = n_streams(tier, family)
     if len(streams) != want_streams:
-        raise ValueError(f"tier {tier!r} takes {want_streams} orbit "
-                         f"streams, got {len(streams)}")
+        raise ValueError(f"tier {tier!r} of the {family} family takes "
+                         f"{want_streams} orbit streams, got {len(streams)}")
     lengths = {tuple(s.shape) for s in streams}
     if len(lengths) != 1 or len(next(iter(lengths))) != 1:
         raise ValueError(f"orbit streams must be 1-D of one length, got "
@@ -253,11 +367,14 @@ def _check_launch(params: np.ndarray, streams: Sequence, tier: str,
     cap = next(iter(lengths))[0]
     if any(s.dtype not in (np.float32, torch.float32) for s in streams):
         raise ValueError("orbit streams must be float32")
+    if spp < 1 or spp & (spp - 1) or spp > 64:
+        raise ValueError(f"spp must be a power of two in [1, 64], got {spp}")
     if width < 1 or height < 1:
         raise ValueError(f"bad field size {width}x{height}")
-    if height > _MAX_HEIGHT or width * height >= 1 << 31:
-        raise ValueError(f"field size {width}x{height} is too large")
-    row0 = int(params[Q_ROW0])
+    if height > _MAX_HEIGHT or width * height * spp * spp >= 1 << 31:
+        raise ValueError(f"field size {width}x{height} (spp {spp}) is too "
+                         "large")
+    row0 = int(params[Q_AROW0] if spp > 1 else params[Q_ROW0])
     if row0 < 0 or row0 + height > map_height:
         raise ValueError(f"band rows [{row0}, {row0 + height}) fall outside "
                          f"the image height {map_height}")
@@ -307,34 +424,179 @@ def _select(cond, a, b):
     return torch.where(cond, a[0], b[0]), torch.where(cond, a[1], b[1])
 
 
+# ---- floatexp arithmetic (perturbation.py:110-205) --------------------------
+# A real floatexp ("rfe") x = (m, ex) is dd_value(m)·2^ex; a complex one
+# ("cfe") (mr, mi, ex) shares one exponent between its components.  Exponent
+# E_ZERO marks an exact zero.  Exponents are int32 tensors.
+
+def _rfe_norm(m, ex):
+    """Renormalise: mantissa hi -> [1, 2) (or exact zero -> E_ZERO)."""
+    zero = m[0] == 0.0
+    k = torch.where(zero, 0, _expo(m[0]))
+    f = _pow2(-k)
+    nex = torch.where(zero, E_ZERO, torch.clamp(ex + k, E_ZERO, 1 << 24))
+    return (m[0] * f, m[1] * f), nex
+
+
+def _rfe_from_dd(hi, lo):
+    return _rfe_norm((hi, lo), 0)
+
+
+def _rfe_add(a, b):
+    (ma, ea), (mb, eb) = a, b
+    em = torch.maximum(ea, eb)
+    m = dd.dd_add(_scl(ma, _pow2(ea - em)), _scl(mb, _pow2(eb - em)))
+    return _rfe_norm(m, em)
+
+
+def _rfe_mul(a, b):
+    (ma, ea), (mb, eb) = a, b
+    return _rfe_norm(dd.dd_mul(ma, mb), ea + eb)
+
+
+def _rfe_neg(a):
+    m, ex = a
+    return (-m[0], -m[1]), ex
+
+
+def _rfe_scale_pow2(a, k):
+    """Exact multiply by 2^k (E_ZERO stays absorbing)."""
+    m, ex = a
+    return m, torch.where(ex == E_ZERO, ex, ex + k)
+
+
+def _rfe_select(cond, a, b):
+    return _select(cond, a[0], b[0]), torch.where(cond, a[1], b[1])
+
+
+def _rfe_to_f32(a):
+    m, ex = a
+    return dd.dd_to_float(m) * _pow2(ex)
+
+
+def _cfe_norm(mr, mi, ex):
+    mag = torch.maximum(torch.abs(mr[0]), torch.abs(mi[0]))
+    zero = mag == 0.0
+    k = torch.where(zero, 0, _expo(mag))
+    f = _pow2(-k)
+    nex = torch.where(zero, E_ZERO, torch.clamp(ex + k, E_ZERO, 1 << 24))
+    return _scl(mr, f), _scl(mi, f), nex
+
+
+def _cfe_from_rr(x, y):
+    """Join two real floatexps into one complex floatexp."""
+    (mx, ex_), (my, ey) = x, y
+    em = torch.maximum(ex_, ey)
+    return _cfe_norm(_scl(mx, _pow2(ex_ - em)), _scl(my, _pow2(ey - em)), em)
+
+
+def _cfe_add(a, b):
+    ar, ai, ea = a
+    br, bi, eb = b
+    em = torch.maximum(ea, eb)
+    fa, fb = _pow2(ea - em), _pow2(eb - em)
+    return _cfe_norm(dd.dd_add(_scl(ar, fa), _scl(br, fb)),
+                     dd.dd_add(_scl(ai, fa), _scl(bi, fb)), em)
+
+
+def _cfe_mul(a, b):
+    ar, ai, ea = a
+    br, bi, eb = b
+    mr, mi = _cmul_dd(ar, ai, br, bi)
+    return _cfe_norm(mr, mi, ea + eb)
+
+
+def _cfe_mag2_lt(a, b):
+    """|a|^2 < |b|^2 for complex floatexps (hi-mantissa precision)."""
+    ar, ai, ea = a
+    br, bi, eb = b
+    ma = ar[0] * ar[0] + ai[0] * ai[0]
+    mb = br[0] * br[0] + bi[0] * bi[0]
+    em = torch.maximum(ea, eb)
+    return ma * _pow2(2 * (ea - em)) < mb * _pow2(2 * (eb - em))
+
+
+# ---- Burning Ship diffabs (perturbation.py:208-242) -------------------------
+
+def _diffabs(X, d):
+    """|X+d| - |X| by sign cases (exact in the four cases)."""
+    s = X + d
+    return torch.where(X >= 0, torch.where(s >= 0, d, -(2.0 * X + d)),
+                       torch.where(s >= 0, 2.0 * X + d, -d))
+
+
+def _dd_sign_nonneg(v):
+    """Sign of a dd value at full dd accuracy: the hi part decides unless
+    it is exactly 0, then the lo part does."""
+    return (v[0] > 0.0) | ((v[0] == 0.0) & (v[1] >= 0.0))
+
+
+def _dd_diffabs(X, d):
+    """dd |X+d| - |X|, the signs of X and X+d decided at dd accuracy."""
+    t = dd.dd_add((X[0] * 2.0, X[1] * 2.0), d)
+    s = dd.dd_add(X, d)
+    xpos = _dd_sign_nonneg(X)
+    spos = _dd_sign_nonneg(s)
+    hi = torch.where(xpos, torch.where(spos, d[0], -t[0]),
+                     torch.where(spos, t[0], -d[0]))
+    lo = torch.where(xpos, torch.where(spos, d[1], -t[1]),
+                     torch.where(spos, t[1], -d[1]))
+    return hi, lo
+
+
+def _abs_dd(v, pos):
+    return torch.where(pos, v[0], -v[0]), torch.where(pos, v[1], -v[1])
+
+
 def perturbation_fields_plain(params: np.ndarray, streams: Sequence, *,
-                              tier: str, width: int, height: int,
-                              map_height: int, max_passes: int,
+                              tier: str, family: str = "mandelbrot",
+                              width: int, height: int, map_height: int,
+                              max_passes: int, spp: int = 1,
                               device) -> Tuple[torch.Tensor, ...]:
     """K3 as plain PyTorch ops on ``device``: returns (n, zx, zy, glitch,
-    want, rounds).  The CPU path of perturbation_fields, and the
+    want, rounds), each (height, width), or (spp², height, width) for a
+    stacked launch.  The CPU path of perturbation_fields, and the
     comparator of the CUDA kernel on the card.  Each lane keeps its own
     orbit index (a gather per orbit read) and restarts at index 0 at the
     step after it raises ``want``, as a kernel thread does."""
-    limit, ref_len, n0, row0 = _check_launch(params, streams, tier, width,
-                                             height, map_height, max_passes)
+    limit, ref_len, n0, row0 = _check_launch(params, streams, tier, family,
+                                             width, height, map_height,
+                                             max_passes, spp)
     dev = torch.device(device)
     f32, i32 = torch.float32, torch.int32
-    shape = (height, width)
+    nseg = spp * spp
+    shape = (nseg * height, width)
     p = torch.from_numpy(params).to(dev)
-    ore, oim, *lo = _device_streams(streams, dev)
+    st = _device_streams(streams, dev)
+    ore, oim = st[0], st[1]
+    orl, oil = (st[2], st[3]) if len(st) >= 4 else (None, None)
     last = ore.shape[0] - 1
     pert_end = ref_len - 1
     limit_f, bail2 = p[Q_LIMIT], p[Q_BAIL2]
     s_exp = int(params[Q_SEXP])
+    julia, ship, phoenix = (family == "julia", family == "ship",
+                            family == "phoenix")
+    pp, rr = p[Q_PP], p[Q_RR]
+    z0x, z0y = (p[Q_Z0XH], p[Q_Z0XL]), (p[Q_Z0YH], p[Q_Z0YL])
 
-    # dc = step * (pixel - size/2 + offset) + shift, in dd
-    rows = torch.arange(row0, row0 + height, dtype=i32, device=dev).to(f32)
+    def bc(v):
+        return v.expand(shape).contiguous()
+
+    # dc = step * (pixel - size/2 + offset) + shift, in dd; a stacked
+    # launch's segment s maps at offset ((s mod spp)/spp, (s div spp)/spp)
+    r = torch.arange(nseg * height, dtype=i32, device=dev)
+    seg = r // height
+    rows = (r - seg * height + row0).to(f32)
     cols = torch.arange(width, dtype=i32, device=dev).to(f32)
     half_w = torch.tensor(width * 0.5, dtype=f32, device=dev)
     half_h = torch.tensor(map_height * 0.5, dtype=f32, device=dev)
-    nx = ((cols - half_w) + p[Q_OFFX])[None, :].expand(shape).contiguous()
-    ny = ((rows - half_h) + p[Q_OFFY])[:, None].expand(shape).contiguous()
+    if spp > 1:
+        fspp = torch.tensor(float(spp), dtype=f32, device=dev)
+        offx, offy = (seg % spp).to(f32) / fspp, (seg // spp).to(f32) / fspp
+    else:
+        offx, offy = p[Q_OFFX].expand(r.shape), p[Q_OFFY].expand(r.shape)
+    nx = ((cols - half_w)[None, :] + offx[:, None]).contiguous()
+    ny = ((rows - half_h) + offy)[:, None].expand(shape).contiguous()
     step = (p[Q_PSH], p[Q_PSL])
     dcx = dd.dd_add(dd.dd_mul_float(step, nx), (p[Q_SHIFTXH], p[Q_SHIFTXL]))
     dcy = dd.dd_add(dd.dd_mul_float(step, ny), (p[Q_SHIFTYH], p[Q_SHIFTYL]))
@@ -350,6 +612,7 @@ def perturbation_fields_plain(params: np.ndarray, streams: Sequence, *,
         dr = hr * delta_r - hi * delta_i
         di = hr * delta_i + hi * delta_r
         z1r, z1i = dr, di
+        pr, pi = torch.zeros_like(dr), torch.zeros_like(di)
     else:
         tr, tj = _cmul_dd((p[Q_CR], p[Q_CRL]), (p[Q_CI], p[Q_CIL]), dcx, dcy)
         tr = dd.dd_add(tr, (p[Q_BR], p[Q_BRL]))
@@ -370,10 +633,32 @@ def perturbation_fields_plain(params: np.ndarray, streams: Sequence, *,
             dfac0 = _pow2(ex)
             z1r = dd.dd_to_float(dzr) * dfac0
             z1i = dd.dd_to_float(dzi) * dfac0
+            pex = torch.full(shape, E_ZERO, dtype=i32, device=dev)
         else:
             z1r, z1i = dd.dd_to_float(dzr), dd.dd_to_float(dzi)
-    zfr = ore[n0] + z1r
-    zfi = oim[n0] + z1i
+        zeros = torch.zeros(shape, dtype=f32, device=dev)
+        pzr, pzi = (zeros, zeros), (zeros, zeros)  # Phoenix delta_prev
+    # the full start value z_{n0} = Z_{n0} + d_{n0}; Julia: Z0 + D + d
+    if julia and tier == "fx":
+        rex, iex = st[4], st[5]
+        d0r = _rfe_norm((bc(ore[n0]), bc(orl[n0])), bc(rex[n0].to(i32)))
+        d0i = _rfe_norm((bc(oim[n0]), bc(oil[n0])), bc(iex[n0].to(i32)))
+        zfr = z0x[0] + (z0x[1] + _rfe_to_f32(_rfe_add(d0r, (dzr, ex))))
+        zfi = z0y[0] + (z0y[1] + _rfe_to_f32(_rfe_add(d0i, (dzi, ex))))
+        # Z0 as a floatexp, the same every step
+        z0fe = (_rfe_from_dd(bc(z0x[0]), bc(z0x[1])),
+                _rfe_from_dd(bc(z0y[0]), bc(z0y[1])))
+    elif julia:
+        zfr = z0x[0] + (z0x[1] + (ore[n0] + z1r))
+        zfi = z0y[0] + (z0y[1] + (oim[n0] + z1i))
+    else:
+        zfr = ore[n0] + z1r
+        zfi = oim[n0] + z1i
+    if ship and tier == "fx":
+        # the true delta-c as real floatexps (mantissa dc·2^s, exponent -s)
+        dcfe_x = _rfe_norm(dcx, -s_exp)
+        dcfe_y = _rfe_norm(dcy, -s_exp)
+    zfr, zfi = bc(zfr), bc(zfi)
     nf = torch.full(shape, float(n0 - 1), dtype=f32, device=dev)
     i = torch.full(shape, n0, dtype=torch.int64, device=dev)
     want = torch.zeros(shape, dtype=torch.bool, device=dev)
@@ -396,73 +681,132 @@ def perturbation_fields_plain(params: np.ndarray, streams: Sequence, *,
         zr, zi, zr1, zi1 = ore[ic], oim[ic], ore[ip], oim[ip]
         ends = (i + 1) >= pert_end
         if tier == "f32":
-            t1r = 2.0 * (zr * dr - zi * di)
-            t1i = 2.0 * (zr * di + zi * dr)
-            t2r = dr * dr - di * di
-            t2i = (2.0 * dr) * di
-            ndr = t1r + t2r + delta_r
-            ndi = t1i + t2i + delta_i
-            nzfr, nzfi = zr1 + ndr, zi1 + ndi
-            zm2 = nzfr * nzfr + nzfi * nzfi
+            if julia:  # tables hold D = Z - Z0
+                zr, zi = z0x[0] + zr, z0y[0] + zi
+            if ship:
+                # x' = x^2-y^2+cx, y' = 2|xy|+cy with a = |X+dx| = |X|+da:
+                #   dx' = da(2|X|+da) - db(2|Y|+db) + dcx
+                #   dy' = 2(|X| db + |Y| da + da db) + dcy
+                da, db = _diffabs(zr, dr), _diffabs(zi, di)
+                aa, bb = torch.abs(zr), torch.abs(zi)
+                ndr = da * (2.0 * aa + da) - db * (2.0 * bb + db) + delta_r
+                ndi = 2.0 * (aa * db + bb * da + da * db) + delta_i
+            else:
+                t1r = 2.0 * (zr * dr - zi * di)
+                t1i = 2.0 * (zr * di + zi * dr)
+                t2r = dr * dr - di * di
+                t2i = (2.0 * dr) * di
+                if phoenix:
+                    ndr = t1r + t2r + delta_r + pp * dr + rr * pr
+                    ndi = t1i + t2i + delta_i + pp * di + rr * pi
+                elif julia:
+                    ndr, ndi = t1r + t2r, t1i + t2i
+                else:
+                    ndr = t1r + t2r + delta_r
+                    ndi = t1i + t2i + delta_i
+            # Julia: rel = D_{i+1} + d, the rebased delta and the Zhuoran
+            # distance to Z0; the others: rel is z_full
+            relr, reli = zr1 + ndr, zi1 + ndi
+            if julia:
+                nzfr, nzfi = z0x[0] + relr, z0y[0] + reli
+            else:
+                nzfr, nzfi = relr, reli
+            zm2 = relr * relr + reli * reli
             dm2 = ndr * ndr + ndi * ndi
             want_now = alive & ((zm2 < dm2) | ends) & (nf < limit_f)
-            ndr = torch.where(want_now, nzfr, ndr)
-            ndi = torch.where(want_now, nzfi, ndi)
+            ndr = torch.where(want_now, relr, ndr)
+            ndi = torch.where(want_now, reli, ndi)
+            if phoenix:
+                # delta_prev advances to the old delta; a rebased lane gets
+                # the absolute z_i (Z_{-1} = 0)
+                pr = torch.where(alive, torch.where(want_now, zr + dr, dr),
+                                 pr)
+                pi = torch.where(alive, torch.where(want_now, zi + di, di),
+                                 pi)
             dr = torch.where(alive, ndr, dr)
             di = torch.where(alive, ndi, di)
         else:
-            orl, oil = lo
             zrl, zil, zrl1, zil1 = orl[ic], oil[ic], orl[ip], oil[ip]
-            z2r = (zr * 2.0, zrl * 2.0)  # 2Z in dd
-            z2i = (zi * 2.0, zil * 2.0)
-            t1r = dd.dd_sub(dd.dd_mul(dzr, z2r), dd.dd_mul(dzi, z2i))
-            t1i = dd.dd_add(dd.dd_mul(dzi, z2r), dd.dd_mul(dzr, z2i))
-            sq_r = dd.dd_sub(dd.dd_mul(dzr, dzr), dd.dd_mul(dzi, dzi))
-            rz = dd.dd_mul(dzr, dzi)
-            sq_i = (rz[0] * 2.0, rz[1] * 2.0)
+            X, Y = (zr, zrl), (zi, zil)
             if tier == "dd":
-                ndr = dd.dd_add(dd.dd_add(t1r, sq_r), dcx)
-                ndi = dd.dd_add(dd.dd_add(t1i, sq_i), dcy)
-                nzfr = (zr1 + ndr[0]) + (zrl1 + ndr[1])
-                nzfi = (zi1 + ndi[0]) + (zil1 + ndi[1])
-                zm2 = nzfr * nzfr + nzfi * nzfi
+                ndr, ndi = _dd_step(family, dzr, dzi, pzr, pzi, X, Y, dcx,
+                                    dcy, z0x, z0y, pp, rr)
+                rel_r = (zr1 + ndr[0]) + (zrl1 + ndr[1])
+                rel_i = (zi1 + ndi[0]) + (zil1 + ndi[1])
+                if julia:
+                    nzfr = z0x[0] + (z0x[1] + rel_r)
+                    nzfi = z0y[0] + (z0y[1] + rel_i)
+                else:
+                    nzfr, nzfi = rel_r, rel_i
+                zm2 = rel_r * rel_r + rel_i * rel_i
                 dm2 = ndr[0] * ndr[0] + ndi[0] * ndi[0]
                 want_now = alive & ((zm2 < dm2) | ends) & (nf < limit_f)
-                # rebase: d <- Z_{i+1} + d, in dd
+                # rebase: d <- Z_{i+1} + d (Julia: D_{i+1} + d), in dd
                 ndr = _select(want_now, dd.dd_add((zr1, zrl1), ndr), ndr)
                 ndi = _select(want_now, dd.dd_add((zi1, zil1), ndi), ndi)
+                if phoenix:
+                    pzr = _select(alive, _select(
+                        want_now, dd.dd_add(X, dzr), dzr), pzr)
+                    pzi = _select(alive, _select(
+                        want_now, dd.dd_add(Y, dzi), dzi), pzi)
+                new_ex = None
             else:
-                # the three terms at exponents ex, 2ex and -s aligned to
-                # their max by exact powers of two, then renormalised
-                e2 = ex + ex
-                emax = torch.clamp_min(torch.maximum(ex, e2), -s_exp)
-                fA, fB = _pow2(ex - emax), _pow2(e2 - emax)
-                nmr = dd.dd_add(_scl(t1r, fA), _scl(sq_r, fB))
-                nmi = dd.dd_add(_scl(t1i, fA), _scl(sq_i, fB))
-                fC = _pow2(-s_exp - emax)
-                nmr = dd.dd_add(nmr, _scl(dcx, fC))
-                nmi = dd.dd_add(nmi, _scl(dcy, fC))
-                mag = torch.maximum(torch.abs(nmr[0]), torch.abs(nmi[0]))
-                zero = mag == 0.0
-                k = torch.where(zero, 0, _expo(mag))
-                fN = _pow2(-k)
-                nmr, nmi = _scl(nmr, fN), _scl(nmi, fN)
-                nex = torch.where(zero, E_ZERO,
-                                  torch.clamp(emax + k, E_ZERO, 1 << 24))
-                # z_full = Z + m 2^ex; Zhuoran test; rebase to exponent 0
-                dfac = _pow2(nex)
-                nzfr = (zr1 + nmr[0] * dfac) + (zrl1 + nmr[1] * dfac)
-                nzfi = (zi1 + nmi[0] * dfac) + (zil1 + nmi[1] * dfac)
-                zm2 = nzfr * nzfr + nzfi * nzfi
-                dm2 = (nmr[0] * nmr[0] + nmi[0] * nmi[0]) * _pow2(nex + nex)
-                want_now = alive & ((zm2 < dm2) | ends) & (nf < limit_f)
-                ndr = _select(want_now, dd.dd_add((zr1, zrl1), _scl(nmr, dfac)),
-                              nmr)
-                ndi = _select(want_now, dd.dd_add((zi1, zil1), _scl(nmi, dfac)),
-                              nmi)
-                ex = torch.where(alive, torch.where(want_now, 0, nex), ex)
+                if julia:
+                    dr_ = _rfe_norm(X, st[4][ic].to(i32))
+                    di_ = _rfe_norm(Y, st[5][ic].to(i32))
+                    nmr, nmi, nex = _fx_julia_step(dzr, dzi, ex, dr_, di_,
+                                                   z0fe)
+                    # rel = D_{i+1} + d in floatexp; z_full = Z0 + rel; the
+                    # Zhuoran metric |rel| < |d| at full floatexp precision
+                    d1r = _rfe_norm((zr1, zrl1), st[4][ip].to(i32))
+                    d1i = _rfe_norm((zi1, zil1), st[5][ip].to(i32))
+                    rel_r = _rfe_add(d1r, (nmr, nex))
+                    rel_i = _rfe_add(d1i, (nmi, nex))
+                    rel_c = _cfe_from_rr(rel_r, rel_i)
+                    nzfr = z0x[0] + (z0x[1] + _rfe_to_f32(rel_r))
+                    nzfi = z0y[0] + (z0y[1] + _rfe_to_f32(rel_i))
+                    want_now = alive & (
+                        _cfe_mag2_lt(rel_c, (nmr, nmi, nex)) | ends) \
+                        & (nf < limit_f)
+                    ndr = _select(want_now, rel_c[0], nmr)
+                    ndi = _select(want_now, rel_c[1], nmi)
+                    new_ex = torch.where(want_now, rel_c[2], nex)
+                else:
+                    if ship:
+                        nmr, nmi, nex = _fx_ship_step(dzr, dzi, ex, X, Y,
+                                                      dcfe_x, dcfe_y)
+                    else:
+                        nmr, nmi, nex = _fx_aligned_step(
+                            dzr, dzi, ex, X, Y, dcx, dcy, s_exp,
+                            (pzr, pzi, pex) if phoenix else None, pp, rr,
+                            float(params[Q_RR]) == 0.0)
+                    # z_full = Z + m 2^ex; Zhuoran test; rebase to exponent 0
+                    dfac = _pow2(nex)
+                    nzfr = (zr1 + nmr[0] * dfac) + (zrl1 + nmr[1] * dfac)
+                    nzfi = (zi1 + nmi[0] * dfac) + (zil1 + nmi[1] * dfac)
+                    zm2 = nzfr * nzfr + nzfi * nzfi
+                    dm2 = (nmr[0] * nmr[0] + nmi[0] * nmi[0]) \
+                        * _pow2(nex + nex)
+                    want_now = alive & ((zm2 < dm2) | ends) & (nf < limit_f)
+                    ndr = _select(want_now,
+                                  dd.dd_add((zr1, zrl1), _scl(nmr, dfac)), nmr)
+                    ndi = _select(want_now,
+                                  dd.dd_add((zi1, zil1), _scl(nmi, dfac)), nmi)
+                    new_ex = torch.where(want_now, 0, nex)
+                    if phoenix:
+                        # delta_prev advances to the old delta; a rebased
+                        # lane gets the absolute z_i (dd, exponent 0)
+                        dfo = _pow2(ex)
+                        pzr = _select(alive, _select(
+                            want_now, dd.dd_add(X, _scl(dzr, dfo)), dzr), pzr)
+                        pzi = _select(alive, _select(
+                            want_now, dd.dd_add(Y, _scl(dzi, dfo)), dzi), pzi)
+                        pex = torch.where(alive, torch.where(want_now, 0, ex),
+                                          pex)
             dzr = _select(alive, ndr, dzr)
             dzi = _select(alive, ndi, dzi)
+            if new_ex is not None:
+                ex = torch.where(alive, new_ex, ex)
         zfr = torch.where(alive, nzfr, zfr)
         zfi = torch.where(alive, nzfi, zfi)
         want = want | want_now
@@ -470,44 +814,156 @@ def perturbation_fields_plain(params: np.ndarray, streams: Sequence, *,
 
     lim = torch.tensor(limit, dtype=i32, device=dev)
     n = torch.where(nf >= limit_f, lim, torch.clamp_min(nf, 0.0).to(i32))
-    return (n, zfr, zfi, torch.zeros(shape, dtype=f32, device=dev),
+    outs = (n, zfr, zfi, torch.zeros(shape, dtype=f32, device=dev),
             want.to(f32), rounds.to(f32))
+    if spp > 1:
+        outs = tuple(o.view(nseg, height, width) for o in outs)
+    return outs
+
+
+def _dd_step(family, dzr, dzi, pzr, pzi, X, Y, dcx, dcy, z0x, z0y, pp, rr):
+    """The dd tier's new delta (perturbation.py:931-995), before the
+    rebase test."""
+    if family == "ship":
+        da, db = _dd_diffabs(X, dzr), _dd_diffabs(Y, dzi)
+        a2 = _scl(_abs_dd(X, _dd_sign_nonneg(X)), 2.0)
+        b2 = _scl(_abs_dd(Y, _dd_sign_nonneg(Y)), 2.0)
+        ndr = dd.dd_add(dd.dd_sub(dd.dd_mul(da, dd.dd_add(a2, da)),
+                                  dd.dd_mul(db, dd.dd_add(b2, db))), dcx)
+        # 2(|X| db + |Y| da + da db) == A2*db + B2*da + 2*da*db
+        t2 = dd.dd_add(dd.dd_add(dd.dd_mul(_scl(a2, 0.5), db),
+                                 dd.dd_mul(_scl(b2, 0.5), da)),
+                       dd.dd_mul(da, db))
+        return ndr, dd.dd_add(_scl(t2, 2.0), dcy)
+    if family == "julia":  # Z = Z0 + D
+        z2r = _scl(dd.dd_add(z0x, X), 2.0)
+        z2i = _scl(dd.dd_add(z0y, Y), 2.0)
+    else:
+        z2r, z2i = _scl(X, 2.0), _scl(Y, 2.0)
+    # d <- 2Z d + d^2 (+ dc), all components dd
+    t1r = dd.dd_sub(dd.dd_mul(dzr, z2r), dd.dd_mul(dzi, z2i))
+    t1i = dd.dd_add(dd.dd_mul(dzi, z2r), dd.dd_mul(dzr, z2i))
+    sq_r = dd.dd_sub(dd.dd_mul(dzr, dzr), dd.dd_mul(dzi, dzi))
+    sq_i = _scl(dd.dd_mul(dzr, dzi), 2.0)
+    ndr, ndi = dd.dd_add(t1r, sq_r), dd.dd_add(t1i, sq_i)
+    if family != "julia":
+        ndr, ndi = dd.dd_add(ndr, dcx), dd.dd_add(ndi, dcy)
+    if family == "phoenix":
+        # dd_mul_float keeps the two-prod error term of p·d and r·d_prev
+        ndr = dd.dd_add(ndr, dd.dd_add(dd.dd_mul_float(dzr, pp),
+                                       dd.dd_mul_float(pzr, rr)))
+        ndi = dd.dd_add(ndi, dd.dd_add(dd.dd_mul_float(dzi, pp),
+                                       dd.dd_mul_float(pzi, rr)))
+    return ndr, ndi
+
+
+def _fx_julia_step(mr, mi, ex, dr_, di_, z0fe):
+    """Julia floatexp: d <- 2Z d + d^2 entirely in floatexp, Z = Z0 + D
+    (perturbation.py:692-712)."""
+    zc = _cfe_from_rr(_rfe_add(z0fe[0], dr_), _rfe_add(z0fe[1], di_))
+    zc2 = (zc[0], zc[1], torch.where(zc[2] == E_ZERO, zc[2], zc[2] + 1))
+    d = (mr, mi, ex)
+    return _cfe_add(_cfe_mul(d, zc2), _cfe_mul(d, d))
+
+
+def _fx_ship_step(mr, mi, ex, X, Y, dcfe_x, dcfe_y):
+    """Burning Ship floatexp diffabs (perturbation.py:713-756): da is ±d
+    away from the axes and ±(2X + d) on a sign straddle, each a floatexp
+    at its own scale."""
+    dxfe, dyfe = (mr, ex), (mi, ex)
+    xpos, ypos = _dd_sign_nonneg(X), _dd_sign_nonneg(Y)
+    abs_x = _rfe_from_dd(*_abs_dd(X, xpos))
+    abs_y = _rfe_from_dd(*_abs_dd(Y, ypos))
+    ux = _rfe_add(_rfe_from_dd(X[0] * 2.0, X[1] * 2.0), dxfe)
+    uy = _rfe_add(_rfe_from_dd(Y[0] * 2.0, Y[1] * 2.0), dyfe)
+    sx = _rfe_add(_rfe_from_dd(X[0], X[1]), dxfe)[0][0] >= 0
+    sy = _rfe_add(_rfe_from_dd(Y[0], Y[1]), dyfe)[0][0] >= 0
+    da = _rfe_select(xpos, _rfe_select(sx, dxfe, _rfe_neg(ux)),
+                     _rfe_select(sx, ux, _rfe_neg(dxfe)))
+    db = _rfe_select(ypos, _rfe_select(sy, dyfe, _rfe_neg(uy)),
+                     _rfe_select(sy, uy, _rfe_neg(dyfe)))
+    a2, b2 = _rfe_scale_pow2(abs_x, 1), _rfe_scale_pow2(abs_y, 1)
+    # dx' = da(2|X|+da) - db(2|Y|+db) + dcx
+    # dy' = 2(|X| db + |Y| da + da db) + dcy
+    dxp = _rfe_add(_rfe_add(_rfe_mul(da, _rfe_add(a2, da)),
+                            _rfe_neg(_rfe_mul(db, _rfe_add(b2, db)))), dcfe_x)
+    dyp = _rfe_add(_rfe_scale_pow2(_rfe_add(
+        _rfe_add(_rfe_mul(abs_x, db), _rfe_mul(abs_y, da)),
+        _rfe_mul(da, db)), 1), dcfe_y)
+    return _cfe_from_rr(dxp, dyp)
+
+
+def _fx_aligned_step(mr, mi, ex, X, Y, dcx, dcy, s_exp, prev, pp, rr,
+                     r_is_zero):
+    """Mandelbrot / Phoenix floatexp (perturbation.py:764-816): the terms
+    at exponents ex, 2ex, -s (and ex, pex for Phoenix's p·d and r·d_prev)
+    aligned to their max by exact powers of two, then renormalised."""
+    z2r, z2i = _scl(X, 2.0), _scl(Y, 2.0)
+    t1r = dd.dd_sub(dd.dd_mul(mr, z2r), dd.dd_mul(mi, z2i))
+    t1i = dd.dd_add(dd.dd_mul(mi, z2r), dd.dd_mul(mr, z2i))
+    sq_r = dd.dd_sub(dd.dd_mul(mr, mr), dd.dd_mul(mi, mi))
+    sq_i = _scl(dd.dd_mul(mr, mi), 2.0)
+    e2 = ex + ex
+    emax = torch.clamp_min(torch.maximum(ex, e2), -s_exp)
+    if prev is not None:
+        # a stale pex must not shift the real terms down when r = 0
+        pzr, pzi, pex = prev
+        emax = torch.maximum(emax, torch.full_like(pex, E_ZERO)
+                             if r_is_zero else pex)
+    fa, fb = _pow2(ex - emax), _pow2(e2 - emax)
+    nmr = dd.dd_add(_scl(t1r, fa), _scl(sq_r, fb))
+    nmi = dd.dd_add(_scl(t1i, fa), _scl(sq_i, fb))
+    fc = _pow2(-s_exp - emax)
+    nmr = dd.dd_add(nmr, _scl(dcx, fc))
+    nmi = dd.dd_add(nmi, _scl(dcy, fc))
+    if prev is not None:
+        # dd_mul_float keeps the two-prod error term of p·d and r·d_prev
+        nmr = dd.dd_add(nmr, _scl(dd.dd_mul_float(mr, pp), fa))
+        nmi = dd.dd_add(nmi, _scl(dd.dd_mul_float(mi, pp), fa))
+        fr = _pow2(pex - emax)
+        nmr = dd.dd_add(nmr, _scl(dd.dd_mul_float(pzr, rr), fr))
+        nmi = dd.dd_add(nmi, _scl(dd.dd_mul_float(pzi, rr), fr))
+    return _cfe_norm(nmr, nmi, emax)
 
 
 def perturbation_fields_cuda(params: np.ndarray, streams: Sequence, *,
-                             tier: str, width: int, height: int,
-                             map_height: int, max_passes: int,
+                             tier: str, family: str = "mandelbrot",
+                             width: int, height: int, map_height: int,
+                             max_passes: int, spp: int = 1,
                              device) -> Tuple[torch.Tensor, ...]:
     """Launch the CUDA kernel K3 on ``device`` (same signature and results
     as perturbation_fields_plain; ``streams`` may be numpy arrays or
-    tensors already on the device).  Counts its launches in
+    tensors already on the device).  One launch per call, stacked spp²
+    segments included; counts its launches in
     ``perturbation_fields_cuda.launches``."""
     from . import _cuda
 
-    _check_launch(params, streams, tier, width, height, map_height,
-                  max_passes)
+    _check_launch(params, streams, tier, family, width, height, map_height,
+                  max_passes, spp)
     dev = _cuda.cuda_device(device)
     params = np.ascontiguousarray(params)
     lib = _cuda.load_library()
+    nseg = spp * spp
     with torch.cuda.device(dev):
         orbit = [s.contiguous() for s in _device_streams(streams, dev)]
-        if tier == "f32":  # the lo streams are not read
-            orbit += orbit
-        shape = (height, width)
+        orbit += [orbit[0]] * (6 - len(orbit))  # the unread streams
+        shape = (nseg * height, width)
         n = torch.empty(shape, dtype=torch.int32, device=dev)
         planes = [torch.empty(shape, dtype=torch.float32, device=dev)
                   for _ in range(4)]  # zx, zy, want, rounds
         glitch = torch.zeros(shape, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fr_perturbation(
-            TIERS.index(tier), params.ctypes.data,
+            FAMILIES.index(family), TIERS.index(tier), params.ctypes.data,
             *(o.data_ptr() for o in orbit), width, height, map_height,
-            max_passes, n.data_ptr(), *(q.data_ptr() for q in planes),
+            max_passes, spp, n.data_ptr(), *(q.data_ptr() for q in planes),
             stream)
     _cuda.check(lib, rc, "perturbation")
     perturbation_fields_cuda.launches += 1
-    zx, zy, want, rounds = planes
-    return n, zx, zy, glitch, want, rounds
+    outs = (n, planes[0], planes[1], glitch, planes[2], planes[3])
+    if spp > 1:
+        outs = tuple(o.view(nseg, height, width) for o in outs)
+    return outs
 
 
 perturbation_fields_cuda.launches = 0
@@ -537,34 +993,35 @@ def perturbation_fields(orbit: np.ndarray, width: int, height: int, *,
                         device="cuda") -> Dict[str, torch.Tensor]:
     """Perturbation fields {"n", "zx", "zy", "glitch", "want", "passes",
     "rounds_plane"} on ``device`` against a precomputed reference orbit
-    ((L, 2) float64 from deepzoom.orbit), with the JAX signature.  Runs the
-    rebasing Mandelbrot path (``rebase=True, float_continuation=False``);
-    ``passes`` is the most rounds any pixel took, ``rounds_plane`` the
-    per-pixel rounds."""
-    if julia or ship or phoenix:
-        raise _unported("the Julia, Burning Ship and Phoenix deep-zoom "
-                        "families are", "6(d)")
-    if int(aa_spp) > 1:
-        raise _unported("stacked spp² AA is", "6(e)")
+    ((L, 2) float64 from deepzoom.orbit; Julia: the drift table, with
+    ``orbit_exp`` its exponents in the floatexp tier), with the JAX
+    signature.  Runs the rebasing path (``rebase=True,
+    float_continuation=False``) of every family; with ``aa_spp`` > 1 the
+    planes are (aa_spp², height, width).  ``passes`` is the most rounds any
+    pixel took, ``rounds_plane`` the per-pixel rounds."""
+    family = family_of(julia, ship, phoenix)
     if track_err:
         raise _unported("the exact-dust error ledger is", "6(f)")
+    if family != "mandelbrot" and (float_continuation or not rebase):
+        raise ValueError("the non-Mandelbrot families require the rebasing "
+                         "pipeline (rebase=True, float_continuation=False)")
     if not rebase or float_continuation:
         raise _unported("the non-rebasing path (Pauldelbrot flag, secondary "
                         "references, float continuation) is", "6(g)")
     if not rebase_inkernel:
         raise NotImplementedError("the multi-pass rebase form is the JAX "
                                   "package's oracle and is not ported")
-    if orbit_exp is not None:
-        raise ValueError("orbit_exp is only valid with julia=True and "
-                         "scaled_delta=True (the floatexp drift-table path)")
-    params, streams, tier = pack_pert_operands(
+    params, streams, launch = pack_pert_operands(
         orbit, width, height, center_x_dd=center_x_dd,
         center_y_dd=center_y_dd, zoom_dd=zoom_dd, max_iter=max_iter,
         bailout=bailout, glitch_tol=glitch_tol, ref_shift_x=ref_shift_x,
         ref_shift_y=ref_shift_y, offset=offset, iter_limit=iter_limit,
         series=series, row0=row0, map_height=map_height, dd_delta=dd_delta,
         scaled_delta=scaled_delta, zoom_frac=zoom_frac,
-        ref_shift_x_frac=ref_shift_x_frac, ref_shift_y_frac=ref_shift_y_frac)
+        ref_shift_x_frac=ref_shift_x_frac, ref_shift_y_frac=ref_shift_y_frac,
+        julia=julia, julia_z0=julia_z0, ship=ship, phoenix=phoenix,
+        phoenix_p=phoenix_p, phoenix_r=phoenix_r, aa_spp=aa_spp,
+        orbit_exp=orbit_exp)
     dev = torch.device(device)
     if dev.type == "cpu":
         impl = perturbation_fields_plain
@@ -573,8 +1030,6 @@ def perturbation_fields(orbit: np.ndarray, width: int, height: int, *,
     else:
         raise ValueError(f"unsupported device {dev}")
     n, zx, zy, glitch, want, rounds = impl(
-        params, streams, tier=tier, width=width, height=height,
-        map_height=int(height if map_height is None else map_height),
-        max_passes=int(max_passes), device=dev)
+        params, streams, max_passes=int(max_passes), device=dev, **launch)
     return {"n": n, "zx": zx, "zy": zy, "glitch": glitch, "want": want,
             "passes": rounds.max().to(torch.int32), "rounds_plane": rounds}

@@ -1,8 +1,8 @@
 """The port's CLI ``render`` verb on the CPU device (the four families with
 their options, ``--precision dd`` and ``--type deep-zoom``; ``--type
-mandelbulb`` is in test_torch_bulb.py), and its
-rejection of everything not ported yet (exit code 2, one line on
-stderr)."""
+mandelbulb`` is in test_torch_bulb.py, the deep-zoom families and ``--spp``
+in test_torch_deepzoom_aa.py), and its rejection of everything not ported
+yet (exit code 2, one line on stderr)."""
 import json
 
 import numpy as np
@@ -66,18 +66,21 @@ def test_render_scene_file_written_by_jax(tmp_path, capsys):
 
 
 UNPORTED = [
-    ["--type", "deep-zoom", "--spp", "2"],
-    ["--type", "deep-zoom", "--deep-ship"],
+    ["--type", "deep-zoom", "--spp", "2", "--exact-dust"],
+    ["--type", "deep-zoom", "--deep-ship", "--sharded"],
     ["--sharded"], ["--golden"], ["--exact-dust"], ["--width", "0"],
     # the JAX CLI's own refusal: dd is the Mandelbrot kernel
     ["--precision", "dd", "--type", "julia"],
 ]
 
-# deep-zoom options K3 does not run yet → the ROADMAP item named
+# deep-zoom options K3 does not run yet → the ROADMAP item named (the
+# families and --spp render: test_torch_deepzoom_aa.py)
 DEEP_ZOOM_UNPORTED = [
-    (["--deep-ship"], "6(d)"), (["--deep-julia"], "6(d)"),
-    (["--deep-phoenix"], "6(d)"), (["--spp", "2"], "6(e)"),
-    (["--spp", "4"], "6(e)"), (["--exact-dust"], "6(f)"),
+    (["--deep-ship", "--exact-dust"], "6(f)"),
+    (["--deep-julia", "--sharded"], "8"),
+    (["--deep-phoenix", "--sharded"], "8"),
+    (["--spp", "2", "--exact-dust"], "6(f)"),
+    (["--spp", "4", "--sharded"], "8"), (["--exact-dust"], "6(f)"),
 ]
 
 # every family option of the render verb, alone and combined

@@ -7,9 +7,10 @@ Contract: counts, z, trap and dz bit-equal (NaN where the plain version
 has NaN); the Burning Ship stripe (a sum
 of sinf terms) within rtol 1e-3, atol 2e-4·iters (the JAX contract,
 test_golden_vs_kernel.py:98-100); fused colour within 1e-5; K3 bit-equal
-on n, zx, zy, want and rounds in each delta tier; K4a's start depths and
-K4b's planes (hit, t, d, esc, normals, AO, msteps, work) bit-equal in the
-integer-power and trig instances.
+on n, zx, zy, want and rounds in each family and delta tier and in stacked
+launches (each segment also equal to a launch at its offset); K4a's start
+depths and K4b's planes (hit, t, d, esc, normals, AO, msteps, work)
+bit-equal in the integer-power and trig instances.
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere.  The GPU machine has no
 jax, so run it there without the suite's conftest:
@@ -218,18 +219,31 @@ def _pert_both(dev, tier, width, height, *, row0=0, map_height=None,
         dc_max = Fraction(zoom) * 4 * 2 / map_height
         skip = (compute_series_skip_fx(orb, dc_max) if tier == "fx"
                 else compute_series_skip(orb, float(dc_max)))
-    params, streams, tier_ = perturbation.pack_pert_operands(
+    params, streams, launch = perturbation.pack_pert_operands(
         orb, width, height, center_x_dd=dd.dd_from_string(cx),
         center_y_dd=dd.dd_from_string(cy), zoom_dd=dd.dd_from_string(zoom),
         max_iter=iters, series=skip, row0=float(row0),
         map_height=map_height, **kw)
-    assert tier_ == tier
-    launch = dict(tier=tier, width=width, height=height,
-                  map_height=map_height, max_passes=max_passes, device=dev)
-    got = perturbation.perturbation_fields_cuda(params, streams, **launch)
-    want = perturbation.perturbation_fields_plain(params, streams, **launch)
+    assert launch["tier"] == tier
+    return _launch_both(dev, params, streams, launch, max_passes)
+
+
+def _launch_both(dev, params, streams, launch, max_passes=256):
+    from fractalrenderer_tpu_torch.ops import perturbation
+
+    got = perturbation.perturbation_fields_cuda(
+        params, streams, max_passes=max_passes, device=dev, **launch)
+    want = perturbation.perturbation_fields_plain(
+        params, streams, max_passes=max_passes, device=dev, **launch)
     torch.cuda.synchronize()
     return got, want
+
+
+def _assert_pert_equal(got, want, label):
+    names = ("n", "zx", "zy", "glitch", "want", "rounds")
+    for name, g, w in zip(names, got, want, strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), f"{label}: {name} differs"
 
 
 @pytest.mark.parametrize("tier", ["f32", "dd", "fx"])
@@ -241,11 +255,104 @@ def _pert_both(dev, tier, width, height, *, row0=0, map_height=None,
 ], ids=str)
 def test_perturbation_kernel_equals_plain(dev, tier, case):
     got, want = _pert_both(dev, tier, **case)
-    names = ("n", "zx", "zy", "glitch", "want", "rounds")
-    for name, g, w in zip(names, got, want):
-        assert g.dtype == w.dtype and g.shape == w.shape, name
-        assert torch.equal(g, w), f"{tier}: {name} differs"
+    _assert_pert_equal(got, want, tier)
     assert int(got[5].max()) >= 2  # the views rebase
+
+
+_JC = ("-0.7", "0.27015")
+# the repelling fixed point of z^2 + c at _JC (tests/test_deepzoom.py)
+_JZSTAR = (
+    "1.484292748140190509759902440314769152069911011656749053313607708428926366189",
+    "-0.137230514250178732651450854196740117783619435441039716507673181503075677979")
+_ARMADA = ("-1.7623025", "-0.028000625")
+_PHOENIX = ("0.5334632772339566", "0.05")
+# the escape-set boundary at r = -0.51 bisected to 1e-54 as
+# test_deep_phoenix_floatexp_nondyadic_r_matches_exact_oracle does
+_PHOENIX_R051 = (
+    "0.5363685622288939118213416621494880258143653450622962128740227946683769",
+    "0.05")
+# (family, tier): (center, zoom, iterations, orbit bits, phoenix r)
+_FAMILY_PERT_VIEWS = {
+    ("julia", "f32"): (_JZSTAR, "1e-6", 500, 128, None),
+    ("julia", "dd"): (_JZSTAR, "1e-12", 600, 128, None),
+    ("julia", "fx"): (_JZSTAR, "1e-50", 400, 320, None),
+    ("ship", "f32"): (_ARMADA, "1e-5", 400, 128, None),
+    ("ship", "dd"): (_ARMADA, "1e-10", 400, 128, None),
+    ("ship", "fx"): (("-2", "0"), "1e-40", 600, 320, None),
+    ("phoenix", "f32"): (_PHOENIX, "1e-6", 400, 128, -0.5),
+    ("phoenix", "dd"): (_PHOENIX, "1e-10", 400, 128, -0.5),
+    ("phoenix", "fx"): (_PHOENIX_R051, "1e-50", 400, 320, -0.51),
+}
+
+
+def _family_operands(family, tier, width, height, **kw):
+    """K3 operands of a family view, its orbit as models/deep_zoom.py
+    computes it (Julia: the drift from the view centre, floatexp-emitted in
+    the floatexp tier; Ship and Phoenix: kind 1 and 2)."""
+    from fractalrenderer_tpu_torch.deepzoom.orbit import compute_orbit
+    from fractalrenderer_tpu_torch.ops import perturbation
+
+    (cx, cy), zoom, iters, bits, rr = _FAMILY_PERT_VIEWS[family, tier]
+    fam = {family: True} if family != "mandelbrot" else {}
+    if family == "julia":
+        orb = compute_orbit(*_JC, bits, iters + 1, z0x=cx, z0y=cy,
+                            emit_rel=True, emit_fx=tier == "fx")
+        fam["julia_z0"] = (float(cx), float(cy))
+        if tier == "fx":
+            orb, fam["orbit_exp"] = orb
+    else:
+        orb = compute_orbit(cx, cy, bits, iters + 1,
+                            kind=1 if family == "ship" else 2,
+                            pp=0.0, rr=rr or 0.0)
+        if rr is not None:
+            fam.update(phoenix_p=0.0, phoenix_r=rr)
+    tier_kw = ({"scaled_delta": True} if tier == "fx"
+               else {"dd_delta": tier == "dd"})
+    return perturbation.pack_pert_operands(
+        orb, width, height, center_x_dd=dd.dd_from_string(cx),
+        center_y_dd=dd.dd_from_string(cy), zoom_dd=dd.dd_from_string(zoom),
+        zoom_frac=zoom, max_iter=iters, **tier_kw, **fam, **kw)
+
+
+@pytest.mark.parametrize("family,tier", list(_FAMILY_PERT_VIEWS),
+                         ids=[f"{f}-{t}" for f, t in _FAMILY_PERT_VIEWS])
+def test_family_perturbation_kernel_equals_plain(dev, family, tier):
+    params, streams, launch = _family_operands(family, tier, 64, 48)
+    assert (launch["family"], launch["tier"]) == (family, tier)
+    got, want = _launch_both(dev, params, streams, launch)
+    _assert_pert_equal(got, want, f"{family} {tier}")
+    assert not bool(got[4].any())  # no lane left wanting
+    assert len(torch.unique(got[0])) > 3  # structure in the view
+
+
+@pytest.mark.parametrize("family,tier,spp,band", [
+    ("julia", "dd", 2, None), ("ship", "fx", 2, None),
+    ("phoenix", "f32", 4, None), ("julia", "fx", 2, (9, 20)),
+], ids=str)
+def test_stacked_perturbation_kernel_equals_plain(dev, family, tier, spp,
+                                                  band):
+    # one launch renders the spp^2 segments; each equals a launch of the
+    # kernel at its subpixel offset
+    from fractalrenderer_tpu_torch.ops import perturbation
+
+    kw = (dict(row0=float(band[0]), map_height=band[0] + band[1] + 7)
+          if band else {})
+    height = band[1] if band else 24
+    params, streams, launch = _family_operands(family, tier, 40, height,
+                                               aa_spp=spp, **kw)
+    assert launch["spp"] == spp
+    got, want = _launch_both(dev, params, streams, launch)
+    _assert_pert_equal(got, want, f"{family} {tier} spp {spp}")
+    assert got[0].shape == (spp * spp, height, 40)
+    for s in range(spp * spp):
+        off = ((s % spp) / spp, (s // spp) / spp)
+        sp, ss, sl = _family_operands(family, tier, 40, height, offset=off,
+                                      **kw)
+        seq = perturbation.perturbation_fields_cuda(
+            sp, ss, max_passes=256, device=dev, **sl)
+        for name, g, q in zip(("n", "zx", "zy", "glitch", "want", "rounds"),
+                              got, seq, strict=True):
+            assert torch.equal(g[s], q), f"segment {s}: {name} differs"
 
 
 def test_launch_counter_counts_kernel_launches(dev):

@@ -219,9 +219,11 @@ def test_unported_options_raise_before_any_orbit():
     deep_zoom.orbit_mod.compute_orbit = lambda *a, **k: calls.append(1)
     try:
         for kw, extra, item in [
-                (dict(deep_zoom_julia=True), {}, "6(d)"),
-                (dict(deep_zoom_phoenix=True), {}, "6(d)"),
-                (dict(samples_per_pixel=4), {}, "6(e)"),
+                # the families and spp render (test_torch_pert_families.py,
+                # test_torch_deepzoom_aa.py); their unported options raise
+                (dict(deep_zoom_julia=True), dict(mesh=object()), "8"),
+                (dict(deep_zoom_phoenix=True), dict(rebasing=False), "6(g)"),
+                (dict(samples_per_pixel=4), dict(exact_dust=True), "6(f)"),
                 ({}, dict(exact_dust=True), "6(f)"),
                 ({}, dict(rebasing=False), "6(g)")]:
             with pytest.raises(NotImplementedError) as e:

@@ -71,7 +71,9 @@ def test_library_name_follows_the_sources(tmp_path, monkeypatch):
 
 def test_kernel_sources_ship_in_the_package():
     assert [os.path.basename(s) for s in _cuda.sources()] == [
-        "bulb.cu", "dd.cuh", "dd_escape.cu", "escape.cu", "perturbation.cu"]
+        "bulb.cu", "dd.cuh", "dd_escape.cu", "escape.cu", "floatexp.cuh",
+        "pert_julia.cu", "pert_kernel.cuh", "pert_phoenix.cu", "pert_ship.cu",
+        "perturbation.cu"]
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):

@@ -176,9 +176,10 @@ def test_operands_bit_equal_to_jax(orbits, tier, with_series, band):
     ops, call_kw = jax_pert.perturbation_fields(
         orb, W, H, float_continuation=False, rebase=True, series=jax_s,
         _build_only=True, **kw)
-    params, streams, tier_ = perturbation.pack_pert_operands(
+    params, streams, launch = perturbation.pack_pert_operands(
         orb, W, H, series=mine_s, **kw)
-    assert tier_ == tier
+    assert (launch["tier"], launch["family"], launch["spp"]) == (tier,
+                                                                 "mandelbrot", 1)
     assert call_kw["dd_delta"] == (tier == "dd")
     assert call_kw["scaled"] == (tier == "fx")
     ref_params = np.asarray(ops[0])
@@ -205,8 +206,12 @@ def test_packing_errors_match_jax(orbits):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(julia=True), "6(d)"), (dict(ship=True), "6(d)"),
-    (dict(phoenix=True), "6(d)"), (dict(aa_spp=2), "6(e)"),
+    # the families and stacked AA run (test_family_and_aa_arguments_run);
+    # the error ledger and the non-rebasing path are still to port
+    (dict(julia=True, track_err=True), "6(f)"),
+    (dict(ship=True, track_err=True), "6(f)"),
+    (dict(phoenix=True, track_err=True), "6(f)"),
+    (dict(aa_spp=2, rebase=False), "6(g)"),
     (dict(track_err=True), "6(f)"), (dict(rebase=False), "6(g)"),
     (dict(float_continuation=True), "6(g)"),
 ], ids=str)
@@ -218,6 +223,23 @@ def test_unported_arguments_raise(orbits, kw, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 item {item[0]}\\({item[2]}\\)"):
         perturbation.perturbation_fields(orb, 8, 8, **args)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(julia=True, julia_z0=(-0.74, 0.13)), dict(ship=True),
+    dict(phoenix=True, phoenix_r=-0.5), dict(aa_spp=2),
+], ids=str)
+def test_family_and_aa_arguments_run(orbits, kw):
+    # the arguments that raised before the families and stacked AA were
+    # ported now render (any table serves as the orbit here; the families'
+    # own orbits are in test_torch_pert_families.py)
+    orb = orbits(SEAHORSE, 64, 601)
+    args = dict(_view_kw(SEAHORSE, "1e-6", 600, {}),
+                float_continuation=False, rebase=True, **kw)
+    f = perturbation.perturbation_fields(orb, 8, 6, device="cpu", **args)
+    shape = (4, 6, 8) if "aa_spp" in kw else (6, 8)
+    assert f["n"].shape == f["zx"].shape == f["rounds_plane"].shape == shape
+    assert torch.isfinite(f["zx"]).all() and int(f["passes"]) >= 1
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,8 @@ agree within atol 1e-5; against the JAX ``fr.render`` (interpret mode, not
 count-exact on CPU) the bad-pixel fraction bound of test_golden_vs_kernel.py
 applies (|diff| > 2e-2 on < 1% of pixels).
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -100,17 +102,20 @@ def test_oversized_iter_limit_colors_interior_consistently():
     assert torch.equal(over, at_cap)
 
 
-@pytest.mark.parametrize("kw,item", [
-    # the deep zoom runs its rebasing Mandelbrot path; its other options
-    # name their sub-item (6(d) the families, 6(e) supersampling)
-    (dict(fractal_type=frt.FractalType.DEEP_ZOOM, deep_zoom_ship=True), 6),
-    (dict(fractal_type=frt.FractalType.DEEP_ZOOM, deep_zoom_phoenix=True), 6),
-    (dict(fractal_type=frt.FractalType.DEEP_ZOOM, samples_per_pixel=2), 6),
+@pytest.mark.parametrize("kw,extra,item", [
+    # the deep zoom renders every family and spp (test_torch_pert_families,
+    # test_torch_deepzoom_aa); its unported options name their item
+    (dict(fractal_type=frt.FractalType.DEEP_ZOOM, deep_zoom_ship=True),
+     dict(exact_dust=True), "6(f)"),
+    (dict(fractal_type=frt.FractalType.DEEP_ZOOM, deep_zoom_phoenix=True),
+     dict(rebasing=False), "6(g)"),
+    (dict(fractal_type=frt.FractalType.DEEP_ZOOM, samples_per_pixel=2),
+     dict(mesh=object()), "8"),
 ])
-def test_unported_scenes_raise(kw, item):
+def test_unported_scenes_raise(kw, extra, item):
     with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 item {item}"):
-        frt.render(frt.Scene(**kw), 16, 8, device="cpu")
+                       match=f"ROADMAP Queue 1 item {re.escape(item)}"):
+        frt.render(frt.Scene(**kw), 16, 8, device="cpu", **extra)
 
 
 FT = fr.FractalType
