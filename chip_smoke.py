@@ -10,20 +10,25 @@ It builds the port's CUDA kernels from csrc/ (K1, the escape kernel of the
 four 2D families; K2, the double-double Mandelbrot kernel; K3, the
 perturbation deep-zoom kernel of the Mandelbrot, Julia, Burning Ship and
 Phoenix families in their f32, dd and floatexp tiers, with stacked spp²
-supersampling; K4a and K4b, the Mandelbulb's cone prepass and march +
-shading kernels), holds every kernel instance against its plain PyTorch
-version on the card (K1 and K2 at 1920x1080; K3 and K4b on the whole frame
-against a 64-row band of it run on the plain version, which is
-launch-bound; K3's stacked spp-2 launch segment by segment against
-sequential launches and on a band of every segment against the stacked
-plain version; K4a on the whole 1080p coarse grid; the bulb's other
-integer powers at 64x48), drives each ported path through ``cli render``
-(the default Mandelbrot frame, Julia, Burning Ship with traps and stripes,
-Phoenix, AA 2, ``--precision dd``, ``--type deep-zoom`` at configs 4 and 7,
-with ``--deep-julia``, ``--deep-ship``, ``--deep-phoenix`` and ``--spp 2``,
-and ``--type mandelbulb`` at config 6, with AA 2, ``--time 1.0`` and
-``--power 16``) and the distance field and the deep-zoom fields of every
-K3 instance through their library calls,
+supersampling, the Burning Ship's exact-dust error ledger and the
+Mandelbrot single pass of the legacy pipeline; K4a and K4b, the
+Mandelbulb's cone prepass and march + shading kernels), holds every kernel
+instance against its plain PyTorch version on the card (K1 and K2 at
+1920x1080; K3 and K4b on the whole frame against a 64-row band of it run
+on the plain version, which is launch-bound; K3's stacked spp-2 launch
+segment by segment against sequential launches and on a band of every
+segment against the stacked plain version, with and without the ledger;
+K4a on the whole 1080p coarse grid; the bulb's other integer powers at
+64x48), drives each ported path through ``cli render`` (the default
+Mandelbrot frame, Julia, Burning Ship with traps and stripes, Phoenix, AA
+2, ``--precision dd``, ``--type deep-zoom`` at configs 4 and 7, with
+``--deep-julia``, ``--deep-ship`` (and ``--exact-dust``), ``--deep-phoenix``
+and ``--spp 2``, and ``--type mandelbulb`` at config 6, with AA 2, ``--time
+1.0`` and ``--power 16``) and the distance field and the deep-zoom fields
+of every K3 instance through their library calls (the exact-dust tier on a
+band of each Ship view, with its HP fallback, and on the JAX tests' 12x8
+windows against the HP oracle; the legacy ``rebasing=False`` pipeline with
+its secondary references on Seahorse and configs 4 and 7),
 checks that each path launched its kernels and that each PNG is within 1
 LSB of the same pipeline run on the plain versions, and times kernel
 against plain version with CUDA events.  For each instance it prints the
@@ -108,7 +113,17 @@ OPS_PER_ITER = {
     # Phoenix: the Mandelbrot step + p d + r d_prev (dd: 4 dd_mul_float and
     # 4 dd_add more)
     "pert_phoenix_f32": 39, "pert_phoenix_dd": 399, "pert_phoenix_fx": 435,
+    # the Burning Ship's error ledger: two log2f, the |2z| and |d'|
+    # squares, the floor and the max (dd 18 more, floatexp 16 more)
+    "pert_ship_dd_err": 282, "pert_ship_fx_err": 414,
+    # the single pass: the Mandelbrot step without the rebase test (f32
+    # and dd 4 fewer, floatexp 6 fewer) and with the Pauldelbrot test
+    # (|z|^2, |Z|^2, the product and the compare: 8)
+    "pert_mandelbrot_f32_single": 33, "pert_mandelbrot_dd_single": 271,
+    "pert_mandelbrot_fx_single": 293,
 }
+# one step of the single pass's f32 float continuation: z^2 + c and |z|^2
+OPS_CONT = 10
 # per pixel outside the loop: the mapping, and the fused colour + post chain
 OPS_PER_PIXEL = {"fused": 90, "fields": 12, "dd": 60, "pert": 80}
 # csrc/bulb.cu: one DE step (de_step_int<p>: 10 + 2 square-and-multiply
@@ -223,6 +238,31 @@ PERT_CASES = [
     ("pert_phoenix_fx", "Phoenix boundary, r -0.51, 1e-50 x400",
      "phoenix_fx", 1920, 1080, False),
 ]
+# The Burning Ship's exact-dust ledger instances and the legacy pipeline's
+# single-pass instances (Mandelbrot): (instance, label, view, width,
+# height, packing options)
+FORM_CASES = [
+    ("pert_ship_dd_err", "deep_ship_1e10 (armada, 1e-10 x1500), ledger",
+     "ship_dd", 1920, 1080, dict(track_err=True)),
+    ("pert_ship_fx_err", "antenna tip -2, 1e-40 x600, ledger", "ship_fx",
+     1920, 1080, dict(track_err=True)),
+    ("pert_mandelbrot_f32_single", "Seahorse 1e-6 x2000, single pass, "
+     "float continuation", "seahorse", 1920, 1080,
+     dict(rebase=False, float_continuation=True)),
+    ("pert_mandelbrot_f32_single", "Seahorse 1e-6 x2000, single pass, no "
+     "continuation", "seahorse", 1920, 1080, dict(rebase=False)),
+    ("pert_mandelbrot_dd_single", "config 4 (1e-12 x10000), single pass, "
+     "starving reference", "config4", 1920, 1080, dict(rebase=False)),
+    ("pert_mandelbrot_fx_single", "config 7 (c = i, 1e-50 x2000), single "
+     "pass", "config7", 960, 540, dict(rebase=False)),
+]
+# Row bands of the frame whose exact-dust suspects and legacy-pipeline
+# survivors go through the host HP fallback, sized from a CPU sample of
+# their share at 192x108 (armada at 1500 iterations: 12.9% suspect, 0.12
+# ms per fallback pixel; antenna: 0.46%; Seahorse: no survivor after 3
+# references)
+DUST_ROWS = {"ship_dd": 512, "ship_fx": 1080}
+LEGACY_ROWS = {"seahorse": 1080, "config4": 1080, "config7": 540}
 PERT_FAMILIES = ("mandelbrot", "julia", "ship", "phoenix")
 STACKED = "pert_mandelbrot_dd_spp2"  # config 4's stacked spp-2 launch
 STACK_ROWS = 16  # rows of each segment the stacked plain version runs
@@ -306,7 +346,8 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"escape_kernelILi(\d)ELb([01])E", m.group(1))
-            t = re.search(r"pert_kernelILi(\d)ELi(\d)E", m.group(1))
+            t = re.search(r"pert_kernelILi(\d)ELi(\d)ELi(\d)E",
+                          m.group(1))
             b = re.search(r"bulb_(cone|march)_kernelILi(\d+)E", m.group(1))
             if b:
                 p = int(b.group(2))
@@ -316,7 +357,8 @@ def ptxas_report(log: str) -> dict:
                         + ("fused" if k.group(2) == "1" else "fields"))
             elif t:
                 name = (f"pert_{PERT_FAMILIES[int(t.group(1))]}_"
-                        + PERT_TIERS[int(t.group(2))])
+                        + PERT_TIERS[int(t.group(2))]
+                        + ("", "_err", "_single")[int(t.group(3))])
             else:
                 name = ("dd_escape_mandelbrot" if "dd_escape_kernel"
                         in m.group(1) else m.group(1))
@@ -406,7 +448,7 @@ def main() -> int:
     from fractalrenderer_tpu_torch.deepzoom import orbit as orbit_mod
     from fractalrenderer_tpu_torch.deepzoom import series as series_mod
     from fractalrenderer_tpu_torch.deepzoom.hp import (
-        precision_mode_for_zoom_frac)
+        HPFloat, precision_mode_for_zoom_frac)
     from fractalrenderer_tpu_torch.models import common, deep_zoom
     from fractalrenderer_tpu_torch.models.mandelbrot import (distance_field,
                                                              render_dd)
@@ -603,15 +645,18 @@ def main() -> int:
 
     # -- K3: each delta tier, the kernel's frame against a plain band --------
     # Every reference orbit the run computes is logged with its engine and
-    # host time (the model computes its own through the same function).
-    orbit_log = []
+    # host time (the model computes its own through the same function); the
+    # per-pixel orbits of the HP fallback (and of the HP oracle), which stop
+    # at the escape radius, go to their own log.
+    orbit_log, fallback_log = [], []
     compute_orbit = orbit_mod.compute_orbit
 
     def logged_orbit(*a, **kw):
         t0 = time.perf_counter()
         o = compute_orbit(*a, **kw)
-        orbit_log.append((len(o[0] if isinstance(o, tuple) else o),
-                          time.perf_counter() - t0))
+        (fallback_log if "escape_mag_sq" in kw else orbit_log).append(
+            (len(o[0] if isinstance(o, tuple) else o),
+             time.perf_counter() - t0))
         return o
 
     orbit_mod.compute_orbit = logged_orbit
@@ -620,16 +665,19 @@ def main() -> int:
         return ("native C++ (native/orbit.cpp)"
                 if orbit_mod._load_native() is not None else "Python bignum")
 
-    def pert_setup(view, width, height, series):
+    def pert_setup(view, width, height, series, exact_dust=False):
         """The orbit, series and packing options the deep-zoom model
         derives for ``view`` at width x height
         (models/deep_zoom.render_fields): the family's recurrence, the Julia
-        drift (floatexp-emitted in the ARBITRARY tier) and start Z0."""
+        drift (floatexp-emitted in the ARBITRARY tier) and start Z0, and
+        the exact-dust tier's raised orbit precision."""
         v = DZ_VIEWS[view]
         family = v.get("family", "mandelbrot")
         zoom_fr = Fraction(v["zoom"])
         mode, bits = precision_mode_for_zoom_frac(zoom_fr)
         bits = -(-bits // 64) * 64
+        if exact_dust:
+            bits = max(bits + 96, 160)
         scaled = mode.name == "ARBITRARY"
         fam = {}
         if family == "julia":
@@ -730,7 +778,8 @@ def main() -> int:
     # each segment equal to a sequential launch at its offset over the whole
     # frame, and a band of every segment equal to the stacked plain version
     def pack(view, width, height, **extra):
-        orb, kw, _ = pert_setup(view, width, height, False)
+        orb, kw, _ = pert_setup(view, width, height, False,
+                                exact_dust=extra.get("track_err", False))
         params, streams, launch = perturbation.pack_pert_operands(
             orb, width, height, **kw, **extra)
         return params, [torch.from_numpy(a).to(dev) for a in streams], launch
@@ -794,6 +843,87 @@ def main() -> int:
     stacked_frame = stacked_check("config4", "config 4 (1e-12 x10000), "
                                   "series off", STACKED)
     stacked_check("julia_spp2", "Julia at z*, 1e-10 x200")
+
+    # -- K3's other forms: the error ledger and the single pass --------------
+    # each frame against the plain version on a full-width band (every plane
+    # the form writes: errx for the ledger, glitch for the single pass)
+    form_frames = []  # (case index, params, device streams, launch)
+    for ci, (name, label, view, pw, ph, extra) in enumerate(FORM_CASES):
+        params, dstreams, launch = pack(view, pw, ph, **extra)
+        form = launch["form"]
+        assert name == f"pert_{launch['family']}_{launch['tier']}" + {
+            "ledger": "_err", "single": "_single"}[form], (name, launch)
+        r0 = ph // 2 - BAND_ROWS // 2
+        bp, bs, bl = pack(view, pw, BAND_ROWS, row0=float(r0),
+                          map_height=ph, **extra)
+        got = k3(params, dstreams, launch)
+        torch.cuda.synchronize()
+        want, plain_ms = cuda_event_ms(lambda: k3(bp, bs, bl, plain=True))
+        names = (("n", "zx", "zy", "glitch") if form == "single"
+                 else ("n", "zx", "zy", "glitch", "want", "rounds", "errx"))
+        assert len(got) == len(want) == len(names)
+        for nm, g, w in zip(names, got, want):
+            assert same_bits(g[r0:r0 + BAND_ROWS], w), \
+                f"K3 {label}: {nm} not bit-equal over rows {r0}-" \
+                f"{r0 + BAND_ROWS - 1}"
+        n_k = got[0]
+        limit = DZ_VIEWS[view]["iters"]
+        pert_end = min(limit, int(params[perturbation.Q_REFLEN]) - 1)
+        if form == "ledger":
+            assert int(got[4].sum()) == 0, f"K3 {label}: lanes left wanting"
+            errx = got[6]
+            note = (f"errx bit-equal; suspects (errx > -8) "
+                    f"{int((errx > -8.0).sum())} of {pw * ph} "
+                    f"({float((errx > -8.0).float().mean()):.4f}), errx "
+                    f"max {float(errx.max()):.2f}; rounds max "
+                    f"{int(got[5].max())}")
+            work, cont, what = float(n_k.double().sum()), 0.0, "sum(n)"
+        else:
+            glitch = got[3] > 0.5
+            # steps the pass ran: to the escape, or to the orbit's end;
+            # continuation steps past it run the f32 z^2 + c loop
+            steps = torch.clamp(n_k.double(), max=pert_end - 1)
+            work = float(steps.sum())
+            cont = (float((n_k.double() - steps).sum())
+                    if launch["float_cont"] else 0.0)
+            what = "sum(min(n, orbit end - 1))"
+            note = (f"glitch bit-equal; {int(glitch.sum())} flagged "
+                    f"({float(glitch.float().mean()):.4f}), orbit end "
+                    f"{pert_end} of limit {limit}, lanes past it "
+                    f"{int((n_k > pert_end).sum())}")
+        assert torch.isfinite(got[1]).all() and torch.isfinite(got[2]).all()
+        e = entry(name, PERT_SOURCES[launch["family"]], K3_TPU, 0.0)
+        if e["plain_ms"] is None:  # the instance's first (main) frame
+            e["plain_ms"] = plain_ms
+            pert_work[name] = (
+                work, 0, pw * ph,
+                sum(t.numel() * t.element_size() for t in got)
+                + sum(t.numel() * t.element_size() for t in dstreams),
+                cont, what)
+        form_frames.append((ci, params, dstreams, launch))
+        print(f"K3 {launch['tier']} {label} {pw}x{ph}: "
+              f"{'/'.join(names)} bit-equal to the plain version over rows "
+              f"{r0}-{r0 + BAND_ROWS - 1} (plain band {plain_ms / 1e3:.2f} "
+              f"s); n mean {n_k.float().mean():.1f}, max {int(n_k.max())}, "
+              f"interior {float((n_k >= limit).float().mean()):.4f}; "
+              f"{note}", flush=True)
+
+    # the ledger in a stacked spp-2 launch: a band of every segment against
+    # the stacked plain version
+    r0 = H // 2 - STACK_ROWS // 2
+    got = k3(*pack("ship_dd", W, H, aa_spp=2, track_err=True))
+    want, plain_ms = cuda_event_ms(lambda: k3(*pack(
+        "ship_dd", W, STACK_ROWS, aa_spp=2, track_err=True, row0=float(r0),
+        map_height=H), plain=True))
+    for nm, g, w in zip(("n", "zx", "zy", "glitch", "want", "rounds",
+                         "errx"), got, want, strict=True):
+        assert same_bits(g[:, r0:r0 + STACK_ROWS], w), \
+            f"K3 stacked ledger: {nm} not bit-equal"
+    print(f"K3 stacked spp 2 with the ledger, armada 1e-10 x1500, {W}x{H}: "
+          f"rows {r0}-{r0 + STACK_ROWS - 1} of every segment bit-equal to "
+          f"the stacked plain version, errx included (plain "
+          f"{plain_ms / 1e3:.2f} s); suspects "
+          f"{int((got[6] > -8.0).sum())} of {4 * W * H}", flush=True)
 
     # -- K4a / K4b: the Mandelbulb kernels, config 6 and two more instances --
     # K4a over the whole 1080p coarse grid against its plain version; K4b
@@ -984,6 +1114,11 @@ def main() -> int:
         ("--type deep-zoom --deep-ship, armada 1e-10 x400",
          dz_flags("ship_cli"), {pert_w: ("pert_ship_dd", 1)}, (320, 180),
          True),
+        # the exact-dust tier: the ledger launch, its suspects through the
+        # HP fallback (~13% of the armada dust)
+        ("--type deep-zoom --deep-ship --exact-dust, armada 1e-10 x400",
+         [*dz_flags("ship_cli"), "--exact-dust"],
+         {pert_w: ("pert_ship_dd_err", 1)}, (480, 270), True),
         ("--type deep-zoom --deep-phoenix, r -0.5, 1e-10 x400",
          dz_flags("phoenix_cli"), {pert_w: ("pert_phoenix_dd", 1)},
          (320, 180), True),
@@ -1047,8 +1182,10 @@ def main() -> int:
                         ref = common.quantize_image(
                             render_dd(scene, pw, ph, device=dev), bit_depth=8)
                     else:
-                        ref = models.render(scene, pw, ph, device=dev,
-                                            quantize=8)
+                        ref = models.render(
+                            scene, pw, ph, device=dev, quantize=8,
+                            **({"exact_dust": True} if "--exact-dust" in flags
+                               else {}))
                 ref = to_export_orientation(ref).cpu().numpy()
                 lsb = int(np.abs(img.astype(np.int32)
                                  - ref.astype(np.int32)).max())
@@ -1059,13 +1196,25 @@ def main() -> int:
                 note = f"max {lsb} LSB from the plain pipeline"
             if pert_w in runs:
                 info = said.getvalue().strip().splitlines()[-1].strip()
-                assert "0 HP-fallback, 0 remaining" in info, info
+                assert info.endswith(" 0 remaining"), info
+                # only the exact-dust suspects go through the HP fallback
+                assert ("--exact-dust" in flags) != (" 0 HP-fallback" in info)
                 note += f"; {info}"
             main_wall[(label, pw, ph)] = wall
             print(f"path cli render {label}: {pw}x{ph} PNG, " + ", ".join(
                 f"{n} launch(es) of {i}" for i, n in ran.items())
                 + f", {wall * 1e3:.1f} ms wall (first call), {note}",
                 flush=True)
+
+    # --exact-dust outside the Burning Ship deep zoom: the JAX CLI's guard
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        rc = cli.main(["render", *dz_flags("config4"), "--exact-dust",
+                       "--out", "unused.png"])
+    err = err.getvalue().strip()
+    assert rc == 2 and "Burning Ship dust tier" in err, (rc, err)
+    assert not os.path.exists("unused.png")
+    print(f"path cli render --type deep-zoom --exact-dust (Mandelbrot): exit "
+          f"2, {err!r}", flush=True)
 
     # the distance field (library entry point: K1 with the derivative)
     scene = Scene()
@@ -1149,6 +1298,157 @@ def main() -> int:
               f"{float((n_f >= iters).float().mean()):.4f}; orbit {nlen} "
               f"entries by {orbit_engine()} in {orbit_s * 1e3:.2f} ms; "
               f"{wall * 1e3:.1f} ms wall", flush=True)
+
+    # -- the exact-dust tier through the model --------------------------------
+    # a row band of each Ship view at 1080p geometry: one ledger launch, its
+    # suspects (errx > -8) through the HP fallback; outside them the fields
+    # are the ledger frame's rows
+    def form_frame(view):
+        return next(f for f in form_frames if FORM_CASES[f[0]][2] == view)
+
+    for view, name in (("ship_dd", "pert_ship_dd_err"),
+                       ("ship_fx", "pert_ship_fx_err")):
+        rows = DUST_ROWS[view]
+        r0 = (H - rows) // 2
+        reset_counts()
+        n_fb = len(fallback_log)
+        t0 = time.perf_counter()
+        n_f, zx_f, zy_f, g, info = deep_zoom.render_fields(
+            dz_scene(view), W, H, row_band=(r0, rows), exact_dust=True,
+            keep_device=True, device=dev)
+        wall = time.perf_counter() - t0
+        launches = counts()
+        assert launches.pop(pert_w) == 1, "exact dust: not 1 K3 launch"
+        assert not any(launches.values()), "exact dust: other kernels"
+        kernels[name]["launches"] += 1
+        assert info["glitched_pixels_remaining"] == 0 and not g.any(), info
+        assert info["fallback_pixels"] == info["dust_suspect_pixels"], info
+        fb = fallback_log[n_fb:]
+        assert len(fb) == info["fallback_pixels"]
+        fb_s = sum(t for _, t in fb)
+        _, params, dstreams, launch = form_frame(view)
+        ref = k3(params, dstreams, launch)
+        sus = (ref[6][r0:r0 + rows] > -8.0).cpu().numpy()
+        assert int(sus.sum()) == info["dust_suspect_pixels"]
+        assert (n_f[~sus] == ref[0][r0:r0 + rows].cpu().numpy()[~sus]).all()
+        moved = int((n_f[sus] != ref[0][r0:r0 + rows].cpu().numpy()[sus])
+                    .sum())
+        print(f"path models.deep_zoom.render_fields exact_dust {view} rows "
+              f"{r0}-{r0 + rows - 1} of {W}x{H}: 1 launch of {name}, "
+              f"{info['precision_bits']} bits, suspects "
+              f"{info['dust_suspect_pixels']} of {W * rows} "
+              f"({info['dust_suspect_pixels'] / (W * rows):.4f}), HP fallback "
+              f"{info['fallback_pixels']} pixels in {fb_s:.2f} s "
+              f"({info['fallback_pixels'] / max(fb_s, 1e-9):.0f} px/s, engine "
+              f"{orbit_engine()}), {moved} counts changed by it, 0 "
+              f"remaining; other pixels equal to the ledger frame; "
+              f"{wall:.2f} s wall", flush=True)
+
+    # the JAX tests' 12x8 exact-dust windows, equal to the HP oracle
+    def ship_oracle(cx, cy, zoom, w, h, mi, bits):
+        step = Fraction(zoom) * 4 / (h * h)
+        cxh, cyh = HPFloat(cx, bits), HPFloat(cy, bits)
+        n = np.zeros((h, w), np.int64)
+        for py in range(h):
+            for px in range(w):
+                o = orbit_mod.compute_orbit(
+                    cxh + HPFloat(step * (Fraction(px) - Fraction(w, 2)),
+                                  bits),
+                    cyh + HPFloat(step * (Fraction(py) - Fraction(h, 2)),
+                                  bits), bits, mi + 1, escape_mag_sq=16.0,
+                    kind=1)
+                zfx, zfy = o[-1]
+                n[py, px] = (len(o) - 2) if zfx * zfx + zfy * zfy > 16.0 \
+                    else mi
+        return n
+
+    for cx, cy, zoom, mi, bits, name in (
+            ("-1.7623025", "-0.028000625", "1e-10", 400, 192,
+             "pert_ship_dd_err"),
+            ("-2", "0", "1e-40", 1500, 400, "pert_ship_fx_err")):
+        scene = Scene(fractal_type=FractalType.DEEP_ZOOM, deep_zoom_ship=True,
+                      hp_center_x=cx, hp_center_y=cy, hp_zoom=zoom,
+                      max_iterations=mi, use_perturbation=True)
+        reset_counts()
+        n_w, _, _, g, info = deep_zoom.render_fields(scene, 12, 8,
+                                                     exact_dust=True,
+                                                     device=dev)
+        launches = counts()
+        assert launches.pop(pert_w) == 1 and not any(launches.values())
+        kernels[name]["launches"] += 1
+        nref = ship_oracle(cx, cy, zoom, 12, 8, mi, bits)
+        assert not g.any() and info["glitched_pixels_remaining"] == 0
+        assert info["dust_suspect_pixels"] <= int(0.4 * 96), info
+        mism = int((np.asarray(n_w) != nref).sum())
+        assert mism == 0, f"exact dust {cx} {zoom}: {mism} counts differ " \
+            f"from the {bits}-bit oracle"
+        print(f"path models.deep_zoom.render_fields exact_dust 12x8 at "
+              f"({cx}, {cy}) {zoom} x{mi}: 96 of 96 counts equal to the "
+              f"{bits}-bit HP oracle ({len(np.unique(nref))} distinct), "
+              f"suspects {info['dust_suspect_pixels']}", flush=True)
+
+    # -- the legacy pipeline through the model (rebasing=False) ---------------
+    # one single-pass launch, then one per secondary reference; lanes no
+    # reference fixes go through the HP fallback.  Each launch is timed
+    # with a synchronize around it; the probes' and the fallback's orbits
+    # by the orbit logs.
+    kernel_s = []
+    cuda_k3 = perturbation.perturbation_fields_cuda
+
+    def timed_k3(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cuda_k3(*a, **kw)  # counts its launch on timed_k3.launches
+        torch.cuda.synchronize()
+        kernel_s.append(time.perf_counter() - t0)
+        return out
+
+    for view, name in (("seahorse", "pert_mandelbrot_f32_single"),
+                       ("config4", "pert_mandelbrot_dd_single"),
+                       ("config7", "pert_mandelbrot_fx_single")):
+        _, params, dstreams, launch = form_frame(view)
+        pw, ph = launch["width"], launch["height"]
+        rows = LEGACY_ROWS[view]
+        r0 = (ph - rows) // 2
+        reset_counts()
+        timed_k3.launches = 0
+        kernel_s.clear()
+        n_orb, n_fb = len(orbit_log), len(fallback_log)
+        perturbation.perturbation_fields_cuda = timed_k3
+        t0 = time.perf_counter()
+        try:
+            n_f, zx_f, zy_f, g, info = deep_zoom.render_fields(
+                dz_scene(view), pw, ph, rebasing=False,
+                row_band=None if rows == ph else (r0, rows), device=dev)
+        finally:
+            perturbation.perturbation_fields_cuda = cuda_k3
+        wall = time.perf_counter() - t0
+        k = timed_k3.launches
+        launches = counts()
+        launches.pop(pert_w)
+        assert not any(launches.values()), "legacy pipeline: other kernels"
+        assert k == len(kernel_s) == info["references_used"], (k, info)
+        kernels[name]["launches"] += k
+        assert info["algorithm"] == "secondary_refs", info
+        assert info["glitched_pixels_remaining"] == 0 and not g.any(), info
+        assert np.isfinite(zx_f).all() and np.isfinite(zy_f).all()
+        # the first launch is the single-pass frame: its unflagged lanes
+        # keep their counts
+        ref = k3(params, dstreams, launch)
+        ok = (ref[3][r0:r0 + rows] < 0.5).cpu().numpy()
+        assert (n_f[ok] == ref[0][r0:r0 + rows].cpu().numpy()[ok]).all()
+        probes = orbit_log[n_orb + 1:]  # past the scene's own reference
+        fb_s = sum(t for _, t in fallback_log[n_fb:])
+        print(f"path models.deep_zoom.render_fields rebasing=False {view} "
+              f"rows {r0}-{r0 + rows - 1} of {pw}x{ph}: {k} launch(es) of "
+              f"{name} (1 + {k - 1} secondary references), "
+              f"{info['glitched_pixels_initial']} pixels flagged "
+              f"({info['glitched_pixels_initial'] / (pw * rows):.4f}), "
+              f"{info['fallback_pixels']} HP fallback, 0 remaining; "
+              f"seconds: K3 launches {sum(kernel_s):.3f} "
+              f"({', '.join(f'{t * 1e3:.1f} ms' for t in kernel_s)}), "
+              f"{len(probes)} orbit probes {sum(t for _, t in probes):.3f}, "
+              f"HP fallback {fb_s:.3f}; {wall:.2f} s wall", flush=True)
 
     # -- where a warm frame's host time goes: the main path and config 6 ----
     for label, scene, flags in (
@@ -1300,6 +1600,18 @@ def main() -> int:
               f"(runs {[round(t, 3) for t in runs]}); {pw * ph / ms / 1e3:.2f}"
               f" Mpix/s; plain version on its {pw}x{BAND_ROWS} band: "
               f"{plain_ms:.1f} ms", flush=True)
+    for ci, params, dstreams, launch in form_frames:
+        name, label = FORM_CASES[ci][:2]
+        pw, ph = launch["width"], launch["height"]
+        runs = [cuda_event_ms(lambda: k3(params, dstreams, launch))[1]
+                for _ in range(7)]
+        ms = statistics.median(runs)
+        e = kernels[name]
+        if e["ms"] is None:  # the instance's first (main) frame
+            e["ms"] = ms
+        print(f"time per {pw}x{ph} frame, {name} {label}: kernel {ms:.3f} ms "
+              f"(runs {[round(t, 3) for t in runs]}); {pw * ph / ms / 1e3:.2f}"
+              f" Mpix/s", flush=True)
     # config 4's stacked spp-2 launch against its spp-1 launch, in turns
     one, two = [], []
     c4 = pert_frames[1]
@@ -1314,10 +1626,14 @@ def main() -> int:
           f"{statistics.median(one):.3f} ms (runs "
           f"{[round(t, 3) for t in one]}); spp 2 / spp 1 = {ratio:.3f} (4 "
           "samples per pixel)", flush=True)
-    for name, (iters, n_skip, pixels, nbytes) in pert_work.items():
+    for name, (iters, n_skip, pixels, nbytes, *form) in pert_work.items():
+        cont, what = form if form else (0.0, f"sum(n - n_skip), n_skip "
+                                              f"{n_skip}")
         set_bound(name, iters, OPS_PER_ITER[name.replace("_spp2", "")],
-                  pixels * OPS_PER_PIXEL["pert"], nbytes,
-                  extra=f" (sum(n - n_skip), n_skip {n_skip})")
+                  pixels * OPS_PER_PIXEL["pert"] + cont * OPS_CONT, nbytes,
+                  extra=f" ({what}" + (
+                      f"; {cont:.6g} continuation steps x {OPS_CONT}"
+                      if cont else "") + ")")
 
     # K4a and K4b: each instance's 1080p frame, one CUDA-event pair per
     # launch, median of 7; the plain versions' times are the K4 phase's
@@ -1354,9 +1670,10 @@ def main() -> int:
 
     missing = [k for k, e in kernels.items() if e["launches"] == 0]
     assert not missing, f"instances no path launched: {missing}"
-    assert len(kernels) == 28, \
-        f"expected K1 x8, K2, K3 x12 + its stacked spp-2 launch, K4a x3 " \
-        f"and K4b x3: {list(kernels)}"
+    assert len(kernels) == 33, \
+        f"expected K1 x8, K2, K3 x12 + its stacked spp-2 launch + the two " \
+        f"ledger and three single-pass instances, K4a x3 and K4b x3: " \
+        f"{list(kernels)}"
     assert all(e["bound_ms"] and e["ms"] and e["plain_ms"]
                for e in kernels.values()), kernels
     print(f"smoke wall time {time.monotonic() - t_start:.1f} s (build "

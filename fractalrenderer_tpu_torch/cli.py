@@ -3,11 +3,11 @@
 the four 2D families (every AA, trap, stripe, interior-style and Julia
 option), ``--precision dd``, ``--type deep-zoom`` (the rebasing
 perturbation path at every depth: Mandelbrot with ``--series``,
-``--deep-julia``, ``--deep-ship``, ``--deep-phoenix``, and ``--spp 2|4``
-supersampling) and ``--type mandelbulb`` (``--power``, ``--time``,
-``--aa``, ``--palette``); the other verbs and the unported render options
-exit with code 2 and a one-line message naming the ROADMAP item that
-ports them.
+``--deep-julia``, ``--deep-ship`` with ``--exact-dust``, ``--deep-phoenix``,
+and ``--spp 2|4`` supersampling) and ``--type mandelbulb`` (``--power``,
+``--time``, ``--aa``, ``--palette``); the other verbs and the unported
+render options exit with code 2 and a one-line message naming the ROADMAP
+item that ports them.
 
 Usage examples:
   python -m fractalrenderer_tpu_torch.cli render --out m.png
@@ -25,6 +25,9 @@ Usage examples:
   python -m fractalrenderer_tpu_torch.cli render --type deep-zoom \\
       --deep-ship --hp-center-x -1.7623025 --hp-center-y -0.028000625 \\
       --hp-zoom 1e-10 --iters 1500 --spp 2 --out ship.png
+  python -m fractalrenderer_tpu_torch.cli render --type deep-zoom \\
+      --deep-ship --exact-dust --hp-center-x -1.7623025 \\
+      --hp-center-y -0.028000625 --hp-zoom 1e-10 --iters 400 --out dust.png
   python -m fractalrenderer_tpu_torch.cli render --type mandelbulb \\
       --time 1.0 --aa 2 --out bulb.png
 """
@@ -182,7 +185,6 @@ def _size_ok(args) -> bool:
 _UNPORTED_RENDER_FLAGS = (
     ("golden", "--golden", 4),
     ("sharded", "--sharded", 8),
-    ("exact_dust", "--exact-dust", "6(f)"),
 )
 
 # verbs of the JAX CLI the port does not run yet → ROADMAP Queue 1 item
@@ -261,6 +263,13 @@ def cmd_render(args) -> int:
               f"(got --type {scene.fractal_type.name.lower()})",
               file=sys.stderr)
         return 2
+    if args.exact_dust and not (scene.fractal_type == FractalType.DEEP_ZOOM
+                                and scene.deep_zoom_ship):
+        # a silently ignored exactness flag would be worse than an error
+        print("error: --exact-dust is the Burning Ship dust tier: use "
+              "--type deep-zoom --deep-ship (see DESIGN.md §8)",
+              file=sys.stderr)
+        return 2
     if args.debug:
         from .utils.diag import scene_debug_summary
 
@@ -275,10 +284,12 @@ def cmd_render(args) -> int:
             from .models import deep_zoom
             from .utils.diag import validate_scene
 
+            dz_kw = {"exact_dust": True} if args.exact_dust else {}
             with _orbit_progress():
                 img, dz_info = deep_zoom.render(
                     validate_scene(scene), args.width, args.height,
-                    return_info=True, quantize=args.bit_depth, device=dev)
+                    return_info=True, quantize=args.bit_depth, device=dev,
+                    **dz_kw)
         elif args.precision == "dd":
             from .models.common import quantize_image
             from .models.mandelbrot import render_dd
@@ -304,9 +315,11 @@ def cmd_render(args) -> int:
           f"{scene.fractal_type.display_name} on {dev} in {dt*1e3:.1f} ms "
           f"({mpix:.0f} Mpix/s incl. host transfer) -> {args.out}")
     if dz_info is not None:
+        algo = dz_info["algorithm"]
+        if algo == "rebase":
+            algo = f"rebase x{dz_info['rebase_passes']} passes"
         print(f"  deep zoom: {dz_info['precision_mode']} "
-              f"({dz_info['precision_bits']} bits), rebase x"
-              f"{dz_info['rebase_passes']} passes, "
+              f"({dz_info['precision_bits']} bits), {algo}, "
               f"{dz_info['references_used']} reference orbit(s), "
               f"{dz_info['glitched_pixels_initial']} glitch-flagged -> "
               f"{dz_info['fallback_pixels']} HP-fallback, "

@@ -5,7 +5,7 @@
 
 #include "pert_kernel.cuh"
 
-int pert_launch_julia(int tier, const PertParams& p, const PertArgs& a,
-                      cudaStream_t s) {
-  return pert_launch<kJulia>(tier, p, a, s);
+int pert_launch_julia(int tier, int form, const PertParams& p,
+                      const PertArgs& a, cudaStream_t s) {
+  return pert_launch<kJulia>(tier, form, p, a, s);
 }

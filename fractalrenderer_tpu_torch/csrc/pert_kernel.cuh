@@ -5,12 +5,19 @@
 // (dd mantissa + i32 exponent, csrc/floatexp.cuh).
 //
 // Replaces fractalrenderer_tpu/ops/perturbation.py:_make_kernel in its
-// in-kernel-rounds rebase form (``rebase=True, inkernel_rounds > 0``):
-// mapping and stacked AA :402-467, series / Julia initialisation :488-636,
+// three launched forms, a template parameter here:
+//   kRebase  in-kernel-rounds rebasing (``rebase=True, inkernel_rounds >
+//            0``), every family and tier;
+//   kLedger  the same with the Burning Ship dd / floatexp error ledger
+//            (``track_err``, :302-310, :605-629, :902-920, :1039-1065);
+//   kSingle  the single-pass non-rebasing form of ``_pert_call`` (:1349),
+//            Mandelbrot only: the Pauldelbrot flag :1139-1147, starved
+//            lanes :1222-1230 and the f32 float continuation :1232-1263.
+// Mapping and stacked AA :402-467, series / Julia initialisation :488-636,
 // f32 update :1070-1136, dd update :926-1069, floatexp updates :680-925,
-// outputs :1265-1282.  The plain PyTorch version is
+// outputs :1265-1284.  The plain PyTorch version is
 // fractalrenderer_tpu_torch/ops/perturbation.py:perturbation_fields_plain;
-// the two agree bit for bit on n, zx, zy, want and rounds.
+// the two agree bit for bit on every plane they write.
 //
 // Design.  One thread per pixel in 32x8 blocks, grid.z = the spp^2 stacked
 // AA segments (1 without AA): a block never straddles segments, so the TPU
@@ -32,6 +39,16 @@
 // sequence is the same either way, and the rounds plane here is per pixel
 // (its max equals the TPU's passes).  A lane still wanting after max_passes
 // rounds leaves with want = 1 for the host's HP fallback.
+//
+// The ledger (kLedger) keeps a log2 bound errx of the carried delta's
+// absolute error: errx <- max(errx + log2|2z|, log2|d'| - 48) each step,
+// carried through rebases.  The single pass (kSingle) never rebases: a lane
+// runs to min(limit, orbit end), is flagged (glitch) where |z|^2 falls
+// below glitch_tol |Z|^2, and a lane alive at the orbit's end is flagged
+// too, or with float continuation iterates z <- z^2 + c on in f32.  The
+// TPU kernel moves its tile's shared orbit index in whole chunks of 16, so
+// a continuing lane resumes at n0 + 16 ceil((end - n0) / 16), not at the
+// orbit's end; the port follows that (kChunk).
 //
 // What bounds it.  f32 ALU work: per iteration ~20-35 operations in the
 // f32 tier, ~270-400 in the dd tier (seven to nine dd products, each a
@@ -70,23 +87,40 @@ struct PertParams {
 };
 
 // Orbit streams (re, im, re lo, im lo, re exponent, im exponent; the ones a
-// tier does not read may alias stream 0), geometry and output planes.
+// tier does not read may alias stream 0), geometry, the single pass's float
+// continuation switch and the output planes (a form leaves the planes it
+// does not write untouched: want and rounds belong to the rebasing forms,
+// glitch to the single pass, errx to the ledger).
 struct PertArgs {
   const float* orbit[6];
-  int width, height, map_height, max_passes, spp;
+  int width, height, map_height, max_passes, spp, float_cont;
   int* n;
-  float *zx, *zy, *want, *rounds;
+  float *zx, *zy, *glitch, *want, *rounds, *errx;
 };
 
 constexpr int kF32 = 0, kDD = 1, kFX = 2;  // ops/perturbation.py TIERS
 constexpr int kMandelbrot = 0, kJulia = 1, kShip = 2, kPhoenix = 3;
+constexpr int kRebase = 0, kLedger = 1, kSingle = 2;  // ... FORMS
+constexpr int kChunk = 16;  // the TPU kernel's orbit-index chunk
 
-template <int kFamily, int kTier>
+// The instances that exist: every family and tier rebasing; the ledger on
+// the Burning Ship's dd and floatexp tiers; the single pass on Mandelbrot.
+__host__ __device__ constexpr bool pert_instance(int family, int tier,
+                                                 int form) {
+  return form == kRebase || (form == kLedger && family == kShip &&
+                             tier != kF32) ||
+         (form == kSingle && family == kMandelbrot);
+}
+
+template <int kFamily, int kTier, int kForm>
 __global__ void __launch_bounds__(256)
     pert_kernel(PertParams p, PertArgs a) {
+  static_assert(pert_instance(kFamily, kTier, kForm), "no such instance");
   constexpr bool julia = kFamily == kJulia;
   constexpr bool ship = kFamily == kShip;
   constexpr bool phoenix = kFamily == kPhoenix;
+  constexpr bool ledger = kForm == kLedger;
+  constexpr bool single = kForm == kSingle;
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int lrow = blockIdx.y * blockDim.y + threadIdx.y;
   const int seg = blockIdx.z;
@@ -101,7 +135,10 @@ __global__ void __launch_bounds__(256)
   const int limit = static_cast<int>(p.v[Q_LIMIT]);
   const float limit_f = p.v[Q_LIMIT];
   const float bail2 = p.v[Q_BAIL2];
-  const int pert_end = static_cast<int>(p.v[Q_REFLEN]) - 1;
+  // the single pass stops at the budget too (:514-515)
+  const int pert_end = single
+      ? min(limit, static_cast<int>(p.v[Q_REFLEN]) - 1)
+      : static_cast<int>(p.v[Q_REFLEN]) - 1;
   const float pp = p.v[Q_PP], rr = p.v[Q_RR];
   const dd_t z0x = {p.v[Q_Z0XH], p.v[Q_Z0XL]};
   const dd_t z0y = {p.v[Q_Z0YH], p.v[Q_Z0YL]};
@@ -198,6 +235,19 @@ __global__ void __launch_bounds__(256)
     dcfe_x = rfe_norm(dcx, -s_exp);
     dcfe_y = rfe_norm(dcy, -s_exp);
   }
+  // the ledger starts at the dd compose floor of the initial delta, 2^-48
+  // relative (:605-629); log2 of f32(1e-76) = 0 is -inf, as on the TPU
+  float errx = 0.0f;
+  if constexpr (ledger) {
+    const float dmag0 = 0.5f * log2f(tmax(dzr.hi * dzr.hi + dzi.hi * dzi.hi,
+                                          0.0f));
+    if constexpr (kTier == kFX) {
+      errx = ex == kEZero ? -200.0f
+                          : (dmag0 + static_cast<float>(ex)) - 48.0f;
+    } else {
+      errx = dmag0 - 48.0f;
+    }
+  }
   float dr = dz0r, di = dz0i;  // f32 tier delta
   float qr = 0.0f, qi = 0.0f;  // f32 tier Phoenix delta_prev
   dd_t pzr = {0.0f, 0.0f}, pzi = {0.0f, 0.0f};  // dd / floatexp delta_prev
@@ -207,6 +257,7 @@ __global__ void __launch_bounds__(256)
   int i = n0;
   int rounds = 1;
   bool want = false;
+  bool glitch = false;  // the single pass's flag
   for (;;) {
     for (;;) {
       const float mag2 = zfr * zfr + zfi * zfi;
@@ -252,7 +303,7 @@ __global__ void __launch_bounds__(256)
         const float reli = zi1 + ndi;
         const float zm2 = relr * relr + reli * reli;
         const float dm2 = ndr * ndr + ndi * ndi;
-        want_now = (zm2 < dm2 || ends) && nf < limit_f;
+        want_now = !single && (zm2 < dm2 || ends) && nf < limit_f;
         if constexpr (phoenix) {
           // delta_prev advances to the old delta; a rebased lane gets the
           // absolute z_i (Z_{-1} = 0)
@@ -318,10 +369,21 @@ __global__ void __launch_bounds__(256)
           const float rel_i = (zi1 + ndi.hi) + (zil1 + ndi.lo);
           const float zm2 = rel_r * rel_r + rel_i * rel_i;
           const float dm2 = ndr.hi * ndr.hi + ndi.hi * ndi.hi;
-          want_now = (zm2 < dm2 || ends) && nf < limit_f;
+          want_now = !single && (zm2 < dm2 || ends) && nf < limit_f;
           if (want_now) {  // rebase: d <- Z_{i+1} + d (Julia D_{i+1} + d)
             ndr = dd_add({zr1, zrl1}, ndr);
             ndi = dd_add({zi1, zil1}, ndi);
+          }
+          if constexpr (ledger) {
+            // :1039-1065: the error grows by |2z| (z from the hi parts
+            // before the step) and is floored at 2^-48 of the new delta
+            const float fxr = X.hi + dzr.hi, fxi = Y.hi + dzi.hi;
+            const float amp =
+                0.5f * log2f(tmax(4.0f * (fxr * fxr + fxi * fxi), 1e-38f));
+            const float flo =
+                0.5f * log2f(tmax(ndr.hi * ndr.hi + ndi.hi * ndi.hi, 0.0f)) -
+                48.0f;
+            errx = tmax(errx + amp, flo);
           }
           if constexpr (phoenix) {
             pzr = want_now ? dd_add(X, dzr) : dzr;
@@ -356,7 +418,8 @@ __global__ void __launch_bounds__(256)
           const cfe_t rel_c = cfe_from_rr(rel_r, rel_i);
           zfr = z0x.hi + (z0x.lo + rfe_to_f32(rel_r));
           zfi = z0y.hi + (z0y.lo + rfe_to_f32(rel_i));
-          want_now = (cfe_mag2_lt(rel_c, nm) || ends) && nf < limit_f;
+          want_now = !single && (cfe_mag2_lt(rel_c, nm) || ends) &&
+                     nf < limit_f;
           const cfe_t nd = want_now ? rel_c : nm;
           dzr = nd.r;
           dzi = nd.i;
@@ -435,7 +498,7 @@ __global__ void __launch_bounds__(256)
           const float zm2 = zfr * zfr + zfi * zfi;
           const float dm2 =
               (nm.r.hi * nm.r.hi + nm.i.hi * nm.i.hi) * pow2i(nm.e + nm.e);
-          want_now = (zm2 < dm2 || ends) && nf < limit_f;
+          want_now = !single && (zm2 < dm2 || ends) && nf < limit_f;
           if constexpr (phoenix) {
             // delta_prev advances to the old delta; a rebased lane gets the
             // absolute z_i (dd, exponent 0)
@@ -459,7 +522,26 @@ __global__ void __launch_bounds__(256)
             dzi = nm.i;
             ex = nm.e;
           }
+          if constexpr (ledger) {
+            // :902-920: |2z| from the full z before the step; the floor
+            // from the new (rebased) delta, none for an exact zero
+            const float amp = 0.5f * log2f(tmax(4.0f * mag2, 1e-38f));
+            const float flo =
+                ex == kEZero
+                    ? -1e9f
+                    : (0.5f * log2f(tmax(dzr.hi * dzr.hi + dzi.hi * dzi.hi,
+                                         0.0f)) +
+                       static_cast<float>(ex)) -
+                          48.0f;
+            errx = tmax(errx + amp, flo);
+          }
         }
+      }
+      if constexpr (single) {
+        // the Pauldelbrot flag against |Z_{i+1}|^2 of the f32 hi streams,
+        // the table the JAX package ships (:384-386, :1694-1695)
+        glitch = glitch || zfr * zfr + zfi * zfi <
+                               p.v[Q_GLITCH_TOL] * (zr1 * zr1 + zi1 * zi1);
       }
       ++i;
       if (want_now) {
@@ -477,49 +559,104 @@ __global__ void __launch_bounds__(256)
     break;
   }
 
-  // :1265-1282 (the budget ran out = interior)
+  bool interior = nf >= limit_f;  // the budget ran out (:1265-1268)
+  if constexpr (single) {
+    // a lane alive at the orbit's end: flagged for a secondary reference,
+    // or (float continuation) on in f32 from the chunk grid (:1222-1263)
+    if (zfr * zfr + zfi * zfi <= bail2) {
+      if (a.float_cont) {
+        const float c_r =
+            dd_to_float(dd_add({p.v[Q_CXH], p.v[Q_CXL]}, dcx));
+        const float c_i =
+            dd_to_float(dd_add({p.v[Q_CYH], p.v[Q_CYL]}, dcy));
+        const int i1 = n0 + kChunk * ((max(pert_end - n0, 0) + kChunk - 1) /
+                                      kChunk);
+        for (int k = i1; k < limit && zfr * zfr + zfi * zfi <= bail2; ++k) {
+          nf = nf + 1.0f;
+          const float x = zfr * zfr - zfi * zfi + c_r;
+          const float y = (2.0f * zfr) * zfi + c_i;
+          zfr = x;
+          zfi = y;
+        }
+      } else if (pert_end < limit) {
+        glitch = true;
+      }
+    }
+    interior = zfr * zfr + zfi * zfi <= bail2;  // (:1269-1271)
+  }
+
+  // :1272-1284
   const size_t idx =
       (static_cast<size_t>(seg) * a.height + lrow) * a.width + col;
-  a.n[idx] = nf >= limit_f ? limit : static_cast<int>(fmaxf(nf, 0.0f));
+  a.n[idx] = interior ? limit : static_cast<int>(fmaxf(nf, 0.0f));
   a.zx[idx] = zfr;
   a.zy[idx] = zfi;
-  a.want[idx] = want ? 1.0f : 0.0f;
-  a.rounds[idx] = static_cast<float>(rounds);
+  if constexpr (single) {
+    a.glitch[idx] = glitch ? 1.0f : 0.0f;
+  } else {
+    a.want[idx] = want ? 1.0f : 0.0f;
+    a.rounds[idx] = static_cast<float>(rounds);
+  }
+  if constexpr (ledger) {
+    a.errx[idx] = errx;
+  }
 }
 
-// Launch one family's instance of the given tier: one thread per pixel of
-// the band, grid.z = the spp^2 stacked segments.  Returns the cudaError_t of
-// the launch.
-template <int kFamily>
-int pert_launch(int tier, const PertParams& p, const PertArgs& a,
-                cudaStream_t s) {
-  const dim3 block(32, 8);
-  const dim3 grid((a.width + block.x - 1) / block.x,
-                  (a.height + block.y - 1) / block.y, a.spp * a.spp);
+// Launch one instance (an error for a combination that has none): one
+// thread per pixel of the band, grid.z = the spp^2 stacked segments.
+// Returns the cudaError_t of the launch.
+template <int kFamily, int kTier, int kForm>
+int pert_launch_one(const PertParams& p, const PertArgs& a, cudaStream_t s) {
+  if constexpr (pert_instance(kFamily, kTier, kForm)) {
+    const dim3 block(32, 8);
+    const dim3 grid((a.width + block.x - 1) / block.x,
+                    (a.height + block.y - 1) / block.y, a.spp * a.spp);
+    pert_kernel<kFamily, kTier, kForm><<<grid, block, 0, s>>>(p, a);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int kFamily, int kForm>
+int pert_launch_tier(int tier, const PertParams& p, const PertArgs& a,
+                     cudaStream_t s) {
   switch (tier) {
     case kF32:
-      pert_kernel<kFamily, kF32><<<grid, block, 0, s>>>(p, a);
-      break;
+      return pert_launch_one<kFamily, kF32, kForm>(p, a, s);
     case kDD:
-      pert_kernel<kFamily, kDD><<<grid, block, 0, s>>>(p, a);
-      break;
+      return pert_launch_one<kFamily, kDD, kForm>(p, a, s);
     case kFX:
-      pert_kernel<kFamily, kFX><<<grid, block, 0, s>>>(p, a);
-      break;
+      return pert_launch_one<kFamily, kFX, kForm>(p, a, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch one family's instance of the given tier and form.
+template <int kFamily>
+int pert_launch(int tier, int form, const PertParams& p, const PertArgs& a,
+                cudaStream_t s) {
+  switch (form) {
+    case kRebase:
+      return pert_launch_tier<kFamily, kRebase>(tier, p, a, s);
+    case kLedger:
+      return pert_launch_tier<kFamily, kLedger>(tier, p, a, s);
+    case kSingle:
+      return pert_launch_tier<kFamily, kSingle>(tier, p, a, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // One per family, each in its own translation unit (built in parallel).
-int pert_launch_mandelbrot(int tier, const PertParams& p, const PertArgs& a,
-                           cudaStream_t s);
-int pert_launch_julia(int tier, const PertParams& p, const PertArgs& a,
-                      cudaStream_t s);
-int pert_launch_ship(int tier, const PertParams& p, const PertArgs& a,
-                     cudaStream_t s);
-int pert_launch_phoenix(int tier, const PertParams& p, const PertArgs& a,
-                        cudaStream_t s);
+int pert_launch_mandelbrot(int tier, int form, const PertParams& p,
+                           const PertArgs& a, cudaStream_t s);
+int pert_launch_julia(int tier, int form, const PertParams& p,
+                      const PertArgs& a, cudaStream_t s);
+int pert_launch_ship(int tier, int form, const PertParams& p,
+                     const PertArgs& a, cudaStream_t s);
+int pert_launch_phoenix(int tier, int form, const PertParams& p,
+                        const PertArgs& a, cudaStream_t s);
 
 #endif  // FR_PERT_KERNEL_CUH_

@@ -4,7 +4,7 @@
 
 #include "pert_kernel.cuh"
 
-int pert_launch_phoenix(int tier, const PertParams& p, const PertArgs& a,
-                        cudaStream_t s) {
-  return pert_launch<kPhoenix>(tier, p, a, s);
+int pert_launch_phoenix(int tier, int form, const PertParams& p,
+                        const PertArgs& a, cudaStream_t s) {
+  return pert_launch<kPhoenix>(tier, form, p, a, s);
 }

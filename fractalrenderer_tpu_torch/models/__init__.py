@@ -3,8 +3,10 @@
 
 ``render(scene, width, height, device=...)`` returns an f32 RGB tensor
 (H, W, 3) in [0, 1] on ``device`` for every family: the four 2D
-escape-time families, the Mandelbulb and the deep zoom (the rebasing
-Mandelbrot path).
+escape-time families, the Mandelbulb and the deep zoom (the Mandelbrot,
+Julia, Burning Ship and Phoenix perturbation paths with stacked spp²
+supersampling, the Burning Ship's ``exact_dust`` tier, and Mandelbrot's
+legacy ``rebasing=False`` pipeline of secondary references).
 """
 from __future__ import annotations
 

@@ -1,25 +1,29 @@
 """Deep-zoom renderer: host HP reference orbit + the perturbation kernel K3
 (the port's counterpart of ``fractalrenderer_tpu/models/deep_zoom.py``).
 
-Pipeline (config #4 of BASELINE.md), the rebasing path of every family:
+Pipeline (config #4 of BASELINE.md):
 1. Compute the reference orbit at the scene center in arbitrary precision
    (deepzoom/orbit.py — native C++ fixed-point or Python bignum): z² + c
    from 0 (Mandelbrot), the Burning Ship and Phoenix recurrences (kind 1
    and 2), or for a deep Julia the drift D = Z − Z0 from the view center
    with the scene's shared c (floatexp-emitted in the ARBITRARY tier).
 2. Run the perturbation kernel (ops/perturbation.py) with per-pixel
-   rebasing: one reference orbit serves the whole image, glitch-free by
-   construction; lanes still wanting a rebase after ``max_passes`` rounds
-   are iterated directly in HP on the host.
-3. Color with the deep-zoom palette set (test_deep_zoom.comp:73-103) on
+   rebasing (every family, the default): one reference orbit serves the
+   whole image, glitch-free by construction.  ``exact_dust`` (Burning
+   Ship) adds the kernel's error ledger on a ≥ 160-bit orbit.
+   ``rebasing=False`` (Mandelbrot) runs the legacy pipeline instead: one
+   pass with the Pauldelbrot glitch flag (f32 float continuation above
+   1e-7), then secondary references centred on flagged pixels.
+3. Lanes still flagged (rebase rounds exhausted, dust suspects, glitches
+   no reference fixed) are iterated directly in HP on the host.
+4. Color with the deep-zoom palette set (test_deep_zoom.comp:73-103) on
    the device; no enhance/ACES post chain.
 
 Supersampling: scene.samples_per_pixel (1/2/4, fractal_state.h:91) renders
 spp² subpixel samples per pixel, stacked into one K3 launch (power-of-two
-spp) and averaged in sample order.
+spp, rebasing) and averaged in sample order.
 
-``rebasing=False``, ``exact_dust`` and mesh sharding raise
-NotImplementedError naming their ROADMAP item.
+Mesh sharding raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -39,9 +43,11 @@ from ..ops.perturbation import perturbation_fields
 from ..scene import Scene
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} not ported yet (ROADMAP Queue 1 item {item})")
+# Suspect threshold of the exact-dust tier: a pixel whose error ledger
+# (log2 absolute error, ops/perturbation track_err) exceeds 2^-8 joins the
+# HP fallback — the JAX package's margin below the smallest count-flipping
+# error it observed (errx >= 3.8 at the 1e-10/400 dust view).
+_DUST_SUSPECT_LOG2 = -8.0
 
 
 def _dd_of(value, fallback: float) -> Tuple[float, float]:
@@ -55,18 +61,6 @@ def _scene_coords(scene: Scene):
     cy = scene.hp_center_y if scene.hp_center_y is not None else scene.center_y
     zoom = scene.hp_zoom if scene.hp_zoom is not None else scene.zoom
     return cx, cy, zoom
-
-
-def _check_ported(rebasing: bool = True, exact_dust: bool = False,
-                  mesh=None) -> None:
-    """Raise NotImplementedError for a deep-zoom option K3 does not run
-    yet, before any orbit is computed."""
-    if exact_dust:
-        raise _unported("the exact-dust tier is", "6(f)")
-    if not rebasing:
-        raise _unported("the non-rebasing deep-zoom pipeline is", "6(g)")
-    if mesh is not None:
-        raise _unported("mesh sharding is", "8")
 
 
 def render_fields(scene: Scene, width: int, height: int,
@@ -101,12 +95,38 @@ def render_fields(scene: Scene, width: int, height: int,
     (c = ref + pixel-delta + (center - ref)).
     ``debug_rounds``: include the per-pixel rounds plane in
     ``info["rounds_plane"]`` (a tensor on ``device``).
-    ``max_references`` and ``glitch_tol`` belong to the non-rebasing
-    pipeline and are accepted for the signature only."""
-    _check_ported(rebasing, exact_dust, mesh)
+    ``exact_dust`` (Burning Ship, rebasing): the kernel's error ledger
+    flags lanes whose carried delta error could flip their count; they
+    join the HP fallback (``info["dust_suspect_pixels"]``).
+    ``rebasing=False`` (Mandelbrot): the legacy pipeline — Pauldelbrot
+    flags (``glitch_tol``) and up to ``max_references`` secondary
+    reference orbits, each centred on the deepest-running flagged pixel.
+    Every option check raises before any orbit is computed."""
     aa_spp = int(aa_spp)
-    if aa_spp > 1 and tuple(offset) != (0.0, 0.0):
-        raise ValueError("aa_spp needs the default offset")
+    julia = bool(getattr(scene, "deep_zoom_julia", False))
+    ship = bool(getattr(scene, "deep_zoom_ship", False))
+    phoenix = bool(getattr(scene, "deep_zoom_phoenix", False))
+    if exact_dust:
+        # the ledger runs in the Ship kernel's rebasing dd / floatexp
+        # tiers; suspects re-render per pixel on the host
+        if not (ship and rebasing):
+            raise ValueError("exact_dust is the Burning Ship dust tier "
+                             "(deep_zoom_ship scenes, rebasing pipeline)")
+        if mesh is not None:
+            raise ValueError("exact_dust does not compose with mesh "
+                             "sharding yet (host fallback is per-pixel)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh sharding is not ported yet (ROADMAP Queue 1 item 8)")
+    if aa_spp > 1 and not (rebasing and tuple(offset) == (0.0, 0.0)):
+        raise ValueError("aa_spp needs the rebasing pipeline and the "
+                         "default offset")
+    if julia + ship + phoenix > 1:
+        raise ValueError("pick ONE of deep_zoom_julia / _ship / _phoenix")
+    if (julia or ship or phoenix) and not rebasing:
+        family = "julia" if julia else ("ship" if ship else "phoenix")
+        raise ValueError(f"deep-zoom {family} requires the rebasing "
+                         "pipeline")
     band_kw = {}
     row_off = 0
     if row_band is not None:
@@ -121,6 +141,11 @@ def render_fields(scene: Scene, width: int, height: int,
     # Bucket the orbit precision UP to the next 64-bit step, so one orbit
     # serves ~19 digits of an interactive descent (never less accurate).
     bits = -(-bits // 64) * 64
+    if exact_dust:
+        # dust counts pin only over a high-precision orbit (96-bit deltas
+        # over a 160-bit table): the table's own recurrence error amplifies
+        # chaotically just like the delta's
+        bits = max(bits + 96, 160)
     max_iter = scene.max_iterations
 
     center_x_dd = _dd_of(cx, 0.0)
@@ -129,14 +154,12 @@ def render_fields(scene: Scene, width: int, height: int,
 
     # Deltas iterate in double-double past 1e-7 (f32's 2^-24 relative
     # error is below pixel scale above it) and in floatexp in ARBITRARY
-    # mode (zoom < 1e-30).
+    # mode (zoom < 1e-30).  The legacy pipeline continues starved lanes in
+    # f32 above 1e-7, where f32 c still resolves the pixel; deeper, they
+    # are flagged and re-referenced.
     scaled = mode.name == "ARBITRARY"
     dd_delta = (zoom_f <= 1e-7) and not scaled
-    julia = bool(getattr(scene, "deep_zoom_julia", False))
-    ship = bool(getattr(scene, "deep_zoom_ship", False))
-    phoenix = bool(getattr(scene, "deep_zoom_phoenix", False))
-    if julia + ship + phoenix > 1:
-        raise ValueError("pick ONE of deep_zoom_julia / _ship / _phoenix")
+    float_cont = zoom_f > 1e-7 and not rebasing
     if ship:
         # the armada dust flips f32-tier counts even at 1e-5 — always dd
         dd_delta = not scaled
@@ -225,27 +248,39 @@ def render_fields(scene: Scene, width: int, height: int,
         orbit, width, band_h, center_x_dd=center_x_dd,
         center_y_dd=center_y_dd, zoom_dd=zoom_dd, max_iter=max_iter,
         bailout=scene.bailout, glitch_tol=glitch_tol, offset=offset,
-        float_continuation=False, series=series, dd_delta=dd_delta,
-        scaled_delta=scaled, zoom_frac=str(zoom), rebase=True,
+        float_continuation=float_cont, series=series, dd_delta=dd_delta,
+        scaled_delta=scaled, zoom_frac=str(zoom), rebase=rebasing,
         max_passes=max_passes, julia=julia, ship=ship, phoenix=phoenix,
         phoenix_p=float(scene.phoenix_p), phoenix_r=float(scene.phoenix_r),
         julia_z0=((float(Fraction(str(orbit_center[0]))),
                    float(Fraction(str(orbit_center[1])))) if julia else None),
-        orbit_exp=orbit_exp, aa_spp=aa_spp, device=device, **band_kw,
-        **shift_kw)
-    want = f["want"] > 0.5
-    n_want = int(want.sum())
+        orbit_exp=orbit_exp, aa_spp=aa_spp, track_err=exact_dust,
+        device=device, **band_kw, **shift_kw)
+    # rebasing: lanes still wanting a round after max_passes (a
+    # pathological short-orbit case); legacy: the Pauldelbrot and starved
+    # flags
+    flagged = f["want" if rebasing else "glitch"] > 0.5
+    dust_suspect = 0
+    if exact_dust:
+        # precision-starved dust lanes join the HP-fallback set: the
+        # per-pixel orbit below pins their counts exactly
+        suspect = f["errx"] > _DUST_SUSPECT_LOG2
+        dust_suspect = int(suspect.sum())
+        flagged = flagged | suspect
+    n_flagged = int(flagged.sum())
     info = {"precision_mode": mode.name, "precision_bits": bits,
             "dd_delta": dd_delta, "scaled_delta": scaled,
             "deep_zoom_julia": julia, "deep_zoom_ship": ship,
-            "deep_zoom_phoenix": phoenix, "algorithm": "rebase",
-            "rebase_passes": int(f["passes"]),
+            "deep_zoom_phoenix": phoenix,
+            "algorithm": "rebase" if rebasing else "secondary_refs",
+            "rebase_passes": int(f["passes"]) if rebasing else 0,
             "reference_iterations": len(orbit), "references_used": 1,
             "series_skip": series.n_skip if series else 0,
-            "dust_suspect_pixels": 0, "glitched_pixels_initial": n_want}
-    if debug_rounds:
+            "dust_suspect_pixels": dust_suspect,
+            "glitched_pixels_initial": n_flagged}
+    if debug_rounds and rebasing:
         info["rounds_plane"] = f["rounds_plane"]
-    if keep_device and n_want == 0:
+    if keep_device and rebasing and n_flagged == 0:
         # the render is complete: the field planes stay on the device for
         # the caller to colour there
         info.update(fallback_pixels=0, glitched_pixels_remaining=0,
@@ -255,19 +290,70 @@ def render_fields(scene: Scene, width: int, height: int,
     n = f["n"].cpu().numpy()
     zx = f["zx"].cpu().numpy()
     zy = f["zy"].cpu().numpy()
-    glitch = want.cpu().numpy()
+    glitch = flagged.cpu().numpy()
+
+    cx_hp = HPFloat(str(cx), hp_bits)
+    cy_hp = HPFloat(str(cy), hp_bits)
+    # exact-rational pixel mapping, identical to the kernel's
+    # dc = step * (p - size/2) with step = zoom*4/height^2, so secondary
+    # references and the HP fallback sample the c the kernel does
+    step_fr = Fraction(str(zoom)) * 4 / (height * height)
+
+    def pixel_c(py, px, off=None):
+        # py is band-local when row_band is set; the mapping is global
+        off = offset if off is None else off
+        dcx = step_fr * (Fraction(px + off[0]) - Fraction(width, 2))
+        dcy = step_fr * (Fraction(py + row_off + off[1])
+                         - Fraction(height, 2))
+        return (cx_hp + HPFloat(dcx, hp_bits), cy_hp + HPFloat(dcy, hp_bits))
+
+    # ---- secondary references for glitched pixels (legacy pipeline) ----
+    refs = 1
+    prev_glitched = None
+    while not rebasing and glitch.any() and refs < max_references:
+        remaining = int(glitch.sum())
+        if prev_glitched is not None and remaining >= prev_glitched:
+            break  # no progress: leave the rest to the HP fallback
+        prev_glitched = remaining
+        ys, xs = np.nonzero(glitch)
+        # probe a spread of flagged pixels and adopt the one whose orbit
+        # runs deepest — ideally an interior pixel, whose orbit resolves
+        # every starved pixel at once
+        best = None
+        for k in np.linspace(0, len(ys) - 1, min(12, len(ys))).astype(int):
+            cxy = pixel_c(int(ys[k]), int(xs[k]))
+            o = cached_orbit(cxy[0], cxy[1])
+            if best is None or len(o) > len(best[0]):
+                best = (o, cxy)
+            if len(o) >= max_iter + 1:
+                break  # a non-escaping reference
+        orbit2, (ref_cx, ref_cy) = best
+        # the delta against the new reference needs shift = center - ref
+        sx_str = (cx_hp - ref_cx).to_string(digs)
+        sy_str = (cy_hp - ref_cy).to_string(digs)
+        f2 = perturbation_fields(
+            orbit2, width, band_h,
+            center_x_dd=dd_from_string(ref_cx.to_string(40)),
+            center_y_dd=dd_from_string(ref_cy.to_string(40)),
+            zoom_dd=zoom_dd, max_iter=max_iter, bailout=scene.bailout,
+            glitch_tol=glitch_tol, ref_shift_x=dd_from_string(sx_str),
+            ref_shift_y=dd_from_string(sy_str), offset=offset,
+            float_continuation=float_cont, dd_delta=dd_delta,
+            scaled_delta=scaled, zoom_frac=str(zoom),
+            ref_shift_x_frac=sx_str, ref_shift_y_frac=sy_str, rebase=False,
+            device=device, **band_kw)
+        fix = glitch & ~(f2["glitch"] > 0.5).cpu().numpy()
+        n[fix] = f2["n"].cpu().numpy()[fix]
+        zx[fix] = f2["zx"].cpu().numpy()[fix]
+        zy[fix] = f2["zy"].cpu().numpy()[fix]
+        glitch = glitch & ~fix
+        refs += 1
 
     # ---- guaranteed fallback: direct HP iteration of survivors ---------
-    # Lanes still wanting a rebase after max_passes rounds (a pathological
-    # short-orbit case) each get their own exact orbit from the HP engine —
+    # Each flagged lane left gets its own exact orbit from the HP engine —
     # the pixel IS the reference, so by construction it cannot glitch.
-    info["fallback_pixels"] = n_want
+    info["fallback_pixels"] = int(glitch.sum())
     if glitch.any():
-        cx_hp = HPFloat(str(cx), hp_bits)
-        cy_hp = HPFloat(str(cy), hp_bits)
-        # exact-rational pixel mapping, identical to the kernel's
-        # dc = step * (p - size/2) with step = zoom*4/height^2
-        step_fr = Fraction(str(zoom)) * 4 / (height * height)
         bail = max(2.0, float(scene.bailout))
         bail2 = bail * bail
         if n.ndim == 3:  # stacked AA: per-sample subpixel offsets
@@ -279,12 +365,7 @@ def render_fields(scene: Scene, width: int, height: int,
         for smp, y, x in lanes:
             off = offset if smp is None else \
                 ((smp % aa_spp) / aa_spp, (smp // aa_spp) / aa_spp)
-            # y is band-local when row_band is set; the mapping is global
-            dcx = step_fr * (Fraction(x + off[0]) - Fraction(width, 2))
-            dcy = step_fr * (Fraction(y + row_off + off[1])
-                             - Fraction(height, 2))
-            pcx, pcy = cx_hp + HPFloat(dcx, hp_bits), \
-                cy_hp + HPFloat(dcy, hp_bits)
+            pcx, pcy = pixel_c(y, x, off)
             if julia:
                 o = orbit_mod.compute_orbit(
                     jc[0], jc[1], hp_bits, max_iter + 1,
@@ -306,6 +387,7 @@ def render_fields(scene: Scene, width: int, height: int,
             zx[at] = zfx
             zy[at] = zfy
         glitch = np.zeros_like(glitch)
+    info["references_used"] = refs
     info["glitched_pixels_remaining"] = int(glitch.sum())
     return n, zx, zy, glitch, info
 

@@ -113,10 +113,10 @@ def load_library() -> ctypes.CDLL:
     #              stream)
     lib.fr_dd_escape.argtypes = [vp] + [ci] * 4 + [vp] * 4
     lib.fr_dd_escape.restype = ci
-    # fr_perturbation(family, tier, params, 6 orbit streams, width,
-    #                 height, map_height, max_passes, spp, n, zx, zy, want,
-    #                 rounds, stream)
-    lib.fr_perturbation.argtypes = [ci, ci] + [vp] * 7 + [ci] * 5 + [vp] * 6
+    # fr_perturbation(family, tier, form, params, 6 orbit streams, width,
+    #                 height, map_height, max_passes, spp, float_cont, n,
+    #                 zx, zy, glitch, want, rounds, errx, stream)
+    lib.fr_perturbation.argtypes = [ci] * 3 + [vp] * 7 + [ci] * 6 + [vp] * 8
     lib.fr_perturbation.restype = ci
     # fr_bulb_cone(power, params, coarse_w, coarse_h, width, map_height,
     #              t0, stream)

@@ -2,7 +2,9 @@
 ``fractalrenderer_tpu/ops/perturbation.py``): the Mandelbrot, Julia,
 Burning Ship and Phoenix families with per-pixel (Zhuoran) rebasing, the
 series-skip start (Mandelbrot) and stacked spp² supersampling, in the three
-delta tiers of the rebasing pipeline.
+delta tiers of the rebasing pipeline; the Burning Ship's exact-dust error
+ledger; and the single-pass non-rebasing form of the legacy pipeline
+(Mandelbrot).
 
 Every pixel iterates its delta δ against one reference orbit Z
 (``deepzoom/orbit.py``), in f32 (tier ``"f32"``), in double-double (``"dd"``,
@@ -27,6 +29,21 @@ the same, and the ``rounds`` plane is per pixel here (its max is the TPU's
 subpixel segments of the frame (or of a row band) in one launch, each
 mapped exactly as a sequential render at its offset.
 
+Three forms of the launch (``FORMS``):
+
+- ``"rebase"``: the rebasing loop above;
+- ``"ledger"`` (``track_err``, Burning Ship dd and floatexp tiers): the same,
+  plus a per-lane log2 bound ``errx`` on the carried delta's absolute
+  error, errx ← max(errx + log2|2z|, log2|δ'| − 48) each step, carried
+  through rebases (the model re-renders lanes with errx > −8 in HP);
+- ``"single"`` (``rebase=False``, Mandelbrot): one pass to min(limit, orbit
+  end) without rebasing; a lane is flagged (``glitch``) where |z|² <
+  glitch_tol·|Z|² (Pauldelbrot) or where it outlives the orbit, unless
+  ``float_continuation`` (f32 tier) iterates it on as z ← z² + c in f32.
+  The TPU kernel advances its tile's shared orbit index in whole chunks of
+  ``CHUNK``, so a continuing lane resumes at n0 + CHUNK·⌈(end − n0)/CHUNK⌉;
+  the port follows that index.
+
 - ``pack_pert_operands`` builds the 41-float parameter vector, the orbit
   streams and the launch geometry exactly as the JAX
   ``perturbation_fields`` builds its operands;
@@ -38,8 +55,8 @@ mapped exactly as a sequential render at its offset.
   plain version for a CPU device only; for a CUDA device it launches the
   kernel or raises.
 
-The error ledger and the non-rebasing path raise NotImplementedError naming
-their ROADMAP item.
+The multi-pass rebase form (``rebase_inkernel=False``), the JAX package's
+oracle, is not ported and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -75,16 +92,13 @@ E_ZERO = -(1 << 24)
 
 TIERS = ("f32", "dd", "fx")  # the kernel's tier ids, in order
 FAMILIES = ("mandelbrot", "julia", "ship", "phoenix")  # its family ids
+FORMS = ("rebase", "ledger", "single")  # its form ids
+CHUNK = 16  # the JAX kernel's orbit-index chunk (perturbation_fields chunk)
 
 _EARLY_EXIT_EVERY = 16  # plain path: test for live lanes this often
 _MAX_HEIGHT = 65535 * 8  # CUDA grid.y limit for the (32, 8) blocks
 
 DD = Tuple[float, float]
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} not ported yet (ROADMAP Queue 1 item {item})")
 
 
 def family_of(julia: bool = False, ship: bool = False,
@@ -148,22 +162,44 @@ def pack_pert_operands(orbit: np.ndarray, width: int, height: int, *,
                        ship: bool = False, phoenix: bool = False,
                        phoenix_p: float = 0.0, phoenix_r: float = 0.0,
                        aa_spp: int = 1,
-                       orbit_exp: Optional[np.ndarray] = None
+                       orbit_exp: Optional[np.ndarray] = None,
+                       rebase: bool = True,
+                       float_continuation: bool = False,
+                       track_err: bool = False
                        ) -> Tuple[np.ndarray, Tuple[np.ndarray, ...], dict]:
     """The parameters (NQ,) f32, the orbit streams and the launch geometry
     of one K3 launch, packed as the JAX ``perturbation_fields`` packs its
-    operands for the rebasing path (perturbation.py:1444-1808): the exact
-    rational step zoom·4/map_h² (map_h the logical image height, also under
-    stacked AA), the 2^s pre-scale of the floatexp tier, the series
-    coefficients in either form, the Julia start Z0 and the Phoenix
-    coefficients.  Streams: re and im of the orbit (or Julia drift) as f32,
-    plus the lo parts of the f64 values (dd and floatexp tiers), plus the
-    drift exponents (Julia floatexp), each ``cap`` long and zero (exponent
-    E_ZERO) past the orbit.  The geometry is a dict of the launch's
-    ``tier``, ``family``, ``width``, ``height`` (the band's rows),
-    ``map_height`` (the full image's) and ``spp``."""
+    operands (perturbation.py:1444-1808): the exact rational step
+    zoom·4/map_h² (map_h the logical image height, also under stacked AA),
+    the 2^s pre-scale of the floatexp tier, the series coefficients in
+    either form, the Julia start Z0 and the Phoenix coefficients.  Streams:
+    re and im of the orbit (or Julia drift) as f32, plus the lo parts of
+    the f64 values (dd and floatexp tiers), plus the drift exponents (Julia
+    floatexp), each ``cap`` long and zero (exponent E_ZERO) past the orbit;
+    the single pass's |Z|² table is not shipped (the kernel squares the f32
+    streams, the same bits).  The geometry is a dict of the launch's
+    ``tier``, ``family``, ``form``, ``float_cont``, ``width``, ``height``
+    (the band's rows), ``map_height`` (the full image's) and ``spp``.
+    Raises ValueError where the JAX package asserts: the families and
+    stacked AA need ``rebase``; float continuation is the single pass's f32
+    tier; ``track_err`` is the Burning Ship dd / floatexp rebasing
+    ledger."""
     family = family_of(julia, ship, phoenix)
     aa_spp = int(aa_spp)
+    if family != "mandelbrot" and (float_continuation or not rebase):
+        raise ValueError("the non-Mandelbrot families require the rebasing "
+                         "pipeline (rebase=True, float_continuation=False)")
+    if aa_spp > 1 and not rebase:
+        raise ValueError("aa_spp > 1 requires the rebasing pipeline")
+    if float_continuation:
+        if rebase:
+            raise ValueError("rebasing supersedes float continuation")
+        if scaled_delta or dd_delta:
+            raise ValueError("float continuation is the f32 tier's (it is "
+                             "meaningless at dd and scaled-delta depths)")
+    if track_err and not (ship and (dd_delta or scaled_delta) and rebase):
+        raise ValueError("track_err is the ship dd/scaled-tier error ledger "
+                         "(rebase in-kernel)")
     if scaled_delta:
         if dd_delta:
             raise ValueError("scaled_delta supersedes dd_delta")
@@ -336,7 +372,9 @@ def pack_pert_operands(orbit: np.ndarray, width: int, height: int, *,
     else:
         params[Q_ROW0] = row0
     tier = "fx" if scaled_delta else ("dd" if dd_delta else "f32")
-    launch = dict(tier=tier, family=family, width=int(width),
+    form = "single" if not rebase else ("ledger" if track_err else "rebase")
+    launch = dict(tier=tier, family=family, form=form,
+                  float_cont=bool(float_continuation), width=int(width),
                   height=int(height), map_height=map_h, spp=aa_spp)
     return params, streams, launch
 
@@ -346,13 +384,25 @@ def pack_pert_operands(orbit: np.ndarray, width: int, height: int, *,
 # ---------------------------------------------------------------------------
 
 def _check_launch(params: np.ndarray, streams: Sequence, tier: str,
-                  family: str, width: int, height: int, map_height: int,
-                  max_passes: int, spp: int) -> Tuple[int, int, int, int]:
+                  family: str, form: str, float_cont: bool, width: int,
+                  height: int, map_height: int, max_passes: int,
+                  spp: int) -> Tuple[int, int, int, int]:
     """Validate a launch; returns (limit, ref_len, n0, row0)."""
     if tier not in TIERS:
         raise ValueError(f"tier must be one of {TIERS}, got {tier!r}")
     if family not in FAMILIES:
         raise ValueError(f"family must be one of {FAMILIES}, got {family!r}")
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
+    if form == "ledger" and (family, tier) not in (("ship", "dd"),
+                                                   ("ship", "fx")):
+        raise ValueError("the error ledger is the Burning Ship dd and "
+                         f"floatexp tiers', not {family} {tier}")
+    if form == "single" and (family != "mandelbrot" or spp != 1):
+        raise ValueError("the single pass is Mandelbrot's, one sample")
+    if float_cont and (form != "single" or tier != "f32"):
+        raise ValueError("float continuation is the single pass's f32 "
+                         "tier's")
     if params.dtype != np.float32 or params.shape != (NQ,):
         raise ValueError(f"params must be float32 of shape ({NQ},), got "
                          f"{params.dtype} {params.shape}")
@@ -550,18 +600,22 @@ def _abs_dd(v, pos):
 
 def perturbation_fields_plain(params: np.ndarray, streams: Sequence, *,
                               tier: str, family: str = "mandelbrot",
+                              form: str = "rebase", float_cont: bool = False,
                               width: int, height: int, map_height: int,
                               max_passes: int, spp: int = 1,
                               device) -> Tuple[torch.Tensor, ...]:
     """K3 as plain PyTorch ops on ``device``: returns (n, zx, zy, glitch,
-    want, rounds), each (height, width), or (spp², height, width) for a
-    stacked launch.  The CPU path of perturbation_fields, and the
-    comparator of the CUDA kernel on the card.  Each lane keeps its own
-    orbit index (a gather per orbit read) and restarts at index 0 at the
-    step after it raises ``want``, as a kernel thread does."""
+    want, rounds) for the rebasing form, the same and errx for the ledger,
+    and (n, zx, zy, glitch) for the single pass, each (height, width), or
+    (spp², height, width) for a stacked launch.  The CPU path of
+    perturbation_fields, and the comparator of the CUDA kernel on the
+    card.  Each lane keeps its own orbit index (a gather per orbit read)
+    and restarts at index 0 at the step after it raises ``want``, as a
+    kernel thread does."""
     limit, ref_len, n0, row0 = _check_launch(params, streams, tier, family,
-                                             width, height, map_height,
-                                             max_passes, spp)
+                                             form, float_cont, width, height,
+                                             map_height, max_passes, spp)
+    single, ledger = form == "single", form == "ledger"
     dev = torch.device(device)
     f32, i32 = torch.float32, torch.int32
     nseg = spp * spp
@@ -571,7 +625,8 @@ def perturbation_fields_plain(params: np.ndarray, streams: Sequence, *,
     ore, oim = st[0], st[1]
     orl, oil = (st[2], st[3]) if len(st) >= 4 else (None, None)
     last = ore.shape[0] - 1
-    pert_end = ref_len - 1
+    # the single pass stops at the budget too
+    pert_end = min(limit, ref_len - 1) if single else ref_len - 1
     limit_f, bail2 = p[Q_LIMIT], p[Q_BAIL2]
     s_exp = int(params[Q_SEXP])
     julia, ship, phoenix = (family == "julia", family == "ship",
@@ -662,7 +717,24 @@ def perturbation_fields_plain(params: np.ndarray, streams: Sequence, *,
     nf = torch.full(shape, float(n0 - 1), dtype=f32, device=dev)
     i = torch.full(shape, n0, dtype=torch.int64, device=dev)
     want = torch.zeros(shape, dtype=torch.bool, device=dev)
+    never = want  # the single pass's rebase test
+    glitch = torch.zeros(shape, dtype=torch.bool, device=dev)
     rounds = torch.ones(shape, dtype=i32, device=dev)
+    errx = None
+    if ledger:
+        # starts at the dd compose floor of the initial delta, 2^-48
+        # relative; log2(f32(1e-76) = 0) is -inf, as on the TPU
+        tiny = torch.tensor(1e-38, dtype=f32, device=dev)
+        fzero = torch.zeros((), dtype=f32, device=dev)
+        dmag0 = 0.5 * torch.log2(torch.maximum(
+            dzr[0] * dzr[0] + dzi[0] * dzi[0], fzero))
+        errx = (torch.where(ex == E_ZERO, -200.0, (dmag0 + ex.to(f32)) - 48.0)
+                if tier == "fx" else dmag0 - 48.0)
+
+    def wants(cond):
+        """The rebase test of the step's alive lanes (never in the single
+        pass)."""
+        return never if single else alive & cond & (nf < limit_f)
 
     step_no = 0
     while True:
@@ -713,7 +785,7 @@ def perturbation_fields_plain(params: np.ndarray, streams: Sequence, *,
                 nzfr, nzfi = relr, reli
             zm2 = relr * relr + reli * reli
             dm2 = ndr * ndr + ndi * ndi
-            want_now = alive & ((zm2 < dm2) | ends) & (nf < limit_f)
+            want_now = wants((zm2 < dm2) | ends)
             ndr = torch.where(want_now, relr, ndr)
             ndi = torch.where(want_now, reli, ndi)
             if phoenix:
@@ -740,10 +812,20 @@ def perturbation_fields_plain(params: np.ndarray, streams: Sequence, *,
                     nzfr, nzfi = rel_r, rel_i
                 zm2 = rel_r * rel_r + rel_i * rel_i
                 dm2 = ndr[0] * ndr[0] + ndi[0] * ndi[0]
-                want_now = alive & ((zm2 < dm2) | ends) & (nf < limit_f)
+                want_now = wants((zm2 < dm2) | ends)
                 # rebase: d <- Z_{i+1} + d (Julia: D_{i+1} + d), in dd
                 ndr = _select(want_now, dd.dd_add((zr1, zrl1), ndr), ndr)
                 ndi = _select(want_now, dd.dd_add((zi1, zil1), ndi), ndi)
+                if ledger:
+                    # the error grows by |2z| (z from the hi parts before
+                    # the step), floored at 2^-48 of the new delta
+                    fxr, fxi = zr + dzr[0], zi + dzi[0]
+                    amp = 0.5 * torch.log2(torch.maximum(
+                        4.0 * (fxr * fxr + fxi * fxi), tiny))
+                    flo = 0.5 * torch.log2(torch.maximum(
+                        ndr[0] * ndr[0] + ndi[0] * ndi[0], fzero)) - 48.0
+                    errx = torch.where(alive, torch.maximum(errx + amp, flo),
+                                       errx)
                 if phoenix:
                     pzr = _select(alive, _select(
                         want_now, dd.dd_add(X, dzr), dzr), pzr)
@@ -765,9 +847,8 @@ def perturbation_fields_plain(params: np.ndarray, streams: Sequence, *,
                     rel_c = _cfe_from_rr(rel_r, rel_i)
                     nzfr = z0x[0] + (z0x[1] + _rfe_to_f32(rel_r))
                     nzfi = z0y[0] + (z0y[1] + _rfe_to_f32(rel_i))
-                    want_now = alive & (
-                        _cfe_mag2_lt(rel_c, (nmr, nmi, nex)) | ends) \
-                        & (nf < limit_f)
+                    want_now = wants(
+                        _cfe_mag2_lt(rel_c, (nmr, nmi, nex)) | ends)
                     ndr = _select(want_now, rel_c[0], nmr)
                     ndi = _select(want_now, rel_c[1], nmi)
                     new_ex = torch.where(want_now, rel_c[2], nex)
@@ -787,12 +868,23 @@ def perturbation_fields_plain(params: np.ndarray, streams: Sequence, *,
                     zm2 = nzfr * nzfr + nzfi * nzfi
                     dm2 = (nmr[0] * nmr[0] + nmi[0] * nmi[0]) \
                         * _pow2(nex + nex)
-                    want_now = alive & ((zm2 < dm2) | ends) & (nf < limit_f)
+                    want_now = wants((zm2 < dm2) | ends)
                     ndr = _select(want_now,
                                   dd.dd_add((zr1, zrl1), _scl(nmr, dfac)), nmr)
                     ndi = _select(want_now,
                                   dd.dd_add((zi1, zil1), _scl(nmi, dfac)), nmi)
                     new_ex = torch.where(want_now, 0, nex)
+                    if ledger:
+                        # |2z| from the full z before the step; the floor
+                        # from the new (rebased) delta, none for a zero
+                        amp = 0.5 * torch.log2(torch.maximum(4.0 * mag2,
+                                                             tiny))
+                        dmag = 0.5 * torch.log2(torch.maximum(
+                            ndr[0] * ndr[0] + ndi[0] * ndi[0], fzero))
+                        flo = torch.where(new_ex == E_ZERO, -1e9,
+                                          (dmag + new_ex.to(f32)) - 48.0)
+                        errx = torch.where(
+                            alive, torch.maximum(errx + amp, flo), errx)
                     if phoenix:
                         # delta_prev advances to the old delta; a rebased
                         # lane gets the absolute z_i (dd, exponent 0)
@@ -807,15 +899,46 @@ def perturbation_fields_plain(params: np.ndarray, streams: Sequence, *,
             dzi = _select(alive, ndi, dzi)
             if new_ex is not None:
                 ex = torch.where(alive, new_ex, ex)
+        if single:
+            # the Pauldelbrot flag against |Z_{i+1}|^2 of the f32 streams
+            glitch = glitch | (alive & (
+                nzfr * nzfr + nzfi * nzfi
+                < p[Q_GLITCH_TOL] * (zr1 * zr1 + zi1 * zi1)))
         zfr = torch.where(alive, nzfr, zfr)
         zfi = torch.where(alive, nzfi, zfi)
         want = want | want_now
         i = i + alive.to(torch.int64)
 
+    interior = nf >= limit_f  # the budget ran out
+    if single:
+        # a lane alive at the orbit's end: flagged for a secondary
+        # reference, or (float continuation) on in f32 from the chunk grid
+        # of the JAX kernel's shared orbit index
+        if float_cont:
+            c_r = dd.dd_to_float(dd.dd_add((p[Q_CXH], p[Q_CXL]), dcx))
+            c_i = dd.dd_to_float(dd.dd_add((p[Q_CYH], p[Q_CYL]), dcy))
+            i1 = n0 + CHUNK * -(-max(pert_end - n0, 0) // CHUNK)
+            for k in range(i1, limit):
+                alive = zfr * zfr + zfi * zfi <= bail2
+                if (k - i1) % _EARLY_EXIT_EVERY == 0 \
+                        and not bool(alive.any()):
+                    break
+                nf = nf + alive.to(f32)
+                x = zfr * zfr - zfi * zfi + c_r
+                y = (2.0 * zfr) * zfi + c_i
+                zfr = torch.where(alive, x, zfr)
+                zfi = torch.where(alive, y, zfi)
+        elif pert_end < limit:
+            glitch = glitch | (zfr * zfr + zfi * zfi <= bail2)
+        interior = zfr * zfr + zfi * zfi <= bail2
+
     lim = torch.tensor(limit, dtype=i32, device=dev)
-    n = torch.where(nf >= limit_f, lim, torch.clamp_min(nf, 0.0).to(i32))
-    outs = (n, zfr, zfi, torch.zeros(shape, dtype=f32, device=dev),
-            want.to(f32), rounds.to(f32))
+    n = torch.where(interior, lim, torch.clamp_min(nf, 0.0).to(i32))
+    if single:
+        outs = (n, zfr, zfi, glitch.to(f32))
+    else:
+        outs = (n, zfr, zfi, torch.zeros(shape, dtype=f32, device=dev),
+                want.to(f32), rounds.to(f32)) + ((errx,) if ledger else ())
     if spp > 1:
         outs = tuple(o.view(nseg, height, width) for o in outs)
     return outs
@@ -928,6 +1051,7 @@ def _fx_aligned_step(mr, mi, ex, X, Y, dcx, dcy, s_exp, prev, pp, rr,
 
 def perturbation_fields_cuda(params: np.ndarray, streams: Sequence, *,
                              tier: str, family: str = "mandelbrot",
+                             form: str = "rebase", float_cont: bool = False,
                              width: int, height: int, map_height: int,
                              max_passes: int, spp: int = 1,
                              device) -> Tuple[torch.Tensor, ...]:
@@ -938,29 +1062,40 @@ def perturbation_fields_cuda(params: np.ndarray, streams: Sequence, *,
     ``perturbation_fields_cuda.launches``."""
     from . import _cuda
 
-    _check_launch(params, streams, tier, family, width, height, map_height,
-                  max_passes, spp)
+    _check_launch(params, streams, tier, family, form, float_cont, width,
+                  height, map_height, max_passes, spp)
     dev = _cuda.cuda_device(device)
     params = np.ascontiguousarray(params)
     lib = _cuda.load_library()
     nseg = spp * spp
+    single = form == "single"
     with torch.cuda.device(dev):
         orbit = [s.contiguous() for s in _device_streams(streams, dev)]
         orbit += [orbit[0]] * (6 - len(orbit))  # the unread streams
         shape = (nseg * height, width)
         n = torch.empty(shape, dtype=torch.int32, device=dev)
-        planes = [torch.empty(shape, dtype=torch.float32, device=dev)
-                  for _ in range(4)]  # zx, zy, want, rounds
-        glitch = torch.zeros(shape, dtype=torch.float32, device=dev)
+
+        def plane(written=True):
+            return (torch.empty if written else torch.zeros)(
+                shape, dtype=torch.float32, device=dev)
+
+        # the rebasing forms leave glitch at 0; the single pass writes no
+        # want or rounds, only the ledger writes errx
+        zx, zy, glitch = plane(), plane(), plane(single)
+        want, rounds = (None, None) if single else (plane(), plane())
+        errx = plane() if form == "ledger" else None
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fr_perturbation(
-            FAMILIES.index(family), TIERS.index(tier), params.ctypes.data,
-            *(o.data_ptr() for o in orbit), width, height, map_height,
-            max_passes, spp, n.data_ptr(), *(q.data_ptr() for q in planes),
-            stream)
+            FAMILIES.index(family), TIERS.index(tier), FORMS.index(form),
+            params.ctypes.data, *(o.data_ptr() for o in orbit), width,
+            height, map_height, max_passes, spp, int(float_cont),
+            *(None if q is None else q.data_ptr()
+              for q in (n, zx, zy, glitch, want, rounds, errx)), stream)
     _cuda.check(lib, rc, "perturbation")
     perturbation_fields_cuda.launches += 1
-    outs = (n, planes[0], planes[1], glitch, planes[2], planes[3])
+    outs = ((n, zx, zy, glitch) if single
+            else (n, zx, zy, glitch, want, rounds)
+            + ((errx,) if errx is not None else ()))
     if spp > 1:
         outs = tuple(o.view(nseg, height, width) for o in outs)
     return outs
@@ -991,24 +1126,17 @@ def perturbation_fields(orbit: np.ndarray, width: int, height: int, *,
                         orbit_exp: Optional[np.ndarray] = None,
                         track_err: bool = False,
                         device="cuda") -> Dict[str, torch.Tensor]:
-    """Perturbation fields {"n", "zx", "zy", "glitch", "want", "passes",
-    "rounds_plane"} on ``device`` against a precomputed reference orbit
-    ((L, 2) float64 from deepzoom.orbit; Julia: the drift table, with
+    """Perturbation fields on ``device`` against a precomputed reference
+    orbit ((L, 2) float64 from deepzoom.orbit; Julia: the drift table, with
     ``orbit_exp`` its exponents in the floatexp tier), with the JAX
-    signature.  Runs the rebasing path (``rebase=True,
-    float_continuation=False``) of every family; with ``aa_spp`` > 1 the
-    planes are (aa_spp², height, width).  ``passes`` is the most rounds any
-    pixel took, ``rounds_plane`` the per-pixel rounds."""
-    family = family_of(julia, ship, phoenix)
-    if track_err:
-        raise _unported("the exact-dust error ledger is", "6(f)")
-    if family != "mandelbrot" and (float_continuation or not rebase):
-        raise ValueError("the non-Mandelbrot families require the rebasing "
-                         "pipeline (rebase=True, float_continuation=False)")
-    if not rebase or float_continuation:
-        raise _unported("the non-rebasing path (Pauldelbrot flag, secondary "
-                        "references, float continuation) is", "6(g)")
-    if not rebase_inkernel:
+    signature.  The rebasing path (``rebase=True, float_continuation=
+    False``) of every family returns {"n", "zx", "zy", "glitch", "want",
+    "passes", "rounds_plane"}, and "errx" with ``track_err`` (Burning Ship
+    dd / floatexp); with ``aa_spp`` > 1 the planes are (aa_spp², height,
+    width).  ``passes`` is the most rounds any pixel took, ``rounds_plane``
+    the per-pixel rounds.  ``rebase=False`` (Mandelbrot) runs the single
+    pass and returns {"n", "zx", "zy", "glitch"}."""
+    if rebase and not rebase_inkernel:
         raise NotImplementedError("the multi-pass rebase form is the JAX "
                                   "package's oracle and is not ported")
     params, streams, launch = pack_pert_operands(
@@ -1021,7 +1149,8 @@ def perturbation_fields(orbit: np.ndarray, width: int, height: int, *,
         ref_shift_x_frac=ref_shift_x_frac, ref_shift_y_frac=ref_shift_y_frac,
         julia=julia, julia_z0=julia_z0, ship=ship, phoenix=phoenix,
         phoenix_p=phoenix_p, phoenix_r=phoenix_r, aa_spp=aa_spp,
-        orbit_exp=orbit_exp)
+        orbit_exp=orbit_exp, rebase=rebase,
+        float_continuation=float_continuation, track_err=track_err)
     dev = torch.device(device)
     if dev.type == "cpu":
         impl = perturbation_fields_plain
@@ -1029,7 +1158,12 @@ def perturbation_fields(orbit: np.ndarray, width: int, height: int, *,
         impl = perturbation_fields_cuda
     else:
         raise ValueError(f"unsupported device {dev}")
-    n, zx, zy, glitch, want, rounds = impl(
-        params, streams, max_passes=int(max_passes), device=dev, **launch)
-    return {"n": n, "zx": zx, "zy": zy, "glitch": glitch, "want": want,
-            "passes": rounds.max().to(torch.int32), "rounds_plane": rounds}
+    outs = impl(params, streams, max_passes=int(max_passes), device=dev,
+                **launch)
+    res = dict(zip(("n", "zx", "zy", "glitch"), outs))
+    if rebase:
+        res.update(want=outs[4], passes=outs[5].max().to(torch.int32),
+                   rounds_plane=outs[5])
+        if track_err:
+            res["errx"] = outs[6]
+    return res

@@ -8,7 +8,10 @@ has NaN); the Burning Ship stripe (a sum
 of sinf terms) within rtol 1e-3, atol 2e-4·iters (the JAX contract,
 test_golden_vs_kernel.py:98-100); fused colour within 1e-5; K3 bit-equal
 on n, zx, zy, want and rounds in each family and delta tier and in stacked
-launches (each segment also equal to a launch at its offset); K4a's start
+launches (each segment also equal to a launch at its offset), on errx too
+in the Burning Ship's error-ledger instances, and on n, zx, zy and glitch
+in the single-pass Mandelbrot instances (with and without f32 float
+continuation, on a band and against a shifted reference); K4a's start
 depths and K4b's planes (hit, t, d, esc, normals, AO, msteps, work)
 bit-equal in the integer-power and trig instances.
 
@@ -353,6 +356,90 @@ def test_stacked_perturbation_kernel_equals_plain(dev, family, tier, spp,
         for name, g, q in zip(("n", "zx", "zy", "glitch", "want", "rounds"),
                               got, seq, strict=True):
             assert torch.equal(g[s], q), f"segment {s}: {name} differs"
+
+
+_LEDGER_NAMES = ("n", "zx", "zy", "glitch", "want", "rounds", "errx")
+
+
+@pytest.mark.parametrize("tier,spp,band", [
+    ("dd", 1, None), ("fx", 1, None), ("dd", 2, None), ("fx", 1, (9, 20)),
+], ids=str)
+def test_ledger_kernel_equals_plain(dev, tier, spp, band):
+    # the exact-dust instances: every plane, the error ledger included,
+    # and one launch counted per call
+    from fractalrenderer_tpu_torch.ops import perturbation
+
+    kw = (dict(row0=float(band[0]), map_height=band[0] + band[1] + 7)
+          if band else {})
+    height = band[1] if band else 24
+    params, streams, launch = _family_operands(
+        "ship", tier, 40, height, track_err=True,
+        **(dict(aa_spp=spp) if spp > 1 else {}), **kw)
+    assert launch["form"] == "ledger"
+    before = perturbation.perturbation_fields_cuda.launches
+    got, want = _launch_both(dev, params, streams, launch)
+    assert perturbation.perturbation_fields_cuda.launches == before + 1
+    for name, g, w in zip(_LEDGER_NAMES, got, want, strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), f"ship {tier} ledger: {name} differs"
+    assert torch.isfinite(got[6]).any() and not bool(got[4].any())
+    # the ledger's planes besides errx are the rebasing instance's
+    plain_launch = dict(launch, form="rebase")
+    ref = perturbation.perturbation_fields_cuda(
+        params, streams, max_passes=256, device=dev, **plain_launch)
+    for name, g, r in zip(_LEDGER_NAMES, got, ref):
+        assert torch.equal(g, r), f"ship {tier}: {name} moved with the ledger"
+
+
+_STARVING = ("-0.77568377", "0.13646737")  # escapes after 448 iterations
+# case: (center, zoom, iterations, orbit bits, packing options)
+_SINGLE_VIEWS = {
+    "f32-cont": (("-0.743643887037151", "0.13182590420533"), "1e-6", 2000,
+                 64, dict(float_continuation=True)),
+    "f32-cont-starving": (_STARVING, "1e-6", 1500, 64,
+                          dict(float_continuation=True)),
+    "f32-starving": (_STARVING, "1e-6", 1500, 64, {}),
+    "dd-starving": (_STARVING, "1e-10", 2500, 128, dict(dd_delta=True)),
+    "fx": (("0", "1"), "1e-50", 600, 320,
+           dict(scaled_delta=True, zoom_frac="1e-50")),
+}
+
+
+def _single_operands(case, width, height, **kw):
+    from fractalrenderer_tpu_torch.deepzoom.orbit import compute_orbit
+    from fractalrenderer_tpu_torch.ops import perturbation
+
+    (cx, cy), zoom, iters, bits, opts = _SINGLE_VIEWS[case]
+    orb = compute_orbit(cx, cy, bits, iters + 1)
+    return perturbation.pack_pert_operands(
+        orb, width, height, center_x_dd=dd.dd_from_string(cx),
+        center_y_dd=dd.dd_from_string(cy), zoom_dd=dd.dd_from_string(zoom),
+        max_iter=iters, rebase=False, **opts, **kw)
+
+
+@pytest.mark.parametrize("case,extra", [
+    *[(c, {}) for c in _SINGLE_VIEWS],
+    ("f32-cont-starving", dict(row0=500.0, map_height=1080)),
+    ("dd-starving", dict(ref_shift_x=(2e-12, 0.0), ref_shift_y=(-1e-12, 0.0))),
+    ("fx", dict(ref_shift_x_frac="2e-52", ref_shift_y_frac="-1e-52")),
+], ids=str)
+def test_single_pass_kernel_equals_plain(dev, case, extra):
+    # the legacy pipeline's instances: n, zx, zy and the glitch flags
+    from fractalrenderer_tpu_torch.ops import perturbation
+
+    params, streams, launch = _single_operands(case, 64, 48, **extra)
+    assert launch["form"] == "single"
+    assert launch["float_cont"] == ("cont" in case)
+    before = perturbation.perturbation_fields_cuda.launches
+    got, want = _launch_both(dev, params, streams, launch)
+    assert perturbation.perturbation_fields_cuda.launches == before + 1
+    for name, g, w in zip(("n", "zx", "zy", "glitch"), got, want,
+                          strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), f"{case}: {name} differs"
+    assert len(torch.unique(got[0])) > 3
+    if "starving" in case and "cont" not in case:
+        assert bool(got[3].any())  # lanes outlive the orbit: flagged
 
 
 def test_launch_counter_counts_kernel_launches(dev):

@@ -218,18 +218,26 @@ def test_unported_options_raise_before_any_orbit():
     orig = deep_zoom.orbit_mod.compute_orbit
     deep_zoom.orbit_mod.compute_orbit = lambda *a, **k: calls.append(1)
     try:
-        for kw, extra, item in [
-                # the families and spp render (test_torch_pert_families.py,
-                # test_torch_deepzoom_aa.py); their unported options raise
-                (dict(deep_zoom_julia=True), dict(mesh=object()), "8"),
-                (dict(deep_zoom_phoenix=True), dict(rebasing=False), "6(g)"),
-                (dict(samples_per_pixel=4), dict(exact_dust=True), "6(f)"),
-                ({}, dict(exact_dust=True), "6(f)"),
-                ({}, dict(rebasing=False), "6(g)")]:
-            with pytest.raises(NotImplementedError) as e:
+        for kw, extra, exc, match in [
+                # the families, spp, exact dust and the legacy pipeline
+                # render (test_torch_pert_families.py,
+                # test_torch_deepzoom_aa.py, test_torch_exact_dust.py,
+                # test_torch_pert_single.py); mesh sharding is unported and
+                # the rest are the JAX model's own guards
+                (dict(deep_zoom_julia=True), dict(mesh=object()),
+                 NotImplementedError, "ROADMAP Queue 1 item 8"),
+                (dict(deep_zoom_phoenix=True), dict(rebasing=False),
+                 ValueError, "phoenix requires the rebasing"),
+                (dict(samples_per_pixel=4), dict(exact_dust=True),
+                 ValueError, "Burning Ship dust tier"),
+                ({}, dict(exact_dust=True), ValueError,
+                 "Burning Ship dust tier"),
+                (dict(deep_zoom_ship=True),
+                 dict(exact_dust=True, rebasing=False), ValueError,
+                 "Burning Ship dust tier")]:
+            with pytest.raises(exc, match=match):
                 deep_zoom.render(_scene(SEAHORSE, "1e-9", 100, **kw), 8, 8,
                                  device="cpu", **extra)
-            assert f"ROADMAP Queue 1 item {item}" in str(e.value)
     finally:
         deep_zoom.orbit_mod.compute_orbit = orig
     assert not calls

@@ -413,3 +413,135 @@ def test_family_orbit_cache_keys_the_recurrence():
     assert len(cache) == 2
     assert not np.array_equal(n_m, n_p)
     assert isinstance(n_p, np.ndarray) and not torch.is_tensor(n_p)
+
+
+# ---------------------------------------------------------------------------
+# the floatexp tier below the f64 floor (the JAX package's twin tests)
+# ---------------------------------------------------------------------------
+
+def _julia_fixed_point(digits):
+    """The repelling fixed point z* = (1 + sqrt(1 - 4c))/2 of z² + JC as
+    decimal strings with ``digits`` digits, by exact-rational complex
+    Newton for w = sqrt(1 - 4c) from the f64 seed (test_deepzoom.py)."""
+    import cmath
+
+    cr, ci = Fraction(JC[0]), Fraction(JC[1])
+    tr, ti = 1 - 4 * cr, -4 * ci
+    w = cmath.sqrt(complex(float(tr), float(ti)))
+    wr, wi = Fraction(w.real), Fraction(w.imag)
+    scale = 1 << (int(digits * 3.33) + 256)
+
+    def rnd(x):
+        return Fraction(round(x * scale), scale)
+
+    for _ in range(16):
+        m2 = wr * wr + wi * wi
+        qr = (tr * wr + ti * wi) / m2
+        qi = (ti * wr - tr * wi) / m2
+        wr, wi = rnd((wr + qr) / 2), rnd((wi + qi) / 2)
+    zr, zi = (1 + wr) / 2, wi / 2
+    assert abs(zr * zr - zi * zi + cr - zr) < Fraction(1, 10 ** (digits - 2))
+    assert abs(2 * zr * zi + ci - zi) < Fraction(1, 10 ** (digits - 2))
+
+    def dec(x):
+        sign = "-" if x < 0 else ""
+        x = abs(x)
+        ip = int(x)
+        return f"{sign}{ip}.{int((x - ip) * 10 ** digits):0{digits}d}"
+
+    return dec(zr), dec(zi)
+
+
+@pytest.mark.parametrize("zoom,MI,bits,digits", [
+    ("1e-320", 900, 1200, 360), ("1e-400", 1150, 1500, 450)])
+def test_deep_julia_below_f64_floor_matches_exact_oracle(zoom, MI, bits,
+                                                         digits):
+    # the floatexp drift emission carries drifts f64 cannot represent;
+    # the center is the repelling fixed point to ``digits`` digits
+    zc = _julia_fixed_point(digits)
+    orb, oexp = jax_orbit.compute_orbit(*JC, bits, MI + 1, z0x=zc[0],
+                                        z0y=zc[1], emit_rel=True,
+                                        emit_fx=True)
+    assert int(oexp.min()) < -1062  # drifts below the f64 range
+    f = perturbation.perturbation_fields(
+        orb, 12, 8, center_x_dd=(0.0, 0.0), center_y_dd=(0.0, 0.0),
+        max_iter=MI, float_continuation=False, rebase=True, julia=True,
+        julia_z0=(float(zc[0][:20]), float(zc[1][:20])), scaled_delta=True,
+        zoom_frac=zoom, orbit_exp=oexp, device="cpu")
+    n = f["n"].numpy()
+    assert not (f["want"] > 0.5).any()
+    nref = _oracle_counts("julia", zc, zoom, 12, 8, MI, bits)
+    assert len(np.unique(nref)) > 3
+    assert (n == nref).mean() >= 0.9, f"{n}\n{nref}"
+
+
+def test_deep_julia_model_below_f64_floor():
+    # the model picks the floatexp drift emission itself at 1e-320
+    zc = _julia_fixed_point(360)
+    s = Scene(fractal_type=FractalType.DEEP_ZOOM, deep_zoom_julia=True,
+              julia_c_real=-0.7, julia_c_imag=0.27015, hp_center_x=zc[0],
+              hp_center_y=zc[1], hp_zoom="1e-320", max_iterations=900,
+              use_perturbation=True)
+    n, zx, zy, g, info = deep_zoom.render_fields(s, 12, 8, device="cpu")
+    assert info["precision_mode"] == "ARBITRARY"
+    assert info["precision_bits"] > 1070
+    assert info["glitched_pixels_remaining"] == 0
+    nref = _oracle_counts("julia", zc, "1e-320", 12, 8, 900,
+                          info["precision_bits"])
+    assert len(np.unique(nref)) > 3
+    assert (np.asarray(n) == nref).mean() >= 0.9
+
+
+def test_deep_ship_below_f64_floor_matches_exact_oracle():
+    # the antenna tip at 1e-320: absolute O(1) orbit, floatexp diffabs
+    W, H, MI, bits, zoom = 12, 8, 620, 1200, "1e-320"
+    orb = jax_orbit.compute_orbit(*ANTENNA, bits, MI + 1, kind=1)
+    assert len(orb) == MI + 1
+    f = perturbation.perturbation_fields(
+        orb, W, H, center_x_dd=(-2.0, 0.0), center_y_dd=(0.0, 0.0),
+        max_iter=MI, float_continuation=False, rebase=True, ship=True,
+        scaled_delta=True, zoom_frac=zoom, device="cpu")
+    n = f["n"].numpy()
+    assert not (f["want"] > 0.5).any()
+    nref = _oracle_counts("ship", ANTENNA, zoom, W, H, MI, bits)
+    assert len(np.unique(nref)) > 3
+    assert (n == nref).mean() >= 0.95, f"{n}\n{nref}"
+
+
+def test_deep_phoenix_below_f64_floor_matches_exact_oracle():
+    # the escape-set boundary bisected with exact rationals to ~1e-340,
+    # 20 decades past the view, so the center stays interior while the
+    # escape band crosses the 1e-320 view
+    PP, RR = 0.0, -0.5
+    W, H, MI, bits, zoom = 12, 8, 1800, 1300, "1e-320"
+    cy = Fraction(PHOENIX[1])
+
+    def interior(cxf):
+        o = jax_orbit.compute_orbit(HPFloat(cxf, bits), HPFloat(cy, bits),
+                                    bits, MI + 1, kind=2, pp=PP, rr=RR)
+        return len(o) == MI + 1
+
+    a = Fraction(PHOENIX[0])
+    b = a + Fraction(1, 10 ** 8)
+    assert interior(a) and not interior(b)
+    while b - a > Fraction(1, 10 ** 340):
+        m = (a + b) / 2
+        if interior(m):
+            a = m
+        else:
+            b = m
+    cxh = HPFloat(a, bits)
+    orb = jax_orbit.compute_orbit(cxh, HPFloat(cy, bits), bits, MI + 1,
+                                  kind=2, pp=PP, rr=RR)
+    assert len(orb) == MI + 1
+    f = perturbation.perturbation_fields(
+        orb, W, H, center_x_dd=dd_from_string(cxh.to_string(40)),
+        center_y_dd=dd_from_string(PHOENIX[1]), max_iter=MI,
+        float_continuation=False, rebase=True, phoenix=True, phoenix_p=PP,
+        phoenix_r=RR, scaled_delta=True, zoom_frac=zoom, device="cpu")
+    n = f["n"].numpy()
+    assert not (f["want"] > 0.5).any()
+    nref = _oracle_counts("phoenix", (cxh.to_string(340), PHOENIX[1]), zoom,
+                          W, H, MI, bits, RR)
+    assert len(np.unique(nref)) > 3
+    assert (n == nref).mean() >= 0.95, f"{n}\n{nref}"

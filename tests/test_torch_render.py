@@ -102,19 +102,22 @@ def test_oversized_iter_limit_colors_interior_consistently():
     assert torch.equal(over, at_cap)
 
 
-@pytest.mark.parametrize("kw,extra,item", [
-    # the deep zoom renders every family and spp (test_torch_pert_families,
-    # test_torch_deepzoom_aa); its unported options name their item
-    (dict(fractal_type=frt.FractalType.DEEP_ZOOM, deep_zoom_ship=True),
-     dict(exact_dust=True), "6(f)"),
+@pytest.mark.parametrize("kw,extra,exc,match", [
+    # the deep zoom renders every family, spp, exact dust and the legacy
+    # pipeline (test_torch_pert_families, test_torch_deepzoom_aa,
+    # test_torch_exact_dust, test_torch_pert_single); the JAX model's own
+    # guards refuse them outside their domain, and mesh sharding names its
+    # item
+    (dict(fractal_type=frt.FractalType.DEEP_ZOOM),
+     dict(exact_dust=True), ValueError, "Burning Ship dust tier"),
     (dict(fractal_type=frt.FractalType.DEEP_ZOOM, deep_zoom_phoenix=True),
-     dict(rebasing=False), "6(g)"),
+     dict(rebasing=False), ValueError, "requires the rebasing pipeline"),
     (dict(fractal_type=frt.FractalType.DEEP_ZOOM, samples_per_pixel=2),
-     dict(mesh=object()), "8"),
+     dict(mesh=object()), NotImplementedError,
+     re.escape("ROADMAP Queue 1 item 8")),
 ])
-def test_unported_scenes_raise(kw, extra, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 item {re.escape(item)}"):
+def test_unported_scenes_raise(kw, extra, exc, match):
+    with pytest.raises(exc, match=match):
         frt.render(frt.Scene(**kw), 16, 8, device="cpu", **extra)
 
 
