@@ -12,8 +12,11 @@ perturbation deep-zoom kernel of the Mandelbrot, Julia, Burning Ship and
 Phoenix families in their f32, dd and floatexp tiers, with stacked spp²
 supersampling, the Burning Ship's exact-dust error ledger and the
 Mandelbrot single pass of the legacy pipeline; K4a and K4b, the
-Mandelbulb's cone prepass and march + shading kernels), holds every kernel
-instance against its plain PyTorch version on the card (K1 and K2 at
+Mandelbulb's cone prepass and march + shading kernels; K5, the FP32 peak
+probe, and K6, the fresh-compile probe, built apart with a random salt),
+holds every kernel instance against its plain PyTorch version on the card
+(K5 at the JAX probe's 2048x1024 x 8 chains x 2000 steps, bit-equal; K6
+twice, two salts; K1 and K2 at
 1920x1080; K3 and K4b on the whole frame against a 64-row band of it run
 on the plain version, which is launch-bound; K3's stacked spp-2 launch
 segment by segment against sequential launches and on a band of every
@@ -33,7 +36,18 @@ checks that each path launched its kernels and that each PNG is within 1
 LSB of the same pipeline run on the plain versions, and times kernel
 against plain version with CUDA events.  For each instance it prints the
 DE or escape iterations the timed frame needs and the bound: the larger of
-their f32 operations over 67 TFLOP/s and the frame's bytes over 3.35 TB/s.
+their f32 operations over the card's FP32 peak (the data sheet's 67
+TFLOP/s, or the rate K5 measured in this run where that is higher; the
+measured rate is printed beside it) and the frame's bytes over 3.35 TB/s.
+Before those phases: the diagnostics (the parameter-layout selfcheck
+against the CUDA sources; the profiler's device lane of the frames the
+bench times, each against the CUDA-event times of its kernels' launches
+in the same run; the link probe), the bench path (bench_all's configs 0,
+1, 2, 4, 6 and 7, which launch K6 and K5 -- config 1 measures the FP32
+rate once, with measure_vpu_peak, and it must exceed half the data sheet's
+67 TFLOP/s -- with their launch counts reset before and read after, and
+``python -m fractalrenderer_tpu_torch.bench``), and ``cli info`` and ``cli
+presets``.
 Each phase prints one line; any failure raises, so the exit code is
 non-zero and no result line is printed.  On success the last three lines
 are the card's name and power limit, a JSON line describing each kernel
@@ -71,21 +85,29 @@ PERT_SOURCES = {"mandelbrot": PERT_SRC,
                 "ship": "fractalrenderer_tpu_torch/csrc/pert_ship.cu",
                 "phoenix": "fractalrenderer_tpu_torch/csrc/pert_phoenix.cu"}
 BULB_SRC = "fractalrenderer_tpu_torch/csrc/bulb.cu"
+PEAK_SRC = "fractalrenderer_tpu_torch/csrc/peak.cu"
+PROBE_SRC = "fractalrenderer_tpu_torch/csrc/probe/compile_probe.cu"
 K1_TPU = "fractalrenderer_tpu/ops/escape.py:155"
 K2_TPU = "fractalrenderer_tpu/ops/dd_escape.py:35"
 K3_TPU = "fractalrenderer_tpu/ops/perturbation.py:245"
 K4A_TPU = "fractalrenderer_tpu/ops/bulb_kernel.py:210"
 K4B_TPU = "fractalrenderer_tpu/ops/bulb_kernel.py:637"
+K5_TPU = "fractalrenderer_tpu/utils/diag.py:199"
+K6_TPU = "bench_all.py:144"
 
 # The bound of an instance: the
-# larger of its f32 operations over the H100's 67 TFLOP/s (the kernels
-# build with -fmad=false, so they issue at most half of that) and the
-# bytes it must move (inputs read once, outputs written once) over 3.35
-# TB/s.  Operations per iteration of each inner loop, counted from the
-# sources: every f32 add, subtract, multiply, divide, square root, compare
-# result used as a value (min/max/abs), and math-library call counts one.
-PEAK_F32_OPS = 67e12
+# larger of its f32 operations over the card's FP32 peak (each counted
+# operation against the FMA rate; the kernels build with -fmad=false, so
+# they issue at most half of it) and the bytes it must move (inputs read
+# once, outputs written once) over 3.35 TB/s.  The peak is the H100's
+# data-sheet 67 TFLOP/s, or K5's measured rate where that is higher: a
+# bound never takes a rate below what the card can issue.
+# Operations per iteration of each inner loop, counted from the sources:
+# every f32 add, subtract, multiply, divide, square root, compare result
+# used as a value (min/max/abs), and math-library call counts one.
+SPEC_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_K, PEAK_CHAINS = 2000, 8  # K5 at the JAX probe's defaults
 OPS_PER_ITER = {
     # csrc/escape.cu loop body: |z|^2, the update, the squares; the fields
     # instances add what they track (Mandelbrot: trap 14 + dz 9; Burning
@@ -287,14 +309,6 @@ FAMILIES = {
 }
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def read_png_rgb8(path: str):
     """Decode the port's own PNGs (8-bit RGB, filter type 0 on every row)."""
     import numpy as np
@@ -337,6 +351,20 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_event_ms(fn):
+    """(``fn()``, the milliseconds of that one call by CUDA events on the
+    current stream)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def ptxas_report(log: str) -> dict:
     """Registers, stack frame and spill bytes of each kernel instance from
     the ``-Xptxas=-v`` build log, by instance name."""
@@ -349,7 +377,10 @@ def ptxas_report(log: str) -> dict:
             t = re.search(r"pert_kernelILi(\d)ELi(\d)ELi(\d)E",
                           m.group(1))
             b = re.search(r"bulb_(cone|march)_kernelILi(\d+)E", m.group(1))
-            if b:
+            c = re.search(r"peak_kernelILi(\d+)E", m.group(1))
+            if c:
+                name = f"fma_peak_c{c.group(1)}"
+            elif b:
                 p = int(b.group(2))
                 name = f"bulb_{b.group(1)}_" + (f"p{p}" if p else "trig")
             elif k:
@@ -413,21 +444,251 @@ def same_bits(a, b) -> bool:
                 and torch.equal(a[~nan_a], b[~nan_b]))
 
 
-def skip_mask(params):
-    """The pixels of a W x H Mandelbrot frame that K1's interior skip
-    leaves out: the plain K1's own mapping and interior predicate."""
+def k5_phase(dev, entry) -> None:
+    """K5 at the JAX probe's shape and depth, bit-equal to the plain
+    version at full size (the plain version timed by CUDA events).  Its
+    rate is measured once, by bench config 1 (measure_vpu_peak)."""
     import torch
 
-    from fractalrenderer_tpu_torch.ops import escape, mapping
+    from fractalrenderer_tpu_torch.utils import diag
 
-    v = torch.from_numpy(params).cuda()
-    col = torch.arange(W, dtype=torch.float32, device=v.device)
-    row = torch.arange(H, dtype=torch.float32, device=v.device)
-    cr, ci = mapping.map_centered(
-        col[None, :].expand(H, W), row[:, None].expand(H, W), W, H,
-        v[escape.P_CX], v[escape.P_CY], v[escape.P_ZOOM], v[escape.P_OFFX],
-        v[escape.P_OFFY])
-    return escape._cardioid_or_bulb(cr, ci)
+    x = torch.ones(diag.PEAK_SHAPE, dtype=torch.float32, device=dev)
+    got = diag.fma_chains_cuda(x, PEAK_CHAINS, PEAK_K)
+    want, plain_ms = cuda_event_ms(
+        lambda: diag.fma_chains_plain(x, PEAK_CHAINS, PEAK_K))
+    assert torch.equal(got, want), "K5 not bit-equal to fma_chains_plain"
+    entry("fma_peak", PEAK_SRC, K5_TPU, 0.0)["plain_ms"] = plain_ms
+    print(f"K5 {PEAK_CHAINS} chains x {PEAK_K} fmaf steps over "
+          f"{x.shape[0]}x{x.shape[1]}: bit-equal to the plain version "
+          f"(plain {plain_ms:.1f} ms by CUDA events)", flush=True)
+
+
+def k6_phase(dev, entry) -> None:
+    """K6 built twice with two salts, each output checked, the main
+    library's path unchanged; the kernel, its plain version and the one
+    PyTorch call of the same function timed (mean of 100 launches)."""
+    import torch
+
+    from fractalrenderer_tpu_torch.ops import _cuda
+
+    lib_path = _cuda.library_path()
+    probes = [_cuda.compile_probe(dev) for _ in range(2)]
+    assert probes[0]["salt"] != probes[1]["salt"], "one salt drawn twice"
+    assert _cuda.library_path() == lib_path, "a probe moved the library"
+    x = torch.ones((16, 128), dtype=torch.float32, device=dev)
+    lib, salt = probes[1]["lib"], probes[1]["salt"]
+    got = _cuda.compile_probe_cuda(lib, x)
+    assert torch.equal(got, _cuda.compile_probe_plain(x, salt))
+    e = entry("compile_probe", PROBE_SRC, K6_TPU, 0.0)
+    e.update(ms=cuda_ms(lambda: _cuda.compile_probe_cuda(lib, x), 100),
+             plain_ms=cuda_ms(lambda: _cuda.compile_probe_plain(x, salt),
+                              100),
+             library_ms=cuda_ms(lambda: torch.add(x.new_ones(()), x,
+                                                  alpha=salt), 100))
+    print("K6 compile probe: " + "; ".join(
+        f"salt {p['salt']:.0f}: nvcc + load {p['build_seconds']:.3f} s, "
+        f"call to fetched scalar {p['seconds']:.3f} s, out = x * salt + 1 "
+        "bit-equal" for p in probes)
+        + f"; the library path unchanged; kernel {e['ms'] * 1e3:.2f} us, "
+        f"plain {e['plain_ms'] * 1e3:.2f} us, torch.add(1, x, alpha=salt) "
+        f"{e['library_ms'] * 1e3:.2f} us per launch (mean of 100)",
+        flush=True)
+
+
+@contextlib.contextmanager
+def bracketed(module, name: str, spans: list):
+    """While open, every call of ``module.name`` (a kernel wrapper that
+    its dispatcher looks up at call time) is bracketed by a pair of CUDA
+    events on the current stream, appended to ``spans``.  The wrapper
+    counts its launches through its module's name, so the stand-in carries
+    the count while it is in place and hands it back."""
+    import torch
+
+    real = getattr(module, name)
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args, **kw)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    timed.launches = real.launches
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+        real.launches = timed.launches
+
+
+def lane_against_events(dev, label, run, wrappers, prefixes) -> tuple:
+    """The profiler's device lane of ``run()`` against the CUDA events
+    bracketing each launch of the port's kernels in that same run (the
+    ``(module, name)`` wrappers): every launch has its kernel record
+    (counted by the kernel-name ``prefixes``), each record fits in its
+    launch's events, and the lane holds at least their sum.  Returns (lane
+    ms, the events' ms)."""
+    import torch
+
+    from fractalrenderer_tpu_torch.utils import diag
+
+    spans = []
+
+    def traced():
+        spans.clear()  # a trace taken again keeps only its own launches
+        run()
+
+    with contextlib.ExitStack() as stack:
+        for module, name in wrappers:
+            stack.enter_context(bracketed(module, name, spans))
+        d = stack.enter_context(tempfile.TemporaryDirectory())
+        lane = diag.measure_device_seconds(traced, d, dev) * 1e3
+        recs = diag.kernel_seconds_from_trace(d)
+    torch.cuda.synchronize(dev)
+    events = sum(a.elapsed_time(b) for a, b in spans)
+    ours = [(k, v) for k, v in recs.items()
+            if any(p in k for p in prefixes)]
+    launches = sum(v[0] for _, v in ours)
+    rec_ms = sum(v[1] for _, v in ours) * 1e3
+    print(f"device lane of {label}: {lane:.4f} ms; its {launches} launch(es) "
+          f"of the port's kernels: {rec_ms:.4f} ms by their profiler "
+          f"records, {events:.4f} ms by CUDA events around the same "
+          f"launches; other device work {lane - rec_ms:.4f} ms", flush=True)
+    assert launches == len(spans) > 0, (label, launches, len(spans))
+    assert rec_ms <= events, (label, rec_ms, events)
+    assert lane >= rec_ms, (label, lane, rec_ms)
+    return lane, events
+
+
+def diagnostics_phase(dev) -> None:
+    """The parameter-layout selfcheck; the device lane of the frames the
+    bench times (the main path, a Julia frame, config 4, config 6) against
+    the CUDA events of their kernels' launches in the same run; the main
+    path's lane against K1's CUDA-event time (mean of 50 queued launches:
+    at least it, within 2x of it); the link probe, pageable and pinned."""
+    from fractalrenderer_tpu_torch import FractalType, Scene, bench_all, models
+    from fractalrenderer_tpu_torch.models import deep_zoom, mandelbulb
+    from fractalrenderer_tpu_torch.ops import bulb_kernel, escape, perturbation
+    from fractalrenderer_tpu_torch.utils import diag
+
+    assert diag.params_layout_selfcheck()
+    print("params_layout_selfcheck: the packers' P_*/D_*/Q_* equal the CUDA "
+          "sources' constants", flush=True)
+
+    k1 = [(escape, "escape_fields_cuda")]
+    julia = Scene(fractal_type=FractalType.JULIA, zoom=3.0,
+                  julia_c_real=-0.75, julia_c_imag=0.2)
+    dz = Scene(fractal_type=FractalType.DEEP_ZOOM, **bench_all.DZ4,
+               max_iterations=10000, use_perturbation=True)
+    cache = {}
+    bulb = Scene(fractal_type=FractalType.MANDELBULB)
+    frames = [
+        ("the main-path frame (bench config 1)", lambda: models.render(
+            Scene(), W, H, device=dev, quantize=8), k1, ("escape_kernel<",)),
+        ("a Julia frame (bench config 2)", lambda: models.render(
+            julia, W, H, device=dev, quantize=8), k1, ("escape_kernel<",)),
+        ("the config-4 frame (bench config 4, series off)",
+         lambda: deep_zoom.render(dz, W, H, orbit_cache=cache, device=dev),
+         [(perturbation, "perturbation_fields_cuda")], ("pert_kernel<",)),
+        ("the config-6 frame (bench config 6)", lambda: mandelbulb.render(
+            bulb, W, H, device=dev),
+         [(bulb_kernel, "cone_fields_cuda"), (bulb_kernel,
+                                              "march_fields_cuda")],
+         ("bulb_cone_kernel<", "bulb_march_kernel<")),
+    ]
+    lanes = []
+    for label, run, wrappers, prefixes in frames:
+        run()  # warm
+        lanes.append(lane_against_events(dev, label, run, wrappers,
+                                         prefixes)[0])
+    params = escape.pack_params(center_x=-0.5, center_y=0.0, zoom=3.0,
+                                iter_limit=ITERS)
+    k1_ms = cuda_ms(lambda: escape.escape_fields_cuda(
+        params, width=W, height=H, map_height=H, row0=0, max_iter_cap=ITERS,
+        interior_skip=True, fused_color=(0, 0, False, True), device=dev), 50)
+    print(f"the main-path frame's device lane {lanes[0]:.4f} ms against K1 "
+          f"by CUDA events (mean of 50 queued launches) {k1_ms:.4f} ms "
+          f"({lanes[0] / k1_ms:.2f}x)", flush=True)
+    assert k1_ms <= lanes[0] <= 2 * k1_ms, (lanes[0], k1_ms)
+    link = diag.measure_link_bandwidth(mb=96, reps=3, device=dev)
+    assert link["best_mb_s"] > 0 and link["pinned_best_mb_s"] > 0, link
+    print(f"measure_link_bandwidth 96 MiB: pageable best "
+          f"{link['best_mb_s']:.1f} MB/s (mean {link['mean_mb_s']:.1f}), "
+          f"pinned best {link['pinned_best_mb_s']:.1f} MB/s (mean "
+          f"{link['pinned_mean_mb_s']:.1f}); a 1080p RGB8 frame "
+          f"({3 * W * H} B) at the pageable best: "
+          f"{3 * W * H / link['best_mb_s'] / 1e3:.3f} ms", flush=True)
+
+
+def bench_phase(dev, kernels) -> float:
+    """bench_all's configs 0, 1, 2, 4, 6 and 7 (K6 runs in config 0, K5 in
+    config 1: their launch counts are reset before and read after), each
+    row printed; then ``python -m fractalrenderer_tpu_torch.bench``.
+    Returns the FP32 rate K5 measured in config 1 (measure_vpu_peak, best
+    of 3 by the profiler's device lane), which is also K5's time."""
+    from fractalrenderer_tpu_torch import bench_all
+    from fractalrenderer_tpu_torch.ops import _cuda
+    from fractalrenderer_tpu_torch.utils import diag
+
+    wrappers = {"fma_peak": diag.fma_chains_cuda,
+                "compile_probe": _cuda.compile_probe_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    rows = {}
+    for num in (0, 1, 2, 4, 6, 7):
+        t0 = time.monotonic()
+        rows[num] = bench_all.CONFIGS[num](device=dev)
+        print(f"bench_all config{num} ({time.monotonic() - t0:.1f} s): "
+              + json.dumps(rows[num]), flush=True)
+    for name, w in wrappers.items():
+        kernels[name]["launches"] = w.launches
+    for num in (1, 2, 4, 6):
+        assert rows[num]["timing_method"] == "torch_profiler", rows[num]
+    assert rows[0]["kernels_built_cold"], rows[0]
+    rate = rows[1]["vpu_peak_gflops_f32"] * 1e9
+    kernels["fma_peak"]["ms"] = rows[1]["vpu_peak_ms"]
+    print(f"K5 by bench config 1 (measure_vpu_peak, best of 3 by the "
+          f"profiler): {rows[1]['vpu_peak_ms']:.4f} ms = {rate / 1e9:.1f} "
+          f"GFLOP/s, {rate / SPEC_F32_OPS:.1%} of the data sheet's 67 "
+          "TFLOP/s", flush=True)
+    assert rate > 0.5 * SPEC_F32_OPS, \
+        "K5 below half the FP32 peak: was the FMA split by -fmad=false?"
+    assert rows[4]["glitched_pixels_remaining"] == 0, rows[4]
+    assert rows[7]["glitched_pixels_remaining"] == 0, rows[7]
+    t0 = time.monotonic()
+    out = subprocess.run([sys.executable, "-m",
+                          "fractalrenderer_tpu_torch.bench"], cwd=HERE,
+                         capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-2000:]
+    head = json.loads(out.stdout.strip().splitlines()[-1])
+    assert head["timing_method"] == "torch_profiler" and head["value"] > 0
+    print(f"python -m fractalrenderer_tpu_torch.bench "
+          f"({time.monotonic() - t0:.1f} s): {json.dumps(head)}", flush=True)
+    return rate
+
+
+def verbs_phase() -> None:
+    """``cli info`` and ``cli presets`` exit 0 (info finds nvcc and the
+    built library)."""
+    from fractalrenderer_tpu_torch import cli
+
+    for verb in ("info", "presets"):
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            rc = cli.main([verb])
+        assert rc == 0, f"cli {verb} exited {rc}"
+        said = said.getvalue()
+        if verb == "info":
+            assert "kernel library: built" in said and "nvcc: /" in said, \
+                said
+            print("cli info: exit 0; " + "; ".join(said.strip().splitlines()),
+                  flush=True)
+        else:
+            assert "Seahorse Valley" in said, said
+            print(f"cli presets: exit 0, {len(said.splitlines())} lines",
+                  flush=True)
 
 
 def main() -> int:
@@ -445,6 +706,8 @@ def main() -> int:
     from fractions import Fraction
 
     from fractalrenderer_tpu_torch import FractalType, Scene, cli, models
+    # the bench entry points too: the JAX-import check below covers them
+    from fractalrenderer_tpu_torch import bench, bench_all  # noqa: F401
     from fractalrenderer_tpu_torch.deepzoom import orbit as orbit_mod
     from fractalrenderer_tpu_torch.deepzoom import series as series_mod
     from fractalrenderer_tpu_torch.deepzoom.hp import (
@@ -456,7 +719,7 @@ def main() -> int:
     from fractalrenderer_tpu_torch.ops import (_cuda, bulb_kernel, bulb_math,
                                                dd, dd_escape, escape,
                                                perturbation)
-    from fractalrenderer_tpu_torch.utils import png
+    from fractalrenderer_tpu_torch.utils import diag, png
     from fractalrenderer_tpu_torch.utils.image import to_export_orientation
 
     assert not any(m == "jax" or m.startswith(("jax.", "fractalrenderer_tpu."))
@@ -464,7 +727,7 @@ def main() -> int:
         "the port imported JAX or the JAX package"
     t_start = time.monotonic()
     dev = torch.device("cuda", 0)
-    card = card_line()
+    card = bench_all.card(dev)
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
@@ -522,19 +785,37 @@ def main() -> int:
 
     def set_bound(name, iters, ops_per_iter, pixel_ops, nbytes, extra=""):
         """The instance's bound for its timed frame: ``iters`` loop
-        iterations of ``ops_per_iter`` operations, plus ``pixel_ops``, or
-        ``nbytes`` bytes moved."""
+        iterations of ``ops_per_iter`` operations, plus ``pixel_ops``, over
+        the card's FP32 peak, or ``nbytes`` bytes moved."""
         ops = float(iters) * ops_per_iter + pixel_ops
-        t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        t_ops, t_bytes = ops / peak_f32 * 1e3, nbytes / PEAK_BYTES * 1e3
         e = kernels[name]
         e["bound_ms"] = max(t_ops, t_bytes)
         e["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         print(f"bound {name}: {float(iters):.6g} iterations{extra} x "
               f"{ops_per_iter} ops + {pixel_ops:.4g} = {ops:.4g} ops -> "
-              f"{t_ops:.5f} ms; {nbytes:.4g} bytes -> {t_bytes:.5f} ms; "
-              f"bound {e['bound_ms']:.5f} ms by {e['bound_by']}, "
+              f"{t_ops:.5f} ms at {peak_f32 / 1e12:.3f} TFLOP/s (at K5's "
+              f"measured {k5_rate / 1e12:.3f}: {ops / k5_rate * 1e3:.5f} "
+              f"ms); {nbytes:.4g} bytes -> {t_bytes:.5f} ms; bound "
+              f"{e['bound_ms']:.5f} ms by {e['bound_by']}, "
               f"{e['bound_ms'] / e['ms']:.1%} of the kernel's "
               f"{e['ms']:.4f} ms", flush=True)
+
+    # -- K5 and K6 against their plain versions, the diagnostics, the bench
+    # -- path (K5 and K6 launched there; config 1 measures the FP32 rate),
+    # -- the two trivial verbs: first, while the process is young (late in
+    # -- a process the profiler keeps the card's events only in padded
+    # -- sessions, diag.TRACE_PADS_S, which take seconds).  The CLI phases'
+    # -- first calls below follow these.
+    k5_phase(dev, entry)
+    k6_phase(dev, entry)
+    diagnostics_phase(dev)
+    k5_rate = bench_phase(dev, kernels)
+    peak_f32 = max(k5_rate, SPEC_F32_OPS)  # the card's FP32 peak
+    set_bound("fma_peak", PEAK_K * diag.PEAK_SHAPE[0] * diag.PEAK_SHAPE[1],
+              2 * PEAK_CHAINS, 0, 2 * 4 * diag.PEAK_SHAPE[0]
+              * diag.PEAK_SHAPE[1], extra=f" (k x N, {PEAK_CHAINS} chains)")
+    verbs_phase()
 
     # -- Mandelbrot fields: counts and z bit-exact against the plain version --
     cases = [
@@ -830,15 +1111,6 @@ def main() -> int:
                                + sum(t.numel() * t.element_size()
                                      for t in dstreams))
         return params, dstreams, launch
-
-    def cuda_event_ms(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        end.synchronize()
-        return out, start.elapsed_time(end)
 
     stacked_frame = stacked_check("config4", "config 4 (1e-12 x10000), "
                                   "series off", STACKED)
@@ -1565,8 +1837,10 @@ def main() -> int:
         fields = escape.escape_fields_cuda(params, fused_color=None, **frame)
         torch.cuda.synchronize()
         n = fields[0].double()
-        skipped = (skip_mask(params) if family == "mandelbrot"
-                   else torch.zeros_like(n, dtype=torch.bool))
+        skipped = (escape.interior_skip_mask(
+            params, width=W, height=H, map_height=H, row0=0, device=dev)
+            if family == "mandelbrot"
+            else torch.zeros_like(n, dtype=torch.bool))
         for kind, iters, outs in (
                 ("fused", float(n[~skipped].sum()), rgb),
                 ("fields", float(n.sum()), fields)):
@@ -1668,17 +1942,22 @@ def main() -> int:
                   extra=f" (sum(work); {st['evals']:.0f} evaluations x "
                   f"{OPS_BULB_EVAL}, {st['hits']} hits x {OPS_BULB_HIT})")
 
+    set_bound("compile_probe", 0, 0, 0, 2 * 16 * 128 * 4,
+              extra=" (16 x 128 f32 in and out)")
+
     missing = [k for k, e in kernels.items() if e["launches"] == 0]
     assert not missing, f"instances no path launched: {missing}"
-    assert len(kernels) == 33, \
+    print(f"profiler sessions taken again for want of device events: "
+          f"{diag.measure_device_seconds.retries}", flush=True)
+    assert len(kernels) == 35, \
         f"expected K1 x8, K2, K3 x12 + its stacked spp-2 launch + the two " \
-        f"ledger and three single-pass instances, K4a x3 and K4b x3: " \
-        f"{list(kernels)}"
+        f"ledger and three single-pass instances, K4a x3, K4b x3, K5 and " \
+        f"K6: {list(kernels)}"
     assert all(e["bound_ms"] and e["ms"] and e["plain_ms"]
                for e in kernels.values()), kernels
     print(f"smoke wall time {time.monotonic() - t_start:.1f} s (build "
           f"included)", flush=True)
-    print(card_line())
+    print(bench_all.card(dev))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

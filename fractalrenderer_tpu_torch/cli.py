@@ -1,7 +1,8 @@
 """Command-line interface of the PyTorch port (counterpart of
-``fractalrenderer_tpu/cli.py``).  Only the ``render`` verb is ported, for
-the four 2D families (every AA, trap, stripe, interior-style and Julia
-option), ``--precision dd``, ``--type deep-zoom`` (the rebasing
+``fractalrenderer_tpu/cli.py``).  The ``info`` and ``presets`` verbs are
+ported, and ``render`` for the four 2D families (every AA, trap, stripe,
+interior-style and Julia option), ``--precision dd``, ``--type
+deep-zoom`` (the rebasing
 perturbation path at every depth: Mandelbrot with ``--series``,
 ``--deep-julia``, ``--deep-ship`` with ``--exact-dust``, ``--deep-phoenix``,
 and ``--spp 2|4`` supersampling) and ``--type mandelbulb`` (``--power``,
@@ -189,8 +190,8 @@ _UNPORTED_RENDER_FLAGS = (
 
 # verbs of the JAX CLI the port does not run yet → ROADMAP Queue 1 item
 _UNPORTED_VERBS = {
-    "export-print": 4, "animate": 4, "encode": 4, "presets": 4, "info": 4,
-    "sweep": 3, "zoom-path": 6, "giant": 8, "interactive": 9,
+    "export-print": 4, "animate": 4, "encode": 4, "sweep": 3,
+    "zoom-path": 6, "giant": 8, "interactive": 9,
 }
 
 
@@ -327,6 +328,73 @@ def cmd_render(args) -> int:
     return 0
 
 
+def cmd_presets(args) -> int:
+    print("Location presets (fractal_state.h:171-189):")
+    for p in presets_mod.MANDELBROT_PRESETS + presets_mod.BURNING_SHIP_PRESETS:
+        print(f"  {p.name:18s} {p.fractal_type.display_name:13s} "
+              f"center=({p.center_x}, {p.center_y}) zoom={p.zoom} "
+              f"iters={p.iterations}")
+    print("\nJulia c presets:")
+    for name, (cr, ci) in presets_mod.JULIA_PRESETS.items():
+        print(f"  {name:18s} c = {cr} + {ci}i")
+    print("\nPhoenix (p, r) presets:")
+    for name, (pp, rr) in presets_mod.PHOENIX_PRESETS.items():
+        print(f"  {name:18s} p={pp} r={rr}")
+    print("\nMandelbulb power presets:")
+    for name, pw in presets_mod.MANDELBULB_POWER_PRESETS.items():
+        print(f"  {name:18s} power={pw}")
+    print("\nDeep-zoom targets (deep_zoom_system.cpp:575-602):")
+    for z in presets_mod.DEEP_ZOOM_PRESETS:
+        print(f"  {z.name:22s} center=({z.center_x}, {z.center_y}) "
+              f"zoom={z.zoom}")
+    print("\nPrint sizes (ui_manager.cpp:595-611):")
+    for name, (w, h) in presets_mod.PRINT_SIZE_PRESETS.items():
+        print(f"  {name:18s} {w}x{h}")
+    from .ops import palettes as pal
+
+    print("\nPalettes:")
+    print(f"  mandelbrot/phoenix ({pal.num_palettes('classic')}): "
+          + ", ".join(pal.CLASSIC_NAMES))
+    print(f"  julia/burning-ship ({pal.num_palettes('enhanced')}): "
+          + ", ".join(pal.ENHANCED_NAMES))
+    print(f"  deep zoom ({pal.num_palettes('deepzoom')}): hsv, blue, fire, "
+          "gray")
+    print(f"  mandelbulb ({pal.num_palettes('bulb')}): dynamic, fire_and_ice,"
+          " lava, neon, dynamic^0.5, fire_and_ice^0.6")
+    return 0
+
+
+def cmd_info(args) -> int:
+    """The package, torch and CUDA versions, each CUDA device, the nvcc
+    the kernels build with, and whether the kernel library of these
+    sources is built (nothing is built or launched)."""
+    import os
+    import subprocess
+
+    from . import __version__
+    from .ops import _cuda
+
+    print(f"fractalrenderer_tpu_torch {__version__}")
+    cuda = torch.cuda.is_available()
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, backend: "
+          + ("cuda" if cuda else "cpu (no CUDA device: --device cpu runs "
+                                 "the plain PyTorch path)"))
+    for i in range(torch.cuda.device_count() if cuda else 0):
+        print(f"  device: cuda:{i} {torch.cuda.get_device_name(i)}")
+    try:
+        nvcc = _cuda.find_nvcc()
+    except RuntimeError:
+        print("nvcc: NOT FOUND: kernels cannot build")
+    else:
+        ver = subprocess.run([nvcc, "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.strip()
+        print(f"nvcc: {nvcc} ({ver.splitlines()[-1] if ver else '?'})")
+    lib = _cuda.library_path()
+    print(f"kernel library: {'built' if os.path.exists(lib) else 'not built'}"
+          f" ({lib})")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="fractalrenderer_tpu_torch",
@@ -352,6 +420,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sharded", action="store_true",
                    help="shard the frame's rows across devices (not ported)")
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("presets", help="list the built-in presets")
+    p.set_defaults(fn=cmd_presets)
+    p = sub.add_parser("info", help="versions, CUDA devices, nvcc and the "
+                                    "kernel library")
+    p.set_defaults(fn=cmd_info)
 
     for verb, item in _UNPORTED_VERBS.items():
         p = sub.add_parser(verb, help=f"not ported yet (ROADMAP Queue 1 "

@@ -139,6 +139,22 @@ def _cardioid_or_bulb(cr, ci):
     return in_cardioid | in_bulb
 
 
+def interior_skip_mask(params: np.ndarray, *, width: int, height: int,
+                       map_height: int, row0: int, device) -> torch.Tensor:
+    """The pixels of a Mandelbrot launch that the analytic interior skip
+    leaves out (they never enter the loop): the plain K1's own mapping and
+    interior predicate, as a (height, width) bool tensor on ``device``."""
+    p = torch.from_numpy(params).to(device)
+    rows = torch.arange(row0, row0 + height, dtype=torch.float32,
+                        device=p.device)
+    cols = torch.arange(width, dtype=torch.float32, device=p.device)
+    cr, ci = mapping.map_centered(
+        cols[None, :].expand(height, width),
+        rows[:, None].expand(height, width), width, map_height, p[P_CX],
+        p[P_CY], p[P_ZOOM], p[P_OFFX], p[P_OFFY])
+    return _cardioid_or_bulb(cr, ci)
+
+
 def _check_launch(params: np.ndarray, width: int, height: int,
                   map_height: int, row0: int, max_iter_cap: int) -> None:
     if params.dtype != np.float32 or params.shape != (NPARAMS,):

@@ -96,6 +96,7 @@ _CLASSIC_SPECS = (
       (0.2, 0.9, 1.0), (0.9, 1.0, 1.0)],
      [0.0, 0.25, 0.5, 0.75, 1.0]),
 )
+CLASSIC_NAMES = ("fire", "electric", "grayscale", "nebula", "solar", "ocean")
 
 _ENHANCED_SPECS = (
     # julia.comp:20-34 — ultra_fire
@@ -143,6 +144,8 @@ _ENHANCED_SPECS = (
     # julia.comp:160-162 — grayscale
     _CLASSIC_SPECS[2],
 )
+ENHANCED_NAMES = ("ultra_fire", "electric", "ocean", "sunset", "cosmic",
+                  "gold", "vaporwave", "forest", "lava", "grayscale")
 
 
 def _pre(t, tag):

@@ -4,6 +4,7 @@ mandelbulb`` is in test_torch_bulb.py, the deep-zoom families and ``--spp``
 in test_torch_deepzoom_aa.py), and its rejection of everything not ported
 yet (exit code 2, one line on stderr)."""
 import json
+import os
 
 import numpy as np
 import pytest
@@ -234,3 +235,52 @@ def test_scene_args_match_jax_cli():
     mine = cli.scene_from_args(cli.build_parser().parse_args(argv))
     ref = jax_cli.scene_from_args(jax_cli.build_parser().parse_args(argv))
     assert json.loads(mine.to_json()) == json.loads(ref.to_json())
+
+
+def test_presets_and_info(capsys):
+    # twin of tests/test_cli.py::test_presets_and_info
+    assert cli.main(["presets"]) == 0
+    out = capsys.readouterr().out
+    assert "Seahorse Valley" in out and "Douady's Rabbit" in out
+    assert "40x60 @ 300 DPI" in out
+    assert cli.main(["info"]) == 0
+    out = capsys.readouterr().out
+    assert "fractalrenderer_tpu_torch" in out and "backend" in out
+
+
+def test_presets_prints_the_jax_clis_tables(capsys):
+    from fractalrenderer_tpu import cli as jax_cli
+
+    assert jax_cli.main(["presets"]) == 0
+    want = capsys.readouterr().out
+    assert cli.main(["presets"]) == 0
+    assert capsys.readouterr().out == want
+
+
+def test_info_reports_nvcc_and_the_kernel_library(capsys, tmp_path,
+                                                  monkeypatch):
+    from fractalrenderer_tpu_torch.ops import _cuda
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_cuda, "find_nvcc", no_nvcc)
+    monkeypatch.setenv("FRACTAL_TORCH_BUILD_DIR", str(tmp_path))
+    assert cli.main(["info"]) == 0
+    out = capsys.readouterr().out
+    assert f"torch {torch.__version__}" in out
+    assert "nvcc: NOT FOUND: kernels cannot build" in out
+    assert f"kernel library: not built ({tmp_path}" in out
+    open(_cuda.library_path(), "w").close()
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text("#!/bin/sh\necho 'nvcc: NVIDIA (R) Cuda compiler "
+                    "driver'\necho 'Cuda compilation tools, release 12.9'\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_cuda, "find_nvcc", lambda: str(nvcc))
+    assert cli.main(["info"]) == 0
+    out = capsys.readouterr().out
+    assert f"nvcc: {nvcc} (Cuda compilation tools, release 12.9)" in out
+    assert f"kernel library: built ({tmp_path}" in out
+    assert sorted(os.listdir(tmp_path)) == [
+        "bin", os.path.basename(_cuda.library_path())]

@@ -565,3 +565,76 @@ def test_bulb_render_launches_one_cone_and_one_march_per_sample(
     monkeypatch.setattr(bulb_kernel, "march_fields_cuda",
                         bulb_kernel.march_fields_plain)
     assert torch.equal(img, mandelbulb.render(scene, 40, 24))
+
+
+# -- K5 (csrc/peak.cu) and K6 (csrc/probe/compile_probe.cu), and the
+# -- diagnostics that need the card
+
+@pytest.mark.parametrize("chains", [1, 2, 4, 8])
+def test_fma_peak_equal_plain(dev, chains):
+    import numpy as np
+
+    from fractalrenderer_tpu_torch.utils import diag
+
+    # every accumulator >= 0.5, where the plain f64 step is fmaf exactly;
+    # 300 x 257 leaves a partial last block
+    x = np.random.default_rng(chains).uniform(0.5, 4.0, (300, 257))
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    before = diag.fma_chains_cuda.launches
+    got = diag.fma_chains_cuda(x, chains, 64)
+    want = diag.fma_chains_plain(x, chains, 64)
+    torch.cuda.synchronize()
+    assert diag.fma_chains_cuda.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(diag.fma_chains(x, chains, 64), want)
+
+
+def test_fma_peak_other_chain_counts_raise(dev):
+    from fractalrenderer_tpu_torch.utils import diag
+
+    x = torch.ones((8, 8), device=dev)
+    before = diag.fma_chains_cuda.launches
+    with pytest.raises(ValueError, match="chains"):
+        diag.fma_chains_cuda(x, 3, 8)
+    assert diag.fma_chains_cuda.launches == before
+
+
+def test_compile_probe_twice_two_salts(dev):
+    from fractalrenderer_tpu_torch.ops import _cuda
+
+    lib_path = _cuda.library_path()
+    probes = [_cuda.compile_probe(dev) for _ in range(2)]
+    assert probes[0]["salt"] != probes[1]["salt"]
+    x = torch.arange(16 * 128, dtype=torch.float32,
+                     device=dev).reshape(16, 128) / 7.0
+    for p in probes:
+        assert 0 < p["build_seconds"] < p["seconds"]
+        assert 0 <= p["salt"] < 2 ** 24 and p["salt"] == int(p["salt"])
+        got = _cuda.compile_probe_cuda(p["lib"], x)
+        assert torch.equal(got, _cuda.compile_probe_plain(x, p["salt"]))
+    assert _cuda.library_path() == lib_path
+
+
+def test_link_bandwidth_pageable_and_pinned(dev):
+    from fractalrenderer_tpu_torch.utils import diag
+
+    link = diag.measure_link_bandwidth(mb=8, reps=2, device=dev)
+    assert link["mb"] == 8
+    for key in ("best_mb_s", "mean_mb_s", "pinned_best_mb_s",
+                "pinned_mean_mb_s"):
+        assert link[key] > 0, key
+
+
+def test_device_seconds_of_a_kernel(dev, tmp_path):
+    from fractalrenderer_tpu_torch.utils import diag
+
+    x = torch.ones((512, 256), device=dev)
+    diag.fma_chains_cuda(x, 8, 256)
+    total = diag.measure_device_seconds(
+        lambda: diag.fma_chains_cuda(x, 8, 256), str(tmp_path))
+    kernels = diag.device_seconds_from_trace(str(tmp_path), lane="kernel")
+    assert 0 < kernels <= total < 1.0
+    # the one launch's record, by name
+    recs = diag.kernel_seconds_from_trace(str(tmp_path))
+    peak = [v for k, v in recs.items() if "peak_kernel<8>" in k]
+    assert peak == [[1, pytest.approx(kernels)]]
