@@ -104,7 +104,11 @@ K6_TPU = "bench_all.py:144"
 # bound never takes a rate below what the card can issue.
 # Operations per iteration of each inner loop, counted from the sources:
 # every f32 add, subtract, multiply, divide, square root, compare result
-# used as a value (min/max/abs), and math-library call counts one.
+# used as a value (min/max/abs), and math-library call counts one, a fused
+# multiply-add two.  A dd product's error term is one exact fmaf
+# (csrc/dd.cuh two_prod): dd_mul counts 10, dd_mul_float 8.  A bound is the
+# least work on this card, and the TPU's Dekker splits (dd_mul 24,
+# dd_mul_float 22, the counts before the fmaf) are not that.
 SPEC_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_K, PEAK_CHAINS = 2000, 8  # K5 at the JAX probe's defaults
@@ -116,38 +120,39 @@ OPS_PER_ITER = {
     "escape_julia_fused": 8, "escape_julia_fields": 8,
     "escape_burning_ship_fused": 9, "escape_burning_ship_fields": 16,
     "escape_phoenix_fused": 16, "escape_phoenix_fields": 16,
-    # csrc/dd_escape.cu: ddc_square_add (3 dd_mul of 24, 3 dd_add of 11,
+    # csrc/dd_escape.cu: ddc_square_add (3 dd_mul of 10, 3 dd_add of 11,
     # 2) + ddc_mag2 (8)
-    "dd_escape_mandelbrot": 115,
-    # csrc/pert_kernel.cuh, one delta step, with dd_mul 24, dd_add 11,
-    # dd_mul_float 22 (csrc/dd.cuh) and the floatexp ops of csrc/floatexp.cuh
-    # (rfe_add 18, rfe_mul 27, cfe_mul 126, cfe_add 38, a renormalisation
+    "dd_escape_mandelbrot": 73,
+    # csrc/pert_kernel.cuh, one delta step, with dd_mul 10, dd_add 11,
+    # dd_mul_float 8 (csrc/dd.cuh) and the floatexp ops of csrc/floatexp.cuh
+    # (rfe_add 18, rfe_mul 13, cfe_mul 70, cfe_add 38, a renormalisation
     # 3-8): Mandelbrot f32; dd (7 dd_mul, 6 dd_add, the rebase test);
     # floatexp (the dd step + alignment)
-    "pert_mandelbrot_f32": 29, "pert_mandelbrot_dd": 267,
-    "pert_mandelbrot_fx": 291,
+    "pert_mandelbrot_f32": 29, "pert_mandelbrot_dd": 169,
+    "pert_mandelbrot_fx": 193,
     # Julia: Z = Z0 + D (f32 2, dd 2 dd_add), no dc; floatexp: two cfe_mul,
     # a cfe_add and the rfe composition of Z and of rel = D + d
-    "pert_julia_f32": 31, "pert_julia_dd": 271, "pert_julia_fx": 419,
+    "pert_julia_f32": 31, "pert_julia_dd": 173, "pert_julia_fx": 307,
     # Burning Ship: two diffabs and the dx'/dy' products (dd: 5 dd_mul, 7
     # dd_add; floatexp: 6 rfe_mul, 9 rfe_add, the sign tests' 4 rfe_add)
-    "pert_ship_f32": 37, "pert_ship_dd": 264, "pert_ship_fx": 398,
+    "pert_ship_f32": 37, "pert_ship_dd": 194, "pert_ship_fx": 314,
     # Phoenix: the Mandelbrot step + p d + r d_prev (dd: 4 dd_mul_float and
     # 4 dd_add more)
-    "pert_phoenix_f32": 39, "pert_phoenix_dd": 399, "pert_phoenix_fx": 435,
+    "pert_phoenix_f32": 39, "pert_phoenix_dd": 245, "pert_phoenix_fx": 281,
     # the Burning Ship's error ledger: two log2f, the |2z| and |d'|
     # squares, the floor and the max (dd 18 more, floatexp 16 more)
-    "pert_ship_dd_err": 282, "pert_ship_fx_err": 414,
+    "pert_ship_dd_err": 212, "pert_ship_fx_err": 330,
     # the single pass: the Mandelbrot step without the rebase test (f32
     # and dd 4 fewer, floatexp 6 fewer) and with the Pauldelbrot test
     # (|z|^2, |Z|^2, the product and the compare: 8)
-    "pert_mandelbrot_f32_single": 33, "pert_mandelbrot_dd_single": 271,
-    "pert_mandelbrot_fx_single": 293,
+    "pert_mandelbrot_f32_single": 33, "pert_mandelbrot_dd_single": 173,
+    "pert_mandelbrot_fx_single": 195,
 }
 # one step of the single pass's f32 float continuation: z^2 + c and |z|^2
 OPS_CONT = 10
-# per pixel outside the loop: the mapping, and the fused colour + post chain
-OPS_PER_PIXEL = {"fused": 90, "fields": 12, "dd": 60, "pert": 80}
+# per pixel outside the loop: the mapping (K2 and K3: two dd_mul_float),
+# and the fused colour + post chain
+OPS_PER_PIXEL = {"fused": 90, "fields": 12, "dd": 32, "pert": 52}
 # csrc/bulb.cu: one DE step (de_step_int<p>: 10 + 2 square-and-multiply
 # chains + r^(p-1) + 14; the trig step 79), one march evaluation's update
 # (de_finish, threshold, relaxation, the next position: 30) and a hit
@@ -434,6 +439,66 @@ def dz_scene(view: str, **kw):
                  **kw)
 
 
+def pert_setup(view, width, height, series, exact_dust=False):
+    """The orbit, series and packing options the deep-zoom model
+    derives for ``view`` at width x height
+    (models/deep_zoom.render_fields): the family's recurrence, the Julia
+    drift (floatexp-emitted in the ARBITRARY tier) and start Z0, and
+    the exact-dust tier's raised orbit precision.  The orbit comes from
+    ``orbit.compute_orbit`` as it is at the call."""
+    from fractions import Fraction
+
+    from fractalrenderer_tpu_torch.deepzoom import orbit as orbit_mod
+    from fractalrenderer_tpu_torch.deepzoom import series as series_mod
+    from fractalrenderer_tpu_torch.deepzoom.hp import (
+        precision_mode_for_zoom_frac)
+    from fractalrenderer_tpu_torch.ops import dd
+
+    v = DZ_VIEWS[view]
+    family = v.get("family", "mandelbrot")
+    zoom_fr = Fraction(v["zoom"])
+    mode, bits = precision_mode_for_zoom_frac(zoom_fr)
+    bits = -(-bits // 64) * 64
+    if exact_dust:
+        bits = max(bits + 96, 160)
+    scaled = mode.name == "ARBITRARY"
+    fam = {}
+    if family == "julia":
+        orb = orbit_mod.compute_orbit(*JC, bits, v["iters"] + 1,
+                                      z0x=v["cx"], z0y=v["cy"],
+                                      emit_rel=True, emit_fx=scaled)
+        fam = dict(julia=True, julia_z0=(float(Fraction(v["cx"])),
+                                         float(Fraction(v["cy"]))))
+        if scaled:
+            orb, fam["orbit_exp"] = orb
+    else:
+        kind = {"mandelbrot": 0, "ship": 1, "phoenix": 2}[family]
+        orb = orbit_mod.compute_orbit(v["cx"], v["cy"], bits,
+                                      v["iters"] + 1, kind=kind,
+                                      pp=0.0, rr=v.get("r", 0.0))
+        if family == "ship":
+            fam = dict(ship=True)
+        elif family == "phoenix":
+            fam = dict(phoenix=True, phoenix_p=0.0, phoenix_r=v["r"])
+    dd_delta = float(zoom_fr) <= 1e-7 and not scaled
+    if family == "ship":
+        dd_delta = not scaled
+    skip = None
+    if series:
+        corner = math.hypot(0.5 * width / height + 1.0 / height,
+                            0.5 + 1.0 / height)
+        skip = (series_mod.compute_series_skip_fx(
+            orb, zoom_fr * 4 * Fraction(corner) / height) if scaled
+            else series_mod.compute_series_skip(
+                orb, float(zoom_fr) * 4.0 / height * corner))
+    kw = dict(center_x_dd=dd.dd_from_string(v["cx"]),
+              center_y_dd=dd.dd_from_string(v["cy"]),
+              zoom_dd=dd.dd_from_string(v["zoom"]), max_iter=v["iters"],
+              series=skip, scaled_delta=scaled, zoom_frac=v["zoom"],
+              dd_delta=v.get("dd", dd_delta), **fam)
+    return orb, kw, skip
+
+
 def same_bits(a, b) -> bool:
     """Equal values (NaN at the same places: dz overflows in some interior
     pixels outside the skipped bulbs)."""
@@ -463,10 +528,43 @@ def k5_phase(dev, entry) -> None:
           f"(plain {plain_ms:.1f} ms by CUDA events)", flush=True)
 
 
+def host_us_per_call(fn, calls: int = 1000) -> float:
+    """Host microseconds per call of ``fn``: the mean of ``calls`` calls
+    ended by one synchronise (after a warm-up call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def device_us_per_launch(dev, fn, launches: int = 100) -> tuple:
+    """(device microseconds per kernel launch, kernels per call) of
+    ``launches`` calls of ``fn``, from their kernels' profiler records
+    (diag.kernel_seconds_from_trace)."""
+    from fractalrenderer_tpu_torch.utils import diag
+
+    with tempfile.TemporaryDirectory() as d:
+        diag.measure_device_seconds(
+            lambda: [fn() for _ in range(launches)], d, dev)
+        recs = diag.kernel_seconds_from_trace(d)
+    n = sum(v[0] for v in recs.values())
+    assert n % launches == 0, recs
+    return sum(v[1] for v in recs.values()) / n * 1e6, n // launches
+
+
 def k6_phase(dev, entry) -> None:
     """K6 built twice with two salts, each output checked, the main
     library's path unchanged; the kernel, its plain version and the one
-    PyTorch call of the same function timed (mean of 100 launches)."""
+    PyTorch call of the same function (``torch.add(one, x, alpha=salt)``,
+    ``one`` made beforehand: one launch) timed in turns: host microseconds
+    per call (the mean of 1000 calls ended by a synchronise; five runs,
+    before any profiler session of the process), then device microseconds
+    per call from the kernels' profiler records (two runs)."""
     import torch
 
     from fractalrenderer_tpu_torch.ops import _cuda
@@ -479,20 +577,39 @@ def k6_phase(dev, entry) -> None:
     lib, salt = probes[1]["lib"], probes[1]["salt"]
     got = _cuda.compile_probe_cuda(lib, x)
     assert torch.equal(got, _cuda.compile_probe_plain(x, salt))
+    one = x.new_ones(())
+    assert torch.equal(torch.add(one, x, alpha=salt), got)
+    fns = {"kernel": lambda: _cuda.compile_probe_cuda(lib, x),
+           "plain": lambda: _cuda.compile_probe_plain(x, salt),
+           "torch.add": lambda: torch.add(one, x, alpha=salt)}
+    order = list(fns)
+    host_us, dev_us, kernels = {}, {}, {}
+    for r in range(5):
+        for label in order[r % 3:] + order[:r % 3]:
+            host_us.setdefault(label, []).append(host_us_per_call(fns[label]))
+    for label in order + order[::-1]:
+        us, kernels[label] = device_us_per_launch(dev, fns[label])
+        dev_us.setdefault(label, []).append(us * kernels[label])
+    assert kernels["kernel"] == kernels["torch.add"] == 1, kernels
+    dev_med = {k: statistics.median(v) for k, v in dev_us.items()}
+    host_med = {k: statistics.median(v) for k, v in host_us.items()}
     e = entry("compile_probe", PROBE_SRC, K6_TPU, 0.0)
-    e.update(ms=cuda_ms(lambda: _cuda.compile_probe_cuda(lib, x), 100),
-             plain_ms=cuda_ms(lambda: _cuda.compile_probe_plain(x, salt),
-                              100),
-             library_ms=cuda_ms(lambda: torch.add(x.new_ones(()), x,
-                                                  alpha=salt), 100))
+    e.update(ms=dev_med["kernel"] / 1e3, plain_ms=dev_med["plain"] / 1e3,
+             library_ms=dev_med["torch.add"] / 1e3)
     print("K6 compile probe: " + "; ".join(
         f"salt {p['salt']:.0f}: nvcc + load {p['build_seconds']:.3f} s, "
         f"call to fetched scalar {p['seconds']:.3f} s, out = x * salt + 1 "
         "bit-equal" for p in probes)
-        + f"; the library path unchanged; kernel {e['ms'] * 1e3:.2f} us, "
-        f"plain {e['plain_ms'] * 1e3:.2f} us, torch.add(1, x, alpha=salt) "
-        f"{e['library_ms'] * 1e3:.2f} us per launch (mean of 100)",
-        flush=True)
+        + "; the library path unchanged; host us per call (mean of 1000 "
+        "calls ended by a synchronise, median of 5 runs in turns): "
+        + ", ".join(f"{k} {host_med[k]:.2f} (runs "
+                    f"{[round(t, 2) for t in host_us[k]]})" for k in fns)
+        + "; kernel - torch.add "
+        f"{host_med['kernel'] - host_med['torch.add']:+.2f} us; device us "
+        "per call (profiler records, mean of 100 calls, median of 2 runs "
+        "in turns): " + ", ".join(
+            f"{k} {dev_med[k]:.3f} ({kernels[k]} launch(es); runs "
+            f"{[round(t, 3) for t in dev_us[k]]})" for k in fns), flush=True)
 
 
 @contextlib.contextmanager
@@ -709,9 +826,7 @@ def main() -> int:
     # the bench entry points too: the JAX-import check below covers them
     from fractalrenderer_tpu_torch import bench, bench_all  # noqa: F401
     from fractalrenderer_tpu_torch.deepzoom import orbit as orbit_mod
-    from fractalrenderer_tpu_torch.deepzoom import series as series_mod
-    from fractalrenderer_tpu_torch.deepzoom.hp import (
-        HPFloat, precision_mode_for_zoom_frac)
+    from fractalrenderer_tpu_torch.deepzoom.hp import HPFloat
     from fractalrenderer_tpu_torch.models import common, deep_zoom
     from fractalrenderer_tpu_torch.models.mandelbrot import (distance_field,
                                                              render_dd)
@@ -945,56 +1060,6 @@ def main() -> int:
     def orbit_engine() -> str:
         return ("native C++ (native/orbit.cpp)"
                 if orbit_mod._load_native() is not None else "Python bignum")
-
-    def pert_setup(view, width, height, series, exact_dust=False):
-        """The orbit, series and packing options the deep-zoom model
-        derives for ``view`` at width x height
-        (models/deep_zoom.render_fields): the family's recurrence, the Julia
-        drift (floatexp-emitted in the ARBITRARY tier) and start Z0, and
-        the exact-dust tier's raised orbit precision."""
-        v = DZ_VIEWS[view]
-        family = v.get("family", "mandelbrot")
-        zoom_fr = Fraction(v["zoom"])
-        mode, bits = precision_mode_for_zoom_frac(zoom_fr)
-        bits = -(-bits // 64) * 64
-        if exact_dust:
-            bits = max(bits + 96, 160)
-        scaled = mode.name == "ARBITRARY"
-        fam = {}
-        if family == "julia":
-            orb = orbit_mod.compute_orbit(*JC, bits, v["iters"] + 1,
-                                          z0x=v["cx"], z0y=v["cy"],
-                                          emit_rel=True, emit_fx=scaled)
-            fam = dict(julia=True, julia_z0=(float(Fraction(v["cx"])),
-                                             float(Fraction(v["cy"]))))
-            if scaled:
-                orb, fam["orbit_exp"] = orb
-        else:
-            kind = {"mandelbrot": 0, "ship": 1, "phoenix": 2}[family]
-            orb = orbit_mod.compute_orbit(v["cx"], v["cy"], bits,
-                                          v["iters"] + 1, kind=kind,
-                                          pp=0.0, rr=v.get("r", 0.0))
-            if family == "ship":
-                fam = dict(ship=True)
-            elif family == "phoenix":
-                fam = dict(phoenix=True, phoenix_p=0.0, phoenix_r=v["r"])
-        dd_delta = float(zoom_fr) <= 1e-7 and not scaled
-        if family == "ship":
-            dd_delta = not scaled
-        skip = None
-        if series:
-            corner = math.hypot(0.5 * width / height + 1.0 / height,
-                                0.5 + 1.0 / height)
-            skip = (series_mod.compute_series_skip_fx(
-                orb, zoom_fr * 4 * Fraction(corner) / height) if scaled
-                else series_mod.compute_series_skip(
-                    orb, float(zoom_fr) * 4.0 / height * corner))
-        kw = dict(center_x_dd=dd.dd_from_string(v["cx"]),
-                  center_y_dd=dd.dd_from_string(v["cy"]),
-                  zoom_dd=dd.dd_from_string(v["zoom"]), max_iter=v["iters"],
-                  series=skip, scaled_delta=scaled, zoom_frac=v["zoom"],
-                  dd_delta=v.get("dd", dd_delta), **fam)
-        return orb, kw, skip
 
     # (case index, params, device streams, launch geometry, plain band ms)
     pert_frames = []

@@ -5,9 +5,20 @@
 //
 // Exactness.  Build with -fmad=false and without --use_fast_math: the error
 // terms of two_sum and two_prod only hold when no operation is contracted
-// or reassociated.  two_prod keeps the Dekker split (c - (c - a) with
-// 4097) rather than an fmaf, because the plain versions have no fused
-// operation and the kernels must agree with them bit for bit.
+// or reassociated, and the dd operation order is the JAX package's.
+//
+// two_prod is one exact fmaf: err = fmaf(a, b, -p) is the rounding error of
+// p = a * b, exactly, wherever it is representable.  The TPU kernel needed
+// Dekker's two Veltkamp splits and four partial products (its VPU has no
+// f32 FMA); the card issues the product and its error in two instructions
+// instead of ~16.  The plain versions (ops/dd.py two_prod) compute the same
+// number with no fused operation: a * b in f64 is exact (24 + 24 bits <=
+// 53), subtracting f64(p) is exact, and the one rounding to f32 is the
+// fmaf's.  That equals Dekker's error wherever neither the product nor its
+// exact error is subnormal; in that zone the fmaf is the correctly rounded one
+// (and XLA:CPU, which runs the JAX reference in the tests, flushes it).
+// Only two_prod is fused: dd_mul's cross terms stay unfused, because
+// fusing them would round differently from the JAX package.
 
 #ifndef FR_DD_CUH_
 #define FR_DD_CUH_
@@ -16,21 +27,12 @@ struct dd_t {
   float hi, lo;
 };
 
-// ops/dd.py split: Veltkamp split into 12+12-bit halves.
-static __device__ __forceinline__ void split(float a, float& hi, float& lo) {
-  const float c = 4097.0f * a;
-  hi = c - (c - a);
-  lo = a - hi;
-}
-
-// ops/dd.py two_prod: a * b = p + err exactly (Dekker).
+// ops/dd.py two_prod: a * b = p + err exactly (one fmaf; __fmaf_rn issues
+// FFMA under -fmad=false too).
 static __device__ __forceinline__ void two_prod(float a, float b, float& p,
                                                 float& err) {
   p = a * b;
-  float ah, al, bh, bl;
-  split(a, ah, al);
-  split(b, bh, bl);
-  err = ((ah * bh - p) + ah * bl + al * bh) + al * bl;
+  err = __fmaf_rn(a, b, -p);
 }
 
 // ops/dd.py dd_add.

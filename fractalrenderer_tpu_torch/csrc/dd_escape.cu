@@ -10,15 +10,15 @@
 // (the TPU kernel's 16-iteration bursts with a tile-wide any() exit do not
 // carry over).  The 11 scalar parameters arrive by value.  z and c are
 // (hi, lo) f32 pairs held in registers; each iteration is three dd
-// products (each a Dekker two_prod with two Veltkamp splits), three dd
+// products (each a two_prod of one exact fmaf, csrc/dd.cuh), three dd
 // adds and an f32 |z|^2.
 //
-// What bounds it.  f32 ALU work: ~110 add/mul per iteration, about ten
-// times K1's Mandelbrot loop, and divergence at the set boundary.  Memory
-// is 12 B per pixel written.
+// What bounds it.  f32 ALU work: ~73 operations per iteration (the fmaf
+// counted as two), about nine times K1's Mandelbrot loop, and divergence
+// at the set boundary.  Memory is 12 B per pixel written.
 //
-// Exactness.  The dd operations come from csrc/dd.cuh (Dekker two_prod,
-// no contraction: build with -fmad=false).
+// Exactness.  The dd operations come from csrc/dd.cuh (two_prod by one
+// fmaf, nothing else contracted: build with -fmad=false).
 
 #include <cuda_runtime.h>
 

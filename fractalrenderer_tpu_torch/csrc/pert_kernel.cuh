@@ -22,10 +22,12 @@
 // Design.  One thread per pixel in 32x8 blocks, grid.z = the spp^2 stacked
 // AA segments (1 without AA): a block never straddles segments, so the TPU
 // kernel's segment padding has no counterpart.  The 41 scalar parameters
-// arrive by value, the reference orbit as 2 (f32 tier), 4 (dd and floatexp:
-// hi and lo of the f64 orbit) or 6 (Julia floatexp: hi, lo and exponent of
-// the drift D = Z - Z0) f32 streams in global memory, read through the
-// read-only cache.  Family and tier are template parameters (12 instances).
+// arrive by value, the reference orbit as one table in global memory, read
+// through the read-only cache: per entry 2 (f32 tier), 4 (dd and floatexp:
+// hi and lo of the f64 orbit) or 8 floats (Julia floatexp: hi, lo and
+// exponent of the drift D = Z - Z0, padded), which the wrapper interleaves
+// from the plain version's streams.  Family and tier are template
+// parameters (12 instances).
 // Each lane iterates its delta against the orbit
 //     Mandelbrot  d <- 2 Z d + d^2 + dc
 //     Julia       d <- 2 Z d + d^2, Z = Z0 + D        (no dc term)
@@ -50,14 +52,31 @@
 // a continuing lane resumes at n0 + 16 ceil((end - n0) / 16), not at the
 // orbit's end; the port follows that (kChunk).
 //
-// What bounds it.  f32 ALU work: per iteration ~20-35 operations in the
-// f32 tier, ~270-400 in the dd tier (seven to nine dd products, each a
-// Dekker two_prod with two Veltkamp splits) and ~300-1100 in the floatexp
-// tier (the Julia and Ship floatexp steps renormalise after every
-// operation), times the pixel's iteration count, and divergence between the
-// lanes of a warp.  The orbit (<= 24 B per entry) stays in L2; warps read
+// Each lane carries the orbit entry Z_i in registers: a step loads Z_{i+1}
+// only, in one vector load (two in the Julia floatexp tier) at one index
+// product, and Z_{i+1}, which the rebase test reads anyway, is the next
+// step's Z_i.  Z_i is loaded again only where the lane's index jumps: at n0
+// and at index 0 after a rebase restart.
+//
+// What bounds it.  The FP32 pipe's issue rate: per step ~30-40 operations
+// in the f32 tier, ~170-250 in the dd tier (five to eleven dd products)
+// and ~190-330 in the floatexp tier (the Julia and Ship floatexp steps
+// renormalise after every operation; chip_smoke.py OPS_PER_ITER), times
+// the pixel's iteration count, plus loads, selects and loop control, and
+// divergence between the lanes of a warp.  The TPU kernel built each dd
+// product from a Dekker two_prod (two Veltkamp splits and four partial
+// products, ~16 instructions: its VPU has no f32 FMA); here two_prod is
+// one exact fmaf (csrc/dd.cuh), so a dd_mul is 9 instructions and a
+// dd_mul_float 7.  The orbit (<= 32 B per entry) stays in L2; warps read
 // it at one index until their lanes' first rebases, after which each lane
 // reads its own index.  Memory written: 20 B per pixel.
+//
+// Not done here, and why.  Staging the orbit in shared memory: config 4's
+// orbit is 10 000 x 16 B = 160 KB, while a warp is in step its reads are
+// broadcast L1 hits, and staging would cost occupancy on a latency-bound
+// dd chain.  Lane refill or persistent blocks: the warp-max waste is ~1.12
+// on config 4.  Tensor cores, TMA and wgmma: the work is scalar dd
+// arithmetic per pixel, and no exact f32 product runs on the tensor cores.
 //
 // Exactness.  Build with -fmad=false (csrc/dd.cuh); the iteration counter
 // is an f32 compared against the f32 limit; offsets of stacked segments are
@@ -86,13 +105,13 @@ struct PertParams {
   float v[kNQ];
 };
 
-// Orbit streams (re, im, re lo, im lo, re exponent, im exponent; the ones a
-// tier does not read may alias stream 0), geometry, the single pass's float
-// continuation switch and the output planes (a form leaves the planes it
-// does not write untouched: want and rounds belong to the rebasing forms,
-// glitch to the single pass, errx to the ledger).
+// The reference orbit as one interleaved table (orbit_width floats per
+// entry, 16-byte aligned), geometry, the single pass's float continuation
+// switch and the output planes (a form leaves the planes it does not write
+// untouched: want and rounds belong to the rebasing forms, glitch to the
+// single pass, errx to the ledger).
 struct PertArgs {
-  const float* orbit[6];
+  const float* orbit;
   int width, height, map_height, max_passes, spp, float_cont;
   int* n;
   float *zx, *zy, *glitch, *want, *rounds, *errx;
@@ -102,6 +121,45 @@ constexpr int kF32 = 0, kDD = 1, kFX = 2;  // ops/perturbation.py TIERS
 constexpr int kMandelbrot = 0, kJulia = 1, kShip = 2, kPhoenix = 3;
 constexpr int kRebase = 0, kLedger = 1, kSingle = 2;  // ... FORMS
 constexpr int kChunk = 16;  // the TPU kernel's orbit-index chunk
+
+// Floats per entry of the orbit table: f32 tier (re, im); dd and floatexp
+// tiers (re, im, re lo, im lo); the Julia floatexp tier (re, im, re lo, im
+// lo, re exponent, im exponent, 0, 0) of the drift D = Z - Z0.
+__host__ __device__ constexpr int orbit_width(int family, int tier) {
+  return tier == kF32 ? 2 : (family == kJulia && tier == kFX ? 8 : 4);
+}
+
+// One orbit entry as a tier reads it; the fields it does not read are 0.
+struct OrbitEntry {
+  float re, im, rl, il, rex, iex;
+};
+
+// Entry i of the table: one 8- or 16-byte load (and one 8-byte load of the
+// exponents in the Julia floatexp tier), so a step's address arithmetic is
+// one index product.
+template <int kFamily, int kTier>
+static __device__ __forceinline__ OrbitEntry orbit_entry(const float* o,
+                                                         int i) {
+  const float* at = o + orbit_width(kFamily, kTier) * i;
+  OrbitEntry e = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if constexpr (kTier == kF32) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(at));
+    e.re = v.x;
+    e.im = v.y;
+  } else {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(at));
+    e.re = v.x;
+    e.im = v.y;
+    e.rl = v.z;
+    e.il = v.w;
+    if constexpr (orbit_width(kFamily, kTier) == 8) {
+      const float2 w = __ldg(reinterpret_cast<const float2*>(at + 4));
+      e.rex = w.x;
+      e.iex = w.y;
+    }
+  }
+  return e;
+}
 
 // The instances that exist: every family and tier rebasing; the ledger on
 // the Burning Ship's dd and floatexp tiers; the single pass on Mandelbrot.
@@ -125,12 +183,7 @@ __global__ void __launch_bounds__(256)
   const int lrow = blockIdx.y * blockDim.y + threadIdx.y;
   const int seg = blockIdx.z;
   if (col >= a.width || lrow >= a.height) return;
-  const float* __restrict__ ore = a.orbit[0];
-  const float* __restrict__ oim = a.orbit[1];
-  const float* __restrict__ orl = a.orbit[2];
-  const float* __restrict__ oil = a.orbit[3];
-  const float* __restrict__ rex = a.orbit[4];
-  const float* __restrict__ iex = a.orbit[5];
+  const float* __restrict__ orb = a.orbit;
 
   const int limit = static_cast<int>(p.v[Q_LIMIT]);
   const float limit_f = p.v[Q_LIMIT];
@@ -212,24 +265,23 @@ __global__ void __launch_bounds__(256)
     }
   }
   // the full start value (:566-586): Z_{n0} + d; Julia Z0 + D_{n0} + d
+  const OrbitEntry z0 = orbit_entry<kFamily, kTier>(orb, n0);
   float zfr, zfi;
   rfe_t z0fe_x, z0fe_y;  // Julia floatexp: Z0
   rfe_t dcfe_x, dcfe_y;  // Ship floatexp: the true dc (:475-478)
   if constexpr (julia && kTier == kFX) {
-    const rfe_t d0r = rfe_norm({__ldg(ore + n0), __ldg(orl + n0)},
-                               static_cast<int>(__ldg(rex + n0)));
-    const rfe_t d0i = rfe_norm({__ldg(oim + n0), __ldg(oil + n0)},
-                               static_cast<int>(__ldg(iex + n0)));
+    const rfe_t d0r = rfe_norm({z0.re, z0.rl}, static_cast<int>(z0.rex));
+    const rfe_t d0i = rfe_norm({z0.im, z0.il}, static_cast<int>(z0.iex));
     zfr = z0x.hi + (z0x.lo + rfe_to_f32(rfe_add(d0r, {dzr, ex})));
     zfi = z0y.hi + (z0y.lo + rfe_to_f32(rfe_add(d0i, {dzi, ex})));
     z0fe_x = rfe_from_dd(z0x.hi, z0x.lo);
     z0fe_y = rfe_from_dd(z0y.hi, z0y.lo);
   } else if constexpr (julia) {
-    zfr = z0x.hi + (z0x.lo + (__ldg(ore + n0) + dz0r));
-    zfi = z0y.hi + (z0y.lo + (__ldg(oim + n0) + dz0i));
+    zfr = z0x.hi + (z0x.lo + (z0.re + dz0r));
+    zfi = z0y.hi + (z0y.lo + (z0.im + dz0i));
   } else {
-    zfr = __ldg(ore + n0) + dz0r;
-    zfi = __ldg(oim + n0) + dz0i;
+    zfr = z0.re + dz0r;
+    zfi = z0.im + dz0i;
   }
   if constexpr (ship && kTier == kFX) {
     dcfe_x = rfe_norm(dcx, -s_exp);
@@ -259,31 +311,32 @@ __global__ void __launch_bounds__(256)
   bool want = false;
   bool glitch = false;  // the single pass's flag
   for (;;) {
+    // Z_i, loaded where the lane's index jumps (n0, or 0 after a restart)
+    // and from then on carried in registers: each step loads only
+    // Z_{i+1}, which becomes the next step's Z_i
+    OrbitEntry z = orbit_entry<kFamily, kTier>(orb, i);
     for (;;) {
       const float mag2 = zfr * zfr + zfi * zfi;
       if (!(mag2 <= bail2 && i < pert_end && nf < limit_f)) break;
       nf = nf + 1.0f;
-      float zr = __ldg(ore + i), zi = __ldg(oim + i);
-      const float zr1 = __ldg(ore + i + 1), zi1 = __ldg(oim + i + 1);
+      const OrbitEntry z1 = orbit_entry<kFamily, kTier>(orb, i + 1);
       const bool ends = i + 1 >= pert_end;
       bool want_now;
       if constexpr (kTier == kF32) {
-        // :1070-1136
-        if constexpr (julia) {  // the tables hold D = Z - Z0
-          zr = z0x.hi + zr;
-          zi = z0y.hi + zi;
-        }
+        // :1070-1136; Julia's tables hold D = Z - Z0
+        const float Zr = julia ? z0x.hi + z.re : z.re;
+        const float Zi = julia ? z0y.hi + z.im : z.im;
         float ndr, ndi;
         if constexpr (ship) {
           // dx' = da(2|X|+da) - db(2|Y|+db) + dcx
           // dy' = 2(|X| db + |Y| da + da db) + dcy
-          const float da = diffabs(zr, dr), db = diffabs(zi, di);
-          const float aa = fabsf(zr), bb = fabsf(zi);
+          const float da = diffabs(Zr, dr), db = diffabs(Zi, di);
+          const float aa = fabsf(Zr), bb = fabsf(Zi);
           ndr = da * (2.0f * aa + da) - db * (2.0f * bb + db) + delta_r;
           ndi = 2.0f * (aa * db + bb * da + da * db) + delta_i;
         } else {
-          const float t1r = 2.0f * (zr * dr - zi * di);
-          const float t1i = 2.0f * (zr * di + zi * dr);
+          const float t1r = 2.0f * (Zr * dr - Zi * di);
+          const float t1i = 2.0f * (Zr * di + Zi * dr);
           const float t2r = dr * dr - di * di;
           const float t2i = (2.0f * dr) * di;
           if constexpr (phoenix) {
@@ -299,16 +352,16 @@ __global__ void __launch_bounds__(256)
         }
         // Julia: rel = D_{i+1} + d (the rebased delta and the Zhuoran
         // distance to Z0); the others: rel is z_full
-        const float relr = zr1 + ndr;
-        const float reli = zi1 + ndi;
+        const float relr = z1.re + ndr;
+        const float reli = z1.im + ndi;
         const float zm2 = relr * relr + reli * reli;
         const float dm2 = ndr * ndr + ndi * ndi;
         want_now = !single && (zm2 < dm2 || ends) && nf < limit_f;
         if constexpr (phoenix) {
           // delta_prev advances to the old delta; a rebased lane gets the
           // absolute z_i (Z_{-1} = 0)
-          qr = want_now ? zr + dr : dr;
-          qi = want_now ? zi + di : di;
+          qr = want_now ? Zr + dr : dr;
+          qi = want_now ? Zi + di : di;
         }
         dr = want_now ? relr : ndr;
         di = want_now ? reli : ndi;
@@ -320,9 +373,7 @@ __global__ void __launch_bounds__(256)
           zfi = reli;
         }
       } else {
-        const float zrl = __ldg(orl + i), zil = __ldg(oil + i);
-        const float zrl1 = __ldg(orl + i + 1), zil1 = __ldg(oil + i + 1);
-        const dd_t X = {zr, zrl}, Y = {zi, zil};
+        const dd_t X = {z.re, z.rl}, Y = {z.im, z.il};
         if constexpr (kTier == kDD) {
           // :926-1069
           dd_t ndr, ndi;
@@ -365,14 +416,14 @@ __global__ void __launch_bounds__(256)
                                        dd_mul_float(pzi, rr)));
             }
           }
-          const float rel_r = (zr1 + ndr.hi) + (zrl1 + ndr.lo);
-          const float rel_i = (zi1 + ndi.hi) + (zil1 + ndi.lo);
+          const float rel_r = (z1.re + ndr.hi) + (z1.rl + ndr.lo);
+          const float rel_i = (z1.im + ndi.hi) + (z1.il + ndi.lo);
           const float zm2 = rel_r * rel_r + rel_i * rel_i;
           const float dm2 = ndr.hi * ndr.hi + ndi.hi * ndi.hi;
           want_now = !single && (zm2 < dm2 || ends) && nf < limit_f;
           if (want_now) {  // rebase: d <- Z_{i+1} + d (Julia D_{i+1} + d)
-            ndr = dd_add({zr1, zrl1}, ndr);
-            ndi = dd_add({zi1, zil1}, ndi);
+            ndr = dd_add({z1.re, z1.rl}, ndr);
+            ndi = dd_add({z1.im, z1.il}, ndi);
           }
           if constexpr (ledger) {
             // :1039-1065: the error grows by |2z| (z from the hi parts
@@ -403,16 +454,16 @@ __global__ void __launch_bounds__(256)
           // (Z itself can sit at delta scale near the start); rel = D_{i+1}
           // + d; z_full = Z0 + rel; the Zhuoran metric |rel| < |d| at full
           // floatexp precision
-          const rfe_t Dr = rfe_norm(X, static_cast<int>(__ldg(rex + i)));
-          const rfe_t Di = rfe_norm(Y, static_cast<int>(__ldg(iex + i)));
+          const rfe_t Dr = rfe_norm(X, static_cast<int>(z.rex));
+          const rfe_t Di = rfe_norm(Y, static_cast<int>(z.iex));
           cfe_t zc = cfe_from_rr(rfe_add(z0fe_x, Dr), rfe_add(z0fe_y, Di));
           zc.e = zc.e == kEZero ? zc.e : zc.e + 1;  // 2Z
           const cfe_t d = {dzr, dzi, ex};
           const cfe_t nm = cfe_add(cfe_mul(d, zc), cfe_mul(d, d));
           const rfe_t D1r =
-              rfe_norm({zr1, zrl1}, static_cast<int>(__ldg(rex + i + 1)));
+              rfe_norm({z1.re, z1.rl}, static_cast<int>(z1.rex));
           const rfe_t D1i =
-              rfe_norm({zi1, zil1}, static_cast<int>(__ldg(iex + i + 1)));
+              rfe_norm({z1.im, z1.il}, static_cast<int>(z1.iex));
           const rfe_t rel_r = rfe_add(D1r, {nm.r, nm.e});
           const rfe_t rel_i = rfe_add(D1i, {nm.i, nm.e});
           const cfe_t rel_c = cfe_from_rr(rel_r, rel_i);
@@ -493,8 +544,8 @@ __global__ void __launch_bounds__(256)
           }
           // :846-901: z_full = Z + m 2^ex; Zhuoran test; rebase to exp 0
           const float dfac = pow2i(nm.e);
-          zfr = (zr1 + nm.r.hi * dfac) + (zrl1 + nm.r.lo * dfac);
-          zfi = (zi1 + nm.i.hi * dfac) + (zil1 + nm.i.lo * dfac);
+          zfr = (z1.re + nm.r.hi * dfac) + (z1.rl + nm.r.lo * dfac);
+          zfi = (z1.im + nm.i.hi * dfac) + (z1.il + nm.i.lo * dfac);
           const float zm2 = zfr * zfr + zfi * zfi;
           const float dm2 =
               (nm.r.hi * nm.r.hi + nm.i.hi * nm.i.hi) * pow2i(nm.e + nm.e);
@@ -514,8 +565,8 @@ __global__ void __launch_bounds__(256)
             }
           }
           if (want_now) {
-            dzr = dd_add({zr1, zrl1}, scl(nm.r, dfac));
-            dzi = dd_add({zi1, zil1}, scl(nm.i, dfac));
+            dzr = dd_add({z1.re, z1.rl}, scl(nm.r, dfac));
+            dzi = dd_add({z1.im, z1.il}, scl(nm.i, dfac));
             ex = 0;
           } else {
             dzr = nm.r;
@@ -540,10 +591,12 @@ __global__ void __launch_bounds__(256)
       if constexpr (single) {
         // the Pauldelbrot flag against |Z_{i+1}|^2 of the f32 hi streams,
         // the table the JAX package ships (:384-386, :1694-1695)
-        glitch = glitch || zfr * zfr + zfi * zfi <
-                               p.v[Q_GLITCH_TOL] * (zr1 * zr1 + zi1 * zi1);
+        glitch = glitch ||
+                 zfr * zfr + zfi * zfi <
+                     p.v[Q_GLITCH_TOL] * (z1.re * z1.re + z1.im * z1.im);
       }
       ++i;
+      z = z1;
       if (want_now) {
         want = true;
         break;

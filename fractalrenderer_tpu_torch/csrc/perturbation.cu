@@ -21,27 +21,23 @@ extern "C" {
 // Launch K3 for a family (0 Mandelbrot, 1 Julia, 2 Burning Ship, 3 Phoenix),
 // tier (0 f32, 1 dd, 2 floatexp deltas) and form (0 rebasing, 1 rebasing
 // with the error ledger, 2 single pass) on `stream`.  `params` (41 floats)
-// is a host array copied into the kernel's by-value argument; the six orbit
-// streams are device arrays (those the tier does not read may alias the
-// first); `float_cont` switches the single pass's f32 continuation on.
+// is a host array copied into the kernel's by-value argument; `orbit` is the
+// device table of orbit_width(family, tier) floats per entry, 16-byte
+// aligned; `float_cont` switches the single pass's f32 continuation on.
 // Writes n (int32), zx, zy and the form's planes (f32): want and rounds
 // (rebasing), glitch (single pass), errx (ledger), each (spp^2 * height,
 // width), row-major, segment by segment; the pointers of the planes a form
 // does not write may be null.  Returns the cudaError_t of the launch.
 int fr_perturbation(int family, int tier, int form, const float* params,
-                    const void* s0, const void* s1, const void* s2,
-                    const void* s3, const void* s4, const void* s5,
-                    int width, int height, int map_height, int max_passes,
-                    int spp, int float_cont, void* n_out, void* zx_out,
+                    const void* orbit, int width, int height,
+                    int map_height, int max_passes, int spp,
+                    int float_cont, void* n_out, void* zx_out,
                     void* zy_out, void* glitch_out, void* want_out,
                     void* rounds_out, void* errx_out, void* stream) {
   PertParams p;
   std::memcpy(p.v, params, sizeof(p.v));
   PertArgs a;
-  const void* streams[6] = {s0, s1, s2, s3, s4, s5};
-  for (int k = 0; k < 6; ++k) {
-    a.orbit[k] = static_cast<const float*>(streams[k]);
-  }
+  a.orbit = static_cast<const float*>(orbit);
   a.width = width;
   a.height = height;
   a.map_height = map_height;

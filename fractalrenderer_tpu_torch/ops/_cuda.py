@@ -125,10 +125,10 @@ def load_library() -> ctypes.CDLL:
     #              stream)
     lib.fr_dd_escape.argtypes = [vp] + [ci] * 4 + [vp] * 4
     lib.fr_dd_escape.restype = ci
-    # fr_perturbation(family, tier, form, params, 6 orbit streams, width,
+    # fr_perturbation(family, tier, form, params, orbit table, width,
     #                 height, map_height, max_passes, spp, float_cont, n,
     #                 zx, zy, glitch, want, rounds, errx, stream)
-    lib.fr_perturbation.argtypes = [ci] * 3 + [vp] * 7 + [ci] * 6 + [vp] * 8
+    lib.fr_perturbation.argtypes = [ci] * 3 + [vp] * 2 + [ci] * 6 + [vp] * 8
     lib.fr_perturbation.restype = ci
     # fr_bulb_cone(power, params, coarse_w, coarse_h, width, map_height,
     #              t0, stream)
@@ -203,18 +203,28 @@ def build_compile_probe(salt: float) -> ctypes.CDLL:
 def compile_probe_cuda(lib: ctypes.CDLL, x):
     """Launch the K6 instance ``lib`` (from build_compile_probe) on the
     (16, 128) f32 CUDA tensor ``x``; returns the output tensor.  Counts its
-    launches in ``compile_probe_cuda.launches``."""
+    launches in ``compile_probe_cuda.launches``.
+
+    Per call it does only what a launch needs (the argument check, the
+    output, the raw stream handle, the ctypes call), and takes the
+    ``torch.cuda.device`` guard only when ``x`` is not on the current
+    device."""
     import torch
 
-    dev = cuda_device(x.device)
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs a CUDA device, got {dev}")
     if x.shape != (16, 128) or x.dtype != torch.float32 \
             or not x.is_contiguous():
         raise ValueError("the compile probe takes a contiguous (16, 128) "
                          f"f32 tensor, got {tuple(x.shape)} {x.dtype}")
-    with torch.cuda.device(dev):
-        out = torch.empty_like(x)
-        rc = lib.fr_compile_probe(x.data_ptr(), out.data_ptr(),
-                                  torch.cuda.current_stream(dev).cuda_stream)
+    index = dev.index
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return compile_probe_cuda(lib, x)
+    out = torch.empty_like(x)
+    rc = lib.fr_compile_probe(x.data_ptr(), out.data_ptr(),
+                              torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError("compile probe kernel launch failed: "
                            + lib.fr_probe_error_string(rc).decode())

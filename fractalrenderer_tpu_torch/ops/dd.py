@@ -2,11 +2,16 @@
 ``fractalrenderer_tpu/ops/dd.py``).
 
 Coordinates past f32 precision are carried as unevaluated (hi, lo) f32
-pairs (test_deep_zoom.comp:20-51), giving ~48 bits of mantissa.  The
-product error term uses the Dekker/Veltkamp split, not an FMA, as the JAX
-package does: the plain PyTorch version has no fused operation, and the CUDA
-kernels (csrc/dd.cuh, shared by dd_escape.cu and perturbation.cu) must agree
-with it bit for bit.
+pairs (test_deep_zoom.comp:20-51), giving ~48 bits of mantissa.  The CUDA
+kernels (csrc/dd.cuh, shared by dd_escape.cu and perturbation.cu) take the
+product error term from one exact fmaf, err = fmaf(a, b, -p); ``two_prod``
+here computes the same number with no fused operation: a * b in f64 is
+exact (24 + 24 bits <= 53), subtracting f64(p) is exact, and the one
+rounding to f32 is the fmaf's.  Wherever neither the product nor its
+exact error is subnormal, that equals the JAX package's Dekker/Veltkamp error (its TPU
+kernel has no f32 FMA); in the subnormal zone it is the correctly rounded
+error, where XLA:CPU flushes.  ``split`` (Veltkamp) stays for the tests
+that hold it against the JAX package's.
 
 The tensor functions take f32 tensors (or 0-dim f32 tensors); nothing here
 may be reassociated.  The host-side converters (``dd_from_*``) are
@@ -41,11 +46,10 @@ def split(a):
 
 
 def two_prod(a, b):
-    """a * b = p + err exactly, via Veltkamp/Dekker (no FMA)."""
+    """a * b = p + err exactly: err is fmaf(a, b, -p), computed as
+    f32(f64(a) * f64(b) - f64(p)) (both f64 operations exact)."""
     p = a * b
-    ah, al = split(a)
-    bh, bl = split(b)
-    err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    err = (a.double() * b.double() - p.double()).float()
     return p, err
 
 
@@ -73,8 +77,8 @@ def dd_add_float(a, b):
 
 
 def dd_mul_float(a, b):
-    """dd * f32 — dd_mul_sf (test_deep_zoom.comp:40-47) with a Dekker
-    two-prod for the error term."""
+    """dd * f32 — dd_mul_sf (test_deep_zoom.comp:40-47) with the exact
+    two-prod error term."""
     ah, al = a
     p, e = two_prod(ah, b)
     lo = al * b + e

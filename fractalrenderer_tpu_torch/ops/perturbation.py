@@ -1049,6 +1049,19 @@ def _fx_aligned_step(mr, mi, ex, X, Y, dcx, dcy, s_exp, prev, pp, rr,
     return _cfe_norm(nmr, nmi, emax)
 
 
+def _orbit_table(streams: Sequence, tier: str, family: str) -> torch.Tensor:
+    """The kernel's orbit table: the streams interleaved, one entry per
+    index (csrc/pert_kernel.cuh orbit_width: f32 2 floats, dd and floatexp
+    4, the Julia floatexp 8 with its two exponent streams and two zeros),
+    on the streams' device.  A new tensor, so its start is as aligned as
+    the allocator's blocks, past the 16 bytes the kernel's vector loads
+    need."""
+    width = 8 if (tier, family) == ("fx", "julia") else len(streams)
+    cols = list(streams) + [torch.zeros_like(streams[0])] * (width
+                                                              - len(streams))
+    return torch.stack(cols, dim=1)
+
+
 def perturbation_fields_cuda(params: np.ndarray, streams: Sequence, *,
                              tier: str, family: str = "mandelbrot",
                              form: str = "rebase", float_cont: bool = False,
@@ -1070,8 +1083,7 @@ def perturbation_fields_cuda(params: np.ndarray, streams: Sequence, *,
     nseg = spp * spp
     single = form == "single"
     with torch.cuda.device(dev):
-        orbit = [s.contiguous() for s in _device_streams(streams, dev)]
-        orbit += [orbit[0]] * (6 - len(orbit))  # the unread streams
+        orbit = _orbit_table(_device_streams(streams, dev), tier, family)
         shape = (nseg * height, width)
         n = torch.empty(shape, dtype=torch.int32, device=dev)
 
@@ -1087,7 +1099,7 @@ def perturbation_fields_cuda(params: np.ndarray, streams: Sequence, *,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fr_perturbation(
             FAMILIES.index(family), TIERS.index(tier), FORMS.index(form),
-            params.ctypes.data, *(o.data_ptr() for o in orbit), width,
+            params.ctypes.data, orbit.data_ptr(), width,
             height, map_height, max_passes, spp, int(float_cont),
             *(None if q is None else q.data_ptr()
               for q in (n, zx, zy, glitch, want, rounds, errx)), stream)

@@ -11,7 +11,8 @@ on n, zx, zy, want and rounds in each family and delta tier and in stacked
 launches (each segment also equal to a launch at its offset), on errx too
 in the Burning Ship's error-ledger instances, and on n, zx, zy and glitch
 in the single-pass Mandelbrot instances (with and without f32 float
-continuation, on a band and against a shifted reference); K4a's start
+continuation, on a band and against a shifted reference), and in the dd
+tier at 1e-20, where the products' errors are subnormal; K4a's start
 depths and K4b's planes (hit, t, d, esc, normals, AO, msteps, work)
 bit-equal in the integer-power and trig instances.
 
@@ -260,6 +261,29 @@ def test_perturbation_kernel_equals_plain(dev, tier, case):
     got, want = _pert_both(dev, tier, **case)
     _assert_pert_equal(got, want, tier)
     assert int(got[5].max()) >= 2  # the views rebase
+
+
+# a dd-tier view whose d^2 products have subnormal errors (the needle at
+# 1e-20; tests/test_torch_two_prod.py shows the plain version reaches that
+# zone there): the kernel's fmaf and the plain version's f64 form agree in
+# it too
+_SUBNORMAL_VIEW = ("-1.74975914513036646165693", "0", "1e-20", 600)
+
+
+def test_dd_tier_subnormal_product_errors_kernel_equals_plain(dev):
+    from fractalrenderer_tpu_torch.deepzoom.orbit import compute_orbit
+    from fractalrenderer_tpu_torch.ops import perturbation
+
+    cx, cy, zoom, iters = _SUBNORMAL_VIEW
+    orb = compute_orbit(cx, cy, 256, iters + 1)
+    params, streams, launch = perturbation.pack_pert_operands(
+        orb, 64, 48, center_x_dd=dd.dd_from_string(cx),
+        center_y_dd=dd.dd_from_string(cy), zoom_dd=dd.dd_from_string(zoom),
+        max_iter=iters, dd_delta=True)
+    assert launch["tier"] == "dd"
+    got, want = _launch_both(dev, params, streams, launch)
+    _assert_pert_equal(got, want, "dd 1e-20")
+    assert int(got[0].min()) < iters and int(got[5].max()) >= 2
 
 
 _JC = ("-0.7", "0.27015")

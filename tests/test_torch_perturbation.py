@@ -394,3 +394,21 @@ def test_launch_validation():
                                                **dict(kw, max_passes=0))
     with pytest.raises(ValueError, match="needs a CUDA device"):
         perturbation.perturbation_fields_cuda(params, streams, **kw)
+
+
+@pytest.mark.parametrize("tier,family,width", [
+    ("f32", "mandelbrot", 2), ("dd", "ship", 4), ("fx", "phoenix", 4),
+    ("fx", "julia", 8)])
+def test_orbit_table_interleaves_the_streams(tier, family, width):
+    # the kernel's table (csrc/pert_kernel.cuh orbit_width, orbit_entry):
+    # entry i holds stream k's element i at float k, then zeros
+    rng = np.random.default_rng(3)
+    n = perturbation.n_streams(tier, family)
+    streams = [torch.from_numpy(rng.standard_normal(37).astype(np.float32))
+               for _ in range(n)]
+    table = perturbation._orbit_table(streams, tier, family)
+    assert table.shape == (37, width) and table.is_contiguous()
+    assert table.dtype == torch.float32
+    for k, s in enumerate(streams):
+        assert torch.equal(table[:, k], s)
+    assert not table[:, n:].any()
