@@ -1,30 +1,36 @@
 #!/usr/bin/env python3
-"""Time the port's K2 and K3 kernels of this checkout against those of
-another commit, in turns, on one card.
+"""Time the port's K2, K3 and K4b kernels of this checkout against those
+of another commit, in turns, on one card.
 
-    python3 chip_ab.py OTHER_ROOT [--reps 3] [--out FILE]
+    python3 chip_ab.py OTHER_ROOT [--reps 3] [--only PREFIX] [--out FILE]
 
 OTHER_ROOT holds the other commit's ``fractalrenderer_tpu_torch/`` package,
 for example from ``git archive <commit> fractalrenderer_tpu_torch | tar -x
 -C _parent/`` (``_parent/`` is git-ignored).  Each side runs in processes
 of its own, which import that side's package (its wrappers, its C
 interface, its kernels, built into its own ``_build/``), in the order
-other, this, this, other.  A process packs every case's operands (the
-cases, views and sizes are this checkout's chip_smoke.py's: K2 at the
-Seahorse 1e-9 view, and every K3 instance at its main frame, config 4
-series off and on and its stacked spp-2 launch, the families, the ledger
-and the single pass), then launches each case once to warm up and
-``--reps`` times, each launch timed by CUDA events, then ``--reps`` times
-more under the profiler, whose kernel records give the kernel's own
-device time per launch (the events also hold the wrapper's host work and
-its glue kernels).  A case's line gives each side's kernel time (the mean
-of its two processes' means, each beside it), its event median and runs,
-the ratio this / other of the kernel times, and whether the two sides'
-output planes are bit-identical.  The
-card's name and power limit come first, then the two builds' ptxas
-reports (registers / stack frame bytes / spill bytes per instance) side by
-side; a spill in this checkout's build fails the run.  With ``--out``
-everything is also written as one JSON object.  Imports no JAX.
+other, this, this, other.  A process packs the operands of every case
+whose instance name starts with ``--only`` (the cases, views and sizes
+are this checkout's chip_smoke.py's: K2 at the Seahorse 1e-9 view, every
+K3 instance at its main frame, config 4 series off and on and its stacked
+spp-2 launch, the families, the ledger and the single pass, and K4b's
+1080p frames of power 8, the trig step and power 16, shaded, from their
+own K4a grids), then launches each case once to warm up and ``--reps``
+times, each launch timed by CUDA events, then ``--reps`` times more under
+the profiler, whose kernel records give the kernel's own device time per
+launch (the events also hold the wrapper's host work and its glue
+kernels).  A K4b case is compared on all 10 planes (stats on); where the
+side's K4b takes a trips buffer, its per-warp counters are decoded (and
+their lane steps held equal to the frame's sum of work), its launch
+shape printed, its time without and with the buffer taken in turns and
+the SM clock read under load.  A case's line gives each side's kernel
+time (the mean of its two processes' means, each beside it), its event
+median and runs, the ratio this / other of the kernel times, and whether
+the two sides' output planes are bit-identical.  The card's name and
+power limit come first, then the two builds' ptxas reports (registers /
+stack frame bytes / spill bytes per instance) side by side; a spill in
+this checkout's build fails the run.  With ``--out`` everything is also
+written as one JSON object.  Imports no JAX.
 """
 from __future__ import annotations
 
@@ -52,31 +58,67 @@ def chip_smoke():
     return mod
 
 
+def bulb_case(cs, dev, kw):
+    """A K4b case's set-up: the instance's 1080p frame, shaded, from its
+    own K4a grid (made once); the timed launch is the main path's (no
+    stats), the compared one has all 10 planes."""
+    from fractalrenderer_tpu_torch.ops import bulb_kernel as bk
+    from fractalrenderer_tpu_torch.ops import bulb_math as bm
+
+    bp = bm.BulbParams(**kw).clamped()
+    ro, dyn = bm.camera_setup(bp)
+    ip = bk.resolve_int_power(dyn)
+    params = bk.pack_march_params(ro=ro, fov=bp.fov, power=dyn,
+                                  max_iter=bp.max_iterations)
+    tc = bk.cone_fields_cuda(
+        bk.pack_cone_params(params, cs.CONE, cs.H),
+        coarse_w=-(-cs.W // cs.CONE), coarse_h=-(-cs.H // cs.CONE) + 1,
+        width=cs.W, map_height=cs.H, int_power=ip, device=dev)
+    mkw = dict(width=cs.W, height=cs.H, map_height=cs.H, cone=cs.CONE,
+               shade=True, int_power=ip, device=dev)
+
+    def launch(stats=False, **extra):
+        return bk.march_fields_cuda(params, tc, stats=stats, **mkw, **extra)
+
+    return launch, lambda: launch(stats=True), ip
+
+
 def cases(cs, dev):
-    """(instance, label, the launch as a function of nothing) of every
-    case, its operands on the card."""
+    """(instance, label, set-up) of every case.  The set-up puts the
+    case's operands on the card and returns (the launch as a function of
+    nothing, the launch whose output planes are compared, the bulb's
+    integer power or None)."""
     import torch
 
     from fractalrenderer_tpu_torch.ops import dd, dd_escape, perturbation
 
+    def dd_setup():
+        v = cs.DD_VIEW
+        params = dd_escape.pack_dd_params(
+            center_x_dd=dd.dd_from_string(v["cx"]),
+            center_y_dd=dd.dd_from_string(v["cy"]),
+            zoom_dd=dd.dd_from_string(v["zoom"]), iter_limit=v["iters"])
+        fn = lambda: dd_escape.dd_escape_fields_cuda(  # noqa: E731
+            params, width=cs.W, height=cs.H, map_height=cs.H, row0=0,
+            device=dev)
+        return fn, fn, None
+
     v = cs.DD_VIEW
-    dd_params = dd_escape.pack_dd_params(
-        center_x_dd=dd.dd_from_string(v["cx"]),
-        center_y_dd=dd.dd_from_string(v["cy"]),
-        zoom_dd=dd.dd_from_string(v["zoom"]), iter_limit=v["iters"])
     yield ("dd_escape_mandelbrot", f"Seahorse {v['zoom']} x{v['iters']}",
-           lambda: dd_escape.dd_escape_fields_cuda(
-               dd_params, width=cs.W, height=cs.H, map_height=cs.H, row0=0,
-               device=dev))
+           dd_setup)
 
     def pert(view, width, height, series=False, **extra):
-        orb, kw, _ = cs.pert_setup(view, width, height, series,
-                                   exact_dust=extra.get("track_err", False))
-        params, streams, launch = perturbation.pack_pert_operands(
-            orb, width, height, **kw, **extra)
-        streams = [torch.from_numpy(a).to(dev) for a in streams]
-        return lambda: perturbation.perturbation_fields_cuda(
-            params, streams, max_passes=256, device=dev, **launch)
+        def setup():
+            orb, kw, _ = cs.pert_setup(
+                view, width, height, series,
+                exact_dust=extra.get("track_err", False))
+            params, streams, launch = perturbation.pack_pert_operands(
+                orb, width, height, **kw, **extra)
+            streams = [torch.from_numpy(a).to(dev) for a in streams]
+            fn = lambda: perturbation.perturbation_fields_cuda(  # noqa: E731
+                params, streams, max_passes=256, device=dev, **launch)
+            return fn, fn, None
+        return setup
 
     for name, label, view, w, h, series in cs.PERT_CASES:
         yield name, label, pert(view, w, h, series)
@@ -84,13 +126,61 @@ def cases(cs, dev):
            pert("config4", cs.W, cs.H, aa_spp=2))
     for name, label, view, w, h, extra in cs.FORM_CASES:
         yield name, label, pert(view, w, h, **extra)
+    for tag, label, kw in cs.BULB_CASES:
+        yield (f"bulb_march_{tag}", f"{label}, {cs.W}x{cs.H} shaded, from "
+               "its K4a grid", lambda kw=kw: bulb_case(cs, dev, kw))
 
 
-def worker(root: str, reps: int) -> dict:
+KERNELS = ("pert_kernel", "dd_escape_kernel", "bulb_march_kernel")
+
+
+def kernel_ms(diag, dev, launch, reps: int) -> float:
+    """Mean device ms per launch of ``launch``'s kernel over ``reps``
+    launches, from the profiler's kernel records."""
+    with tempfile.TemporaryDirectory() as d:
+        diag.measure_device_seconds(lambda: [launch() for _ in range(reps)],
+                                    d, dev)
+        recs = diag.kernel_seconds_from_trace(d)
+    ours = [v for k, v in recs.items() if any(n in k for n in KERNELS)]
+    assert sum(v[0] for v in ours) == reps, recs
+    return sum(v[1] for v in ours) / reps * 1e3
+
+
+def bulb_counters(dev, diag, launch, ip, reps: int) -> dict:
+    """K4b's per-warp counters (decoded) and launch shape, and the kernel's
+    time without and with the trips buffer, in turns (without, with, with,
+    without), where the package has the buffer; {} where it has not."""
+    import inspect
+
+    from fractalrenderer_tpu_torch.ops import bulb_kernel as bk
+
+    if "trips" not in inspect.signature(bk.march_fields_cuda).parameters:
+        return {}
+    cs = chip_smoke()
+    buf = bk.trips_buffer(ip, cs.W, cs.H, dev)
+    work = launch(stats=True, trips=buf)[-1]
+    out = dict(bk.decode_trips(buf))
+    # every DE step of the frame is one stepping lane of one trip
+    assert out["lane_steps"] == int(work.double().sum()), \
+        (out["lane_steps"], float(work.double().sum()))
+    out["blocks"], out["blocks_per_sm"] = bk.march_grid(ip, cs.W, cs.H, dev)
+    times = {"without": [], "with": []}
+    for side in ("without", "with", "with", "without"):
+        extra = {"trips": buf} if side == "with" else {}
+        times[side].append(kernel_ms(diag, dev, lambda: launch(**extra),
+                                     reps))
+    out["ms_without_buffer"] = statistics.mean(times["without"])
+    out["ms_with_buffer"] = statistics.mean(times["with"])
+    out["buffer_runs"] = times
+    out["sm_clock_mhz"] = cs.sm_clock_mhz(launch)
+    return out
+
+
+def worker(root: str, reps: int, only: str) -> dict:
     """One side's process: build and load ``root``'s kernels, then time
-    every case; returns its ptxas report and, per case, its event runs,
-    its kernel's mean device ms per launch and the sha256 of its output
-    planes."""
+    every case whose instance starts with ``only``; returns its ptxas
+    report and, per case, its event runs, its kernel's mean device ms per
+    launch, the sha256 of its output planes and, for K4b, its counters."""
     sys.path.insert(0, root)
     import torch
 
@@ -106,23 +196,23 @@ def worker(root: str, reps: int) -> dict:
     with open(_cuda.library_path()[:-3] + ".log") as f:
         report = cs.ptxas_report(f.read())
     rows = []
-    for name, label, launch in cases(cs, dev):
-        outs = launch()
+    for name, label, setup in cases(cs, dev):
+        if not name.startswith(only):
+            continue
+        launch, planes, ip = setup()
+        launch()
+        outs = planes()
         torch.cuda.synchronize()
         digest = hashlib.sha256()
         for o in outs:
             digest.update(o.cpu().numpy().tobytes())
         runs = [cs.cuda_event_ms(launch)[1] for _ in range(reps)]
-        with tempfile.TemporaryDirectory() as d:
-            diag.measure_device_seconds(
-                lambda: [launch() for _ in range(reps)], d, dev)
-            recs = diag.kernel_seconds_from_trace(d)
-        ours = [v for k, v in recs.items()
-                if "pert_kernel" in k or "dd_escape_kernel" in k]
-        assert sum(v[0] for v in ours) == reps, recs
         rows.append(dict(name=name, label=label, runs=runs,
-                         kernel_ms=sum(v[1] for v in ours) / reps * 1e3,
-                         sha256=digest.hexdigest()))
+                         kernel_ms=kernel_ms(diag, dev, launch, reps),
+                         planes=len(outs), sha256=digest.hexdigest(),
+                         counters=bulb_counters(dev, diag, launch, ip, reps)
+                         if name.startswith("bulb_")
+                         else {}))
     return dict(root=root, ptxas=report, cases=rows)
 
 
@@ -131,10 +221,13 @@ def main() -> int:
     ap.add_argument("other_root")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--out")
+    ap.add_argument("--only", default="",
+                    help="time only the instances whose name starts so "
+                    "(e.g. bulb_march)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)  # a side's process
     args = ap.parse_args()
     if args.worker:
-        result = worker(args.other_root, args.reps)
+        result = worker(args.other_root, args.reps, args.only)
         with open(args.worker, "w") as f:
             json.dump(result, f)
         return 0
@@ -158,15 +251,15 @@ def main() -> int:
             path = os.path.join(tmp, f"{k}.json")
             subprocess.run([sys.executable, os.path.abspath(__file__),
                             other if side == "other" else HERE,
-                            "--reps", str(args.reps), "--worker", path],
+                            "--reps", str(args.reps), "--only", args.only,
+                            "--worker", path],
                            check=True)
             with open(path) as f:
                 results.append(json.load(f))
     reports = {side: r["ptxas"] for side, r in zip(TURNS, results)}
-    assert all(r["spill"] == 0 for r in reports["this"].values()), \
-        f"local-memory spills: {reports['this']}"
     names = sorted(n for n in reports["this"]
-                   if n.startswith(("pert_", "dd_escape")))
+                   if n.startswith(("pert_", "dd_escape", "bulb_march_p8",
+                                    "bulb_march_p16", "bulb_march_trig")))
     print("ptxas registers/stack frame bytes/spill bytes, other -> this: "
           + ", ".join(
               f"{n} " + " -> ".join(
@@ -195,7 +288,9 @@ def main() -> int:
                          this_event_ms=med["this"],
                          other_event_runs=runs["other"],
                          this_event_runs=runs["this"],
-                         outputs_identical=same))
+                         outputs_identical=same,
+                         counters={side: t["counters"] for side, t
+                                   in zip(TURNS, turns) if t["counters"]}))
         print(f"{case['name']} {case['label']}: kernel other "
               f"{kms['other']:.3f} ms {[round(t, 3) for t in kernel['other']]}"
               f", this {kms['this']:.3f} ms "
@@ -207,11 +302,29 @@ def main() -> int:
               f"{[round(t, 3) for t in runs['this']]}); output planes "
               + ("bit-identical" if same else "DIFFER") + " between the "
               "two sides", flush=True)
+        for side, t in zip(TURNS, turns):
+            c = t["counters"]
+            if c:
+                print(f"  {side} {case['name']} counters: grid "
+                      f"{c['blocks']} blocks of 256 ({c['blocks_per_sm']} "
+                      f"per SM), {c['warps']} warps on {c['sms']} SMs; "
+                      f"trips {c['trips']}, step trips {c['step_trips']}, "
+                      f"event trips {c['event_trips']} (share "
+                      f"{c['event_share']:.3f}), lane steps "
+                      f"{c['lane_steps']} (utilisation "
+                      f"{c['lane_util']:.3f}), span {c['span_ns'] / 1e6:.4f}"
+                      f" ms, tail share {c['tail_share']:.3f}; kernel "
+                      f"without / with the buffer {c['ms_without_buffer']:.4f}"
+                      f" / {c['ms_with_buffer']:.4f} ms "
+                      f"{c['buffer_runs']}; SM clock {c['sm_clock_mhz']} MHz",
+                      flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(dict(ptxas=reports, cases=rows), f, indent=1)
+    spills = {n: r for n, r in reports["this"].items() if r["spill"]}
+    assert not spills, f"local-memory spills in this checkout: {spills}"
     return 0
 
 

@@ -39,6 +39,12 @@ DE or escape iterations the timed frame needs and the bound: the larger of
 their f32 operations over the card's FP32 peak (the data sheet's 67
 TFLOP/s, or the rate K5 measured in this run where that is higher; the
 measured rate is printed beside it) and the frame's bytes over 3.35 TB/s.
+K4b's 1080p frames also fill its per-warp counters (the trips buffer:
+trips, step and event trips, lane steps, pixels, each warp's SM and
+span), whose lane steps must equal the frame's sum of work; the phase
+prints them with the launch's grid and resident blocks per SM, and the
+timing phase the issue slots the card had per warp trip at the SM clock
+nvidia-smi reads under load.
 Before those phases: the diagnostics (the parameter-layout selfcheck
 against the CUDA sources; the profiler's device lane of the frames the
 bench times, each against the CUDA-event times of its kernels' launches
@@ -368,6 +374,31 @@ def cuda_event_ms(fn):
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end)
+
+
+def sm_clock_mhz(launch, n: int = 30) -> int:
+    """The SM clock (MHz) nvidia-smi reads while ``n`` launches of
+    ``launch`` run."""
+    import torch
+
+    for _ in range(n):
+        launch()
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]
+    torch.cuda.synchronize()
+    return int(mhz)
+
+
+def trips_line(c: dict) -> str:
+    """K4b's decoded per-warp counters (bulb_kernel.decode_trips), one
+    line."""
+    return (f"trips {c['trips']}, step trips {c['step_trips']}, event trips "
+            f"{c['event_trips']} (share {c['event_share']:.3f}), lane steps "
+            f"{c['lane_steps']} (utilisation {c['lane_util']:.3f}), "
+            f"{c['warps']} warps on {c['sms']} SMs, span "
+            f"{c['span_ns'] / 1e6:.4f} ms, tail share {c['tail_share']:.3f}")
 
 
 def ptxas_report(log: str) -> dict:
@@ -1288,7 +1319,15 @@ def main() -> int:
         assert torch.equal(tc, tc_p), f"K4a {label}: not bit-equal"
         mkw = dict(width=W, height=H, map_height=H, cone=CONE, shade=True,
                    int_power=ip, device=dev)
-        full = bulb_kernel.march_fields_cuda(params, tc, stats=True, **mkw)
+        trips = bulb_kernel.trips_buffer(ip, W, H, dev)
+        full = bulb_kernel.march_fields_cuda(params, tc, stats=True,
+                                             trips=trips, **mkw)
+        blocks, per_sm = bulb_kernel.march_grid(ip, W, H, dev)
+        tr = bulb_kernel.decode_trips(trips)
+        # every DE step of the frame is one stepping lane of one trip
+        assert tr["lane_steps"] == int(full[9].double().sum()), \
+            f"K4b {label}: lane steps {tr['lane_steps']} != sum(work)"
+        assert tr["pixels"] == W * H, tr
         bparams = bulb_kernel.pack_march_params(
             ro=ro, fov=bp.fov, power=dyn, max_iter=bp.max_iterations,
             row0=r0)
@@ -1320,7 +1359,7 @@ def main() -> int:
         e["plain_ms"] = cone_plain_ms
         e = entry(f"bulb_march_{tag}", BULB_SRC, K4B_TPU, 0.0)
         e["plain_ms"] = band_plain_ms
-        bulb_frames[tag] = (params, cparams, ckw, mkw, ip, st)
+        bulb_frames[tag] = (params, cparams, ckw, mkw, ip, st, tr)
         print(f"K4 {tag} {label} {W}x{H}: K4a grid {ckw['coarse_h']}x"
               f"{ckw['coarse_w']} bit-equal to the plain version (plain "
               f"{cone_plain_ms:.1f} ms; {st['c_evals']:.0f} evaluations, "
@@ -1331,9 +1370,11 @@ def main() -> int:
               f"{st['hits'] / (W * H):.4f}, lanes at the 200-step cap "
               f"{st['cap']}, msteps max {int(msteps.max())}, sum(work) "
               f"{st['work']:.6g} DE iterations ({st['work'] / (W * H):.2f} "
-              f"per pixel, max {int(work.max())}), warp-max waste "
-              f"sum(warp max)/sum(work) {st['warp'] / st['work']:.3f}",
-              flush=True)
+              f"per pixel, max {int(work.max())}), static 8x4-patch model's "
+              f"warp-max waste sum(warp max)/sum(work) "
+              f"{st['warp'] / st['work']:.3f}; K4b's launch: {blocks} "
+              f"blocks of 256 ({per_sm} resident per SM), counters: "
+              f"{trips_line(tr)}; sum(lane steps) == sum(work)", flush=True)
 
     # every other integer-power instance (`--power N`, time 0) at 64x48,
     # 64 iterations: K4a and K4b with shading and stats against the plain
@@ -1978,7 +2019,7 @@ def main() -> int:
     # launch, median of 7; the plain versions' times are the K4 phase's
     # (K4a's whole coarse grid, K4b's 64-row band)
     for tag, label, _ in BULB_CASES:
-        params, cparams, ckw, mkw, ip, st = bulb_frames[tag]
+        params, cparams, ckw, mkw, ip, st, tr = bulb_frames[tag]
         tc = bulb_kernel.cone_fields_cuda(cparams, **ckw)
         for name, fn in (
                 (f"bulb_cone_{tag}",
@@ -1995,6 +2036,15 @@ def main() -> int:
                   f"{kernels[name]['plain_ms']:.1f} ms on "
                   + ("the whole coarse grid" if "cone" in name else
                      f"its {W}x{bh} band"), flush=True)
+        # the issue slots the card had per warp trip of the frame: the
+        # kernel's time x the SM clock x 4 schedulers per SM, over the trips
+        mhz = sm_clock_mhz(fn)
+        slots = (kernels[f"bulb_march_{tag}"]["ms"] * 1e-3 * mhz * 1e6 * 4
+                 * torch.cuda.get_device_properties(dev).multi_processor_count)
+        print(f"K4b {tag}: SM clock {mhz} MHz under load; "
+              f"{slots:.4g} issue slots in the kernel's time, "
+              f"{slots / tr['trips']:.1f} per warp trip ({tr['step_trips']} "
+              f"step trips, {tr['event_trips']} event trips)", flush=True)
         ops_de = bulb_ops_per_iter(ip)
         set_bound(f"bulb_cone_{tag}", st["c_work"], ops_de,
                   st["c_evals"] * OPS_BULB_EVAL,

@@ -10,35 +10,51 @@
 // fractalrenderer_tpu_torch/ops/bulb_kernel.py:cone_fields_plain and
 // :march_fields_plain; the kernels agree with them bit for bit.
 //
-// What bounds it.  f32 issue over the DE orbits: one DE step is 58 f32
-// operations on the integer-power path (power 8) and ~80 with the trig
-// polynomials and powf/sinf/cosf, and the default 1080p frame needs ~7e7
-// of them (most in near-surface orbits, which run until dr overflows or
-// the iteration limit).  Bytes are negligible: 4 B of t0 read and 32 B
-// (plus 8 with stats) written per pixel.  Divergence between the lanes of
-// a warp is the other cost: a warp steps until its slowest lane is done.
+// What bounds it.  Not bytes (4 B of t0 read and 32 B, plus 8 with stats,
+// written per pixel) and not the f32 operations (a DE step is 58 on the
+// integer-power path at power 8, ~80 with the trig step; ~7e7 steps per
+// 1080p frame: ~0.07 ms at the card's FP32 peak).  A frame's time is set
+// by how its warps issue the steps: which lanes of a warp step together,
+// how often the event code (an orbit's end: logf, division, the march
+// update, the next orbit's sqrtf) interrupts them, and the longest chain
+// of steps one pixel needs (a grazing ray's march, then its shading),
+// which no schedule shortens.  The per-warp counters (trips buffer) read
+// this: a first build of the one-loop, one-pixel-per-lane kernel with the
+// counters stepped 33-38% of its lanes per step trip, ran events in 33-40%
+// of its trips, spent 30-47% of its span in the tail (fewer than half the
+// warps running) and issued 45-58% of the card's slots in its time.
 //
-// Design.  One thread per lane (a coarse cone block for K4a, a pixel for
-// K4b), each running its own orbit schedule: the TPU kernels' tile loops,
-// DE_CHUNK bursts and cross-lane any() exits have nothing to carry over.
-// The flat form's per-lane trajectory is kept exactly, with its exact
-// dr-overflow orbit exit (de_finish returns +-0 once dr is +inf, and no
-// consumer tells them apart).  K4b runs every phase of a pixel -- the march,
-// the one full-length orbit that recovers esc at the hit, the 3 normal taps
-// and the 8 AO taps -- in ONE loop around ONE DE-step site, so lanes of a
-// warp in different phases still share the step's instructions; each trip
-// either steps the lane's live orbit or handles the event of the orbit that
-// just ended.  The march caps a lane at MAX_STEPS evaluations, every one
-// counted (the nested form's bound, bulb_kernel.py:681-683).  Each warp
-// covers an 8x4 pixel patch (blocks of 32x8 pixels), so its rays stay close
-// and diverge less than a 32x1 row would.  The power is a template
-// parameter: 2..16 take the trig-free integer step, whose square-and-multiply
-// chains unroll at compile time in the JAX package's multiplication order
-// into straight-line code (a runtime bit loop would branch on the power in
-// every DE step; what that costs is not measured), and 0 takes the trig
-// step with the runtime power: 16 instances of each kernel, every one held
-// against the plain version on the card (chip_smoke.py,
-// tests/test_torch_cuda.py).
+// Design.  One thread per lane (a coarse cone block for K4a; for K4b a
+// pixel's march or one shading orbit), each running its own orbit
+// schedule: the TPU kernels' tile loops, DE_CHUNK bursts and cross-lane
+// any() exits have nothing to carry over.  The flat form's per-lane
+// trajectory is kept exactly, with its exact dr-overflow orbit exit
+// (de_finish returns +-0 once dr is +inf, and no consumer tells them
+// apart).  K4b is a persistent kernel (one wave of blocks) whose loop trip
+// steps every live orbit of a warp once and then runs the events of the
+// orbits that ended; a warp vote at every trip keeps the lanes converged
+// (without one, nvcc turned the earlier one-loop kernel's step branch into
+// an inner loop that ran until the warp's longest orbit ended).  A lane takes its next
+// pixel from a queue (one atomicAdd per refill round, 8x4 patches in
+// row-major order).  When a march hits, its pixel's 12 shading orbits --
+// the full-length esc recovery and the normal's 3 taps, then, once those
+// taps are in, the 8 AO taps -- go onto the warp's ring in shared memory
+// and run on whichever lanes of the warp are free; the lane that ends the
+// pixel's last orbit sums AO in tap order and writes the outputs.  So a
+// hit pixel's chain is its march plus two orbits, not twelve, and a lane
+// never idles while its warp has work.  The march caps a lane at
+// MAX_STEPS evaluations, every one counted (the nested form's bound,
+// bulb_kernel.py:681-683).  The power is a template parameter: 2..16 take
+// the trig-free integer step, whose square-and-multiply chains unroll at
+// compile time in the JAX package's multiplication order into
+// straight-line code, and 0 takes the trig step with the runtime power
+// (one sincosf per angle: nvcc does not merge sinf and cosf): 16 instances
+// of each kernel, every one held against the plain version on the card
+// (chip_smoke.py, tests/test_torch_cuda.py).  Measured on an NVIDIA H100
+// 80GB HBM3 at 700 W (chip_ab.py, kernel records, 1080p shaded frames):
+// power 8 3.519 -> 1.786 ms, the trig step 11.242 -> 2.717 ms, power 16
+// 4.133 -> 1.484 ms against the one-loop kernel this replaced, every
+// plane bit-identical.
 //
 // Exactness.  Build with -fmad=false and without --use_fast_math: IEEE
 // division and sqrtf, subnormals kept, f32 literals equal to
@@ -47,6 +63,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstring>
 
 namespace {
@@ -68,8 +85,8 @@ constexpr float kInf = __builtin_huge_valf();
 constexpr float kPi = 3.14159274f;
 constexpr float kPi2 = 1.57079637f;
 
-// K4b's phases: the march, the esc-recovery orbit, the 11 shading taps.
-constexpr int kMarch = 0, kEsc = 1, kTap0 = 2, kNTaps = 11;
+// A hit's shading taps: the normal's 3, then 8 for AO.
+constexpr int kNTaps = 11;
 
 struct MarchParams {
   float v[kNB];
@@ -124,27 +141,33 @@ __device__ __forceinline__ float poly_acos(float x) {
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
 };
+struct Camera {
+  float f0, f1, f2, r0, r1, r2, u0, u1, u2;
+};
 
-__device__ __forceinline__ Ray ray_dir(const float* v, float px, float py,
-                                       int width, int height) {
+__device__ __forceinline__ Camera camera(const float* v) {
   const float rox = v[B_ROX], roy = v[B_ROY], roz = v[B_ROZ];
-  const float fov = v[B_FOV];
-  const float fh = static_cast<float>(height);
-  const float ux = (px - static_cast<float>(width) * 0.5f) / fh;
-  const float uy = (py - fh * 0.5f) / fh;
   const float rlen = sqrtf(rox * rox + roy * roy + roz * roz);
   const float f0 = -rox / rlen, f1 = -roy / rlen, f2 = -roz / rlen;
   const float rx = f2, rz = -f0;
   const float rl = tmax(sqrtf(rx * rx + rz * rz), 1e-12f);
   const float r0 = rx / rl, r1 = 0.0f, r2 = rz / rl;
-  const float u0 = f1 * r2 - f2 * r1;
-  const float u1 = f2 * r0 - f0 * r2;
-  const float u2 = f0 * r1 - f1 * r0;
-  const float dx = f0 + r0 * ux * fov + u0 * uy * fov;
-  const float dy = f1 + r1 * ux * fov + u1 * uy * fov;
-  const float dz = f2 + r2 * ux * fov + u2 * uy * fov;
+  return {f0, f1, f2, r0, r1, r2, f1 * r2 - f2 * r1, f2 * r0 - f0 * r2,
+          f0 * r1 - f1 * r0};
+}
+
+__device__ __forceinline__ Ray pixel_ray(const Camera& c, const float* v,
+                                         float px, float py, int width,
+                                         int height) {
+  const float fov = v[B_FOV];
+  const float fh = static_cast<float>(height);
+  const float ux = (px - static_cast<float>(width) * 0.5f) / fh;
+  const float uy = (py - fh * 0.5f) / fh;
+  const float dx = c.f0 + c.r0 * ux * fov + c.u0 * uy * fov;
+  const float dy = c.f1 + c.r1 * ux * fov + c.u1 * uy * fov;
+  const float dz = c.f2 + c.r2 * ux * fov + c.u2 * uy * fov;
   const float inv = 1.0f / sqrtf(dx * dx + dy * dy + dz * dz);
-  return {rox, roy, roz, dx * inv, dy * inv, dz * inv};
+  return {v[B_ROX], v[B_ROY], v[B_ROZ], dx * inv, dy * inv, dz * inv};
 }
 
 // bulb_math._cpow_int: (cr + i ci)^p, square-and-multiply from the lowest
@@ -210,10 +233,13 @@ __device__ __forceinline__ void de_step(float& zx, float& zy, float& zz,
     const float zr = powf(rs, power);
     const float th = theta * power;
     const float ph = phi * power;
-    const float st = sinf(th);
-    const float nzx = zr * (st * cosf(ph)) + px;
-    const float nzy = zr * (sinf(ph) * st) + py;
-    const float nzz = zr * cosf(th) + pz;
+    // one range reduction per angle (nvcc does not merge sinf and cosf)
+    float st, ct, sp, cp;
+    sincosf(th, &st, &ct);
+    sincosf(ph, &sp, &cp);
+    const float nzx = zr * (st * cp) + px;
+    const float nzy = zr * (sp * st) + py;
+    const float nzz = zr * ct + pz;
     zx = nzx;
     zy = nzy;
     zz = nzz;
@@ -303,7 +329,7 @@ __global__ void __launch_bounds__(256, 1)
                     (cs - 1.0f) * 0.5f;
   const float pyf = (static_cast<float>(crow) + v[B_ROW0]) * cs + v[B_OFFY] +
                     (cs - 1.0f) * 0.5f;
-  const Ray ray = ray_dir(v, pxf, pyf, width, map_height);
+  const Ray ray = pixel_ray(camera(v), v, pxf, pyf, width, map_height);
   const float power = v[B_POWER];
   const int limit = static_cast<int>(v[B_LIMIT]);
 
@@ -334,56 +360,323 @@ struct MarchOut {
   float *hit, *t, *d, *esc, *nx, *ny, *nz, *ao, *msteps, *work;
 };
 
-// K4b: _make_kernel's flat production path, one pixel per lane.
+// K4b's per-warp counters, kTripFields int32 per warp in the optional trips
+// buffer (ops/bulb_kernel.py TRIP_FIELDS): loop trips, trips in which a lane
+// stepped, trips in which a lane ran event code, the sum over trips of the
+// stepping lanes, the pixels the warp finished, its SM, and its start and
+// end on the %globaltimer clock (ns; clock64 counts per SM and the SMs'
+// counters are not aligned), each a (lo, hi) pair.
+enum { T_TRIPS, T_STEP_TRIPS, T_EVENT_TRIPS, T_LANE_STEPS, T_PIXELS, T_SMID,
+       T_START_LO, T_START_HI, T_END_LO, T_END_HI };
+constexpr int kTripFields = 10;
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ unsigned lanes_below() {
+  unsigned m;
+  asm volatile("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+__device__ __forceinline__ int sm_id() {
+  int s;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(s));
+  return s;
+}
+
+// _flat_shade's closed form for non-hit lanes: parked at (3, 0, 0) with
+// d0 = 0, every tap orbit is dead on arrival; nx, ny, nz, ao.
+__device__ void dead_lane(float* out) {
+  const float far = 3.0f, zero = 0.0f, eps = 1e-3f, one = 1.0f;
+  auto dead_de = [&](float x, float y, float z) {
+    return de_finish(sqrtf(x * x + y * y + z * z), one);
+  };
+  const float nxr = dead_de(far + eps, zero, zero) - zero;
+  const float nyr = dead_de(far, zero + eps, zero) - zero;
+  const float nzr = dead_de(far, zero, zero + eps) - zero;
+  float nl = sqrtf(nxr * nxr + nyr * nyr + nzr * nzr);
+  const bool fb = nl < 1e-4f;
+  nl = tmax(nl, 1e-12f);
+  const float nx = fb ? zero : nxr / nl;
+  const float ny = fb ? one : nyr / nl;
+  const float nz = fb ? zero : nzr / nl;
+  float ao = 0.0f;
+  float k = 0.01f;
+  for (int i = 0; i < kNTaps - 3; ++i) {
+    ao = ao + expf(-10.0f * dead_de(far + nx * k, zero + ny * k,
+                                    zero + nz * k));
+    k = k + 0.02f;
+  }
+  out[0] = nx;
+  out[1] = ny;
+  out[2] = nz;
+  out[3] = ao;
+}
+
+// K4b's pixel queue: index i fills 8x4 patches (8 columns, 4 rows), the
+// patches in row-major order over pw = ceil(width / 8) patch columns
+// (ops/bulb_kernel.py patch_order_xy).
+__device__ __forceinline__ void patch_xy(int i, int pw, int& x, int& y) {
+  const int q = i >> 5, r = i & 31;
+  x = (q % pw) * 8 + (r & 7);
+  y = (q / pw) * 4 + (r >> 3);
+}
+
+constexpr unsigned kFull = 0xffffffffu;
+// A lane whose orbit ended waits until this many lanes of its warp wait,
+// or none is live, before the waiting lanes run their event code together.
+// 8 and 16 made every instance 11-69% slower on an H100 (PERF.md): the
+// waiting lanes idle for more trips than the batched events save.
+constexpr int kEventBatch = 1;
+// Resident blocks of 256 an SM must hold (4 caps an instance at 64
+// registers).  The trig step fits 64 registers without spilling too, but
+// ran 5% slower at 4 blocks than at 3 with 72 (PERF.md).
+constexpr int min_blocks(int p) { return p == 0 ? 3 : 4; }
+
+// A hit pixel's shading, shared by the lanes of its warp: its 12 orbits
+// (the esc recovery and the 11 taps) run on whichever lanes are free.
+// Task codes: 0 the esc orbit, 1 + j tap j (0-2 the normal's, 3-10 AO's).
+constexpr int kSlots = 32;  // pixels a warp shades at once
+constexpr int kRing = 512;  // a warp's queued orbits: <= 12 per slot
+constexpr int kIdle = 0, kMarchJob = 1, kTaskJob = 2;
+
+struct Slot {
+  float hx, hy, hz, d_hit, t;  // the hit point, its DE and depth
+  float n[3];                  // the normal, once taps 0-2 are in
+  float d[kNTaps];             // each tap orbit's DE
+  int idx, msteps, work;       // pixel, evaluations, its DE steps so far
+  int left, left_n;            // orbits outstanding, normal taps too
+};
+struct WarpShade {
+  Slot slot[kSlots];
+  unsigned short ring[kRing];  // queued orbits: slot << 4 | task code
+  int head, tail;              // orbits taken from / put on the ring
+  unsigned free;               // free slots
+};
+
+// The start of task `k` of slot `sl`: the hit point for the esc orbit,
+// the normal's three basis offsets, then h + n kf with the shader's f32
+// loop kf = 0.01, += 0.02.
+__device__ __forceinline__ void task_start(const Slot& sl, int k, float& x,
+                                           float& y, float& z) {
+  x = sl.hx;
+  y = sl.hy;
+  z = sl.hz;
+  if (k == 1) {
+    x = sl.hx + 1e-3f;
+  } else if (k == 2) {
+    y = sl.hy + 1e-3f;
+  } else if (k == 3) {
+    z = sl.hz + 1e-3f;
+  } else if (k > 3) {
+    float kf = 0.01f;
+    for (int j = 5; j <= k; ++j) kf = kf + 0.02f;
+    x = sl.hx + sl.n[0] * kf;
+    y = sl.hy + sl.n[1] * kf;
+    z = sl.hz + sl.n[2] * kf;
+  }
+}
+
+// K4b: _make_kernel's flat production path.  A persistent grid (one wave
+// of blocks).  A lane marches one pixel at a time, taken from the queue
+// (*next, zeroed by the caller) when it is free; a hit pixel's 12 shading
+// orbits go to its warp's ring and run on whichever lanes are free, so no
+// lane runs a pixel's 12 orbits one after the other.
 template <int kP>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, min_blocks(kP))
     bulb_march_kernel(MarchParams p, const float* __restrict__ tc,
                       int coarse_w, int cone, int width, int height,
-                      int map_height, int shade, MarchOut out) {
-  int col, lrow;
-  lane_xy(col, lrow);
-  if (col >= width || lrow >= height) return;
+                      int map_height, int shade, MarchOut out,
+                      int* __restrict__ next, int* __restrict__ trips) {
   const float* v = p.v;
+  const unsigned lane = threadIdx.x & 31;
+  int* const wt = trips == nullptr ? nullptr
+                                   : trips + ((blockIdx.x << 3) +
+                                              (threadIdx.x >> 5)) *
+                                                 kTripFields;
+  if (wt != nullptr && lane == 0) {
+    const unsigned long long t0 = global_ns();
+    wt[T_SMID] = sm_id();
+    wt[T_START_LO] = static_cast<int>(t0);
+    wt[T_START_HI] = static_cast<int>(t0 >> 32);
+  }
+  // launch constants (the camera basis, the non-hit lanes' shading) and
+  // each warp's shading slots and ring
+  __shared__ Camera cam;
+  __shared__ float dead[4];
+  __shared__ WarpShade shades[8];
+  WarpShade& ws = shades[threadIdx.x >> 5];
+  if (threadIdx.x == 0) {
+    cam = camera(v);
+    if (shade) dead_lane(dead);
+  }
+  if (lane == 0) {
+    ws.head = ws.tail = 0;
+    ws.free = kFull;
+  }
+  __syncthreads();
+
   const int row0 = static_cast<int>(v[B_ROW0]);
-  const Ray ray = ray_dir(v, static_cast<float>(col) + v[B_OFFX],
-                          static_cast<float>(lrow + row0) + v[B_OFFY], width,
-                          map_height);
   const float power = v[B_POWER];
   const int limit = static_cast<int>(v[B_LIMIT]);
+  const int pw = (width + 7) >> 3;
+  const int npix = pw * ((height + 3) >> 2) * 32;
+  const int frac = tc != nullptr ? row0 % cone : 0;  // row0 - floor(..)*cone
+  const int n_tasks = shade ? 1 + kNTaps : 1;
 
-  // start depth: the cone prepass's t of this pixel's image-aligned block
-  float t = 0.001f;
-  if (tc != nullptr) {
-    const int frac = row0 % cone;  // row0 - floor(row0 / cone) * cone
-    const float tb =
-        __ldg(tc + static_cast<size_t>((frac + lrow) / cone) * coarse_w +
-              col / cone);
-    t = tmax(tb, 0.001f);
-  }
-
-  // march state (_flat_march)
-  int mstep = 0;
+  // the lane's job: a pixel's march (its index and ray, _flat_march's
+  // state) or one shading orbit (task = slot << 4 | code), and its orbit;
+  // work counts the job's DE steps
+  int job = kIdle, task = 0, idx = 0;
+  float dx = 0.0f, dy = 0.0f, dz = 0.0f, t = 0.0f;
+  int mstep = 0, work = 0;
   bool hit = false, relax = true, rel_prev = false;
   float d_hit = 0.0f, prev_step = 0.0f, prev_rad = kInf;
-  // shading state (_flat_shade)
-  float esc_hit = 0.0f, hx = 0.0f, hy = 0.0f, hz = 0.0f;
-  float dxp = 0.0f, dyp = 0.0f, dzp = 0.0f;
-  float nx = 0.0f, ny = 1.0f, nz = 0.0f, ao = 0.0f, kf = 0.0f;
-  int work = 0;
-
-  int phase = kMarch;
   Orbit o;
-  o.start(ray.ox + ray.dx * t, ray.oy + ray.dy * t, ray.oz + ray.dz * t);
+  o.start(0.0f, 0.0f, 4.0f);  // dead until the lane's first job
+
+  bool need = true;    // the lane wants a job
+  bool hitq = false;   // the lane's march hit: its pixel wants a slot
+  bool open = true;    // the pixel queue has pixels left
+  unsigned c_trips = 0, c_step = 0, c_event = 0, c_lanes = 0, c_pix = 0;
   for (;;) {
-    if (o.live(limit, phase == kEsc)) {
+    __syncwarp();
+    // 1. a slot for each pixel whose march hit (one is free: new pixels
+    // are handed out only while the free slots outnumber the marches)
+    const unsigned hm = __ballot_sync(kFull, hitq);
+    if (hm != 0u) {
+      const unsigned fr = ws.free;
+      const int tail = ws.tail;
+      int s = 0;
+      if (hitq) {
+        const int r = __popc(hm & lanes_below());
+        unsigned m = fr;
+        for (int j = 0; j < r; ++j) m &= m - 1u;
+        s = __ffs(m) - 1;
+        Slot& sl = ws.slot[s];
+        sl.hx = v[B_ROX] + dx * t;
+        sl.hy = v[B_ROY] + dy * t;
+        sl.hz = v[B_ROZ] + dz * t;
+        sl.d_hit = d_hit;
+        sl.t = t;
+        sl.idx = idx;
+        sl.msteps = mstep;
+        sl.work = work;
+        sl.left = n_tasks;
+        sl.left_n = 3;
+        // its esc orbit and, with shade, the normal's three taps
+        const int nq = shade ? 4 : 1;
+        for (int j = 0; j < nq; ++j)
+          ws.ring[(tail + r * nq + j) & (kRing - 1)] =
+              static_cast<unsigned short>(s << 4 | j);
+        hitq = false;
+      }
+      const unsigned took = __reduce_or_sync(kFull, hm >> lane & 1u ? 1u << s
+                                                                    : 0u);
+      __syncwarp();
+      if (lane == 0) {
+        ws.free = fr & ~took;
+        ws.tail = tail + __popc(hm) * (shade ? 4 : 1);
+      }
+      __syncwarp();
+    }
+
+    // 2. jobs for the lanes that want one: queued orbits first
+    unsigned needm = __ballot_sync(kFull, need);
+    if (needm != 0u) {
+      const int head = ws.head;
+      const int nt = min(__popc(needm), ws.tail - head);
+      if (nt > 0) {
+        const int r = __popc(needm & lanes_below());
+        if (need && r < nt) {
+          task = ws.ring[(head + r) & (kRing - 1)];
+          float x, y, z;
+          task_start(ws.slot[task >> 4], task & 15, x, y, z);
+          o.start(x, y, z);
+          job = kTaskJob;
+          work = 0;
+          need = false;
+        }
+        __syncwarp();
+        if (lane == 0) ws.head = head + nt;
+        needm = __ballot_sync(kFull, need);
+      }
+    }
+    // then new pixels, while a slot stays free for every march; a padding
+    // pixel of the ragged edges takes another round
+    if (needm != 0u && open) {
+      const int room = __popc(ws.free) -
+                       __popc(__ballot_sync(kFull, job == kMarchJob));
+      unsigned elig = needm;
+      for (int j = __popc(needm); j > room; --j)
+        elig &= ~(1u << (31 - __clz(elig)));  // keep the lowest `room`
+      while (elig != 0u && open) {
+        const int leader = __ffs(elig) - 1;
+        int base = 0;
+        if (static_cast<int>(lane) == leader)
+          base = atomicAdd(next, __popc(elig));
+        base = __shfl_sync(kFull, base, leader);
+        const bool mine = elig >> lane & 1u;
+        const int i = base + __popc(elig & lanes_below());
+        open = !__any_sync(kFull, mine && i >= npix);
+        int col = 0, lrow = 0;
+        if (mine && i < npix) patch_xy(i, pw, col, lrow);
+        const bool got = mine && i < npix && col < width && lrow < height;
+        elig &= ~__ballot_sync(kFull, got || (mine && i >= npix));
+        if (!got) continue;
+        need = false;
+        job = kMarchJob;
+        idx = lrow * width + col;
+        const Ray ray =
+            pixel_ray(cam, v, static_cast<float>(col) + v[B_OFFX],
+                      static_cast<float>(lrow + row0) + v[B_OFFY], width,
+                      map_height);
+        dx = ray.dx;
+        dy = ray.dy;
+        dz = ray.dz;
+        // start depth: the cone prepass's t of the pixel's block
+        t = 0.001f;
+        if (tc != nullptr)
+          t = tmax(__ldg(tc + static_cast<size_t>((frac + lrow) / cone) *
+                                  coarse_w + col / cone),
+                   0.001f);
+        mstep = work = 0;
+        hit = rel_prev = false;
+        relax = true;
+        d_hit = prev_step = 0.0f;
+        prev_rad = kInf;
+        o.start(v[B_ROX] + dx * t, v[B_ROY] + dy * t, v[B_ROZ] + dz * t);
+      }
+    }
+    // every lane is free, nothing is queued and the pixels are all out
+    if (__ballot_sync(kFull, job != kIdle) == 0u) break;
+
+    // 3. one DE step on every live orbit
+    const bool esc_orbit = job == kTaskJob && (task & 15) == 0;
+    const bool lv = job != kIdle && o.live(limit, esc_orbit);
+    const unsigned stepm = __ballot_sync(kFull, lv);
+    if (lv) {
       o.step<kP>(limit, power);
       ++work;
-      continue;
     }
-    // the orbit ended: this phase's event, then the next orbit's start
+    // the lanes whose orbit has ended wait for their event
+    const bool wait = job != kIdle && !o.live(limit, esc_orbit);
+    const unsigned waitm = __ballot_sync(kFull, wait);
+    const unsigned actm = __ballot_sync(kFull, job != kIdle);
+    const bool run =
+        waitm != 0u && (waitm == actm || __popc(waitm) >= kEventBatch);
+    ++c_trips;
+    c_step += stepm != 0u;
+    c_lanes += __popc(stepm);
+    c_event += run;
+    if (!run || !wait) continue;
+
+    // 4. the events: the orbit's DE, then its job's update
     const float d = de_finish(o.r, o.dr);
-    float sx, sy, sz;
-    if (phase == kMarch) {
+    const bool was_task = job == kTaskJob;
+    if (job == kMarchJob) {
       ++mstep;
       const bool bad = !isfinite(d);
       const float rad = 0.5f * d;
@@ -412,101 +705,98 @@ __global__ void __launch_bounds__(256)
         relax = false;
         rel_prev = false;
       }
-      sx = ray.ox + ray.dx * t;
-      sy = ray.oy + ray.dy * t;
-      sz = ray.oz + ray.dz * t;
-      if (ended || mstep >= kMaxSteps) {
-        if (!hit) break;
-        phase = kEsc;  // recover esc from one full-length orbit at the hit
-        hx = sx;
-        hy = sy;
-        hz = sz;
-      }
-    } else if (phase == kEsc) {
-      esc_hit = o.esc < 0 ? static_cast<float>(limit)
-                          : static_cast<float>(o.esc);
-      if (!shade) break;
-      phase = kTap0;
-      sx = hx + 1e-3f;
-      sy = hy;
-      sz = hz;
-    } else {
-      const int k = phase - kTap0;
-      if (k == 0) {
-        dxp = d;
-        sx = hx;
-        sy = hy + 1e-3f;
-        sz = hz;
-      } else if (k == 1) {
-        dyp = d;
-        sx = hx;
-        sy = hy;
-        sz = hz + 1e-3f;
+      if (!ended && mstep < kMaxSteps) {
+        o.start(v[B_ROX] + dx * t, v[B_ROY] + dy * t, v[B_ROZ] + dz * t);
       } else {
-        if (k == 2) {
-          // the normal by forward differences (d0 = d_hit)
-          dzp = d;
-          const float nxr = dxp - d_hit, nyr = dyp - d_hit, nzr = dzp - d_hit;
-          float nl = sqrtf(nxr * nxr + nyr * nyr + nzr * nzr);
-          const bool fb = nl < 1e-4f;
-          nl = tmax(nl, 1e-12f);
-          nx = fb ? 0.0f : nxr / nl;
-          ny = fb ? 1.0f : nyr / nl;
-          nz = fb ? 0.0f : nzr / nl;
-          kf = 0.01f;  // the shader's f32 loop: k = 0.01, += 0.02, < 0.15
-        } else {
-          ao = ao + expf(-10.0f * d);
-          kf = kf + 0.02f;
+        job = kIdle;
+        need = true;
+        hitq = hit;  // a hit's shading takes a slot at the next trip
+        if (!hit) {
+          // a miss: its outputs, with _flat_shade's closed form
+          out.hit[idx] = 0.0f;
+          out.t[idx] = t;
+          out.d[idx] = 0.0f;
+          out.esc[idx] = 0.0f;
+          if (shade) {
+            out.nx[idx] = dead[0];
+            out.ny[idx] = dead[1];
+            out.nz[idx] = dead[2];
+            out.ao[idx] = dead[3];
+          }
+          if (out.msteps != nullptr) {
+            out.msteps[idx] = static_cast<float>(mstep);
+            out.work[idx] = static_cast<float>(work);
+          }
+          ++c_pix;
         }
-        if (k == kNTaps - 1) break;
-        sx = hx + nx * kf;
-        sy = hy + ny * kf;
-        sz = hz + nz * kf;
       }
-      ++phase;
+    } else {
+      // a shading orbit: the esc index (_de_tile's) or the tap's DE
+      Slot& sl = ws.slot[task >> 4];
+      const int k = task & 15;
+      if (k == 0) {
+        out.esc[sl.idx] = o.esc < 0 ? static_cast<float>(limit)
+                                    : static_cast<float>(o.esc);
+      } else {
+        sl.d[k - 1] = d;
+      }
+      atomicAdd(&sl.work, work);
+      job = kIdle;
+      need = true;
     }
-    o.start(sx, sy, sz);
+    // a finished orbit's slot: the normal once its three taps are in (and
+    // the AO taps onto the ring), the outputs once all 12 orbits are
+    __syncwarp(waitm);
+    if (!was_task) continue;
+    const int s = task >> 4, k = task & 15;
+    Slot& sl = ws.slot[s];
+    if (k >= 1 && k <= 3 && atomicSub(&sl.left_n, 1) == 1) {
+      // the normal by forward differences (d0 = d_hit)
+      const float nxr = sl.d[0] - sl.d_hit, nyr = sl.d[1] - sl.d_hit,
+                  nzr = sl.d[2] - sl.d_hit;
+      float nl = sqrtf(nxr * nxr + nyr * nyr + nzr * nzr);
+      const bool fb = nl < 1e-4f;
+      nl = tmax(nl, 1e-12f);
+      sl.n[0] = fb ? 0.0f : nxr / nl;
+      sl.n[1] = fb ? 1.0f : nyr / nl;
+      sl.n[2] = fb ? 0.0f : nzr / nl;
+      const int q = atomicAdd(&ws.tail, kNTaps - 3);
+      for (int j = 0; j < kNTaps - 3; ++j)
+        ws.ring[(q + j) & (kRing - 1)] =
+            static_cast<unsigned short>(s << 4 | (4 + j));
+    }
+    if (atomicSub(&sl.left, 1) != 1) continue;
+    // the pixel's last orbit: its outputs (esc is in), the slot freed
+    const int px = sl.idx;
+    out.hit[px] = 1.0f;
+    out.t[px] = sl.t;
+    out.d[px] = sl.d_hit;
+    if (shade) {
+      float ao = 0.0f;
+      for (int j = 3; j < kNTaps; ++j) ao = ao + expf(-10.0f * sl.d[j]);
+      out.nx[px] = sl.n[0];
+      out.ny[px] = sl.n[1];
+      out.nz[px] = sl.n[2];
+      out.ao[px] = ao;
+    }
+    if (out.msteps != nullptr) {
+      out.msteps[px] = static_cast<float>(sl.msteps);
+      out.work[px] = static_cast<float>(sl.work);
+    }
+    atomicOr(&ws.free, 1u << s);
+    ++c_pix;
   }
 
-  if (shade && !hit) {
-    // _flat_shade's closed form for non-hit lanes: parked at (3, 0, 0)
-    // with d0 = 0, every tap orbit is dead on arrival
-    const float far = 3.0f, zero = 0.0f, eps = 1e-3f, one = 1.0f;
-    auto dead_de = [&](float x, float y, float z) {
-      return de_finish(sqrtf(x * x + y * y + z * z), one);
-    };
-    const float nxr = dead_de(far + eps, zero, zero) - zero;
-    const float nyr = dead_de(far, zero + eps, zero) - zero;
-    const float nzr = dead_de(far, zero, zero + eps) - zero;
-    float nl = sqrtf(nxr * nxr + nyr * nyr + nzr * nzr);
-    const bool fb = nl < 1e-4f;
-    nl = tmax(nl, 1e-12f);
-    nx = fb ? zero : nxr / nl;
-    ny = fb ? one : nyr / nl;
-    nz = fb ? zero : nzr / nl;
-    ao = 0.0f;
-    float k = 0.01f;
-    for (int i = 0; i < kNTaps - 3; ++i) {
-      ao = ao + expf(-10.0f * dead_de(far + nx * k, zero + ny * k,
-                                      zero + nz * k));
-      k = k + 0.02f;
-    }
-  }
-
-  const size_t idx = static_cast<size_t>(lrow) * width + col;
-  out.hit[idx] = hit ? 1.0f : 0.0f;
-  out.t[idx] = t;
-  out.d[idx] = d_hit;
-  out.esc[idx] = esc_hit;
-  if (shade) {
-    out.nx[idx] = nx;
-    out.ny[idx] = ny;
-    out.nz[idx] = nz;
-    out.ao[idx] = ao;
-  }
-  if (out.msteps != nullptr) {
-    out.msteps[idx] = static_cast<float>(mstep);
-    out.work[idx] = static_cast<float>(work);
+  const int pix = __reduce_add_sync(kFull, c_pix);
+  if (wt != nullptr && lane == 0) {
+    const unsigned long long t1 = global_ns();
+    wt[T_TRIPS] = static_cast<int>(c_trips);
+    wt[T_STEP_TRIPS] = static_cast<int>(c_step);
+    wt[T_EVENT_TRIPS] = static_cast<int>(c_event);
+    wt[T_LANE_STEPS] = static_cast<int>(c_lanes);
+    wt[T_PIXELS] = pix;
+    wt[T_END_LO] = static_cast<int>(t1);
+    wt[T_END_HI] = static_cast<int>(t1 >> 32);
   }
 }
 
@@ -516,6 +806,56 @@ dim3 grid_for(int w, int h) { return dim3((w + 31) / 32, (h + 7) / 8); }
 #define FR_BULB_POWERS(X) \
   X(0) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) \
   X(14) X(15) X(16)
+
+// K4b's resident blocks of 256 per SM for instance `power` and the SM
+// count of the current device, each asked once per device and cached.
+int march_residency(int power, int* per_sm, int* sms) {
+  constexpr int kDevices = 64;
+  static int cache_per_sm[kDevices][17], cache_sms[kDevices];
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (dev >= kDevices || power < 0 || power > 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (cache_per_sm[dev][power] == 0) {
+    int n = 0;
+    switch (power) {
+#define FR_CASE(P)                                                    \
+  case P:                                                             \
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(              \
+        &n, bulb_march_kernel<P>, 256, 0);                           \
+    break;
+      FR_BULB_POWERS(FR_CASE)
+#undef FR_CASE
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    if (n < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+    rc = cudaDeviceGetAttribute(&cache_sms[dev],
+                                cudaDevAttrMultiProcessorCount, dev);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    cache_per_sm[dev][power] = n;
+  }
+  *per_sm = cache_per_sm[dev][power];
+  *sms = cache_sms[dev];
+  return 0;
+}
+
+// K4b's grid: one wave (SMs x resident blocks), or fewer blocks where the
+// field's pixel queue has fewer than that many 256-lane blocks.
+int march_blocks(int power, int width, int height, int* blocks,
+                 int* per_sm) {
+  int sms = 0;
+  const int rc = march_residency(power, per_sm, &sms);
+  if (rc != 0) return rc;
+  const long long queue =
+      static_cast<long long>((width + 7) / 8) * ((height + 3) / 4) * 32;
+  *blocks = static_cast<int>(
+      std::min<long long>(static_cast<long long>(sms) * *per_sm,
+                          (queue + 255) / 256));
+  return 0;
+}
 
 }  // namespace
 
@@ -547,15 +887,22 @@ int fr_bulb_cone(int power, const float* params, int coarse_w, int coarse_h,
 
 // Launch K4b on `stream`: `params` is the 9-float march vector; `tc` the
 // K4a grid (coarse_w wide, cone x cone blocks) or null for t0 = 0.001;
-// writes hit, t, d, esc and, with `shade`, nx, ny, nz, ao, and, where
-// `msteps` is not null, msteps and work, each (height, width) f32.
+// `next` one int32 on the device, zero, the pixel queue's head; writes
+// hit, t, d, esc and, with `shade`, nx, ny, nz, ao, and, where `msteps`
+// is not null, msteps and work, each (height, width) f32; where `trips`
+// is not null, the per-warp counters (kTripFields int32 for each of the
+// launch's warps, fr_bulb_march_grid).
 int fr_bulb_march(int power, const float* params, const void* tc,
                   int coarse_w, int cone, int width, int height,
                   int map_height, int shade, void* hit, void* t, void* d,
                   void* esc, void* nx, void* ny, void* nz, void* ao,
-                  void* msteps, void* work, void* stream) {
+                  void* msteps, void* work, void* next, void* trips,
+                  void* stream) {
   MarchParams p;
   std::memcpy(p.v, params, sizeof(p.v));
+  int blocks = 0, per_sm = 0;
+  const int rc = march_blocks(power, width, height, &blocks, &per_sm);
+  if (rc != 0) return rc;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* tcp = static_cast<const float*>(tc);
   const MarchOut out = {static_cast<float*>(hit), static_cast<float*>(t),
@@ -567,8 +914,9 @@ int fr_bulb_march(int power, const float* params, const void* tc,
   switch (power) {
 #define FR_CASE(P)                                                         \
   case P:                                                                  \
-    bulb_march_kernel<P><<<grid_for(width, height), 256, 0, s>>>(         \
-        p, tcp, coarse_w, cone, width, height, map_height, shade, out);    \
+    bulb_march_kernel<P><<<blocks, 256, 0, s>>>(                           \
+        p, tcp, coarse_w, cone, width, height, map_height, shade, out,     \
+        static_cast<int*>(next), static_cast<int*>(trips));                \
     break;
     FR_BULB_POWERS(FR_CASE)
 #undef FR_CASE
@@ -576,6 +924,14 @@ int fr_bulb_march(int power, const float* params, const void* tc,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K4b's launch shape for a width x height field on the current device:
+// the blocks of 256 threads it launches (its warps, 8 a block, are the
+// rows of the trips buffer) and the instance's resident blocks per SM.
+int fr_bulb_march_grid(int power, int width, int height, int* blocks,
+                       int* blocks_per_sm) {
+  return march_blocks(power, width, height, blocks, blocks_per_sm);
 }
 
 }  // extern "C"

@@ -136,9 +136,12 @@ def load_library() -> ctypes.CDLL:
     lib.fr_bulb_cone.restype = ci
     # fr_bulb_march(power, params, tc, coarse_w, cone, width, height,
     #               map_height, shade, hit, t, d, esc, nx, ny, nz, ao,
-    #               msteps, work, stream)
-    lib.fr_bulb_march.argtypes = [ci, vp, vp] + [ci] * 6 + [vp] * 11
+    #               msteps, work, next, trips, stream)
+    lib.fr_bulb_march.argtypes = [ci, vp, vp] + [ci] * 6 + [vp] * 13
     lib.fr_bulb_march.restype = ci
+    # fr_bulb_march_grid(power, width, height, &blocks, &blocks_per_sm)
+    lib.fr_bulb_march_grid.argtypes = [ci] * 3 + [vp] * 2
+    lib.fr_bulb_march_grid.restype = ci
     # fr_fma_peak(x, out, n, k, chains, stream)
     lib.fr_fma_peak.argtypes = [vp, vp, ci, ci, ci, vp]
     lib.fr_fma_peak.restype = ci

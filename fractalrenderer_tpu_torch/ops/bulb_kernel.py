@@ -15,7 +15,13 @@ stops after the 200th whatever its state.
 - ``pack_march_params``/``pack_cone_params`` build the 9- and 11-float
   vectors exactly as the JAX ``march_fields`` packs them;
 - ``cone_fields_cuda``/``march_fields_cuda`` launch the hand-written CUDA
-  kernels (csrc/bulb.cu) on the current stream;
+  kernels (csrc/bulb.cu) on the current stream.  K4b is a persistent
+  kernel (``march_grid``: one wave of blocks) whose lanes take pixels from
+  a queue in 8×4-patch order (``patch_order_xy``) whose head the wrapper
+  zeroes for each launch, and share each hit pixel's 12 shading orbits
+  with the other lanes of their warp; an optional trips buffer
+  (``trips_buffer``) receives its per-warp counters, which
+  ``decode_trips`` reads;
 - ``cone_fields_plain``/``march_fields_plain`` are the same per-lane state
   machines as plain PyTorch ops on (H, W) tensors: each loop trip advances
   every live orbit by one DE step and handles the event of each lane whose
@@ -26,11 +32,13 @@ stops after the 200th whatever its state.
 
 ``stats=True`` adds two per-lane planes: ``msteps`` (march evaluations, the
 JAX nested form's ``msteps``) and ``work`` (DE iterations the lane ran:
-march, esc recovery and shading), and ``warp_work``, each lane's warp's
-maximum of ``work`` in the kernel's launch order (8×4-pixel warps).  They
-replace the JAX per-tile ``de_trips``/``n_trips``/``ao_trips``, which
-measure a TPU tile schedule: Σwork is the DE work the frame needs, and
-Σwarp_work / Σwork the divergence waste of the kernel's warps.
+march, esc recovery and shading), and ``warp_work``, each lane's maximum
+of ``work`` over its 8×4-pixel patch.  They replace the JAX per-tile
+``de_trips``/``n_trips``/``ao_trips``, which measure a TPU tile schedule:
+Σwork is the DE work the frame needs, and Σwarp_work / Σwork the
+divergence waste of a static schedule of one patch per warp (K4a's, and
+K4b's before its lanes refilled); K4b's own is its counters' lane
+utilisation.
 """
 from __future__ import annotations
 
@@ -68,14 +76,23 @@ def _ao_offsets() -> Tuple[float, ...]:
 AO_KS = _ao_offsets()
 assert len(AO_KS) == 8  # csrc/bulb.cu walks eight AO taps
 
-# K4b's phases (csrc/bulb.cu): the march, the esc recovery, the 11 taps
+# the plain version's phases: the march, the esc recovery, the 11 taps
 MARCH, ESC, TAP0 = 0, 1, 2
 N_TAPS = 3 + len(AO_KS)
 DONE = TAP0 + N_TAPS
 
+# K4b's per-warp counters, the columns of a trips buffer (csrc/bulb.cu
+# T_*): loop trips, trips in which a lane stepped, trips in which a lane
+# ran event code, the sum of the stepping lanes over the trips, pixels
+# finished, the SM, and the start and end (ns, %globaltimer) as lo/hi
+TRIP_FIELDS = ("trips", "step_trips", "event_trips", "lane_steps", "pixels",
+               "smid", "start_lo", "start_hi", "end_lo", "end_hi")
+
 # warp footprint of both kernels: 8 columns x 4 rows
 WARP_W, WARP_H = 8, 4
-_MAX_HEIGHT = 65535 * 8  # CUDA grid.y limit for the 32x8-lane blocks
+_MAX_HEIGHT = 65535 * 8  # CUDA grid.y limit for K4a's 32x8-lane blocks
+# K4b's int32 queue head passes the queue's end by at most a round per lane
+_MAX_QUEUE = (1 << 31) - (1 << 24)
 _EARLY_EXIT_EVERY = 8  # plain path: test for live lanes this often
 
 
@@ -136,7 +153,7 @@ def _check_march(params, tc, width, height, map_height, cone,
     _check_common(params, NB, int_power)
     if width < 1 or height < 1:
         raise ValueError(f"bad field size {width}x{height}")
-    if height > _MAX_HEIGHT or width * height >= 1 << 31:
+    if cdiv(width, WARP_W) * cdiv(height, WARP_H) * 32 > _MAX_QUEUE:
         raise ValueError(f"field size {width}x{height} is too large")
     row0 = float(params[B_ROW0])
     if not row0.is_integer() or row0 < 0 or row0 + height > map_height:
@@ -475,13 +492,78 @@ def cone_fields_cuda(params: np.ndarray, *, coarse_w: int, coarse_h: int,
 cone_fields_cuda.launches = 0
 
 
+def march_grid(int_power, width: int, height: int,
+               device) -> Tuple[int, int]:
+    """(blocks of 256 threads, resident blocks per SM) of K4b's launch for
+    a width x height field on ``device``: the trips buffer has 8 rows (one
+    per warp) per block."""
+    import ctypes
+
+    from . import _cuda
+
+    dev = _cuda.cuda_device(device)
+    lib = _cuda.load_library()
+    blocks, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = lib.fr_bulb_march_grid(int_power or 0, width, height,
+                                    ctypes.byref(blocks),
+                                    ctypes.byref(per_sm))
+    _cuda.check(lib, rc, "bulb march occupancy")
+    return blocks.value, per_sm.value
+
+
+def trips_buffer(int_power, width: int, height: int,
+                 device) -> torch.Tensor:
+    """A zeroed trips buffer for K4b's launch: (warps, len(TRIP_FIELDS))
+    int32 on ``device``."""
+    blocks, _ = march_grid(int_power, width, height, device)
+    return torch.zeros((blocks * 8, len(TRIP_FIELDS)), dtype=torch.int32,
+                       device=device)
+
+
+def decode_trips(trips: torch.Tensor) -> Dict[str, float]:
+    """Sum K4b's per-warp counters (the rows of a filled trips buffer; rows
+    of warps that finished no pixel are left out) and derive: lane
+    utilisation, lane_steps / (32 step_trips); the event share,
+    event_trips / trips; the span (ns) from the first warp's start to the
+    last warp's end; and the tail share, the part of the span after the
+    number of running warps last fell below half its peak."""
+    a = trips.detach().cpu().numpy().astype(np.int64)
+    a = a[a[:, TRIP_FIELDS.index("pixels")] > 0]
+    col = {n: a[:, i] for i, n in enumerate(TRIP_FIELDS)}
+    start = (col["start_hi"] << 32) | (col["start_lo"] & 0xFFFFFFFF)
+    end = (col["end_hi"] << 32) | (col["end_lo"] & 0xFFFFFFFF)
+    out = {n: int(col[n].sum()) for n in TRIP_FIELDS[:5]}
+    out["warps"] = int(len(a))
+    out["sms"] = int(len(np.unique(col["smid"])))
+    out["lane_util"] = out["lane_steps"] / max(32 * out["step_trips"], 1)
+    out["event_share"] = out["event_trips"] / max(out["trips"], 1)
+    t0, t1 = int(start.min()), int(end.max())
+    out["span_ns"] = t1 - t0
+    # running warps over time: +1 at each start, -1 at each end (ends
+    # first where they tie)
+    times = np.concatenate([start, end])
+    steps = np.concatenate([np.ones_like(start), -np.ones_like(end)])
+    order = np.lexsort((steps, times))
+    running = np.cumsum(steps[order])
+    # the event after which fewer than half the peak run, for good (the
+    # last event leaves none running)
+    last_high = np.flatnonzero(running >= running.max() / 2.0)[-1]
+    t_half = int(times[order][last_high + 1])
+    out["tail_share"] = (t1 - t_half) / max(t1 - t0, 1)
+    return out
+
+
 def march_fields_cuda(params: np.ndarray, tc: Optional[torch.Tensor], *,
                       width: int, height: int, map_height: int, cone: int,
-                      shade: bool, int_power, stats: bool,
-                      device) -> Tuple[torch.Tensor, ...]:
+                      shade: bool, int_power, stats: bool, device,
+                      trips: Optional[torch.Tensor] = None,
+                      ) -> Tuple[torch.Tensor, ...]:
     """Launch K4b (csrc/bulb.cu) on ``device`` (same signature and results
-    as march_fields_plain; ``tc`` must lie on ``device``).  Counts its
-    launches in ``march_fields_cuda.launches``."""
+    as march_fields_plain; ``tc`` must lie on ``device``).  ``trips``, a
+    buffer from trips_buffer, is zeroed and filled with the launch's
+    per-warp counters (decode_trips reads it); without it the kernel
+    writes none.  Counts its launches in ``march_fields_cuda.launches``."""
     from . import _cuda
 
     _check_march(params, tc, width, height, map_height, cone, int_power)
@@ -489,6 +571,14 @@ def march_fields_cuda(params: np.ndarray, tc: Optional[torch.Tensor], *,
     if tc is not None and (tc.device != dev or not tc.is_contiguous()):
         raise ValueError("the cone grid must be a contiguous tensor on "
                          f"{dev}")
+    if trips is not None:
+        want = (march_grid(int_power, width, height, dev)[0] * 8,
+                len(TRIP_FIELDS))
+        if (trips.dtype != torch.int32 or trips.device != dev
+                or tuple(trips.shape) != want or not trips.is_contiguous()):
+            raise ValueError(f"the trips buffer must be a contiguous int32 "
+                             f"{want} tensor on {dev}, got {trips.dtype} "
+                             f"{tuple(trips.shape)} on {trips.device}")
     params = np.ascontiguousarray(params)
     lib = _cuda.load_library()
     n_out = (8 if shade else 4) + (2 if stats else 0)
@@ -498,6 +588,12 @@ def march_fields_cuda(params: np.ndarray, tc: Optional[torch.Tensor], *,
         ptrs = [o.data_ptr() for o in outs[:4]]
         ptrs += ([o.data_ptr() for o in outs[4:8]] if shade else [None] * 4)
         ptrs += ([o.data_ptr() for o in outs[-2:]] if stats else [None] * 2)
+        # the pixel queue's head, zeroed on the launch's stream
+        head = torch.zeros(1, dtype=torch.int32, device=dev)
+        ptrs.append(head.data_ptr())
+        if trips is not None:
+            trips.zero_()
+        ptrs.append(None if trips is None else trips.data_ptr())
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fr_bulb_march(
             int_power or 0, params.ctypes.data,
@@ -512,9 +608,28 @@ def march_fields_cuda(params: np.ndarray, tc: Optional[torch.Tensor], *,
 march_fields_cuda.launches = 0
 
 
+def patch_order_xy(width: int, height: int, device="cpu"):
+    """K4b's pixel queue (csrc/bulb.cu patch_xy): index i of the
+    cdiv(width, 8) x cdiv(height, 4) x 32 queue fills 8x4 patches, the
+    patches in row-major order.  Returns (x, y, valid) int32/bool tensors
+    over the queue; the invalid entries are the ragged right and bottom
+    edges' padding, which the kernel skips."""
+    pw = cdiv(width, WARP_W)
+    i = torch.arange(pw * cdiv(height, WARP_H) * 32, dtype=torch.int32,
+                     device=device)
+    q, r = i // 32, i % 32
+    x = (q % pw) * WARP_W + r % WARP_W
+    y = (q // pw) * WARP_H + r // WARP_W
+    return x, y, (x < width) & (y < height)
+
+
 def warp_max(plane: torch.Tensor) -> torch.Tensor:
-    """Each lane's warp's maximum of ``plane`` (H, W), for the kernels'
-    8×4-pixel warps (aligned at multiples of 8 columns and 4 rows)."""
+    """Each lane's maximum of ``plane`` (H, W) over its 8×4-pixel patch
+    (aligned at multiples of 8 columns and 4 rows): the model of a static
+    schedule in which each warp runs one patch, as K4a does and K4b did
+    until its lanes refilled from a pixel queue.  Σwarp_max / Σplane is
+    that schedule's divergence waste, against which K4b's counters (its
+    lane utilisation) are read."""
     h, w = plane.shape
     hp, wp = cdiv(h, WARP_H) * WARP_H, cdiv(w, WARP_W) * WARP_W
     padded = torch.zeros((hp, wp), dtype=plane.dtype, device=plane.device)

@@ -114,10 +114,11 @@ def params_layout_selfcheck() -> bool:
     asserts on the port's index constants, and the same constants as the
     CUDA sources define them (``csrc/escape.cu`` ``P_*``,
     ``csrc/dd_escape.cu`` ``kND``/``D_*``, the ``Q_*`` enum of
-    ``csrc/pert_kernel.cuh``), so a packer and its kernel cannot drift
+    ``csrc/pert_kernel.cuh``, the ``T_*`` enum of K4b's counters in
+    ``csrc/bulb.cu``), so a packer and its kernel cannot drift
     apart.  The row0 slots of K1 and K2 are launch arguments there, not
     constants.  Raises AssertionError on a mismatch."""
-    from ..ops import _cuda, dd_escape, escape, perturbation
+    from ..ops import _cuda, bulb_kernel, dd_escape, escape, perturbation
 
     _require(escape.NPARAMS == 19, "escape.NPARAMS")
     _require(escape.P_ROW0 == 11, "escape.P_ROW0")
@@ -159,6 +160,13 @@ def params_layout_selfcheck() -> bool:
     enum = _cuda_enum(cuh, "Q_")
     _require(enum == sorted(pert, key=pert.get),
              "pert_kernel.cuh Q_* enum order differs from ops/perturbation")
+    # K4b's per-warp counters: the T_* enum of csrc/bulb.cu
+    bulb = os.path.join(src, "bulb.cu")
+    trips = [f"T_{n.upper()}" for n in bulb_kernel.TRIP_FIELDS]
+    _require(_cuda_enum(bulb, "T_") == trips,
+             "bulb.cu T_* enum differs from bulb_kernel.TRIP_FIELDS")
+    _require(_cuda_constants(bulb, "T_", "kTripFields").get("kTripFields")
+             == len(trips), "bulb.cu kTripFields != len(TRIP_FIELDS)")
     return True
 
 

@@ -445,6 +445,9 @@ def test_march_fields_checks():
         bk.march_fields(8, 8, device="cpu", **dict(kw, max_iter=1 << 24))
     with pytest.raises(ValueError, match="unsupported device"):
         bk.march_fields(8, 8, device="meta", **kw)
+    # K4b's pixel queue (8x4 patches of 32) must fit its int32 head
+    with pytest.raises(ValueError, match="too large"):
+        bk.march_fields(1 << 16, 1 << 15, cone=0, device="cpu", **kw)
     f = bk.march_fields(8, 4, device="cpu", **kw)
     assert list(f) == ["hit", "t", "d", "esc"]
     f = bk.march_fields(8, 4, cone=0, shade=True, stats=True, device="cpu",
@@ -459,6 +462,70 @@ def test_warp_max_takes_each_8x4_patch_maximum():
         for x in range(19):
             y0, x0 = y // 4 * 4, x // 8 * 8
             assert got[y, x] == plane[y0:y0 + 4, x0:x0 + 8].max()
+
+
+@pytest.mark.parametrize("size", [(1, 1), (5, 3), (37, 23), (1920, 1080)],
+                         ids=str)
+def test_patch_order_is_a_bijection_onto_the_frame(size):
+    w, h = size
+    x, y, valid = bk.patch_order_xy(w, h)
+    pw, ph = bk.cdiv(w, 8), bk.cdiv(h, 4)
+    assert len(x) == pw * ph * 32
+    # every pixel of the frame exactly once; the rest is the ragged edges'
+    # padding, outside the frame
+    flat = (y[valid].long() * w + x[valid].long())
+    assert torch.equal(torch.sort(flat).values, torch.arange(w * h))
+    assert ((x[~valid] >= w) | (y[~valid] >= h)).all()
+    # consecutive indices fill one 8x4 patch, patches row-major
+    q = torch.arange(len(x)) // 32
+    assert torch.equal(x // 8, (q % pw).to(x.dtype))
+    assert torch.equal(y // 4, (q // pw).to(y.dtype))
+    r = torch.arange(len(x)) % 32
+    assert torch.equal(x % 8, (r % 8).to(x.dtype))
+    assert torch.equal(y % 4, (r // 8).to(y.dtype))
+
+
+def _trips_rows(rows):
+    """A trips buffer from (trips, step, event, lanes, pixels, smid, start,
+    end) tuples, the times split into lo/hi int32 words."""
+    out = []
+    for *c, t0, t1 in rows:
+        words = []
+        for t in (t0, t1):
+            lo = np.array([t & 0xFFFFFFFF], np.uint32).view(np.int32)[0]
+            words += [int(lo), t >> 32]
+        out.append([*c, *words])
+    return torch.tensor(out, dtype=torch.int32)
+
+
+def test_decode_trips_sums_and_shares():
+    base = 5 << 32  # times above 2^32 ns: the hi words count
+    buf = _trips_rows([
+        # four warps run together from 0 to 100; one of them runs on alone
+        # to 400 (the tail: 300 of the 400 ns span)
+        (10, 8, 4, 200, 32, 0, base, base + 100),
+        (10, 6, 5, 100, 32, 1, base, base + 100),
+        (10, 10, 2, 320, 32, 1, base, base + 100),
+        (40, 30, 20, 600, 16, 2, base, base + 400),
+        # a warp that finished no pixel: left out
+        (3, 0, 3, 0, 0, 3, base, base + 900),
+    ])
+    c = bk.decode_trips(buf)
+    assert c["warps"] == 4 and c["sms"] == 3
+    assert (c["trips"], c["step_trips"], c["event_trips"], c["lane_steps"],
+            c["pixels"]) == (70, 54, 31, 1220, 112)
+    assert c["lane_util"] == pytest.approx(1220 / (32 * 54))
+    assert c["event_share"] == pytest.approx(31 / 70)
+    assert c["span_ns"] == 400
+    assert c["tail_share"] == pytest.approx(300 / 400)
+
+
+def test_decode_trips_of_one_wave_without_tail():
+    # every warp ends at once: no tail
+    buf = _trips_rows([(5, 5, 1, 160, 32, s, 1000, 2000) for s in range(4)])
+    c = bk.decode_trips(buf)
+    assert c["tail_share"] == 0.0 and c["span_ns"] == 1000
+    assert c["lane_util"] == 1.0
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

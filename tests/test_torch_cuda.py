@@ -14,7 +14,8 @@ in the single-pass Mandelbrot instances (with and without f32 float
 continuation, on a band and against a shifted reference), and in the dd
 tier at 1e-20, where the products' errors are subnormal; K4a's start
 depths and K4b's planes (hit, t, d, esc, normals, AO, msteps, work)
-bit-equal in the integer-power and trig instances.
+bit-equal in the integer-power and trig instances, at ragged sizes and on
+bands; K4b's counters count every DE step and change no output.
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere.  The GPU machine has no
 jax, so run it there without the suite's conftest:
@@ -568,6 +569,79 @@ def test_bulb_kernels_equal_plain(dev, case):
         assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape
         assert torch.equal(g, w), f"{name} differs"
     assert 0.0 < float(got[0].mean()) < 1.0  # bulb and sky
+
+
+_BULB_PLANES = ["hit", "t", "d", "esc", "nx", "ny", "nz", "ao", "msteps",
+                "work"]
+
+
+@pytest.mark.parametrize("case", [
+    dict(width=1, height=1),
+    dict(width=5, height=3),
+    dict(width=37, height=23),
+    dict(width=37, height=23, shade=False),
+    dict(width=37, height=23, stats=False),
+    dict(width=37, height=23, shade=False, stats=False, time=1.0),
+    dict(width=37, height=23, power=16.0, cone=0),
+    dict(width=37, height=9, row0=29, map_height=64),
+    dict(width=37, height=9, row0=29, map_height=64, shade=False,
+         stats=False),
+], ids=str)
+def test_bulb_march_ragged_sizes_equal_plain(dev, case):
+    # the pixel queue's padding (ragged right and bottom edges) and bands
+    got, want = _bulb_both(dev, **case)
+    names = [n for n in _BULB_PLANES
+             if (n not in ("nx", "ny", "nz", "ao") or case.get("shade", True))
+             and (n not in ("msteps", "work") or case.get("stats", True))]
+    assert len(got) == len(want) == len(names)
+    for name, g, w in zip(names, got, want):
+        assert torch.equal(g, w), f"{name} differs"
+
+
+def _bulb_frame(dev, width=160, height=90, **kw):
+    p = bulb_math.BulbParams(**kw).clamped()
+    ro, dyn = bulb_math.camera_setup(p)
+    ip = bulb_kernel.resolve_int_power(dyn)
+    params = bulb_kernel.pack_march_params(ro=ro, fov=p.fov, power=dyn,
+                                           max_iter=64)
+    mkw = dict(width=width, height=height, map_height=height, cone=0,
+               shade=True, int_power=ip, stats=True, device=dev)
+    return params, ip, mkw
+
+
+def test_bulb_march_back_to_back_launches_equal(dev):
+    # each launch takes a fresh, zeroed queue head: the second launch on
+    # the stream runs every pixel again
+    params, _, mkw = _bulb_frame(dev)
+    first = bulb_kernel.march_fields_cuda(params, None, **mkw)
+    second = bulb_kernel.march_fields_cuda(params, None, **mkw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(_BULB_PLANES, first, second, strict=True):
+        assert torch.equal(a, b), name
+    assert float(first[-1].sum()) > 0
+
+
+@pytest.mark.parametrize("kw", [{}, dict(time=1.0), dict(power=16.0)],
+                         ids=str)
+def test_bulb_march_counters_count_every_de_step(dev, kw):
+    params, ip, mkw = _bulb_frame(dev, **kw)
+    plain = bulb_kernel.march_fields_cuda(params, None, **mkw)
+    buf = bulb_kernel.trips_buffer(ip, 160, 90, dev)
+    got = bulb_kernel.march_fields_cuda(params, None, trips=buf, **mkw)
+    torch.cuda.synchronize()
+    # the counters change no output
+    for name, a, b in zip(_BULB_PLANES, plain, got, strict=True):
+        assert torch.equal(a, b), name
+    c = bulb_kernel.decode_trips(buf)
+    assert c["lane_steps"] == int(got[-1].double().sum())
+    assert c["pixels"] == 160 * 90
+    assert c["step_trips"] <= c["trips"] and c["event_trips"] <= c["trips"]
+    assert 0.0 < c["lane_util"] <= 1.0
+    blocks, per_sm = bulb_kernel.march_grid(ip, 160, 90, dev)
+    assert per_sm >= (3 if ip is None else 4)
+    assert buf.shape == (blocks * 8, 10)
+    with pytest.raises(ValueError, match="trips buffer"):
+        bulb_kernel.march_fields_cuda(params, None, trips=buf[:-1], **mkw)
 
 
 def test_bulb_render_launches_one_cone_and_one_march_per_sample(
