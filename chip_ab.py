@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's K2, K3 and K4b kernels of this checkout against those
-of another commit, in turns, on one card.
+"""Time the port's K1, K2, K3 and K4b kernels of this checkout against
+those of another commit, in turns, on one card.
 
     python3 chip_ab.py OTHER_ROOT [--reps 3] [--only PREFIX] [--out FILE]
 
@@ -11,26 +11,33 @@ of its own, which import that side's package (its wrappers, its C
 interface, its kernels, built into its own ``_build/``), in the order
 other, this, this, other.  A process packs the operands of every case
 whose instance name starts with ``--only`` (the cases, views and sizes
-are this checkout's chip_smoke.py's: K2 at the Seahorse 1e-9 view, every
-K3 instance at its main frame, config 4 series off and on and its stacked
-spp-2 launch, the families, the ledger and the single pass, and K4b's
-1080p frames of power 8, the trig step and power 16, shaded, from their
-own K4a grids), then launches each case once to warm up and ``--reps``
-times, each launch timed by CUDA events, then ``--reps`` times more under
-the profiler, whose kernel records give the kernel's own device time per
-launch (the events also hold the wrapper's host work and its glue
-kernels).  A K4b case is compared on all 10 planes (stats on); where the
-side's K4b takes a trips buffer, its per-warp counters are decoded (and
-their lane steps held equal to the frame's sum of work), its launch
-shape printed, its time without and with the buffer taken in turns and
-the SM clock read under load.  A case's line gives each side's kernel
-time (the mean of its two processes' means, each beside it), its event
-median and runs, the ratio this / other of the kernel times, and whether
-the two sides' output planes are bit-identical.  The card's name and
-power limit come first, then the two builds' ptxas reports (registers /
-stack frame bytes / spill bytes per instance) side by side; a spill in
-this checkout's build fails the run.  With ``--out`` everything is also
-written as one JSON object.  Imports no JAX.
+are this checkout's chip_smoke.py's: K1's eight instances at their 1080p
+x 256 frames, each family's main-path fused frame and its tracked fields
+frame, and the variants that split their time (``_nopost``: fused without
+the post chain; ``_noskip``: the Mandelbrot fused frame without the
+interior skip; ``_untracked``: fields with no trap, stripe or
+derivative), K2 at the Seahorse 1e-9 view, every K3 instance at its main
+frame, config 4 series off and on and its stacked spp-2 launch, the
+families, the ledger and the single pass, and K4b's 1080p frames of power
+8, the trig step and power 16, shaded, from their own K4a grids), then
+launches each case once to warm up and ``--reps`` times, each launch
+timed by CUDA events, then ``--reps`` times more under the profiler,
+whose kernel records give the kernel's own device time per launch (the
+events also hold the wrapper's host work and its glue kernels).  A K1
+case is compared on every plane it writes, K2 on n, zx and zy, a K4b case
+on all 10 planes (stats on).  Where the side's kernel takes a trips
+buffer, its per-warp counters are decoded (K1's and K2's lane iterations
+held equal to the frame's loop updates from its n plane, K4b's lane steps
+to the frame's sum of work), K4b's launch shape printed, the SM clock
+read under load and, for the instances (not the variants), the kernel's
+time without and with the buffer taken in turns.  A case's line gives
+each side's kernel time (the mean of its two processes' means, each
+beside it), its event median and runs, the ratio this / other of the
+kernel times, and whether the two sides' output planes are bit-identical.
+The card's name and power limit come first, then the two builds' ptxas
+reports (registers / stack frame bytes / spill bytes per instance) side
+by side; a spill in this checkout's build fails the run.  With ``--out``
+everything is also written as one JSON object.  Imports no JAX.
 """
 from __future__ import annotations
 
@@ -58,6 +65,54 @@ def chip_smoke():
     return mod
 
 
+def takes_trips(fn) -> bool:
+    import inspect
+
+    return "trips" in inspect.signature(fn).parameters
+
+
+def buffer_turns(diag, dev, launch, buf, reps: int, out: dict) -> dict:
+    """``out`` with the kernel's time without and with the trips buffer
+    ``buf``, in turns (without, with, with, without)."""
+    times = {"without": [], "with": []}
+    for side in ("without", "with", "with", "without"):
+        extra = {"trips": buf} if side == "with" else {}
+        times[side].append(kernel_ms(diag, dev, lambda: launch(**extra),
+                                     reps))
+    out["ms_without_buffer"] = statistics.mean(times["without"])
+    out["ms_with_buffer"] = statistics.mean(times["with"])
+    out["buffer_runs"] = times
+    return out
+
+
+def escape_case(cs, dev, family, variant):
+    """A K1 case's set-up: ``family``'s 1080p frame in ``variant``
+    (chip_smoke.k1_frame); its counters, where the side's K1 takes a trips
+    buffer, with their lane iterations held equal to the frame's loop
+    updates."""
+    from fractalrenderer_tpu_torch.ops import escape
+
+    params, kw = cs.k1_frame(family, variant)
+
+    def launch(**extra):
+        return escape.escape_fields_cuda(params, device=dev, **kw, **extra)
+
+    def counters(diag, reps):
+        if not takes_trips(escape.escape_fields_cuda):
+            return {}
+        buf = escape.trips_buffer(cs.W, cs.H, dev)
+        launch(trips=buf)
+        out = dict(escape.decode_trips(buf))
+        want = cs.k1_lane_iters(params, kw, dev)
+        assert out["lane_iters"] == want, (out["lane_iters"], want)
+        if variant in ("fused", "fields"):
+            buffer_turns(diag, dev, launch, buf, reps, out)
+        out["sm_clock_mhz"] = cs.sm_clock_mhz(launch)
+        return out
+
+    return launch, launch, counters
+
+
 def bulb_case(cs, dev, kw):
     """A K4b case's set-up: the instance's 1080p frame, shaded, from its
     own K4a grid (made once); the timed launch is the main path's (no
@@ -80,17 +135,27 @@ def bulb_case(cs, dev, kw):
     def launch(stats=False, **extra):
         return bk.march_fields_cuda(params, tc, stats=stats, **mkw, **extra)
 
-    return launch, lambda: launch(stats=True), ip
+    return (launch, lambda: launch(stats=True),
+            lambda diag, reps: bulb_counters(dev, diag, launch, ip, reps))
 
 
 def cases(cs, dev):
     """(instance, label, set-up) of every case.  The set-up puts the
     case's operands on the card and returns (the launch as a function of
-    nothing, the launch whose output planes are compared, the bulb's
-    integer power or None)."""
+    nothing, the launch whose output planes are compared, and None or a
+    function of (diag, reps) that returns the side's decoded counters,
+    {} where it has none)."""
     import torch
 
     from fractalrenderer_tpu_torch.ops import dd, dd_escape, perturbation
+
+    for family in cs.FAMILIES:
+        for variant in cs.K1_VARIANTS:
+            if variant == "fused_noskip" and family != "mandelbrot":
+                continue
+            yield (f"escape_{family}_{variant}",
+                   f"{family} {variant} {cs.W}x{cs.H}x{cs.ITERS}",
+                   lambda f=family, v=variant: escape_case(cs, dev, f, v))
 
     def dd_setup():
         v = cs.DD_VIEW
@@ -98,10 +163,25 @@ def cases(cs, dev):
             center_x_dd=dd.dd_from_string(v["cx"]),
             center_y_dd=dd.dd_from_string(v["cy"]),
             zoom_dd=dd.dd_from_string(v["zoom"]), iter_limit=v["iters"])
-        fn = lambda: dd_escape.dd_escape_fields_cuda(  # noqa: E731
-            params, width=cs.W, height=cs.H, map_height=cs.H, row0=0,
-            device=dev)
-        return fn, fn, None
+
+        def fn(**extra):
+            return dd_escape.dd_escape_fields_cuda(
+                params, width=cs.W, height=cs.H, map_height=cs.H, row0=0,
+                device=dev, **extra)
+
+        def counters(diag, reps):
+            if not takes_trips(dd_escape.dd_escape_fields_cuda):
+                return {}
+            buf = dd_escape.trips_buffer(cs.W, cs.H, dev)
+            n = fn(trips=buf)[0]
+            out = dict(dd_escape.decode_trips(buf))
+            want = int(n.clamp(max=v["iters"] - 1).double().sum())
+            assert out["lane_iters"] == want, (out["lane_iters"], want)
+            buffer_turns(diag, dev, fn, buf, reps, out)
+            out["sm_clock_mhz"] = cs.sm_clock_mhz(fn)
+            return out
+
+        return fn, fn, counters
 
     v = cs.DD_VIEW
     yield ("dd_escape_mandelbrot", f"Seahorse {v['zoom']} x{v['iters']}",
@@ -131,7 +211,7 @@ def cases(cs, dev):
                "its K4a grid", lambda kw=kw: bulb_case(cs, dev, kw))
 
 
-KERNELS = ("pert_kernel", "dd_escape_kernel", "bulb_march_kernel")
+KERNELS = ("escape_kernel", "pert_kernel", "bulb_march_kernel")
 
 
 def kernel_ms(diag, dev, launch, reps: int) -> float:
@@ -150,11 +230,9 @@ def bulb_counters(dev, diag, launch, ip, reps: int) -> dict:
     """K4b's per-warp counters (decoded) and launch shape, and the kernel's
     time without and with the trips buffer, in turns (without, with, with,
     without), where the package has the buffer; {} where it has not."""
-    import inspect
-
     from fractalrenderer_tpu_torch.ops import bulb_kernel as bk
 
-    if "trips" not in inspect.signature(bk.march_fields_cuda).parameters:
+    if not takes_trips(bk.march_fields_cuda):
         return {}
     cs = chip_smoke()
     buf = bk.trips_buffer(ip, cs.W, cs.H, dev)
@@ -164,14 +242,7 @@ def bulb_counters(dev, diag, launch, ip, reps: int) -> dict:
     assert out["lane_steps"] == int(work.double().sum()), \
         (out["lane_steps"], float(work.double().sum()))
     out["blocks"], out["blocks_per_sm"] = bk.march_grid(ip, cs.W, cs.H, dev)
-    times = {"without": [], "with": []}
-    for side in ("without", "with", "with", "without"):
-        extra = {"trips": buf} if side == "with" else {}
-        times[side].append(kernel_ms(diag, dev, lambda: launch(**extra),
-                                     reps))
-    out["ms_without_buffer"] = statistics.mean(times["without"])
-    out["ms_with_buffer"] = statistics.mean(times["with"])
-    out["buffer_runs"] = times
+    buffer_turns(diag, dev, launch, buf, reps, out)
     out["sm_clock_mhz"] = cs.sm_clock_mhz(launch)
     return out
 
@@ -199,7 +270,7 @@ def worker(root: str, reps: int, only: str) -> dict:
     for name, label, setup in cases(cs, dev):
         if not name.startswith(only):
             continue
-        launch, planes, ip = setup()
+        launch, planes, counters = setup()
         launch()
         outs = planes()
         torch.cuda.synchronize()
@@ -210,9 +281,7 @@ def worker(root: str, reps: int, only: str) -> dict:
         rows.append(dict(name=name, label=label, runs=runs,
                          kernel_ms=kernel_ms(diag, dev, launch, reps),
                          planes=len(outs), sha256=digest.hexdigest(),
-                         counters=bulb_counters(dev, diag, launch, ip, reps)
-                         if name.startswith("bulb_")
-                         else {}))
+                         counters=counters(diag, reps) if counters else {}))
     return dict(root=root, ptxas=report, cases=rows)
 
 
@@ -256,10 +325,12 @@ def main() -> int:
                            check=True)
             with open(path) as f:
                 results.append(json.load(f))
+    cs = chip_smoke()
     reports = {side: r["ptxas"] for side, r in zip(TURNS, results)}
     names = sorted(n for n in reports["this"]
-                   if n.startswith(("pert_", "dd_escape", "bulb_march_p8",
-                                    "bulb_march_p16", "bulb_march_trig")))
+                   if n.startswith(("escape_", "pert_", "dd_escape",
+                                    "bulb_march_p8", "bulb_march_p16",
+                                    "bulb_march_trig")))
     print("ptxas registers/stack frame bytes/spill bytes, other -> this: "
           + ", ".join(
               f"{n} " + " -> ".join(
@@ -304,7 +375,15 @@ def main() -> int:
               "two sides", flush=True)
         for side, t in zip(TURNS, turns):
             c = t["counters"]
-            if c:
+            if c and "lane_iters" in c:
+                print(f"  {side} {case['name']} counters: "
+                      f"{cs.escape_trips_line(c)}"
+                      + (f"; kernel without / with the buffer "
+                         f"{c['ms_without_buffer']:.4f} / "
+                         f"{c['ms_with_buffer']:.4f} ms {c['buffer_runs']}"
+                         if "buffer_runs" in c else "")
+                      + f"; SM clock {c['sm_clock_mhz']} MHz", flush=True)
+            elif c:
                 print(f"  {side} {case['name']} counters: grid "
                       f"{c['blocks']} blocks of 256 ({c['blocks_per_sm']} "
                       f"per SM), {c['warps']} warps on {c['sms']} SMs; "

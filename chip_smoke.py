@@ -39,6 +39,13 @@ DE or escape iterations the timed frame needs and the bound: the larger of
 their f32 operations over the card's FP32 peak (the data sheet's 67
 TFLOP/s, or the rate K5 measured in this run where that is higher; the
 measured rate is printed beside it) and the frame's bytes over 3.35 TB/s.
+K1's eight 1080p frames and K2's Seahorse frame fill their per-warp
+counters in one more launch each (escape.trips_buffer and
+dd_escape.trips_buffer: loop trips, lane iterations, pixels looped, each
+warp's SM, its loop and epilogue cycles and its span), whose lane
+iterations must equal the frame's loop updates from its n plane (n, or
+limit - 1 where n is the limit, over the pixels the skip leaves in the
+loop); the timing phase prints them decoded.
 K4b's 1080p frames also fill its per-warp counters (the trips buffer:
 trips, step and event trips, lane steps, pixels, each warp's SM and
 span), whose lane steps must equal the frame's sum of work; the phase
@@ -126,9 +133,11 @@ OPS_PER_ITER = {
     "escape_julia_fused": 8, "escape_julia_fields": 8,
     "escape_burning_ship_fused": 9, "escape_burning_ship_fields": 16,
     "escape_phoenix_fused": 16, "escape_phoenix_fields": 16,
-    # csrc/dd_escape.cu: ddc_square_add (3 dd_mul of 10, 3 dd_add of 11,
-    # 2) + ddc_mag2 (8)
-    "dd_escape_mandelbrot": 73,
+    # csrc/dd_escape.cu dd_step: the two squares of 7 (dd_mul's 10 less
+    # the head product and the two cross products, which |z|^2 computed;
+    # their sum is one add of a product to itself), dd_mul 10, 3 dd_add of
+    # 11, the exact doubling 2, |z|^2 8
+    "dd_escape_mandelbrot": 67,
     # csrc/pert_kernel.cuh, one delta step, with dd_mul 10, dd_add 11,
     # dd_mul_float 8 (csrc/dd.cuh) and the floatexp ops of csrc/floatexp.cuh
     # (rfe_add 18, rfe_mul 13, cfe_mul 70, cfe_add 38, a renormalisation
@@ -401,6 +410,73 @@ def trips_line(c: dict) -> str:
             f"{c['span_ns'] / 1e6:.4f} ms, tail share {c['tail_share']:.3f}")
 
 
+# K1's frames at 1080p x ITERS, each family's view: its main path's fused
+# frame and its tracked fields frame (no skip), and the Step 1 variants
+# that split an instance's time into loop, colour and post chain
+K1_VARIANTS = ("fused", "fused_nopost", "fused_noskip", "fields",
+               "fields_untracked")
+
+
+def k1_frame(family: str, variant: str = "fused"):
+    """(params, keyword arguments of escape_fields_cuda without the device)
+    of ``family``'s 1080p frame in ``variant``: fused, as the main path
+    colours it (the interior skip on for the Mandelbrot family), without
+    the post chain or without the skip; fields with the family's tracked
+    outputs or none, the skip off."""
+    from fractalrenderer_tpu_torch.ops import escape
+
+    spec = FAMILIES[family]
+    params = escape.pack_params(family=family, iter_limit=ITERS,
+                                **spec["view"])
+    kw = dict(width=W, height=H, map_height=H, row0=0, max_iter_cap=ITERS,
+              family=family)
+    if variant.startswith("fused"):
+        kw.update(interior_skip=(family == "mandelbrot"
+                                 and variant != "fused_noskip"),
+                  fused_color=(0, 0, family != "mandelbrot",
+                               variant != "fused_nopost"))
+    else:
+        kw.update(interior_skip=False, fused_color=None,
+                  **(spec["track"] if variant == "fields" else {}))
+    return params, kw
+
+
+def k1_lane_iters(params, kw, dev) -> int:
+    """The loop updates K1's frame ``(params, kw)`` applies: over the
+    pixels the skip leaves in the loop, n, or limit - 1 where n is the
+    limit (the interior pixels run limit - 1 updates after the peeled
+    update 0).  From the kernel's own fields launch of the same view."""
+    import torch
+
+    from fractalrenderer_tpu_torch.ops import escape
+
+    fields = dict(kw, fused_color=None, track_trap=False,
+                  track_stripe=False, track_deriv=False)
+    n = escape.escape_fields_cuda(params, device=dev, **fields)[0]
+    limit = int(min(float(params[escape.P_LIMIT]), kw["max_iter_cap"]))
+    loop = ~escape.interior_skip_mask(
+        params, width=kw["width"], height=kw["height"],
+        map_height=kw["map_height"], row0=kw["row0"], device=dev) \
+        if kw["interior_skip"] else torch.ones_like(n, dtype=torch.bool)
+    return int(n.clamp(max=limit - 1)[loop].double().sum())
+
+
+def escape_trips_line(c: dict) -> str:
+    """K1's or K2's decoded per-warp counters (escape.decode_trips), one
+    line."""
+    return (f"trips {c['trips']}, lane iterations {c['lane_iters']} "
+            f"(utilisation {c['lane_util']:.4f}; issued / useful "
+            f"{1 / max(c['lane_util'], 1e-12):.4f}), "
+            f"pixels {c['pixels']} ({c['looped']} looped), {c['warps']} "
+            f"warps on {c['sms']} SMs (resident per SM: mean "
+            f"{c['warps_per_sm_mean']:.1f}, peak {c['warps_per_sm_peak']}), "
+            f"loop share {c['loop_share']:.4f} by SM cycles "
+            f"({c['loop_share_ns']:.4f} by the global timer; "
+            f"{c['loop_clk'] / c['warps']:.0f} + "
+            f"{c['epi_clk'] / c['warps']:.0f} cycles per warp), span "
+            f"{c['span_ns'] / 1e6:.4f} ms, tail share {c['tail_share']:.4f}")
+
+
 def ptxas_report(log: str) -> dict:
     """Registers, stack frame and spill bytes of each kernel instance from
     the ``-Xptxas=-v`` build log, by instance name."""
@@ -409,7 +485,11 @@ def ptxas_report(log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"escape_kernelILi(\d)ELb([01])E", m.group(1))
+            # K1 and K2: a third (K1) or only (K2) flag is the counting
+            # twin (older builds have none)
+            k = re.search(r"escape_kernelILi(\d)ELb([01])E(?:Lb([01])E)?",
+                          m.group(1))
+            d = re.search(r"dd_escape_kernelILb([01])E", m.group(1))
             t = re.search(r"pert_kernelILi(\d)ELi(\d)ELi(\d)E",
                           m.group(1))
             b = re.search(r"bulb_(cone|march)_kernelILi(\d+)E", m.group(1))
@@ -419,9 +499,14 @@ def ptxas_report(log: str) -> dict:
             elif b:
                 p = int(b.group(2))
                 name = f"bulb_{b.group(1)}_" + (f"p{p}" if p else "trig")
+            elif d:
+                # the twin that keeps the per-warp counters: "_counting"
+                name = "dd_escape_mandelbrot" + ("", "_counting")[
+                    int(d.group(1))]
             elif k:
                 name = (f"escape_{families[int(k.group(1))]}_"
-                        + ("fused" if k.group(2) == "1" else "fields"))
+                        + ("fused" if k.group(2) == "1" else "fields")
+                        + ("", "_counting")[int(k.group(3) or 0)])
             elif t:
                 name = (f"pert_{PERT_FAMILIES[int(t.group(1))]}_"
                         + PERT_TIERS[int(t.group(2))]
@@ -678,7 +763,8 @@ def lane_against_events(dev, label, run, wrappers, prefixes) -> tuple:
     ``(module, name)`` wrappers): every launch has its kernel record
     (counted by the kernel-name ``prefixes``), each record fits in its
     launch's events, and the lane holds at least their sum.  Returns (lane
-    ms, the events' ms)."""
+    ms, the events' ms, the ms of every kernel record of the trace, the
+    port's and the glue's)."""
     import torch
 
     from fractalrenderer_tpu_torch.utils import diag
@@ -701,14 +787,16 @@ def lane_against_events(dev, label, run, wrappers, prefixes) -> tuple:
             if any(p in k for p in prefixes)]
     launches = sum(v[0] for _, v in ours)
     rec_ms = sum(v[1] for _, v in ours) * 1e3
+    kernels_ms = sum(v[1] for v in recs.values()) * 1e3
     print(f"device lane of {label}: {lane:.4f} ms; its {launches} launch(es) "
           f"of the port's kernels: {rec_ms:.4f} ms by their profiler "
           f"records, {events:.4f} ms by CUDA events around the same "
-          f"launches; other device work {lane - rec_ms:.4f} ms", flush=True)
+          f"launches; other device work {lane - rec_ms:.4f} ms; every "
+          f"kernel record of the trace {kernels_ms:.4f} ms", flush=True)
     assert launches == len(spans) > 0, (label, launches, len(spans))
     assert rec_ms <= events, (label, rec_ms, events)
     assert lane >= rec_ms, (label, lane, rec_ms)
-    return lane, events
+    return lane, events, kernels_ms
 
 
 def diagnostics_phase(dev) -> None:
@@ -716,7 +804,9 @@ def diagnostics_phase(dev) -> None:
     bench times (the main path, a Julia frame, config 4, config 6) against
     the CUDA events of their kernels' launches in the same run; the main
     path's lane against K1's CUDA-event time (mean of 50 queued launches:
-    at least it, within 2x of it); the link probe, pageable and pinned."""
+    at least it) and the kernel records of its own trace (the port's and
+    the glue's: at most 1.2x their sum, which a lane that counted a
+    kernel twice exceeds); the link probe, pageable and pinned."""
     from fractalrenderer_tpu_torch import FractalType, Scene, bench_all, models
     from fractalrenderer_tpu_torch.models import deep_zoom, mandelbulb
     from fractalrenderer_tpu_torch.ops import bulb_kernel, escape, perturbation
@@ -751,16 +841,19 @@ def diagnostics_phase(dev) -> None:
     for label, run, wrappers, prefixes in frames:
         run()  # warm
         lanes.append(lane_against_events(dev, label, run, wrappers,
-                                         prefixes)[0])
+                                         prefixes))
+    lane, _, kernels_ms = lanes[0]
     params = escape.pack_params(center_x=-0.5, center_y=0.0, zoom=3.0,
                                 iter_limit=ITERS)
     k1_ms = cuda_ms(lambda: escape.escape_fields_cuda(
         params, width=W, height=H, map_height=H, row0=0, max_iter_cap=ITERS,
         interior_skip=True, fused_color=(0, 0, False, True), device=dev), 50)
-    print(f"the main-path frame's device lane {lanes[0]:.4f} ms against K1 "
+    print(f"the main-path frame's device lane {lane:.4f} ms against K1 "
           f"by CUDA events (mean of 50 queued launches) {k1_ms:.4f} ms "
-          f"({lanes[0] / k1_ms:.2f}x)", flush=True)
-    assert k1_ms <= lanes[0] <= 2 * k1_ms, (lanes[0], k1_ms)
+          f"({lane / k1_ms:.2f}x) and the frame's kernel records "
+          f"{kernels_ms:.4f} ms ({lane / kernels_ms:.3f}x)", flush=True)
+    # the lane holds the frame's K1 launch, and its kernels once each
+    assert k1_ms <= lane <= 1.2 * kernels_ms, (lane, k1_ms, kernels_ms)
     link = diag.measure_link_bandwidth(mb=96, reps=3, device=dev)
     assert link["best_mb_s"] > 0 and link["pinned_best_mb_s"] > 0, link
     print(f"measure_link_bandwidth 96 MiB: pageable best "
@@ -1065,6 +1158,7 @@ def main() -> int:
     entry("dd_escape_mandelbrot", DD_SRC, K2_TPU, 0.0)
     dd_work = (float(got[0].double().sum()),
                sum(t.numel() * t.element_size() for t in got))
+    dd_n = got[0]
     print(f"dd fields {W}x{H} seahorse at {DD_VIEW['zoom']} x"
           f"{DD_VIEW['iters']}: n/zx/zy bit-equal (n mean "
           f"{got[0].float().mean():.1f}, {int((got[0] < DD_VIEW['iters']).sum())}"
@@ -1918,49 +2012,53 @@ def main() -> int:
               f"{[round(t, 3) for t in ms['plain']]}); "
               f"{W * H / e['ms'] / 1e3:.0f} Mpix/s", flush=True)
 
-    for family, spec in FAMILIES.items():
-        params = escape.pack_params(family=family, iter_limit=ITERS,
-                                    **spec["view"])
-        frame = dict(width=W, height=H, map_height=H, row0=0,
-                     max_iter_cap=ITERS, interior_skip=family == "mandelbrot",
-                     device=dev, family=family)
-        fused = (0, 0, family != "mandelbrot", True)
-        timed(f"escape_{family}_fused",
-              lambda: escape.escape_fields_cuda(params, fused_color=fused,
-                                                **frame),
-              lambda: escape.escape_fields_plain(params, fused_color=fused,
-                                                 **frame),
-              kernel_reps=50 if family == "mandelbrot" else 20)
-        rgb = escape.escape_fields_cuda(params, fused_color=fused, **frame)
-        frame.update(interior_skip=False, **spec["track"])
-        timed(f"escape_{family}_fields",
-              lambda: escape.escape_fields_cuda(params, fused_color=None,
-                                                **frame),
-              lambda: escape.escape_fields_plain(params, fused_color=None,
-                                                 **frame))
+    def counters(name, launch, buf, want):
+        """Fill ``buf`` with the instance's per-warp counters in one more
+        launch, hold their lane iterations to the frame's loop updates
+        ``want`` and print them."""
+        launch(trips=buf)
+        c = escape.decode_trips(buf)
+        assert c["lane_iters"] == want, (name, c["lane_iters"], want)
+        print(f"counters {name}: {escape_trips_line(c)}", flush=True)
+
+    for family in FAMILIES:
+        outs = {}
+        for kind in ("fused", "fields"):
+            name = f"escape_{family}_{kind}"
+            params, kw = k1_frame(family, kind)
+            fns = [lambda impl=impl, **extra: impl(params, device=dev, **kw,
+                                                   **extra)
+                   for impl in (escape.escape_fields_cuda,
+                                escape.escape_fields_plain)]
+            timed(name, *fns, kernel_reps=50 if name ==
+                  "escape_mandelbrot_fused" else 20)
+            outs[kind] = fns[0]()
+            counters(name, fns[0], escape.trips_buffer(W, H, dev),
+                     k1_lane_iters(params, kw, dev))
         # the iterations each frame needs: sum(n), less the pixels the
         # fused Mandelbrot frame skips as provably interior
-        fields = escape.escape_fields_cuda(params, fused_color=None, **frame)
         torch.cuda.synchronize()
-        n = fields[0].double()
+        n = outs["fields"][0].double()
         skipped = (escape.interior_skip_mask(
             params, width=W, height=H, map_height=H, row0=0, device=dev)
             if family == "mandelbrot"
             else torch.zeros_like(n, dtype=torch.bool))
-        for kind, iters, outs in (
-                ("fused", float(n[~skipped].sum()), rgb),
-                ("fields", float(n.sum()), fields)):
+        for kind, iters in (("fused", float(n[~skipped].sum())),
+                            ("fields", float(n.sum()))):
             name = f"escape_{family}_{kind}"
             set_bound(name, iters, OPS_PER_ITER[name],
                       W * H * OPS_PER_PIXEL[kind],
-                      sum(t.numel() * t.element_size() for t in outs),
+                      sum(t.numel() * t.element_size() for t in outs[kind]),
                       extra=f" (sum n; {int(skipped.sum())} skipped pixels "
                       "excluded)" if kind == "fused" and skipped.any()
                       else " (sum n)")
-    timed("dd_escape_mandelbrot",
-          lambda: dd_escape.dd_escape_fields_cuda(dd_params, **dd_frame),
+    dd_fn = (lambda **extra: dd_escape.dd_escape_fields_cuda(
+        dd_params, **dd_frame, **extra))
+    timed("dd_escape_mandelbrot", dd_fn,
           lambda: dd_escape.dd_escape_fields_plain(dd_params, **dd_frame),
           kernel_reps=5)
+    counters("dd_escape_mandelbrot", dd_fn, dd_escape.trips_buffer(W, H, dev),
+             int(dd_n.clamp(max=DD_VIEW["iters"] - 1).double().sum()))
     set_bound("dd_escape_mandelbrot", dd_work[0],
               OPS_PER_ITER["dd_escape_mandelbrot"], W * H * OPS_PER_PIXEL["dd"],
               dd_work[1], extra=" (sum n)")

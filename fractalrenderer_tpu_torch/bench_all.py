@@ -206,9 +206,11 @@ def bench_cold_start(width: int = W, height: int = H, iters: int = 256,
 
 
 def issued_iterations(n: torch.Tensor, skipped: torch.Tensor) -> float:
-    """Loop iterations K1 issues for the counts ``n``: each warp (32 pixels
-    of one row) runs as long as its slowest lane; skipped lanes never enter
-    the loop.  Sum over warps of 32 x max n."""
+    """Loop iterations K1 issues for the counts ``n``, modelled from the n
+    plane: each warp (32 pixels of one row) runs as long as its slowest
+    lane; skipped lanes never enter the loop.  Sum over warps of 32 x max
+    n.  K1 runs this schedule (one thread per pixel); its trips buffer
+    counts the same trips on the card."""
     h, w = n.shape
     lanes = torch.where(skipped, torch.zeros_like(n), n).double()
     pad = -w % K1_WARP
@@ -221,8 +223,8 @@ def bench_mandelbrot_1080p(width: int = W, height: int = H,
                            device="cuda") -> dict:
     """Config 1: the main path's frame time over ``frames`` frames, then
     the roofline: useful iterations from the plain K1's n plane, issued
-    iterations from per-warp maxima, against the FP32 peak K5 measures
-    (on a card)."""
+    iterations from per-warp maxima (the model of issued_iterations),
+    against the FP32 peak K5 measures (on a card)."""
     from .ops import escape
 
     dev = resolve_device(device)

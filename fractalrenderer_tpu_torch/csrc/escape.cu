@@ -13,18 +13,28 @@
 // when its pixel escapes: the TPU kernel's CHUNK bursts with a tile-wide
 // any() exit existed because a vector unit has no per-lane branch, and a
 // warp already retires lanes one by one.  The family and fields-vs-fused
-// mode are template parameters (8 instances); the remaining options arrive
-// as warp-uniform flags.  Nothing is staged through shared memory; the 19
-// scalar parameters, the colour table and the output pointers arrive by
-// value as kernel arguments (constant bank).
+// mode are template parameters (8 instances, each with a twin that keeps
+// the per-warp counters of csrc/warp_counters.cuh); the remaining options
+// arrive as warp-uniform flags.  The 19 scalar parameters, the colour
+// table and the output pointers arrive by value as kernel arguments
+// (constant bank).  The fused instances but Phoenix's copy the table into
+// shared memory once per block and read the palette's entries at a
+// pixel's segment there: indexed at a per-lane offset, the by-value table
+// compiled to chains of predicated constant loads (~360 instructions a
+// pixel) or to a copy on the stack.  logf(bailout), the same for every
+// pixel of a launch, is taken ahead of the loop, and an interior pixel's
+// smooth value, which the colourers discard, is not computed (Mandelbrot,
+// Julia, Burning Ship).
 //
-// What bounds it.  The f32 ALU work of the loop (one compare and six to ten
-// mul/add per iteration, plus a sqrt or a sinf when a trap or the stripe is
-// tracked), and divergence inside a warp: a warp runs until its slowest
-// lane escapes, so warps that straddle the set boundary idle most of their
-// lanes.  Memory is minor: 12 to 28 B per pixel written.  Making it fast
-// (warp-level work redistribution, persistent blocks) is later work.
-//
+// What bounds it (PERF.md, Findings).  The fused frames: the colour epilogue
+// (two or three logf, the palette's powf, the post chain's three powf and
+// ACES divisions), a long dependent chain per pixel.  The fields frames: the
+// loop's f32 ALU work (one compare and six to ten mul/add per iteration,
+// plus a sqrt or a sinf when a trap or the stripe is tracked) and
+// divergence inside a warp, which runs until its slowest lane escapes
+// (86-90% of its lanes busy on the main views).  Memory is minor: 12 to
+// 28 B per pixel written.
+
 // Exactness.  Build with -fmad=false and without --use_fast_math: the
 // reference counts rest on the shaders' operation order with no fused
 // multiply-add, IEEE division in the mapping and subnormals kept (the
@@ -36,6 +46,8 @@
 #include <cuda_runtime.h>
 
 #include <cstring>
+
+#include "warp_counters.cuh"
 
 namespace {
 
@@ -49,8 +61,8 @@ constexpr int P_CX = 0, P_CY = 1, P_ZOOM = 2, P_OFFX = 3, P_OFFY = 4,
 // Colour table layout: ops/palettes.py:palette_table plus two constants
 // appended by ops/escape.py:color_table.
 constexpr int kTableLen = 32;
-constexpr int T_KIND = 0, T_EXPO = 1, T_GRAY = 2, T_LO = 3, T_SPAN = 7,
-              T_HI = 11, T_COL = 15, T_INV_GAMMA = 30, T_LOG2 = 31;
+constexpr int C_KIND = 0, C_EXPO = 1, C_GRAY = 2, C_LO = 3, C_SPAN = 7,
+              C_HI = 11, C_COL = 15, C_INV_GAMMA = 30, C_LOG2 = 31;
 
 // Families (ops/escape.py:FAMILIES) and launch flags (ops/escape.py:F_*).
 constexpr int kMandelbrot = 0, kJulia = 1, kBurningShip = 2, kPhoenix = 3;
@@ -154,40 +166,46 @@ __device__ __forceinline__ float poly_atan2(float y, float x) {
 }
 
 // palettes.palette_color_planar for one static spec: fract, pre-transform,
-// then the first segment whose upper bound exceeds t.
-__device__ __forceinline__ void palette_rgb(const ColorTable& tb, float t,
+// then the first segment whose upper bound exceeds t.  The kind, the
+// exponent, the grey flag and the bounds are read at fixed offsets of the
+// by-value table; the reads at the pixel's segment go to `st`, the block's
+// copy of the table in shared memory (one LDS each: indexing the by-value
+// table at a per-lane offset compiles to a chain of predicated constant
+// loads, or to a copy on the stack).
+__device__ __forceinline__ void palette_rgb(const ColorTable& tb,
+                                            const float* st, float t,
                                             float rgb[3]) {
   t = fract(t);
-  const int kind = static_cast<int>(tb.v[T_KIND]);
+  const int kind = static_cast<int>(tb.v[C_KIND]);
   if (kind == 1) {
-    t = powf(t, tb.v[T_EXPO]);
+    t = powf(t, tb.v[C_EXPO]);
   } else if (kind == 2) {
     t = clip01(t);
     t = t * t * (3.0f - 2.0f * t);
   } else if (kind == 3) {
     t = fract(t);
   } else if (kind == 4) {
-    t = powf(fract(t), tb.v[T_EXPO]);
+    t = powf(fract(t), tb.v[C_EXPO]);
   }
-  if (tb.v[T_GRAY] != 0.0f) {
+  if (tb.v[C_GRAY] != 0.0f) {
     rgb[0] = rgb[1] = rgb[2] = t;
     return;
   }
   int seg = 4;
   for (int i = 0; i < 4; ++i) {
-    if (t < tb.v[T_HI + i]) {
+    if (t < tb.v[C_HI + i]) {
       seg = i;
       break;
     }
   }
   if (seg == 4) {
-    for (int ch = 0; ch < 3; ++ch) rgb[ch] = tb.v[T_COL + 12 + ch];
+    for (int ch = 0; ch < 3; ++ch) rgb[ch] = tb.v[C_COL + 12 + ch];
     return;
   }
-  const float f = (t - tb.v[T_LO + seg]) / tb.v[T_SPAN + seg];
+  const float f = (t - st[C_LO + seg]) / st[C_SPAN + seg];
+  const float* lo = st + C_COL + 3 * seg;
   for (int ch = 0; ch < 3; ++ch) {
-    rgb[ch] = tb.v[T_COL + 3 * seg + ch] * (1.0f - f) +
-              tb.v[T_COL + 3 * (seg + 1) + ch] * f;
+    rgb[ch] = lo[ch] * (1.0f - f) + lo[3 + ch] * f;
   }
 }
 
@@ -195,57 +213,66 @@ __device__ __forceinline__ float aces(float c) {
   return clip01((c * (2.51f * c + 0.03f)) / (c * (2.43f * c + 0.59f) + 0.14f));
 }
 
-// coloring.smooth_nu_loglog (Mandelbrot, Phoenix).
+// coloring.smooth_nu_loglog (Mandelbrot, Phoenix).  An interior pixel's
+// smooth value is discarded (it reports nf), so with kSkipInterior its
+// logarithms are not taken: for z = 0 they run the subnormal slow paths.
+template <bool kSkipInterior>
 __device__ __forceinline__ float smooth_loglog(float nf, float zx, float zy,
                                                float max_iter, float log2c) {
+  if (kSkipInterior && !(nf < max_iter)) return nf;
   const float mag2 = zx * zx + zy * zy;
   const float log_zn = logf(clamp_lo(mag2, 1e-38f)) / 2.0f;
   const float mu = logf(clamp_lo(log_zn, 1e-38f) / log2c) / log2c;
   return (nf < max_iter) ? nf + 1.0f - mu : nf;
 }
 
-// coloring.smooth_nu_bailout (Julia, Burning Ship).
+// coloring.smooth_nu_bailout (Julia, Burning Ship), given log_bail =
+// logf(bailout) (the same for every pixel of a launch).
 __device__ __forceinline__ float smooth_bailout(float nf, float zx, float zy,
-                                                float max_iter, float bailout,
+                                                float max_iter,
+                                                float log_bail,
                                                 float log2c) {
+  if (!(nf < max_iter)) return nf;
   const float len_sq = zx * zx + zy * zy;
-  const float quot = logf(clamp_lo(len_sq, 1e-38f)) / logf(bailout);
-  const float smooth = nf + 1.0f - logf(clamp_lo(quot, 1e-38f)) / log2c;
-  return (nf < max_iter) ? smooth : nf;
+  const float quot = logf(clamp_lo(len_sq, 1e-38f)) / log_bail;
+  return nf + 1.0f - logf(clamp_lo(quot, 1e-38f)) / log2c;
 }
 
 // The per-family planar colourers of ops/coloring.py as the fused path
 // calls them: no trap or stripe consumers (Mandelbrot's trap placeholder is
-// 1e20, the ship's 1e10 with stripe 0).
+// 1e20, the ship's 1e10 with stripe 0).  `log_bail` is logf(bailout)
+// (Julia, Burning Ship).
 template <int kFamily>
-__device__ __forceinline__ void color_pixel(const Params& p, const ColorTable& tb, int n,
-                            float zx, float zy, float max_iter,
-                            int interior_style, float rgb[3]) {
-  const float log2c = tb.v[T_LOG2];
+__device__ __forceinline__ void color_pixel(const Params& p,
+                                            const ColorTable& tb,
+                                            const float* st, int n, float zx,
+                                            float zy, float max_iter,
+                                            float log_bail,
+                                            int interior_style,
+                                            float rgb[3]) {
+  const float log2c = tb.v[C_LOG2];
   const float nf = static_cast<float>(n);
   const bool interior = nf >= max_iter;
   if (kFamily == kMandelbrot) {
     // color_mandelbrot_planar, styles 0 and 1
-    const float nu = smooth_loglog(nf, zx, zy, max_iter, log2c);
+    const float nu = smooth_loglog<true>(nf, zx, zy, max_iter, log2c);
     const float t = clip01(nu / max_iter * p.v[P_CSCALE]);
-    palette_rgb(tb, t + p.v[P_COFF], rgb);
+    palette_rgb(tb, st, t + p.v[P_COFF], rgb);
     if (interior_style == 1 && interior) rgb[0] = rgb[1] = rgb[2] = 0.0f;
   } else if (kFamily == kJulia) {
     // color_julia_planar
-    const float s = smooth_bailout(nf, zx, zy, max_iter, p.v[P_BAILOUT],
-                                   log2c);
-    palette_rgb(tb, p.v[P_COFF] + (s / max_iter) * p.v[P_CSCALE], rgb);
+    const float s = smooth_bailout(nf, zx, zy, max_iter, log_bail, log2c);
+    palette_rgb(tb, st, p.v[P_COFF] + (s / max_iter) * p.v[P_CSCALE], rgb);
     if (interior) rgb[0] = rgb[1] = rgb[2] = 0.0f;
   } else if (kFamily == kBurningShip) {
     // color_burning_ship_planar without the trap blend: styles 1 and 2
     // need the trap or the stripe, so they colour the interior black
-    const float s = smooth_bailout(nf, zx, zy, max_iter, p.v[P_BAILOUT],
-                                   log2c);
-    palette_rgb(tb, p.v[P_COFF] + (s / max_iter) * p.v[P_CSCALE], rgb);
+    const float s = smooth_bailout(nf, zx, zy, max_iter, log_bail, log2c);
+    palette_rgb(tb, st, p.v[P_COFF] + (s / max_iter) * p.v[P_CSCALE], rgb);
     if (interior) {
       if (interior_style == 3) {
         const float dist = sqrtf(zx * zx + zy * zy);
-        palette_rgb(tb, clip01(dist * 0.5f), rgb);
+        palette_rgb(tb, st, clip01(dist * 0.5f), rgb);
         for (int ch = 0; ch < 3; ++ch) rgb[ch] = rgb[ch] * 0.4f;
       } else {
         rgb[0] = rgb[1] = rgb[2] = 0.0f;
@@ -253,30 +280,52 @@ __device__ __forceinline__ void color_pixel(const Params& p, const ColorTable& t
     }
   } else {
     // color_phoenix_planar: pow(t, 0.8) and the flow stripes, with the
-    // control > 0.01 gate folded into the weight
-    const float s = smooth_loglog(nf, zx, zy, max_iter, log2c);
+    // control > 0.01 gate folded into the weight; the interior test stays
+    // a select here: Phoenix's colour has work (the flow stripes' angle)
+    // to schedule beside the logarithms
+    const float s = smooth_loglog<false>(nf, zx, zy, max_iter, log2c);
     const float t = powf(clamp_lo(s / max_iter, 0.0f), 0.8f);
-    palette_rgb(tb, t, rgb);
+    palette_rgb(tb, st, t, rgb);
     const float control = clamp_lo(p.v[P_STRIPE], 0.0f);
     const float amplitude = clip01(control * 0.05f);
     const float angle = poly_atan2(zy, zx);
     const float stripe_mod = 0.5f + 0.5f * sinf(angle * control + s * 0.25f);
     const float adaptive = amplitude * (1.0f - expf(-0.004f * s * s));
-    float st[3];
-    palette_rgb(tb, fract(t + 0.1f * stripe_mod), st);
+    float stp[3];
+    palette_rgb(tb, st, fract(t + 0.1f * stripe_mod), stp);
     const float w = adaptive * stripe_mod * (control > 0.01f ? 1.0f : 0.0f);
-    for (int ch = 0; ch < 3; ++ch) rgb[ch] = rgb[ch] * (1.0f - w) + st[ch] * w;
+    for (int ch = 0; ch < 3; ++ch) {
+      rgb[ch] = rgb[ch] * (1.0f - w) + stp[ch] * w;
+    }
   }
 }
 
-template <int kFamily, bool kFused>
+// One thread per pixel in 32x8 blocks; kCount adds the per-warp counters
+// (the trips buffer), in a twin of each instance.
+template <int kFamily, bool kFused, bool kCount>
 __global__ void __launch_bounds__(256)
     escape_kernel(Params p, ColorTable tb, int width, int height,
                   int map_height, int row0, int max_iter_cap, int flags,
-                  int interior_style, Outputs out) {
+                  int interior_style, Outputs out, int* __restrict__ trips) {
+  // The palette's entries at a pixel's segment: the block's copy of the
+  // table in shared memory, copied at fixed offsets (a per-thread offset
+  // into the by-value table would copy it to the stack).  Phoenix reads
+  // the by-value table, which costs it no select chains and saves the
+  // copy and the barrier (PERF.md, Findings).
+  constexpr bool kShared = kFused && kFamily != kPhoenix;
+  __shared__ float st_shared[kTableLen];
+  if (kShared) {
+    if (threadIdx.x == 0 && threadIdx.y == 0) {
+      for (int k = 0; k < kTableLen; ++k) st_shared[k] = tb.v[k];
+    }
+    __syncthreads();
+  }
+  const float* const st = kShared ? st_shared : tb.v;
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   const int lrow = blockIdx.y * blockDim.y + threadIdx.y;
   if (col >= width || lrow >= height) return;
+  WarpStamp t_start{}, t_loop{};
+  if (kCount) t_start = warp_stamp();
 
   // Tracking exists only in fields mode; the fused instances drop it at
   // compile time.
@@ -317,6 +366,13 @@ __global__ void __launch_bounds__(256)
   const int limit = static_cast<int>(limit_f);
   const float bail2 = p.v[P_BAIL2];
 
+  // The smooth colour's logf(bailout), the same for every pixel of a
+  // launch, taken ahead of the loop (Julia, Burning Ship).
+  const float log_bail =
+      kFused && (kFamily == kJulia || kFamily == kBurningShip)
+          ? logf(p.v[P_BAILOUT])
+          : 0.0f;
+
   // Peel update 0 (always applied: the shaders update before the first
   // escape check).
   const float sqx0 = zx0 * zx0, sqy0 = zy0 * zy0;
@@ -344,6 +400,8 @@ __global__ void __launch_bounds__(256)
 
   int n;
   float zx, zy;
+  int iters = 0;  // the pixel's loop updates, for the counters
+  bool looped = false;
   if (skip_ok && cardioid_or_bulb(cr, ci)) {
     // Provably interior: n = limit, z = 0, aux at their initial values.
     n = limit;
@@ -394,6 +452,13 @@ __global__ void __launch_bounds__(256)
       }
     }
     n = (sqx + sqy <= bail2) ? limit : survived;
+    iters = survived;
+    looped = true;
+  }
+  const unsigned lanes = kCount ? row_lanes(width) : 0u;
+  if (kCount) {
+    __syncwarp(lanes);
+    t_loop = warp_stamp();
   }
 
   const size_t idx = static_cast<size_t>(lrow) * width + col;
@@ -408,48 +473,75 @@ __global__ void __launch_bounds__(256)
       static_cast<float*>(out.p[O_DZX])[idx] = dzx;
       static_cast<float*>(out.p[O_DZY])[idx] = dzy;
     }
-    return;
-  }
-
-  // Colour with max_iterations = the clamped limit.
-  float rgb[3];
-  color_pixel<kFamily>(p, tb, n, zx, zy, limit_f, interior_style, rgb);
-
-  if (flags & F_POST) {
-    // coloring.post_chain_planar: enhance -> ACES -> gamma.
-    float bri = p.v[P_BRIGHT], sat = p.v[P_SAT], con = p.v[P_CONTRAST];
-    if (flags & F_CLAMP) {
-      bri = clamp_lo(bri, 0.1f);
-      sat = clamp_lo(sat, 0.0f);
-      con = clamp_lo(con, 0.1f);
+  } else {
+    // Colour with max_iterations = the clamped limit.
+    float rgb[3];
+    color_pixel<kFamily>(p, tb, st, n, zx, zy, limit_f, log_bail,
+                         interior_style, rgb);
+    if (flags & F_POST) {
+      // coloring.post_chain_planar: enhance -> ACES -> gamma.
+      float bri = p.v[P_BRIGHT], sat = p.v[P_SAT], con = p.v[P_CONTRAST];
+      if (flags & F_CLAMP) {
+        bri = clamp_lo(bri, 0.1f);
+        sat = clamp_lo(sat, 0.0f);
+        con = clamp_lo(con, 0.1f);
+      }
+      float e[3];
+      for (int ch = 0; ch < 3; ++ch) {
+        e[ch] = (rgb[ch] * bri - 0.5f) * con + 0.5f;
+      }
+      const float gray = e[0] * 0.299f + e[1] * 0.587f + e[2] * 0.114f;
+      const float inv_gamma = tb.v[C_INV_GAMMA];
+      for (int ch = 0; ch < 3; ++ch) {
+        const float c = clip01(gray * (1.0f - sat) + e[ch] * sat);
+        rgb[ch] = powf(clamp_lo(aces(c), 0.0f), inv_gamma);
+      }
     }
-    float e[3];
-    for (int ch = 0; ch < 3; ++ch) e[ch] = (rgb[ch] * bri - 0.5f) * con + 0.5f;
-    const float gray = e[0] * 0.299f + e[1] * 0.587f + e[2] * 0.114f;
-    const float inv_gamma = tb.v[T_INV_GAMMA];
-    for (int ch = 0; ch < 3; ++ch) {
-      const float c = clip01(gray * (1.0f - sat) + e[ch] * sat);
-      rgb[ch] = powf(clamp_lo(aces(c), 0.0f), inv_gamma);
-    }
+    static_cast<float*>(out.p[0])[idx] = rgb[0];
+    static_cast<float*>(out.p[1])[idx] = rgb[1];
+    static_cast<float*>(out.p[2])[idx] = rgb[2];
   }
-  static_cast<float*>(out.p[0])[idx] = rgb[0];
-  static_cast<float*>(out.p[1])[idx] = rgb[1];
-  static_cast<float*>(out.p[2])[idx] = rgb[2];
+  if (kCount) {
+    finish_row_trips(warp_row(trips), lanes, iters, looped, t_start, t_loop);
+  }
+}
+
+dim3 grid_for(int width, int height) {
+  return dim3((width + 31) / 32, (height + 7) / 8);
+}
+
+template <int kFamily, bool kFused, bool kCount>
+void launch(cudaStream_t s, const Params& p, const ColorTable& tb, int width,
+            int height, int map_height, int row0, int max_iter_cap,
+            int flags, int interior_style, const Outputs& out, int* trips) {
+  escape_kernel<kFamily, kFused, kCount>
+      <<<grid_for(width, height), dim3(32, 8), 0, s>>>(
+          p, tb, width, height, map_height, row0, max_iter_cap, flags,
+          interior_style, out, trips);
 }
 
 template <int kFamily>
-void launch_family(bool fused, dim3 grid, dim3 block, cudaStream_t s,
-                   const Params& p, const ColorTable& tb, int width,
-                   int height, int map_height, int row0, int max_iter_cap,
-                   int flags, int interior_style, const Outputs& out) {
-  if (fused) {
-    escape_kernel<kFamily, true><<<grid, block, 0, s>>>(
-        p, tb, width, height, map_height, row0, max_iter_cap, flags,
-        interior_style, out);
+void launch_family(bool fused, cudaStream_t s, const Params& p,
+                   const ColorTable& tb, int width, int height,
+                   int map_height, int row0, int max_iter_cap, int flags,
+                   int interior_style, const Outputs& out, int* trips) {
+  const bool count = trips != nullptr;
+  if (fused && count) {
+    launch<kFamily, true, true>(s, p, tb, width, height, map_height, row0,
+                                max_iter_cap, flags, interior_style, out,
+                                trips);
+  } else if (fused) {
+    launch<kFamily, true, false>(s, p, tb, width, height, map_height, row0,
+                                 max_iter_cap, flags, interior_style, out,
+                                 trips);
+  } else if (count) {
+    launch<kFamily, false, true>(s, p, tb, width, height, map_height, row0,
+                                 max_iter_cap, flags, interior_style, out,
+                                 trips);
   } else {
-    escape_kernel<kFamily, false><<<grid, block, 0, s>>>(
-        p, tb, width, height, map_height, row0, max_iter_cap, flags,
-        interior_style, out);
+    launch<kFamily, false, false>(s, p, tb, width, height, map_height, row0,
+                                  max_iter_cap, flags, interior_style, out,
+                                  trips);
   }
 }
 
@@ -463,44 +555,43 @@ extern "C" {
 // mode writes n (int32) to out0, zx and zy (f32) to out1 and out2, and the
 // tracked trap, stripe, dzx and dzy (f32) to out3 to out6; fused mode
 // writes r, g, b (f32) to out0 to out2; each (height, width), row-major.
-// The pointers of outputs not written may be null.
+// The pointers of outputs not written may be null.  `trips`, if not null,
+// receives the per-warp counters (csrc/warp_counters.cuh), one zeroed row
+// of kTripFields int32 for each warp of the launch's 32x8 blocks.
 // Returns the cudaError_t of the launch (cudaErrorInvalidValue for an
 // unknown family).
 int fr_escape(int family, const float* params, const float* table, int width,
               int height, int map_height, int row0, int max_iter_cap,
               int flags, int interior_style, void* out0, void* out1,
               void* out2, void* out3, void* out4, void* out5, void* out6,
-              void* stream) {
+              void* stream, void* trips) {
   Params p;
   std::memcpy(p.v, params, sizeof(p.v));
   ColorTable tb;
   std::memcpy(tb.v, table, sizeof(tb.v));
   const Outputs out = {{out0, out1, out2, out3, out4, out5, out6}};
-  const dim3 block(32, 8);
-  const dim3 grid((width + block.x - 1) / block.x,
-                  (height + block.y - 1) / block.y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool fused = flags & F_FUSED;
+  int* const t = static_cast<int*>(trips);
   switch (family) {
     case kMandelbrot:
-      launch_family<kMandelbrot>(fused, grid, block, s, p, tb, width, height,
-                                 map_height, row0, max_iter_cap, flags,
-                                 interior_style, out);
+      launch_family<kMandelbrot>(fused, s, p, tb, width, height, map_height,
+                                 row0, max_iter_cap, flags, interior_style,
+                                 out, t);
       break;
     case kJulia:
-      launch_family<kJulia>(fused, grid, block, s, p, tb, width, height,
-                            map_height, row0, max_iter_cap, flags,
-                            interior_style, out);
+      launch_family<kJulia>(fused, s, p, tb, width, height, map_height, row0,
+                            max_iter_cap, flags, interior_style, out, t);
       break;
     case kBurningShip:
-      launch_family<kBurningShip>(fused, grid, block, s, p, tb, width,
-                                  height, map_height, row0, max_iter_cap,
-                                  flags, interior_style, out);
+      launch_family<kBurningShip>(fused, s, p, tb, width, height,
+                                  map_height, row0, max_iter_cap, flags,
+                                  interior_style, out, t);
       break;
     case kPhoenix:
-      launch_family<kPhoenix>(fused, grid, block, s, p, tb, width, height,
-                              map_height, row0, max_iter_cap, flags,
-                              interior_style, out);
+      launch_family<kPhoenix>(fused, s, p, tb, width, height, map_height,
+                              row0, max_iter_cap, flags, interior_style, out,
+                              t);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -118,12 +118,13 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     vp, ci = ctypes.c_void_p, ctypes.c_int
     # fr_escape(family, params, table, width, height, map_height, row0,
-    #           max_iter_cap, flags, interior_style, out0..out6, stream)
-    lib.fr_escape.argtypes = [ci, vp, vp] + [ci] * 7 + [vp] * 8
+    #           max_iter_cap, flags, interior_style, out0..out6, stream,
+    #           trips)
+    lib.fr_escape.argtypes = [ci, vp, vp] + [ci] * 7 + [vp] * 9
     lib.fr_escape.restype = ci
     # fr_dd_escape(params, width, height, map_height, row0, n, zx, zy,
-    #              stream)
-    lib.fr_dd_escape.argtypes = [vp] + [ci] * 4 + [vp] * 4
+    #              stream, trips)
+    lib.fr_dd_escape.argtypes = [vp] + [ci] * 4 + [vp] * 5
     lib.fr_dd_escape.restype = ci
     # fr_perturbation(family, tier, form, params, orbit table, width,
     #                 height, map_height, max_passes, spp, float_cont, n,

@@ -10,7 +10,9 @@ peeled, survivors are counted, pixels that never escape report the limit.
 Two implementations of kernel K2 sit side by side:
 
 - ``dd_escape_fields_cuda`` launches the hand-written CUDA kernel
-  (csrc/dd_escape.cu) on the current stream;
+  (csrc/dd_escape.cu) on the current stream; an optional trips buffer
+  (``trips_buffer``) receives its per-warp counters, which
+  ``decode_trips`` reads (K1's layout, ops/escape.py TRIP_FIELDS);
 - ``dd_escape_fields_plain`` is the same computation as plain PyTorch
   elementwise ops in the JAX kernel's order (ops/dd.py).
 
@@ -25,6 +27,9 @@ import numpy as np
 import torch
 
 from . import dd
+# K2's per-warp counters share K1's layout, buffer and decoder
+from .escape import (TRIP_FIELDS, check_trips, decode_trips,  # noqa: F401
+                     launch_warps, trips_buffer)
 
 # Scalar-parameter vector layout, identical to the JAX package's
 # (fractalrenderer_tpu/ops/dd_escape.py:30-32).
@@ -122,24 +127,30 @@ def dd_escape_fields_plain(params: np.ndarray, *, width: int, height: int,
 
 
 def dd_escape_fields_cuda(params: np.ndarray, *, width: int, height: int,
-                          map_height: int, row0: int,
-                          device) -> Tuple[torch.Tensor, ...]:
+                          map_height: int, row0: int, device,
+                          trips: Optional[torch.Tensor] = None,
+                          ) -> Tuple[torch.Tensor, ...]:
     """Launch the CUDA kernel K2 on ``device`` (same signature and results
-    as dd_escape_fields_plain).  Counts its launches in
-    ``dd_escape_fields_cuda.launches``."""
+    as dd_escape_fields_plain).  ``trips``, a buffer from trips_buffer, is
+    zeroed and filled with the launch's per-warp counters (decode_trips
+    reads it).  Counts its launches in ``dd_escape_fields_cuda.launches``."""
     from . import _cuda
 
     _check_launch(params, width, height, map_height, row0)
     dev = _cuda.cuda_device(device)
+    check_trips(trips, launch_warps(width, height), dev)
     params = np.ascontiguousarray(params)
     lib = _cuda.load_library()
     with torch.cuda.device(dev):
         outs = (torch.empty((height, width), dtype=torch.int32, device=dev),
                 torch.empty((height, width), dtype=torch.float32, device=dev),
                 torch.empty((height, width), dtype=torch.float32, device=dev))
+        if trips is not None:
+            trips.zero_()
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fr_dd_escape(params.ctypes.data, width, height, map_height,
-                              row0, *(o.data_ptr() for o in outs), stream)
+                              row0, *(o.data_ptr() for o in outs), stream,
+                              None if trips is None else trips.data_ptr())
     _cuda.check(lib, rc, "dd escape")
     dd_escape_fields_cuda.launches += 1
     return outs

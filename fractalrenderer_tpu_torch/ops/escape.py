@@ -5,7 +5,9 @@ and Phoenix families.
 Two implementations of kernel K1 sit side by side:
 
 - ``escape_fields_cuda`` launches the hand-written CUDA kernel
-  (csrc/escape.cu) on the current stream;
+  (csrc/escape.cu) on the current stream; an optional trips buffer
+  (``trips_buffer``) receives its per-warp counters, which
+  ``decode_trips`` reads (K2 shares the layout);
 - ``escape_fields_plain`` is the same computation as plain PyTorch
   elementwise ops, one op per op of the JAX kernel and in its order, in f32.
 
@@ -70,6 +72,16 @@ _sqrt = trig.sqrt  # the IEEE root on both devices
 _MAX_HEIGHT = 65535 * 8
 
 FusedColor = Tuple[int, int, bool, bool]
+
+# The per-warp counters of K1 and K2, the columns of a trips buffer
+# (csrc/warp_counters.cuh T_*): loop trips, the sum over trips of the lanes
+# that applied an update, pixels finished and those that entered the loop,
+# the SM, the SM clock cycles to the loop's end and after it, and
+# %globaltimer (ns) at the warp's start, its loop's end and its end, as
+# lo/hi words
+TRIP_FIELDS = ("trips", "lane_iters", "pixels", "looped", "smid",
+               "loop_clk", "epi_clk", "start_lo", "start_hi", "loop_lo",
+               "loop_hi", "end_lo", "end_hi")
 
 
 def pack_params(*, center_x, center_y, zoom, iter_limit, family="mandelbrot",
@@ -390,6 +402,88 @@ def _combined_trap(zx, zy, cr, ci, sqx=None, sqy=None):
     return torch.minimum(mag, torch.minimum(d_axes, d_c))
 
 
+def _stamps(a: np.ndarray, col: dict, name: str) -> np.ndarray:
+    return (a[:, col[f"{name}_hi"]] << 32) | (a[:, col[f"{name}_lo"]]
+                                              & 0xFFFFFFFF)
+
+
+def decode_trips(trips: torch.Tensor) -> Dict[str, float]:
+    """Sum K1's or K2's per-warp counters (the rows of a filled trips
+    buffer; rows of warps that finished no pixel are left out) and derive:
+    lane utilisation, lane_iters / (32 trips); the loop's share of the
+    warps' time, by SM clock cycles (``loop_share``) and by the global
+    timer (``loop_share_ns``); the span (ns) from the first warp's start
+    to the last warp's end; the tail share, the part of the span after the
+    number of running warps last fell below half its peak; and the warps
+    resident per SM, the mean over the span and the peak."""
+    a = trips.detach().cpu().numpy().astype(np.int64)
+    a = a[a[:, TRIP_FIELDS.index("pixels")] > 0]
+    col = {n: i for i, n in enumerate(TRIP_FIELDS)}
+    start, loop, end = (_stamps(a, col, n) for n in ("start", "loop", "end"))
+    out = {n: int(a[:, col[n]].sum()) for n in (
+        "trips", "lane_iters", "pixels", "looped", "loop_clk", "epi_clk")}
+    smid = a[:, col["smid"]]
+    out["warps"] = int(len(a))
+    out["sms"] = int(len(np.unique(smid)))
+    out["lane_util"] = out["lane_iters"] / max(32 * out["trips"], 1)
+    out["loop_share"] = out["loop_clk"] / max(
+        out["loop_clk"] + out["epi_clk"], 1)
+    out["loop_share_ns"] = float((loop - start).sum()) / max(
+        float((end - start).sum()), 1.0)
+    t0, t1 = int(start.min()), int(end.max())
+    out["span_ns"] = t1 - t0
+    out["tail_share"] = (t1 - _last_half_peak(start, end)) / max(t1 - t0, 1)
+    out["warps_per_sm_mean"] = float((end - start).sum()) / max(
+        (t1 - t0) * out["sms"], 1)
+    out["warps_per_sm_peak"] = int(max(
+        _running(start[smid == s], end[smid == s])[0].max()
+        for s in np.unique(smid)))
+    return out
+
+
+def _running(start: np.ndarray, end: np.ndarray):
+    """The running warps after each start (+1) and end (-1), in time order
+    (ends first where they tie), and those times."""
+    times = np.concatenate([start, end])
+    steps = np.concatenate([np.ones_like(start), -np.ones_like(end)])
+    order = np.lexsort((steps, times))
+    return np.cumsum(steps[order]), times[order]
+
+
+def _last_half_peak(start: np.ndarray, end: np.ndarray) -> int:
+    """The time after which fewer than half the peak of running warps run,
+    for good (the last event leaves none running)."""
+    running, times = _running(start, end)
+    return int(times[np.flatnonzero(running >= running.max() / 2.0)[-1]
+                     + 1])
+
+
+def launch_warps(width: int, height: int) -> int:
+    """The warps of a K1 or K2 launch over a width x height field, the rows
+    of its trips buffer: both kernels run one thread per pixel in 32 x 8
+    blocks (csrc/escape.cu and csrc/dd_escape.cu grid_for)."""
+    return -(-width // 32) * -(-height // 8) * 8
+
+
+def trips_buffer(width: int, height: int, device) -> torch.Tensor:
+    """A zeroed trips buffer for a K1 or K2 launch over a width x height
+    field: (warps, len(TRIP_FIELDS)) int32 on ``device``."""
+    return torch.zeros((launch_warps(width, height), len(TRIP_FIELDS)),
+                       dtype=torch.int32, device=device)
+
+
+def check_trips(trips: Optional[torch.Tensor], warps: int, dev) -> None:
+    """Raise unless ``trips`` is None or a contiguous int32 (warps,
+    len(TRIP_FIELDS)) tensor on ``dev``."""
+    want = (warps, len(TRIP_FIELDS))
+    if trips is not None and (
+            trips.dtype != torch.int32 or trips.device != dev
+            or tuple(trips.shape) != want or not trips.is_contiguous()):
+        raise ValueError(f"the trips buffer must be a contiguous int32 "
+                         f"{want} tensor on {dev}, got {trips.dtype} "
+                         f"{tuple(trips.shape)} on {trips.device}")
+
+
 def escape_fields_cuda(params: np.ndarray, *, width: int, height: int,
                        map_height: int, row0: int, max_iter_cap: int,
                        interior_skip: bool,
@@ -397,9 +491,13 @@ def escape_fields_cuda(params: np.ndarray, *, width: int, height: int,
                        device, family: str = "mandelbrot",
                        use_julia: bool = False, track_trap: bool = False,
                        track_stripe: bool = False,
-                       track_deriv: bool = False) -> Tuple[torch.Tensor, ...]:
+                       track_deriv: bool = False,
+                       trips: Optional[torch.Tensor] = None,
+                       ) -> Tuple[torch.Tensor, ...]:
     """Launch the CUDA kernel K1 on ``device`` (same signature and results
-    as escape_fields_plain).  Counts its launches in
+    as escape_fields_plain).  ``trips``, a buffer from trips_buffer, is
+    zeroed and filled with the launch's per-warp counters (decode_trips
+    reads it); without it the kernel writes none.  Counts its launches in
     ``escape_fields_cuda.launches``."""
     from . import _cuda
 
@@ -407,6 +505,7 @@ def escape_fields_cuda(params: np.ndarray, *, width: int, height: int,
     _check_options(family, fused_color, interior_skip, track_trap,
                    track_stripe, track_deriv)
     dev = _cuda.cuda_device(device)
+    check_trips(trips, launch_warps(width, height), dev)
     params = np.ascontiguousarray(params)
     flags = ((F_SKIP if interior_skip else 0) | (F_JULIA if use_julia else 0)
              | (F_TRAP if track_trap else 0)
@@ -432,11 +531,14 @@ def escape_fields_cuda(params: np.ndarray, *, width: int, height: int,
         ptrs = [None] * len(OUTPUT_SLOTS)
         for slot, o in zip(slots, outs):
             ptrs[slot] = o.data_ptr()
+        if trips is not None:
+            trips.zero_()
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fr_escape(FAMILIES.index(family), params.ctypes.data,
                            table.ctypes.data, width, height, map_height,
                            row0, max_iter_cap, flags, int(interior_style),
-                           *ptrs, stream)
+                           *ptrs, stream,
+                           None if trips is None else trips.data_ptr())
     _cuda.check(lib, rc, "escape")
     escape_fields_cuda.launches += 1
     return outs

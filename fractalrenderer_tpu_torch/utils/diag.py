@@ -114,8 +114,9 @@ def params_layout_selfcheck() -> bool:
     asserts on the port's index constants, and the same constants as the
     CUDA sources define them (``csrc/escape.cu`` ``P_*``,
     ``csrc/dd_escape.cu`` ``kND``/``D_*``, the ``Q_*`` enum of
-    ``csrc/pert_kernel.cuh``, the ``T_*`` enum of K4b's counters in
-    ``csrc/bulb.cu``), so a packer and its kernel cannot drift
+    ``csrc/pert_kernel.cuh``, the ``T_*`` enums of K4b's counters in
+    ``csrc/bulb.cu`` and of K1's and K2's in ``csrc/warp_counters.cuh``,
+    which both sources include), so a packer and its kernel cannot drift
     apart.  The row0 slots of K1 and K2 are launch arguments there, not
     constants.  Raises AssertionError on a mismatch."""
     from ..ops import _cuda, bulb_kernel, dd_escape, escape, perturbation
@@ -167,6 +168,21 @@ def params_layout_selfcheck() -> bool:
              "bulb.cu T_* enum differs from bulb_kernel.TRIP_FIELDS")
     _require(_cuda_constants(bulb, "T_", "kTripFields").get("kTripFields")
              == len(trips), "bulb.cu kTripFields != len(TRIP_FIELDS)")
+    # K1's and K2's: the T_* enum of csrc/warp_counters.cuh
+    wc = os.path.join(src, "warp_counters.cuh")
+    trips = [f"T_{n.upper()}" for n in escape.TRIP_FIELDS]
+    _require(_cuda_enum(wc, "T_") == trips,
+             "warp_counters.cuh T_* enum differs from escape.TRIP_FIELDS")
+    _require(_cuda_constants(wc, "T_", "kTripFields").get("kTripFields")
+             == len(trips), "warp_counters.cuh kTripFields != "
+             "len(TRIP_FIELDS)")
+    _require(dd_escape.TRIP_FIELDS is escape.TRIP_FIELDS,
+             "dd_escape.TRIP_FIELDS is not K1's layout")
+    for path in ("escape.cu", "dd_escape.cu"):
+        with open(os.path.join(src, path)) as f:
+            text = f.read()
+        _require('#include "warp_counters.cuh"' in text,
+                 f"{path} does not include warp_counters.cuh")
     return True
 
 

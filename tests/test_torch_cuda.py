@@ -167,6 +167,109 @@ def test_fused_kernel_matches_plain(dev, family, fused, extra):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
 
 
+_SCHEDULE_MODES = {
+    # mode: (fused colour, tracked outputs of Mandelbrot, of the others)
+    "fused": ((0, 0, True, True), (), ()),
+    "fields": (None, ("trap", "deriv"), ("trap", "stripe")),
+}
+
+
+@pytest.mark.parametrize("mode", list(_SCHEDULE_MODES))
+@pytest.mark.parametrize("family", list(_FAMILY_VIEWS))
+@pytest.mark.parametrize("size", [(1, 1), (65, 33), (100, 7), (31, 40)],
+                         ids=str)
+def test_escape_schedule_ragged_sizes_equal_plain(dev, family, mode, size):
+    # the 32x8 blocks at widths and heights that are not a multiple of
+    # them, a frame smaller than one warp, and a band
+    fused, *tracks = _SCHEDULE_MODES[mode]
+    track = tracks[family != "mandelbrot"]
+    for row0, map_height in ((0, None), (5, size[1] + 9)):
+        got, want = _both(dev, *size, family=family, fused=fused,
+                          track=track, row0=row0, map_height=map_height)
+        if fused is None:
+            names = escape.output_names(family, False, "trap" in track,
+                                        "stripe" in track, "deriv" in track)
+            _assert_fields_equal(got, want, names, 256)
+        else:
+            for g, w in zip(got, want, strict=True):
+                torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+
+
+def test_escape_back_to_back_launches_equal(dev):
+    # launches of different sizes queued back to back on one stream cover
+    # their frames exactly
+    frames = [(160, 90), (33, 5), (160, 90), (1, 1), (97, 61)]
+    params = escape.pack_params(center_x=-0.5, center_y=0.0, zoom=3.0,
+                                iter_limit=128)
+    outs = []
+    for w, h in frames:
+        outs.append(escape.escape_fields_cuda(
+            params, width=w, height=h, map_height=h, row0=0,
+            max_iter_cap=128, interior_skip=True,
+            fused_color=(0, 0, False, True), device=dev))
+    torch.cuda.synchronize()
+    for (w, h), got in zip(frames, outs):
+        want = escape.escape_fields_plain(
+            params, width=w, height=h, map_height=h, row0=0,
+            max_iter_cap=128, interior_skip=True,
+            fused_color=(0, 0, False, True), device=dev)
+        for g, x in zip(got, want, strict=True):
+            torch.testing.assert_close(g, x, rtol=0, atol=1e-5)
+    for a, b in zip(outs[0], outs[2], strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["fields", "fused"])
+@pytest.mark.parametrize("family", list(_FAMILY_VIEWS))
+def test_escape_counters_count_every_iteration(dev, family, fused):
+    w, h, limit = 97, 61, 200
+    params = escape.pack_params(family=family, iter_limit=limit,
+                                **_FAMILY_VIEWS[family])
+    kw = dict(width=w, height=h, map_height=h, row0=0, max_iter_cap=limit,
+              interior_skip=family == "mandelbrot",
+              fused_color=(0, 0, True, True) if fused else None,
+              device=dev, family=family)
+    plain = escape.escape_fields_cuda(params, **kw)
+    buf = escape.trips_buffer(w, h, dev)
+    got = escape.escape_fields_cuda(params, trips=buf, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(plain, got, strict=True):  # the counters change nothing
+        assert torch.equal(a, b)
+    n = escape.escape_fields_cuda(params, **dict(kw, fused_color=None))[0]
+    looped = ~escape.interior_skip_mask(
+        params, width=w, height=h, map_height=h, row0=0, device=dev) \
+        if family == "mandelbrot" else torch.ones_like(n, dtype=torch.bool)
+    c = escape.decode_trips(buf)
+    # every loop update of every looped pixel, once
+    assert c["lane_iters"] == int(n.clamp(max=limit - 1)[looped].sum())
+    assert c["pixels"] == w * h and c["looped"] == int(looped.sum())
+    assert c["warps"] == -(-w // 32) * h  # one warp per 32 pixels of a row
+    assert c["trips"] * 32 >= c["lane_iters"] and 0 < c["lane_util"] <= 1
+    with pytest.raises(ValueError, match="trips buffer"):
+        escape.escape_fields_cuda(params, trips=buf[:-1], **kw)
+
+
+@pytest.mark.parametrize("size", [(1, 1), (65, 33), (100, 7)], ids=str)
+def test_dd_counters_count_every_iteration(dev, size):
+    w, h = size
+    params = dd_escape.pack_dd_params(
+        center_x_dd=dd.dd_from_string("-0.743643887037151"),
+        center_y_dd=dd.dd_from_string("0.13182590420533"),
+        zoom_dd=dd.dd_from_string("1e-9"), iter_limit=600)
+    kw = dict(width=w, height=h, map_height=h, row0=0, device=dev)
+    plain = dd_escape.dd_escape_fields_cuda(params, **kw)
+    buf = dd_escape.trips_buffer(w, h, dev)
+    got = dd_escape.dd_escape_fields_cuda(params, trips=buf, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(plain, got, strict=True):
+        assert torch.equal(a, b)
+    c = dd_escape.decode_trips(buf)
+    assert c["lane_iters"] == int(got[0].clamp(max=599).sum())
+    assert c["pixels"] == c["looped"] == w * h
+    with pytest.raises(ValueError, match="trips buffer"):
+        dd_escape.dd_escape_fields_cuda(params, trips=buf[:-1], **kw)
+
+
 def _dd_both(dev, width, height, *, cx="-0.5", cy="0", zoom="3",
              iter_limit=96, bailout=4.0, row0=0, map_height=None,
              offset=(0.0, 0.0)):
@@ -185,6 +288,7 @@ def _dd_both(dev, width, height, *, cx="-0.5", cy="0", zoom="3",
 @pytest.mark.parametrize("case", [
     dict(width=1, height=1),
     dict(width=65, height=33),
+    dict(width=100, height=7, row0=3, map_height=20),
     dict(width=96, height=54, cx="-0.743643887037151",
          cy="0.13182590420533", zoom="1e-9", iter_limit=1500),
     dict(width=64, height=9, row0=20, map_height=40, offset=(0.5, 0.25)),

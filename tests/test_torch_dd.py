@@ -195,6 +195,43 @@ def test_dd_launch_checks():
         dd_escape.dd_escape_fields(8, 8, max_iter=8, device="meta", **kw)
 
 
+def test_k2_trips_buffer_rows_follow_the_kernel_grid():
+    # K2 shares K1's counters: one row per warp of its 32 x 8 blocks, row
+    # ((block_y * blocks_x + block_x) * 8 + thread_y) as warp_row writes
+    # it.  Fill a buffer as the kernel would from the plain version's n
+    # plane and decode it: the lane iterations are the frame's loop updates
+    w, h, iters = 65, 33, 300
+    params = dd_escape.pack_dd_params(
+        center_x_dd=dd.dd_from_string(SEAHORSE[0]),
+        center_y_dd=dd.dd_from_string(SEAHORSE[1]),
+        zoom_dd=dd.dd_from_string("1e-6"), iter_limit=iters)
+    n = dd_escape.dd_escape_fields_plain(params, width=w, height=h,
+                                         map_height=h, row0=0,
+                                         device="cpu")[0].numpy()
+    updates = np.minimum(n, iters - 1).astype(np.int64)
+    buf = dd_escape.trips_buffer(w, h, "cpu")
+    assert buf.shape == (dd_escape.launch_warps(w, h),
+                         len(dd_escape.TRIP_FIELDS)) == (120, 13)
+    col = {f: i for i, f in enumerate(dd_escape.TRIP_FIELDS)}
+    blocks_x = -(-w // 32)
+    for y in range(h):
+        for bx in range(blocks_x):
+            lanes = updates[y, 32 * bx:32 * bx + 32]
+            row = ((y // 8) * blocks_x + bx) * 8 + y % 8
+            assert not buf[row].any()  # each warp has a row of its own
+            for f, v in (("trips", lanes.max()), ("lane_iters", lanes.sum()),
+                         ("pixels", len(lanes)), ("looped", len(lanes)),
+                         ("end_lo", 1)):
+                buf[row, col[f]] = int(v)
+    c = dd_escape.decode_trips(buf)
+    assert c["warps"] == h * blocks_x and c["pixels"] == w * h
+    assert c["lane_iters"] == int(updates.sum())
+    issued = sum(int(updates[y, x:x + 32].max()) for y in range(h)
+                 for x in range(0, w, 32))
+    assert c["trips"] == issued
+    assert c["lane_util"] == pytest.approx(updates.sum() / (32 * issued))
+
+
 @pytest.mark.parametrize("scene_kw", [
     dict(hp_zoom="1e-9", max_iterations=1500, center_x=-0.743643887037151,
          center_y=0.13182590420533),

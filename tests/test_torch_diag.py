@@ -27,6 +27,15 @@ def test_params_layout_selfcheck_passes():
     assert diag.params_layout_selfcheck() is True
 
 
+def test_selfcheck_catches_a_reordered_trip_field(monkeypatch):
+    # K1's and K2's counters share one layout, held against the CUDA enum
+    fields = list(escape.TRIP_FIELDS)
+    fields[0], fields[1] = fields[1], fields[0]
+    monkeypatch.setattr(escape, "TRIP_FIELDS", tuple(fields))
+    with pytest.raises(AssertionError, match="warp_counters.cuh"):
+        diag.params_layout_selfcheck()
+
+
 @pytest.mark.parametrize("module,a,b,where", [
     (escape, "P_CX", "P_CY", "escape.cu"),
     (escape, "P_BRIGHT", "P_SAT", "escape.cu"),
@@ -47,7 +56,12 @@ def test_selfcheck_catches_a_swapped_python_constant(monkeypatch, module, a,
     ("pert_kernel.cuh", "Q_AR, Q_AI,", "Q_AI, Q_AR,"),
     ("escape.cu", "P_STRIPE = 18", "P_STRIPE = 11"),
     ("dd_escape.cu", "kND = 11", "kND = 12"),
-], ids=["enum_order", "escape_value", "dd_count"])
+    ("warp_counters.cuh", "T_PIXELS, T_LOOPED,", "T_LOOPED, T_PIXELS,"),
+    ("warp_counters.cuh", "kTripFields = 13", "kTripFields = 14"),
+    ("escape.cu", '#include "warp_counters.cuh"', '#include "dd.cuh"'),
+    ("dd_escape.cu", '#include "warp_counters.cuh"', ""),
+], ids=["enum_order", "escape_value", "dd_count", "trips_order",
+        "trips_count", "escape_counters", "dd_counters"])
 def test_selfcheck_catches_an_edited_cuda_source(tmp_path, monkeypatch, src,
                                                  old, new):
     csrc = tmp_path / "csrc"

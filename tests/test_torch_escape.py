@@ -392,3 +392,86 @@ def test_pack_params_matches_jax_layout_per_family(family, kw, monkeypatch):
     kw.setdefault("iter_limit", max_iter)
     got = escape.pack_params(family=family, **kw)
     np.testing.assert_array_equal(got, seen["params"].reshape(-1))
+
+
+# -- K1's and K2's per-warp counters (csrc/warp_counters.cuh) -------------
+
+def _trips_rows(rows):
+    """A trips buffer from (trips, lane_iters, pixels, looped, smid,
+    loop_clk, epi_clk, start, loop, end) tuples, the times split into lo/hi
+    int32 words."""
+    out = []
+    for *c, t0, t1, t2 in rows:
+        words = []
+        for t in (t0, t1, t2):
+            lo = np.array([t & 0xFFFFFFFF], np.uint32).view(np.int32)[0]
+            words += [int(lo), t >> 32]
+        out.append([*c, *words])
+    return torch.tensor(out, dtype=torch.int32)
+
+
+def test_decode_trips_sums_shares_and_residency():
+    base = 7 << 32  # times above 2^32 ns: the hi words count
+    buf = _trips_rows([
+        # three warps on SM 0 and one on SM 1 run from 0 to 100; one warp
+        # of SM 1 runs on alone to 400 (the tail: 300 of the 400 ns span)
+        (10, 200, 32, 32, 0, 300, 100, base, base + 60, base + 100),
+        (10, 100, 32, 20, 0, 300, 100, base, base + 50, base + 100),
+        (10, 320, 32, 32, 0, 200, 200, base, base + 50, base + 100),
+        (8, 250, 32, 32, 1, 100, 100, base, base + 40, base + 100),
+        (40, 600, 16, 16, 1, 900, 100, base, base + 350, base + 400),
+        # a warp that finished no pixel: left out
+        (3, 0, 0, 0, 2, 5, 5, base, base + 800, base + 900),
+    ])
+    c = escape.decode_trips(buf)
+    assert c["warps"] == 5 and c["sms"] == 2
+    assert (c["trips"], c["lane_iters"], c["pixels"],
+            c["looped"]) == (78, 1470, 144, 132)
+    assert c["lane_util"] == pytest.approx(1470 / (32 * 78))
+    assert c["loop_share"] == pytest.approx(1800 / 2400)
+    assert c["loop_share_ns"] == pytest.approx(550 / 800)
+    assert c["span_ns"] == 400
+    assert c["tail_share"] == pytest.approx(300 / 400)
+    # 800 warp-ns over 400 ns on 2 SMs; SM 0 holds three warps at once
+    assert c["warps_per_sm_mean"] == pytest.approx(1.0)
+    assert c["warps_per_sm_peak"] == 3
+
+
+def test_decode_trips_of_one_wave_without_tail():
+    # every warp ends at once: no tail, every lane busy in every trip
+    buf = _trips_rows([(5, 160, 32, 32, s, 10, 10, 1000, 1500, 2000)
+                       for s in range(4)])
+    c = escape.decode_trips(buf)
+    assert c["tail_share"] == 0.0 and c["span_ns"] == 1000
+    assert c["lane_util"] == 1.0 and c["loop_share"] == 0.5
+    assert c["warps_per_sm_mean"] == 1.0 and c["warps_per_sm_peak"] == 1
+
+
+@pytest.mark.parametrize("bad", [
+    dict(shape=(7, len(escape.TRIP_FIELDS))),
+    dict(shape=(8, len(escape.TRIP_FIELDS) - 1)),
+    dict(shape=(8, len(escape.TRIP_FIELDS)), dtype=torch.float32),
+], ids=["rows", "fields", "dtype"])
+def test_check_trips_rejects_a_wrong_buffer(bad):
+    dev = torch.device("cpu")
+    escape.check_trips(None, 8, dev)
+    escape.check_trips(torch.zeros((8, len(escape.TRIP_FIELDS)),
+                                   dtype=torch.int32), 8, dev)
+    buf = torch.zeros(bad["shape"], dtype=bad.get("dtype", torch.int32))
+    with pytest.raises(ValueError, match="trips buffer"):
+        escape.check_trips(buf, 8, dev)
+
+
+@pytest.mark.parametrize("size,warps", [((1, 1), 8), ((32, 8), 8),
+                                        ((65, 33), 3 * 5 * 8),
+                                        ((1920, 1080), 60 * 135 * 8)],
+                         ids=str)
+def test_trips_buffer_has_a_row_per_warp_of_the_grid(size, warps):
+    # one thread per pixel in 32 x 8 blocks: every warp of the grid has a
+    # row, those past the field's bottom edge stay zero
+    assert escape.launch_warps(*size) == warps
+    buf = escape.trips_buffer(*size, device="cpu")
+    assert buf.shape == (warps, len(escape.TRIP_FIELDS))
+    assert buf.dtype == torch.int32 and not bool(buf.any())
+    from fractalrenderer_tpu_torch.ops import dd_escape
+    assert dd_escape.trips_buffer is escape.trips_buffer

@@ -73,7 +73,7 @@ def test_kernel_sources_ship_in_the_package():
     assert [os.path.basename(s) for s in _cuda.sources()] == [
         "bulb.cu", "dd.cuh", "dd_escape.cu", "escape.cu", "floatexp.cuh",
         "peak.cu", "pert_julia.cu", "pert_kernel.cuh", "pert_phoenix.cu",
-        "pert_ship.cu", "perturbation.cu"]
+        "pert_ship.cu", "perturbation.cu", "warp_counters.cuh"]
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
