@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's K1, K2, K3 and K4b kernels of this checkout against
+"""Time the port's K1, K2, K3, K4a and K4b kernels of this checkout against
 those of another commit, in turns, on one card.
 
     python3 chip_ab.py OTHER_ROOT [--reps 3] [--only PREFIX] [--out FILE]
@@ -18,17 +18,19 @@ the post chain; ``_noskip``: the Mandelbrot fused frame without the
 interior skip; ``_untracked``: fields with no trap, stripe or
 derivative), K2 at the Seahorse 1e-9 view, every K3 instance at its main
 frame, config 4 series off and on and its stacked spp-2 launch, the
-families, the ledger and the single pass, and K4b's 1080p frames of power
-8, the trig step and power 16, shaded, from their own K4a grids), then
+families, the ledger and the single pass, K4a's 1080p coarse grids and
+K4b's 1080p frames, shaded, from their own K4a grids, of power 8, the
+trig step and power 16), then
 launches each case once to warm up and ``--reps`` times, each launch
 timed by CUDA events, then ``--reps`` times more under the profiler,
 whose kernel records give the kernel's own device time per launch (the
 events also hold the wrapper's host work and its glue kernels).  A K1
-case is compared on every plane it writes, K2 on n, zx and zy, a K4b case
-on all 10 planes (stats on).  Where the side's kernel takes a trips
-buffer, its per-warp counters are decoded (K1's and K2's lane iterations
-held equal to the frame's loop updates from its n plane, K4b's lane steps
-to the frame's sum of work), K4b's launch shape printed, the SM clock
+case is compared on every plane it writes, K2 on n, zx and zy, a K4a case
+on its t0 grid, a K4b case on all 10 planes (stats on).  Where the side's
+kernel takes a trips buffer, its per-warp counters are decoded (K1's and
+K2's lane iterations held equal to the frame's loop updates from its n
+plane, K4b's lane steps to the frame's sum of work), K4b's launch shape
+printed, the SM clock
 read under load and, for the instances (not the variants), the kernel's
 time without and with the buffer taken in turns.  A case's line gives
 each side's kernel time (the mean of its two processes' means, each
@@ -113,10 +115,9 @@ def escape_case(cs, dev, family, variant):
     return launch, launch, counters
 
 
-def bulb_case(cs, dev, kw):
-    """A K4b case's set-up: the instance's 1080p frame, shaded, from its
-    own K4a grid (made once); the timed launch is the main path's (no
-    stats), the compared one has all 10 planes."""
+def bulb_frame(cs, dev, kw):
+    """An instance's 1080p bulb operands: (march params, cone params, K4a's
+    launch keywords, the integer power)."""
     from fractalrenderer_tpu_torch.ops import bulb_kernel as bk
     from fractalrenderer_tpu_torch.ops import bulb_math as bm
 
@@ -125,10 +126,31 @@ def bulb_case(cs, dev, kw):
     ip = bk.resolve_int_power(dyn)
     params = bk.pack_march_params(ro=ro, fov=bp.fov, power=dyn,
                                   max_iter=bp.max_iterations)
-    tc = bk.cone_fields_cuda(
-        bk.pack_cone_params(params, cs.CONE, cs.H),
-        coarse_w=-(-cs.W // cs.CONE), coarse_h=-(-cs.H // cs.CONE) + 1,
-        width=cs.W, map_height=cs.H, int_power=ip, device=dev)
+    ckw = dict(coarse_w=-(-cs.W // cs.CONE), coarse_h=-(-cs.H // cs.CONE) + 1,
+               width=cs.W, map_height=cs.H, int_power=ip, device=dev)
+    return params, bk.pack_cone_params(params, cs.CONE, cs.H), ckw, ip
+
+
+def bulb_cone_case(cs, dev, kw):
+    """A K4a case's set-up: the instance's 1080p coarse grid."""
+    from fractalrenderer_tpu_torch.ops import bulb_kernel as bk
+
+    _, cparams, ckw, _ = bulb_frame(cs, dev, kw)
+
+    def launch():
+        return (bk.cone_fields_cuda(cparams, **ckw),)
+
+    return launch, launch, None
+
+
+def bulb_case(cs, dev, kw):
+    """A K4b case's set-up: the instance's 1080p frame, shaded, from its
+    own K4a grid (made once); the timed launch is the main path's (no
+    stats), the compared one has all 10 planes."""
+    from fractalrenderer_tpu_torch.ops import bulb_kernel as bk
+
+    params, cparams, ckw, ip = bulb_frame(cs, dev, kw)
+    tc = bk.cone_fields_cuda(cparams, **ckw)
     mkw = dict(width=cs.W, height=cs.H, map_height=cs.H, cone=cs.CONE,
                shade=True, int_power=ip, device=dev)
 
@@ -207,11 +229,14 @@ def cases(cs, dev):
     for name, label, view, w, h, extra in cs.FORM_CASES:
         yield name, label, pert(view, w, h, **extra)
     for tag, label, kw in cs.BULB_CASES:
+        yield (f"bulb_cone_{tag}", f"{label}, {cs.W}x{cs.H} coarse grid",
+               lambda kw=kw: bulb_cone_case(cs, dev, kw))
         yield (f"bulb_march_{tag}", f"{label}, {cs.W}x{cs.H} shaded, from "
                "its K4a grid", lambda kw=kw: bulb_case(cs, dev, kw))
 
 
-KERNELS = ("escape_kernel", "pert_kernel", "bulb_march_kernel")
+KERNELS = ("escape_kernel", "pert_kernel", "bulb_cone_kernel",
+           "bulb_march_kernel")
 
 
 def kernel_ms(diag, dev, launch, reps: int) -> float:
@@ -328,9 +353,9 @@ def main() -> int:
     cs = chip_smoke()
     reports = {side: r["ptxas"] for side, r in zip(TURNS, results)}
     names = sorted(n for n in reports["this"]
-                   if n.startswith(("escape_", "pert_", "dd_escape",
-                                    "bulb_march_p8", "bulb_march_p16",
-                                    "bulb_march_trig")))
+                   if n.startswith(("escape_", "pert_", "dd_escape"))
+                   or n in {f"bulb_{k}_{tag}" for k in ("cone", "march")
+                            for tag, *_ in cs.BULB_CASES})
     print("ptxas registers/stack frame bytes/spill bytes, other -> this: "
           + ", ".join(
               f"{n} " + " -> ".join(

@@ -31,10 +31,17 @@ and ``--spp 2``, and ``--type mandelbulb`` at config 6, with AA 2, ``--time
 of every K3 instance through their library calls (the exact-dust tier on a
 band of each Ship view, with its HP fallback, and on the JAX tests' 12x8
 windows against the HP oracle; the legacy ``rebasing=False`` pipeline with
-its secondary references on Seahorse and configs 4 and 7),
+its secondary references on Seahorse and configs 4 and 7), and
+``export-print --supersample --downsample`` at 1920x1080, ``render
+--golden`` at 160x90 and a 4-frame ``zoom-path`` at 480x270,
 checks that each path launched its kernels and that each PNG is within 1
 LSB of the same pipeline run on the plain versions, and times kernel
-against plain version with CUDA events.  For each instance it prints the
+against plain version (K1 and K2 by CUDA events over queued launches; K3,
+K4a and K4b by the profiler's kernel records, the CUDA-event time of one
+wrapper call printed beside them as "call ms"; K4a also by the records
+of its heaviest and lightest coarse lanes launched alone, its schedule
+floor and its fixed floor, each lane's t0 bit-equal to the full
+launch's), and prints each phase's seconds.  For each instance it prints the
 DE or escape iterations the timed frame needs and the bound: the larger of
 their f32 operations over the card's FP32 peak (the data sheet's 67
 TFLOP/s, or the rate K5 measured in this run where that is higher; the
@@ -329,8 +336,9 @@ FAMILIES = {
 }
 
 
-def read_png_rgb8(path: str):
-    """Decode the port's own PNGs (8-bit RGB, filter type 0 on every row)."""
+def read_png_rgb(path: str):
+    """Decode the port's own PNGs (8- or 16-bit RGB, filter type 0 on every
+    row) to uint8 or uint16 (H, W, 3)."""
     import numpy as np
 
     with open(path, "rb") as f:
@@ -345,13 +353,17 @@ def read_png_rgb8(path: str):
         if tag == b"IHDR":
             width, height, depth, ctype = struct.unpack(">IIBB",
                                                         payload[:10])
-            assert (depth, ctype) == (8, 2), (depth, ctype)
+            assert depth in (8, 16) and ctype == 2, (depth, ctype)
         elif tag == b"IDAT":
             idat += payload
+    nbytes = depth // 8
     rows = np.frombuffer(zlib.decompress(idat), np.uint8)
-    rows = rows.reshape(height, 1 + width * 3)
+    rows = rows.reshape(height, 1 + width * 3 * nbytes)
     assert (rows[:, 0] == 0).all(), "unexpected PNG row filter"
-    return rows[:, 1:].reshape(height, width, 3)
+    px = np.ascontiguousarray(rows[:, 1:])
+    if depth == 16:
+        px = px.view(">u2").astype(np.uint16)
+    return px.reshape(height, width, 3)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -383,6 +395,35 @@ def cuda_event_ms(fn):
     end.record()
     end.synchronize()
     return out, start.elapsed_time(end)
+
+
+def records_ms(dev, cases, prefixes) -> dict:
+    """The kernel's own device ms per launch of each case, from the
+    profiler's kernel records: one session runs each case's ``(key, launch,
+    reps)`` ``reps`` times, case after case on one stream, and the records
+    whose name holds one of ``prefixes`` (the port's kernels, not the
+    wrappers' glue) fall to the cases in that order.  Returns {key: (mean
+    ms per launch, the kernel's name)}."""
+    from fractalrenderer_tpu_torch.utils import diag
+
+    def run():
+        for _, launch, reps in cases:
+            for _ in range(reps):
+                launch()
+
+    with tempfile.TemporaryDirectory() as d:
+        diag.measure_device_seconds(run, d, dev)
+        recs = [r for r in diag.kernel_records_from_trace(d)
+                if any(p in r[0] for p in prefixes)]
+    assert len(recs) == sum(c[2] for c in cases), (len(recs), cases)
+    out, i = {}, 0
+    for key, _, reps in cases:
+        group = recs[i:i + reps]
+        i += reps
+        names = {n for n, _ in group}
+        assert len(names) == 1, (key, names)
+        out[key] = (sum(t for _, t in group) / reps * 1e3, names.pop())
+    return out
 
 
 def sm_clock_mhz(launch, n: int = 30) -> int:
@@ -970,6 +1011,18 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
 
+    t_lap = [t_start, 0]
+
+    def lap(label):
+        """Print the seconds since the previous phase ended, and the
+        profiler sessions the phase took again for want of device
+        events."""
+        now, retakes = time.monotonic(), diag.measure_device_seconds.retries
+        print(f"phase {label}: {now - t_lap[0]:.1f} s, "
+              f"{retakes - t_lap[1]} profiler session(s) taken again",
+              flush=True)
+        t_lap[:] = [now, retakes]
+
     # -- build ---------------------------------------------------------------
     t0 = time.monotonic()
     _cuda.load_library()
@@ -991,6 +1044,8 @@ def main() -> int:
               for k, r in sorted(shown.items()))
           + f"; the other {len(rest)} bulb instances {min(rest)}-"
           f"{max(rest)} registers, no spills", flush=True)
+
+    lap("build")
 
     def launch(impl, width, height, family="mandelbrot", fused=None,
                skip=None, row0=0, map_height=None, max_iter=ITERS,
@@ -1047,14 +1102,19 @@ def main() -> int:
     # -- sessions, diag.TRACE_PADS_S, which take seconds).  The CLI phases'
     # -- first calls below follow these.
     k5_phase(dev, entry)
+    lap("K5")
     k6_phase(dev, entry)
+    lap("K6")
     diagnostics_phase(dev)
+    lap("diagnostics")
     k5_rate = bench_phase(dev, kernels)
+    lap("bench")
     peak_f32 = max(k5_rate, SPEC_F32_OPS)  # the card's FP32 peak
     set_bound("fma_peak", PEAK_K * diag.PEAK_SHAPE[0] * diag.PEAK_SHAPE[1],
               2 * PEAK_CHAINS, 0, 2 * 4 * diag.PEAK_SHAPE[0]
               * diag.PEAK_SHAPE[1], extra=f" (k x N, {PEAK_CHAINS} chains)")
     verbs_phase()
+    lap("info and presets")
 
     # -- Mandelbrot fields: counts and z bit-exact against the plain version --
     cases = [
@@ -1081,6 +1141,8 @@ def main() -> int:
         assert torch.equal(a, b[r0:r1]), "row band != whole-frame rows"
     print(f"fields band rows {r0}-{r1} of {H}: equal to the whole frame",
           flush=True)
+
+    lap("K1 Mandelbrot fields")
 
     # -- every family's fields with its tracked outputs ----------------------
     stripe_err = 0.0
@@ -1109,6 +1171,8 @@ def main() -> int:
                   + (f", stripe max |diff| {err:.3g}" if "stripe" in names
                      else "") + f" (n mean {got[0].float().mean():.2f})",
                   flush=True)
+
+    lap("K1 families' fields")
 
     # -- every family's fused colour against the plain version ---------------
     fused_cases = [
@@ -1143,6 +1207,8 @@ def main() -> int:
         print(f"fused {family} {name}: max |diff| {err:.3g}, uint8 max "
               f"{lsb} LSB", flush=True)
 
+    lap("K1 fused colour")
+
     # -- K2: the double-double kernel at the Seahorse view, 1e-9 -------------
     dd_params = dd_escape.pack_dd_params(
         center_x_dd=dd.dd_from_string(DD_VIEW["cx"]),
@@ -1163,6 +1229,8 @@ def main() -> int:
           f"{DD_VIEW['iters']}: n/zx/zy bit-equal (n mean "
           f"{got[0].float().mean():.1f}, {int((got[0] < DD_VIEW['iters']).sum())}"
           " escaped)", flush=True)
+
+    lap("K2")
 
     # -- K3: each delta tier, the kernel's frame against a plain band --------
     # Every reference orbit the run computes is logged with its engine and
@@ -1245,6 +1313,8 @@ def main() -> int:
               f"entries by {orbit_engine()} in {orbit_s * 1e3:.1f} ms",
               flush=True)
 
+    lap("K3 rebasing instances")
+
     # -- K3 stacked spp-2: config 4's four subpixel segments in one launch --
     # each segment equal to a sequential launch at its offset over the whole
     # frame, and a band of every segment equal to the stacked plain version
@@ -1305,6 +1375,8 @@ def main() -> int:
     stacked_frame = stacked_check("config4", "config 4 (1e-12 x10000), "
                                   "series off", STACKED)
     stacked_check("julia_spp2", "Julia at z*, 1e-10 x200")
+
+    lap("K3 stacked")
 
     # -- K3's other forms: the error ledger and the single pass --------------
     # each frame against the plain version on a full-width band (every plane
@@ -1387,6 +1459,8 @@ def main() -> int:
           f"{plain_ms / 1e3:.2f} s); suspects "
           f"{int((got[6] > -8.0).sum())} of {4 * W * H}", flush=True)
 
+    lap("K3 ledger and single pass")
+
     # -- K4a / K4b: the Mandelbulb kernels, config 6 and two more instances --
     # K4a over the whole 1080p coarse grid against its plain version; K4b
     # over the whole frame (with its stats planes), and on the band of rows
@@ -1411,6 +1485,24 @@ def main() -> int:
             lambda: bulb_kernel.cone_fields_plain(cparams, stats=True,
                                                   **ckw))
         assert torch.equal(tc, tc_p), f"K4a {label}: not bit-equal"
+        # K4a's schedule floor: the lane with the most evaluations + DE
+        # iterations, launched alone (a 1x1 grid whose offsets put its
+        # f32 pixel coordinates at the full grid's), and the lightest lane,
+        # the launch's fixed floor; each must give the full launch's t0
+        load = (c_evals + c_work).flatten()
+        lanes = {}
+        for which, idx in (("heaviest", int(torch.argmax(load))),
+                           ("lightest", int(torch.argmin(load)))):
+            crow, ccol = divmod(idx, ckw["coarse_w"])
+            lp = cparams.copy()
+            lp[bulb_kernel.B_OFFX] += np.float32(ccol * CONE)
+            lp[bulb_kernel.B_ROW0] += np.float32(crow)
+            lkw = dict(ckw, coarse_w=1, coarse_h=1)
+            one = bulb_kernel.cone_fields_cuda(lp, **lkw)
+            assert torch.equal(one[0, 0], tc[crow, ccol]), \
+                f"K4a {label}: the {which} lane alone != the full launch"
+            lanes[which] = (crow, ccol, int(c_evals[crow, ccol]),
+                            int(c_work[crow, ccol]), lp, lkw)
         mkw = dict(width=W, height=H, map_height=H, cone=CONE, shade=True,
                    int_power=ip, device=dev)
         trips = bulb_kernel.trips_buffer(ip, W, H, dev)
@@ -1453,11 +1545,17 @@ def main() -> int:
         e["plain_ms"] = cone_plain_ms
         e = entry(f"bulb_march_{tag}", BULB_SRC, K4B_TPU, 0.0)
         e["plain_ms"] = band_plain_ms
-        bulb_frames[tag] = (params, cparams, ckw, mkw, ip, st, tr)
+        bulb_frames[tag] = (params, cparams, ckw, mkw, ip, st, tr, lanes)
         print(f"K4 {tag} {label} {W}x{H}: K4a grid {ckw['coarse_h']}x"
               f"{ckw['coarse_w']} bit-equal to the plain version (plain "
               f"{cone_plain_ms:.1f} ms; {st['c_evals']:.0f} evaluations, "
-              f"{st['c_work']:.0f} DE iterations); K4b hit/t/d/esc/nx/ny/"
+              f"{st['c_work']:.0f} DE iterations; per lane max "
+              f"{int(c_evals.max())} evaluations, {int(c_work.max())} DE "
+              f"iterations; " + "; ".join(
+                  f"the {k} lane ({v[0]}, {v[1]}: {v[2]} evaluations + "
+                  f"{v[3]} DE iterations) launched alone gives its t0 "
+                  "bit-equal" for k, v in lanes.items())
+              + f"); K4b hit/t/d/esc/nx/ny/"
               f"nz/ao/msteps/work bit-equal to the plain version over rows "
               f"{r0}-{r0 + bh - 1} (plain band {band_plain_ms / 1e3:.2f} "
               f"s) and equal to the whole frame's rows; hit fraction "
@@ -1495,6 +1593,8 @@ def main() -> int:
         assert 0.0 < float(got[0].mean()) < 1.0, f"power {p}: no bulb"
     print(f"K4 integer powers {swept} at 64x48: K4a and K4b (all "
           f"{len(names)} planes) bit-equal to the plain versions", flush=True)
+
+    lap("K4")
 
     # -- the paths, through the entry points a user calls --------------------
     # the kernel wrappers, each with its plain version, source and TPU kernel
@@ -1642,7 +1742,7 @@ def main() -> int:
                     ran[instance]
             assert not any(launches.values()), \
                 f"{label}: launched another kernel: {launches}"
-            img = read_png_rgb8(out)
+            img = read_png_rgb(out)
             assert img.shape == (ph, pw, 3), img.shape
             assert 0 < img.mean() < 255, f"{label}: degenerate image"
             note = "not compared (see the smaller run)"
@@ -1687,6 +1787,116 @@ def main() -> int:
     assert not os.path.exists("unused.png")
     print(f"path cli render --type deep-zoom --exact-dust (Mandelbrot): exit "
           f"2, {err!r}", flush=True)
+
+    lap("cli render paths")
+
+    # -- export-print, zoom-path and render --golden -------------------------
+    # each verb's files against the same verb run on the plain versions
+    # (render --golden, which runs no kernel, against the kernel's render)
+    def verb(argv, plain=False):
+        """Run the CLI verb ``argv`` (stdout kept): (exit code, stdout,
+        host seconds, the kernels' launches)."""
+        reset_counts()
+        t0 = time.monotonic()
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(plain_kernels())
+            said = stack.enter_context(contextlib.redirect_stdout(
+                io.StringIO()))
+            rc = cli.main(argv)
+        return rc, said.getvalue(), time.monotonic() - t0, counts()
+
+    def png_lsb(a, b):
+        a, b = read_png_rgb(a), read_png_rgb(b)
+        assert a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape)
+        return int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max()), a
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out, ref = (os.path.join(tmp, f) for f in ("print.png", "plain.png"))
+        argv = ["export-print", "--width", str(W), "--height", str(H),
+                "--supersample", "--downsample"]
+        rc, said, wall, launches = verb([*argv, "--out", out])
+        assert rc == 0, f"cli export-print exited {rc}"
+        assert launches.pop(esc_w) == 1 and not any(launches.values()), \
+            launches
+        kernels["escape_mandelbrot_fused"]["launches"] += 1
+        assert verb([*argv, "--out", ref], plain=True)[0] == 0
+        lsb, img = png_lsb(out, ref)
+        assert img.dtype == np.uint16 and img.shape == (H, W, 3)
+        assert 0 < img.mean() < 65535, "export-print: degenerate image"
+        assert lsb <= 1, f"export-print: {lsb} LSB from the plain pipeline"
+        raw = open(out, "rb").read()
+        assert b"pHYs" in raw and b"Print Size (inches)" in raw
+        print(f"path cli export-print --supersample --downsample {W}x{H}: "
+              f"1 launch of escape_mandelbrot_fused at {2 * W}x{2 * H}, a "
+              f"16-bit {W}x{H} PNG with pHYs and the print size, max {lsb} "
+              f"LSB (of 65535) from the plain pipeline; {wall * 1e3:.1f} ms "
+              f"wall ({said.strip().splitlines()[-1]})", flush=True)
+
+        out, ref = (os.path.join(tmp, f) for f in ("golden.png",
+                                                    "kernel.png"))
+        rc, said, wall, launches = verb(["render", "--golden", "--width",
+                                         "160", "--height", "90", "--out",
+                                         out])
+        assert rc == 0 and not any(launches.values()), (rc, launches)
+        assert verb(["render", "--width", "160", "--height", "90", "--out",
+                     ref])[0] == 0
+        lsb, img = png_lsb(out, ref)
+        assert lsb <= 1, f"render --golden: {lsb} LSB from the kernel's"
+        print(f"path cli render --golden 160x90: no launch, max {lsb} LSB "
+              f"from the kernel's render; {wall * 1e3:.1f} ms wall",
+              flush=True)
+
+        # a zoom from the Seahorse view at 1e-4 to config 4's centre at
+        # 1e-9: four frames against one reference orbit at the end, two in
+        # the f32 tier, two in the dd tier (zoom <= 1e-7)
+        zp = ["zoom-path", "--center", "-0.743643887037151",
+              "0.13182590420533", "--zoom", "1e-4", "--target-x",
+              "-0.74364388703715158", "--target-y", "0.13182590420531198",
+              "--target-zoom", "1e-9", "--iters", "1500", "--frames", "4",
+              "--width", "480", "--height", "270"]
+        tiers = []
+        real = perturbation.perturbation_fields_cuda
+
+        def tier_of(*a, **kw):
+            tiers.append(kw["tier"])
+            return real(*a, **kw)
+
+        tier_of.launches = 0
+        n_orb, n_fb = len(orbit_log), len(fallback_log)
+        perturbation.perturbation_fields_cuda = tier_of
+        try:
+            rc, said, wall, launches = verb([*zp, "--out-dir",
+                                             os.path.join(tmp, "k")])
+        finally:
+            perturbation.perturbation_fields_cuda = real
+        assert rc == 0, f"cli zoom-path exited {rc}"
+        assert launches.pop(pert_w) == 4 and not any(launches.values())
+        assert tiers == ["f32", "f32", "dd", "dd"], tiers
+        assert len(orbit_log) == n_orb + 1 and len(fallback_log) == n_fb, \
+            "zoom-path: not one reference orbit, or an HP fallback"
+        for t in set(tiers):
+            kernels[f"pert_mandelbrot_{t}"]["launches"] += tiers.count(t)
+        rc, _, plain_wall, _ = verb([*zp, "--out-dir",
+                                     os.path.join(tmp, "p")], plain=True)
+        assert rc == 0
+        frames = sorted(os.listdir(os.path.join(tmp, "k")))
+        assert frames == [f"frame_{f:06d}.png" for f in range(4)], frames
+        notes = []
+        for f in frames:
+            lsb, img = png_lsb(os.path.join(tmp, "k", f),
+                               os.path.join(tmp, "p", f))
+            # K3 is bit-equal to its plain version: 0 LSB
+            assert lsb == 0, f"zoom-path {f}: {lsb} LSB from the plain one"
+            assert img.shape == (270, 480, 3) and 0 < img.mean() < 255, f
+            notes.append(f"{img.mean():.1f}")
+        print(f"path cli zoom-path 4 frames at 480x270 (1e-4 -> 1e-9 x1500): "
+              f"4 launches ({', '.join(tiers)}), one reference orbit; "
+              f"frames 0 LSB from the plain pipeline (means "
+              f"{', '.join(notes)}); {wall:.2f} s wall, the plain pipeline "
+              f"{plain_wall:.2f} s", flush=True)
+
+    lap("export-print, render --golden, zoom-path")
 
     # the distance field (library entry point: K1 with the derivative)
     scene = Scene()
@@ -1770,6 +1980,8 @@ def main() -> int:
               f"{float((n_f >= iters).float().mean()):.4f}; orbit {nlen} "
               f"entries by {orbit_engine()} in {orbit_s * 1e3:.2f} ms; "
               f"{wall * 1e3:.1f} ms wall", flush=True)
+
+    lap("library paths")
 
     # -- the exact-dust tier through the model --------------------------------
     # a row band of each Ship view at 1080p geometry: one ledger launch, its
@@ -1859,6 +2071,8 @@ def main() -> int:
               f"{bits}-bit HP oracle ({len(np.unique(nref))} distinct), "
               f"suspects {info['dust_suspect_pixels']}", flush=True)
 
+    lap("exact dust")
+
     # -- the legacy pipeline through the model (rebasing=False) ---------------
     # one single-pass launch, then one per secondary reference; lanes no
     # reference fixes go through the HP fallback.  Each launch is timed
@@ -1921,6 +2135,8 @@ def main() -> int:
               f"({', '.join(f'{t * 1e3:.1f} ms' for t in kernel_s)}), "
               f"{len(probes)} orbit probes {sum(t for _, t in probes):.3f}, "
               f"HP fallback {fb_s:.3f}; {wall:.2f} s wall", flush=True)
+
+    lap("legacy pipeline")
 
     # -- where a warm frame's host time goes: the main path and config 6 ----
     for label, scene, flags in (
@@ -1995,6 +2211,8 @@ def main() -> int:
           "ms: " + ", ".join(f"{k} {statistics.median(v) * 1e3:.2f}"
                               for k, v in stages.items()), flush=True)
 
+    lap("warm breakdowns")
+
     # -- time per 1080p frame, each instance against its plain version -------
     def timed(name, kernel_fn, plain_fn, kernel_reps=20, plain_reps=1):
         ms = {}
@@ -2063,47 +2281,46 @@ def main() -> int:
               OPS_PER_ITER["dd_escape_mandelbrot"], W * H * OPS_PER_PIXEL["dd"],
               dd_work[1], extra=" (sum n)")
 
-    # K3: each case's full frame, one CUDA-event pair per launch, median of
-    # 7; the plain version's time is its 64-row band's in the K3 phase
-    for ci, params, dstreams, launch, plain_ms in pert_frames:
-        name, label = PERT_CASES[ci][:2]
-        pw, ph = launch["width"], launch["height"]
-        runs = [cuda_event_ms(lambda: k3(params, dstreams, launch))[1]
-                for _ in range(7)]
-        ms = statistics.median(runs)
-        e = kernels[name]
-        if e["ms"] is None:  # the instance's first (main) frame
-            e["ms"] = ms
-        print(f"time per {pw}x{ph} frame, {name} {label}: kernel {ms:.3f} ms "
-              f"(runs {[round(t, 3) for t in runs]}); {pw * ph / ms / 1e3:.2f}"
-              f" Mpix/s; plain version on its {pw}x{BAND_ROWS} band: "
-              f"{plain_ms:.1f} ms", flush=True)
+    # K3: each case's full frame by its kernel records, the mean of a run
+    # of launches (one profiler session for every case, in turn); the call
+    # ms (CUDA events around one wrapper call, which also hold its host
+    # work: packing, the orbit table, zeroed planes) beside it, median of
+    # 3; the plain version's time is its 64-row band's in the K3 phase
+    k3_cases = []
+    for ci, params, dstreams, launch, *_ in pert_frames:
+        k3_cases.append((("pert", ci),
+                         lambda p=params, d=dstreams, l=launch: k3(p, d, l),
+                         5))
     for ci, params, dstreams, launch in form_frames:
-        name, label = FORM_CASES[ci][:2]
-        pw, ph = launch["width"], launch["height"]
-        runs = [cuda_event_ms(lambda: k3(params, dstreams, launch))[1]
-                for _ in range(7)]
-        ms = statistics.median(runs)
+        k3_cases.append((("form", ci),
+                         lambda p=params, d=dstreams, l=launch: k3(p, d, l),
+                         5))
+    k3_cases.append((("stacked", 0), lambda: k3(*stacked_frame), 3))
+    k3_rec = records_ms(dev, k3_cases, ("pert_kernel<",))
+    plain_band = {ci: pm for ci, *_, pm in pert_frames}
+    for (kind, ci), fn, reps in k3_cases:
+        name, label = ((STACKED, "config 4, 4 segments in one launch")
+                       if kind == "stacked" else
+                       (PERT_CASES if kind == "pert" else FORM_CASES)[ci][:2])
+        ms, kname = k3_rec[(kind, ci)]
+        pw, ph = ((W, H) if kind == "stacked"
+                  else (PERT_CASES if kind == "pert" else FORM_CASES)[ci][3:5])
+        calls = [cuda_event_ms(fn)[1] for _ in range(3)]
         e = kernels[name]
         if e["ms"] is None:  # the instance's first (main) frame
             e["ms"] = ms
-        print(f"time per {pw}x{ph} frame, {name} {label}: kernel {ms:.3f} ms "
-              f"(runs {[round(t, 3) for t in runs]}); {pw * ph / ms / 1e3:.2f}"
-              f" Mpix/s", flush=True)
-    # config 4's stacked spp-2 launch against its spp-1 launch, in turns
-    one, two = [], []
-    c4 = pert_frames[1]
-    for _ in range(7):
-        one.append(cuda_event_ms(lambda: k3(c4[1], c4[2], c4[3]))[1])
-        two.append(cuda_event_ms(lambda: k3(*stacked_frame))[1])
-    kernels[STACKED]["ms"] = statistics.median(two)
-    ratio = statistics.median(two) / statistics.median(one)
-    print(f"time per {W}x{H} frame, {STACKED} config 4, 4 segments in one "
-          f"launch: kernel {statistics.median(two):.3f} ms (runs "
-          f"{[round(t, 3) for t in two]}); the spp-1 launch in turn "
-          f"{statistics.median(one):.3f} ms (runs "
-          f"{[round(t, 3) for t in one]}); spp 2 / spp 1 = {ratio:.3f} (4 "
-          "samples per pixel)", flush=True)
+        print(f"time per {pw}x{ph} frame, {name} {label}: kernel {ms:.4f} ms "
+              f"by its records (mean of {reps} launches of {kname}); call "
+              f"ms {statistics.median(calls):.4f} (CUDA events around one "
+              f"wrapper call, runs {[round(t, 4) for t in calls]}); "
+              f"{pw * ph / ms / 1e3:.2f} Mpix/s"
+              + (f"; plain version on its {pw}x{BAND_ROWS} band: "
+                 f"{plain_band[ci]:.1f} ms" if kind == "pert" else ""),
+              flush=True)
+    one, two = k3_rec[("pert", 1)][0], k3_rec[("stacked", 0)][0]
+    print(f"{STACKED} against the spp-1 config-4 launch by kernel records: "
+          f"{two:.4f} / {one:.4f} ms = {two / one:.3f} (4 samples per "
+          "pixel)", flush=True)
     for name, (iters, n_skip, pixels, nbytes, *form) in pert_work.items():
         cont, what = form if form else (0.0, f"sum(n - n_skip), n_skip "
                                               f"{n_skip}")
@@ -2113,30 +2330,45 @@ def main() -> int:
                       f"; {cont:.6g} continuation steps x {OPS_CONT}"
                       if cont else "") + ")")
 
-    # K4a and K4b: each instance's 1080p frame, one CUDA-event pair per
-    # launch, median of 7; the plain versions' times are the K4 phase's
-    # (K4a's whole coarse grid, K4b's 64-row band)
-    for tag, label, _ in BULB_CASES:
-        params, cparams, ckw, mkw, ip, st, tr = bulb_frames[tag]
+    # K4a and K4b: each instance's 1080p frame by its kernel records (one
+    # session, the mean of a run of launches each), with K4a's one-lane
+    # launches (the schedule floor and the fixed floor); the call ms beside
+    # them (CUDA events around one wrapper call, median of 3); the plain
+    # versions' times are the K4 phase's (K4a's whole coarse grid, K4b's
+    # 64-row band)
+    k4_cases = []
+    for tag, _, _ in BULB_CASES:
+        params, cparams, ckw, mkw, ip, st, tr, lanes = bulb_frames[tag]
         tc = bulb_kernel.cone_fields_cuda(cparams, **ckw)
-        for name, fn in (
-                (f"bulb_cone_{tag}",
-                 lambda: bulb_kernel.cone_fields_cuda(cparams, **ckw)),
-                (f"bulb_march_{tag}",
-                 lambda: bulb_kernel.march_fields_cuda(params, tc,
-                                                       stats=False, **mkw))):
-            fn()
-            runs = [cuda_event_ms(fn)[1] for _ in range(7)]
-            kernels[name]["ms"] = statistics.median(runs)
-            print(f"time per {W}x{H} frame, {name} {label}: kernel "
-                  f"{kernels[name]['ms']:.4f} ms (runs "
-                  f"{[round(t, 4) for t in runs]}); plain version "
-                  f"{kernels[name]['plain_ms']:.1f} ms on "
-                  + ("the whole coarse grid" if "cone" in name else
+        k4_cases += [
+            (f"bulb_cone_{tag}", lambda c=cparams, k=ckw:
+             bulb_kernel.cone_fields_cuda(c, **k), 50),
+            (f"bulb_march_{tag}", lambda p=params, t=tc, k=mkw:
+             bulb_kernel.march_fields_cuda(p, t, stats=False, **k), 10),
+            *((f"bulb_cone_{tag} {which}", lambda c=v[4], k=v[5]:
+               bulb_kernel.cone_fields_cuda(c, **k), 50)
+              for which, v in lanes.items())]
+    k4_rec = records_ms(dev, k4_cases,
+                        ("bulb_cone_kernel<", "bulb_march_kernel<"))
+    for key, fn, reps in k4_cases:
+        ms, kname = k4_rec[key]
+        if key in kernels:
+            calls = [cuda_event_ms(fn)[1] for _ in range(3)]
+            kernels[key]["ms"] = ms
+            print(f"time per {W}x{H} frame, {key}: kernel {ms:.5f} ms by its "
+                  f"records (mean of {reps} launches of {kname}); call ms "
+                  f"{statistics.median(calls):.4f} (CUDA events around one "
+                  f"wrapper call, runs {[round(t, 4) for t in calls]}); plain "
+                  f"version {kernels[key]['plain_ms']:.1f} ms on "
+                  + ("the whole coarse grid" if "cone" in key else
                      f"its {W}x{bh} band"), flush=True)
+    for tag, label, _ in BULB_CASES:
+        params, cparams, ckw, mkw, ip, st, tr, lanes = bulb_frames[tag]
         # the issue slots the card had per warp trip of the frame: the
         # kernel's time x the SM clock x 4 schedulers per SM, over the trips
-        mhz = sm_clock_mhz(fn)
+        tc = bulb_kernel.cone_fields_cuda(cparams, **ckw)
+        mhz = sm_clock_mhz(lambda: bulb_kernel.march_fields_cuda(
+            params, tc, stats=False, **mkw))
         slots = (kernels[f"bulb_march_{tag}"]["ms"] * 1e-3 * mhz * 1e6 * 4
                  * torch.cuda.get_device_properties(dev).multi_processor_count)
         print(f"K4b {tag}: SM clock {mhz} MHz under load; "
@@ -2144,11 +2376,28 @@ def main() -> int:
               f"{slots / tr['trips']:.1f} per warp trip ({tr['step_trips']} "
               f"step trips, {tr['event_trips']} event trips)", flush=True)
         ops_de = bulb_ops_per_iter(ip)
-        set_bound(f"bulb_cone_{tag}", st["c_work"], ops_de,
+        cone = f"bulb_cone_{tag}"
+        set_bound(cone, st["c_work"], ops_de,
                   st["c_evals"] * OPS_BULB_EVAL,
                   4 * ckw["coarse_w"] * ckw["coarse_h"] + 4 * len(cparams),
                   extra=f" (sum(work) of the plain version; "
                   f"{st['c_evals']:.0f} evaluations x {OPS_BULB_EVAL})")
+        # K4a's one-lane records: the heaviest lane alone is the launch's
+        # schedule floor (one wave of 136 blocks, so the launch cannot end
+        # before its longest lane), not a bound: it is the kernel under
+        # test.  Its bound from outside the kernel is the heaviest lane's
+        # dependent chain in the SASS at measured latencies
+        # (tools/sass_chain_model.py, which reads these lines).
+        floor = k4_rec[f"{cone} heaviest"][0]
+        fixed = k4_rec[f"{cone} lightest"][0]
+        e = kernels[cone]
+        h, lt = lanes["heaviest"], lanes["lightest"]
+        print(f"K4a {tag} {label}: kernel {e['ms']:.5f} ms by its records; "
+              f"the heaviest lane alone ({h[0]}, {h[1]}: {h[2]} evaluations "
+              f"+ {h[3]} DE iterations) {floor:.5f} ms, the schedule floor; "
+              f"the lightest alone ({lt[0]}, {lt[1]}: {lt[2]} + {lt[3]}) "
+              f"{fixed:.5f} ms, the launch's fixed floor; kernel / schedule "
+              f"floor {e['ms'] / floor:.2f}x", flush=True)
         set_bound(f"bulb_march_{tag}", st["work"], ops_de,
                   st["evals"] * OPS_BULB_EVAL + st["hits"] * OPS_BULB_HIT,
                   8 * 4 * W * H + 4 * tc.numel() + 4 * len(params),
@@ -2157,6 +2406,8 @@ def main() -> int:
 
     set_bound("compile_probe", 0, 0, 0, 2 * 16 * 128 * 4,
               extra=" (16 x 128 f32 in and out)")
+
+    lap("timing")
 
     missing = [k for k, e in kernels.items() if e["launches"] == 0]
     assert not missing, f"instances no path launched: {missing}"

@@ -1,14 +1,14 @@
 """Command-line interface of the PyTorch port (counterpart of
-``fractalrenderer_tpu/cli.py``).  The ``info`` and ``presets`` verbs are
-ported, and ``render`` for the four 2D families (every AA, trap, stripe,
-interior-style and Julia option), ``--precision dd``, ``--type
-deep-zoom`` (the rebasing
-perturbation path at every depth: Mandelbrot with ``--series``,
-``--deep-julia``, ``--deep-ship`` with ``--exact-dust``, ``--deep-phoenix``,
-and ``--spp 2|4`` supersampling) and ``--type mandelbulb`` (``--power``,
-``--time``, ``--aa``, ``--palette``); the other verbs and the unported
-render options exit with code 2 and a one-line message naming the ROADMAP
-item that ports them.
+``fractalrenderer_tpu/cli.py``).  The ``info``, ``presets``,
+``export-print`` and ``zoom-path`` verbs are ported, and ``render`` for the
+four 2D families (every AA, trap, stripe, interior-style and Julia option),
+``--golden`` (the CPU golden reference of the 2D families), ``--precision
+dd``, ``--type deep-zoom`` (the rebasing perturbation path at every depth:
+Mandelbrot with ``--series``, ``--deep-julia``, ``--deep-ship`` with
+``--exact-dust``, ``--deep-phoenix``, and ``--spp 2|4`` supersampling) and
+``--type mandelbulb`` (``--power``, ``--time``, ``--aa``, ``--palette``);
+the other verbs and the unported options exit with code 2 and a one-line
+message naming the ROADMAP item that ports them.
 
 Usage examples:
   python -m fractalrenderer_tpu_torch.cli render --out m.png
@@ -31,6 +31,12 @@ Usage examples:
       --hp-center-y -0.028000625 --hp-zoom 1e-10 --iters 400 --out dust.png
   python -m fractalrenderer_tpu_torch.cli render --type mandelbulb \\
       --time 1.0 --aa 2 --out bulb.png
+  python -m fractalrenderer_tpu_torch.cli render --golden --width 320 \\
+      --height 180 --out golden.png
+  python -m fractalrenderer_tpu_torch.cli export-print --width 2400 \\
+      --height 3000 --supersample --out print.png
+  python -m fractalrenderer_tpu_torch.cli zoom-path --preset-zoom Seahorse \\
+      --frames 60 --out-dir zoom_frames
 """
 from __future__ import annotations
 
@@ -45,7 +51,7 @@ import torch
 from . import presets as presets_mod
 from .scene import FractalType, Scene
 from .utils import png
-from .utils.image import to_export_orientation
+from .utils.image import downsample2x, to_export_orientation
 
 
 def _add_scene_args(p: argparse.ArgumentParser):
@@ -184,14 +190,12 @@ def _size_ok(args) -> bool:
 
 # render options the port does not run yet → ROADMAP Queue 1 item
 _UNPORTED_RENDER_FLAGS = (
-    ("golden", "--golden", 4),
     ("sharded", "--sharded", 8),
 )
 
 # verbs of the JAX CLI the port does not run yet → ROADMAP Queue 1 item
 _UNPORTED_VERBS = {
-    "export-print": 4, "animate": 4, "encode": 4, "sweep": 3,
-    "zoom-path": 6, "giant": 8, "interactive": 9,
+    "animate": 3, "encode": 3, "sweep": 3, "giant": 8, "interactive": 9,
 }
 
 
@@ -247,6 +251,18 @@ def _device_or_none(name: str):
     return dev
 
 
+def _render(scene: Scene, width: int, height: int, golden: bool, dev):
+    """The f32 (H, W, 3) image: the CPU golden reference, or models.render
+    on ``dev`` (the JAX CLI's ``_render``)."""
+    if golden:
+        from .reference import golden as g
+
+        return g.render_scene(scene, width, height)
+    from . import models
+
+    return models.render(scene, width, height, device=dev)
+
+
 def cmd_render(args) -> int:
     if not _size_ok(args):
         return 2
@@ -255,7 +271,10 @@ def cmd_render(args) -> int:
             print(f"error: {flag} is not ported yet (ROADMAP Queue 1 item "
                   f"{item})", file=sys.stderr)
             return 2
-    dev = _device_or_none(args.device)
+    # --golden is the CPU reference; --precision dd takes the dd kernel
+    # before it, as in the JAX CLI
+    golden = args.golden and args.precision != "dd"
+    dev = torch.device("cpu") if golden else _device_or_none(args.device)
     if dev is None:
         return 2
     scene = scene_from_args(args)
@@ -281,7 +300,9 @@ def cmd_render(args) -> int:
     dz_info = None
     try:
         # quantized on the device; the interleave and flip are tensor glue
-        if scene.fractal_type == FractalType.DEEP_ZOOM:
+        if golden:
+            img = _render(scene, args.width, args.height, True, dev)
+        elif scene.fractal_type == FractalType.DEEP_ZOOM:
             from .models import deep_zoom
             from .utils.diag import validate_scene
 
@@ -312,8 +333,9 @@ def cmd_render(args) -> int:
     png.write_png(args.out, img, bit_depth=args.bit_depth, metadata=meta,
                   dpi=args.dpi)
     mpix = args.width * args.height / dt / 1e6
+    where = "the CPU golden reference" if golden else dev
     print(f"Rendered {args.width}x{args.height} "
-          f"{scene.fractal_type.display_name} on {dev} in {dt*1e3:.1f} ms "
+          f"{scene.fractal_type.display_name} on {where} in {dt*1e3:.1f} ms "
           f"({mpix:.0f} Mpix/s incl. host transfer) -> {args.out}")
     if dz_info is not None:
         algo = dz_info["algorithm"]
@@ -325,6 +347,116 @@ def cmd_render(args) -> int:
               f"{dz_info['glitched_pixels_initial']} glitch-flagged -> "
               f"{dz_info['fallback_pixels']} HP-fallback, "
               f"{dz_info['glitched_pixels_remaining']} remaining")
+    return 0
+
+
+# Above this many rendered pixels (supersampling included) the JAX CLI's
+# export-print streams through the banded giant-still path
+# (render_giant_still), which the port does not have yet.
+_BANDED_EXPORT_PIXELS = 1 << 27  # 134M px ≈ 1.6 GB f32 RGB
+
+
+def cmd_export_print(args) -> int:
+    """16-bit print export (vk_engine.cpp:1796-2232): renders at 2x when
+    supersampling and embeds gAMA/sRGB/pHYs/tEXt metadata.  A render above
+    _BANDED_EXPORT_PIXELS exits 2: its banded exporter is not ported."""
+    if not _size_ok(args):
+        return 2
+    scene = scene_from_args(args)
+    rw = args.width * 2 if args.supersample else args.width
+    rh = args.height * 2 if args.supersample else args.height
+    if max(rw, rh) > 32000:  # ui_manager.cpp:617-618
+        print("error: render dimension exceeds 32000 cap", file=sys.stderr)
+        return 2
+    if rw * rh > _BANDED_EXPORT_PIXELS and not args.golden:
+        print(f"error: a {rw}x{rh} export renders in bands "
+              "(render_giant_still), which is not ported yet (ROADMAP "
+              "Queue 1 item 8)", file=sys.stderr)
+        return 2
+    dev = torch.device("cpu") if args.golden \
+        else _device_or_none(args.device)
+    if dev is None:
+        return 2
+    t0 = time.monotonic()
+    try:
+        img = _render(scene, rw, rh, args.golden, dev)
+    except NotImplementedError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if args.supersample and args.downsample:
+        img = downsample2x(img)
+    meta = {
+        "Software": "fractalrenderer_tpu_torch (print export)",
+        "Print Size (inches)":
+            f"{args.width/args.dpi:.2f} x {args.height/args.dpi:.2f}",
+        **scene.metadata_summary(),
+    }
+    png.write_png(args.out, to_export_orientation(img).cpu().numpy(),
+                  bit_depth=16, metadata=meta, dpi=args.dpi)
+    print(f"Exported {img.shape[1]}x{img.shape[0]} 16-bit PNG in "
+          f"{time.monotonic()-t0:.1f}s -> {args.out}")
+    return 0
+
+
+def cmd_zoom_path(args) -> int:
+    """Render one of the reference's deep-zoom preset sequences
+    (deep_zoom_system.cpp:575-602), or a zoom to a typed target, as a
+    frame sequence with log-zoom interpolation.  Every frame renders on
+    the device against one reference orbit at the final centre."""
+    import math
+    import os
+
+    from .deepzoom.manager import ZoomKeyframe, preset_zoom_path
+    from .models import render as model_render
+
+    base = scene_from_args(args).with_(fractal_type=FractalType.DEEP_ZOOM,
+                                       use_perturbation=True)
+    if args.preset_zoom:
+        path = preset_zoom_path(args.preset_zoom)
+        start, end = path[0], path[1]
+    else:
+        # the deep-zoom panel's typed Target X/Y/Zoom + Start Zoom
+        # Animation (ui_manager.cpp:701-710): zoom from the current view
+        # (scene flags / defaults) to the custom target, exactly
+        # DeepZoomManager.zoom_to's path shape
+        if None in (args.target_x, args.target_y, args.target_zoom):
+            print("error: zoom-path needs --preset-zoom or all of "
+                  "--target-x/--target-y/--target-zoom", file=sys.stderr)
+            return 2
+        start = ZoomKeyframe(base.center_x, base.center_y, base.zoom, 0.0)
+        end = ZoomKeyframe(args.target_x, args.target_y, args.target_zoom)
+    if not _size_ok(args):
+        return 2
+    dev = _device_or_none(args.device)
+    if dev is None:
+        return 2
+    os.makedirs(args.out_dir, exist_ok=True)
+    # One reference orbit at the final (deepest) center serves every frame
+    # via the shift mechanism; the cache also holds it across frames.  The
+    # reference recomputed per frame (deep_zoom_system.cpp:454-559).
+    ref_center = (repr(end.center_x), repr(end.center_y))
+    cache = {}
+    with _orbit_progress():
+        for f in range(args.frames):
+            t = f / max(args.frames - 1, 1)
+            cx = start.center_x + t * (end.center_x - start.center_x)
+            cy = start.center_y + t * (end.center_y - start.center_y)
+            zoom = math.exp(math.log(start.zoom)
+                            + t * (math.log(end.zoom)
+                                   - math.log(start.zoom)))
+            sc = base.with_(center_x=cx, center_y=cy, zoom=zoom,
+                            hp_center_x=repr(cx), hp_center_y=repr(cy),
+                            hp_zoom=repr(zoom))
+            # quantized to uint8 on the device: the frames fetch 1 B per
+            # channel
+            img = model_render(sc, args.width, args.height, device=dev,
+                               ref_center=ref_center, orbit_cache=cache,
+                               quantize=8)
+            png.write_png(os.path.join(args.out_dir, f"frame_{f:06d}.png"),
+                          to_export_orientation(img).cpu().numpy())
+            print(f"\rframe {f+1}/{args.frames} zoom={zoom:.3e}", end="",
+                  flush=True)
+    print()
     return 0
 
 
@@ -400,6 +532,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="fractalrenderer_tpu_torch",
         description="Fractal renderer, PyTorch + CUDA port")
     sub = ap.add_subparsers(dest="command", required=True)
+    device_help = ("torch device: cuda (the CUDA kernels, default) or cpu "
+                   "(their plain PyTorch versions)")
 
     p = sub.add_parser("render", help="render one frame to PNG")
     _add_scene_args(p)
@@ -408,11 +542,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default="fractal.png")
     p.add_argument("--bit-depth", type=int, default=8, choices=(8, 16))
     p.add_argument("--dpi", type=float, default=None)
-    p.add_argument("--device", default="cuda",
-                   help="torch device: cuda (the CUDA kernels, default) or "
-                        "cpu (their plain PyTorch versions)")
+    p.add_argument("--device", default="cuda", help=device_help)
     p.add_argument("--golden", action="store_true",
-                   help="render with the CPU golden reference (not ported)")
+                   help="render with the CPU golden reference (2D "
+                        "families; slow)")
     p.add_argument("--precision", default="f32", choices=("f32", "dd"),
                    help="dd = double-double Mandelbrot kernel")
     p.add_argument("--debug", action="store_true",
@@ -420,6 +553,39 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sharded", action="store_true",
                    help="shard the frame's rows across devices (not ported)")
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("export-print",
+                       help="16-bit print-quality export @300DPI")
+    _add_scene_args(p)
+    p.add_argument("--width", type=int, required=True)
+    p.add_argument("--height", type=int, required=True)
+    p.add_argument("--supersample", action="store_true",
+                   help="render at 2x (written as-is, like the reference)")
+    p.add_argument("--downsample", action="store_true",
+                   help="box-filter the 2x render back to target size")
+    p.add_argument("--dpi", type=float, default=300.0)
+    p.add_argument("--out", default="print.png")
+    p.add_argument("--golden", action="store_true",
+                   help="render with the CPU golden reference")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=cmd_export_print)
+
+    p = sub.add_parser("zoom-path", help="render a deep-zoom preset sequence")
+    _add_scene_args(p)
+    p.add_argument("--preset-zoom",
+                   help="Seahorse|Elephant|Mini (deep_zoom_system presets)")
+    p.add_argument("--target-x", type=float, default=None,
+                   help="custom zoom target (the deep-zoom panel's typed "
+                        "Target X/Y/Zoom, ui_manager.cpp:701-710); "
+                        "needs --target-y/--target-zoom too")
+    p.add_argument("--target-y", type=float, default=None)
+    p.add_argument("--target-zoom", type=float, default=None)
+    p.add_argument("--frames", type=int, default=60)
+    p.add_argument("--width", type=int, default=960)
+    p.add_argument("--height", type=int, default=540)
+    p.add_argument("--out-dir", default="zoom_frames")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=cmd_zoom_path)
 
     p = sub.add_parser("presets", help="list the built-in presets")
     p.set_defaults(fn=cmd_presets)

@@ -1,4 +1,4 @@
-"""Deep-zoom host side: HP math, reference orbits and the series skip (the
-port's own copies of the framework-free modules of
-``fractalrenderer_tpu/deepzoom``, under the same names).  The zoom-state
-manager (``manager.py``) is not ported yet (ROADMAP Queue 1 item 6)."""
+"""Deep-zoom host side: HP math, reference orbits, the series skip and the
+zoom-state manager with its preset zoom paths (the port's own copies of
+the framework-free modules of ``fractalrenderer_tpu/deepzoom``, under the
+same names)."""

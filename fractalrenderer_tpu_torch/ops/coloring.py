@@ -276,9 +276,11 @@ def color_burning_ship_planar(n, zx, zy, min_trap, stripe_acc,
                  for ic, c in zip(interior_rgb, rgb))
 
 
-def color_phoenix_planar(n, zx, zy, p: ColorParams):
+def color_phoenix_planar(n, zx, zy, p: ColorParams, atan2=trig.atan2):
     """Planar phoenix.comp:89-146: pow(t, 0.8) gradient and adaptive flow
-    stripes with the polynomial atan2 (ops/trig.py).
+    stripes with the polynomial atan2 (ops/trig.py), the kernel's; the
+    golden reference passes ``torch.atan2``, the true atan2 of the JAX
+    golden's numpy colouring.
 
     The stripe gate ``control > 0.01`` is always folded into the blend
     weight (the JAX render path's form, where the control is traced), so
@@ -292,7 +294,7 @@ def color_phoenix_planar(n, zx, zy, p: ColorParams):
 
     control = torch.clamp_min(_f32(p.phoenix_stripe_control, dev), 0.0)
     stripe_amplitude = _clip01(control * 0.05)
-    angle = trig.atan2(zy, zx)
+    angle = atan2(zy, zx)
     stripe_mod = 0.5 + 0.5 * torch.sin(angle * control + smooth * 0.25)
     adaptive = stripe_amplitude * (1.0 - torch.exp(-0.004 * smooth * smooth))
     t2 = pal._fract(t + 0.1 * stripe_mod)
@@ -316,8 +318,8 @@ def color_burning_ship(n, zx, zy, min_trap, stripe_acc, p: ColorParams):
                                                  stripe_acc, p), -1)
 
 
-def color_phoenix(n, zx, zy, p: ColorParams):
-    return torch.stack(color_phoenix_planar(n, zx, zy, p), -1)
+def color_phoenix(n, zx, zy, p: ColorParams, atan2=trig.atan2):
+    return torch.stack(color_phoenix_planar(n, zx, zy, p, atan2), -1)
 
 
 def color_deep_zoom(n, zx, zy, p: ColorParams):

@@ -312,20 +312,29 @@ def device_seconds_from_trace(log_dir: str, lane: str = "device",
     return max(per_device.values(), default=0.0) / 1e6
 
 
-def kernel_seconds_from_trace(log_dir: str) -> dict:
-    """``{kernel name: [launches, seconds]}`` of the newest trace under
-    ``log_dir`` (a card's run), for a breakdown of its device lane."""
+def kernel_records_from_trace(log_dir: str) -> list:
+    """``[(kernel name, seconds), ...]`` of every kernel record of the
+    newest trace under ``log_dir`` (a card's run), in the order the card
+    ran them."""
     device_seconds_from_trace(log_dir)  # the same checks
     paths = glob.glob(os.path.join(log_dir, "**", "*.pt.trace.json"),
                       recursive=True)
     with open(max(paths, key=os.path.getmtime)) as f:
         events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events
+               if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    return [(e.get("name", ""), e.get("dur", 0) / 1e6)
+            for e in sorted(kernels, key=lambda e: e.get("ts", 0))]
+
+
+def kernel_seconds_from_trace(log_dir: str) -> dict:
+    """``{kernel name: [launches, seconds]}`` of the newest trace under
+    ``log_dir`` (a card's run), for a breakdown of its device lane."""
     out = {}
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") == "kernel":
-            k = out.setdefault(e.get("name", ""), [0, 0.0])
-            k[0] += 1
-            k[1] += e.get("dur", 0) / 1e6
+    for name, seconds in kernel_records_from_trace(log_dir):
+        k = out.setdefault(name, [0, 0.0])
+        k[0] += 1
+        k[1] += seconds
     return out
 
 

@@ -69,7 +69,7 @@ def test_render_scene_file_written_by_jax(tmp_path, capsys):
 UNPORTED = [
     ["--type", "deep-zoom", "--spp", "2", "--exact-dust"],
     ["--type", "deep-zoom", "--deep-ship", "--sharded"],
-    ["--sharded"], ["--golden"], ["--exact-dust"], ["--width", "0"],
+    ["--sharded"], ["--exact-dust"], ["--width", "0"],
     # the JAX CLI's own refusal: dd is the Mandelbrot kernel
     ["--precision", "dd", "--type", "julia"],
 ]

@@ -357,6 +357,22 @@ def test_kernel_seconds_from_trace_by_name(tmp_path):
         diag.kernel_seconds_from_trace(str(tmp_path))
 
 
+def test_kernel_records_from_trace_in_launch_order(tmp_path):
+    # the records are written out of order; they come back by start time,
+    # copies left out
+    events = _launches([3, 2, 1]) + [
+        _x("cuda_runtime", 50, 5, 9, tid=9, name="cudaLaunchKernel",
+           corr=5),
+        _x("kernel", 50, 7, 0, device=0, name="b", corr=5)]
+    _write_trace(tmp_path / "k.pt.trace.json", events)
+    assert diag.kernel_records_from_trace(str(tmp_path)) == [
+        ("b", pytest.approx(7e-6)), ("a", pytest.approx(300e-6)),
+        ("a", pytest.approx(100e-6))]
+    _write_trace(tmp_path / "k.pt.trace.json", _launches([1, 3]))
+    with pytest.raises(diag.NoDeviceEvents):
+        diag.kernel_records_from_trace(str(tmp_path))
+
+
 def test_measure_device_seconds_of_a_cpu_op(tmp_path):
     x = torch.ones((256, 256))
     s = diag.measure_device_seconds(lambda: (x @ x).sum(), device="cpu")

@@ -20,6 +20,7 @@ import fractalrenderer_tpu_torch
 import fractalrenderer_tpu_torch.cli
 import fractalrenderer_tpu_torch.deepzoom
 import fractalrenderer_tpu_torch.deepzoom.hp
+import fractalrenderer_tpu_torch.deepzoom.manager
 import fractalrenderer_tpu_torch.deepzoom.orbit
 import fractalrenderer_tpu_torch.deepzoom.series
 import fractalrenderer_tpu_torch.models.burning_ship
@@ -34,6 +35,7 @@ import fractalrenderer_tpu_torch.ops.dd_escape
 import fractalrenderer_tpu_torch.ops.escape
 import fractalrenderer_tpu_torch.ops.perturbation
 import fractalrenderer_tpu_torch.ops.trig
+import fractalrenderer_tpu_torch.reference.golden
 import fractalrenderer_tpu_torch.utils.native_build
 import fractalrenderer_tpu_torch.utils.png
 bad = [m for m in sys.modules

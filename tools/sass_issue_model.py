@@ -42,15 +42,18 @@ FAMILIES = ("mandelbrot", "julia", "burning_ship", "phoenix")
 Body = List[Tuple[int, str]]
 
 
-def functions(path: str) -> Dict[str, Body]:
-    """The dump's K1 and K2 instances, by chip_smoke's instance names, as
-    (address, instruction) lists; the counting twins are left out."""
+def functions(path: str, namer: Optional[Callable] = None
+              ) -> Dict[str, Body]:
+    """The dump's functions that ``namer`` names (by default the K1 and K2
+    instances, by chip_smoke's instance names; the counting twins are left
+    out), as (address, instruction) lists."""
+    namer = namer or instance_name
     fns: Dict[str, Body] = {}
     body: Optional[Body] = None
     for line in open(path):
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = instance_name(m.group(1))
+            name = namer(m.group(1))
             body = fns.setdefault(name, []) if name else None
             continue
         m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
