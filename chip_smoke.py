@@ -35,10 +35,22 @@ its secondary references on Seahorse and configs 4 and 7), and
 ``export-print --supersample --downsample`` at 1920x1080, ``render
 --golden`` at 160x90 and a 4-frame ``zoom-path`` at 480x270,
 checks that each path launched its kernels and that each PNG is within 1
-LSB of the same pipeline run on the plain versions, and times kernel
-against plain version (K1 and K2 by CUDA events over queued launches; K3,
-K4a and K4b by the profiler's kernel records, the CUDA-event time of one
-wrapper call printed beside them as "call ms"; K4a also by the records
+LSB of the same pipeline run on the plain versions; then the batch path
+(the animation phase): ``cli sweep`` of 16 c values at 1920x1080 (16 K1
+launches, each entry of render_c_sweep equal to models.render of its c,
+one entry's K1 fields bit-equal to the plain version), ``cli animate`` of
+a 12-frame zoom at 1920x1080 in chunks of 8 (12 launches, every PNG equal
+to models.render of its interpolated scene) with ``--encode --codec
+qtpng`` (12 samples), ``--resume`` (no launch) and ``--sharded`` (exit
+2), the fetch of one chunk, a mixed .franim at 320x180 through the
+per-frame branch (Mandelbrot, bulb and deep-zoom frames: their K1, K4a/K4b
+and K3 launches, one reference orbit, each frame within 1 LSB of its scene
+rendered alone) and bench_all's config 3 (300 frames: fps, K1's record of
+each frame, the device lane's idle share).  It times kernel
+against plain version (K1 and K2, K3, K4a and K4b by the profiler's
+kernel records; the CUDA-event time of queued wrapper calls (K1, K2) or
+of one wrapper call (K3, K4) printed beside them as "call ms"; K4a also by
+the records
 of its heaviest and lightest coarse lanes launched alone, its schedule
 floor and its fixed floor, each lane's t0 bit-equal to the full
 launch's), and prints each phase's seconds.  For each instance it prints the
@@ -76,6 +88,7 @@ instance, and ``{"ok": true, "device": {...}}``.  Imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -973,6 +986,276 @@ def verbs_phase() -> None:
                   flush=True)
 
 
+@contextlib.contextmanager
+def k3_tiers():
+    """Record the delta tier of each K3 launch the enclosed work makes; the
+    wrapper's launch count goes on as before."""
+    from fractalrenderer_tpu_torch.ops import perturbation
+
+    tiers, real = [], perturbation.perturbation_fields_cuda
+
+    def tier_of(*a, **kw):
+        tiers.append(kw["tier"])
+        return real(*a, **kw)
+
+    # the wrapper counts on the name it launches under: this one while it
+    # stands in
+    tier_of.launches = 0
+    perturbation.perturbation_fields_cuda = tier_of
+    try:
+        yield tiers
+    finally:
+        perturbation.perturbation_fields_cuda = real
+
+
+def animation_phase(dev, kernels, entry, verb, orbit_log,
+                    fallback_log) -> None:
+    """The batch path at full width: ``cli sweep`` (16 c values at 1080p),
+    ``cli animate`` (12 frames at 1080p in chunks of 8, ``--encode --codec
+    qtpng``, ``--resume``, ``--sharded``), the fetch of one chunk, a mixed
+    .franim through the per-frame branch at 320x180, and bench config 3.
+    ``verb(argv)`` runs a CLI verb with the launch counts reset: (exit
+    code, stdout, host seconds, the wrappers' launches); ``orbit_log`` and
+    ``fallback_log`` grow by the reference and HP-fallback orbits."""
+    import numpy as np
+    import torch
+
+    from fractalrenderer_tpu_torch import (FractalType, Scene, bench_all,
+                                           cli, models)
+    from fractalrenderer_tpu_torch.anim import franim, qtpng
+    from fractalrenderer_tpu_torch.anim.keyframes import Animation, Keyframe
+    from fractalrenderer_tpu_torch.models import common
+    from fractalrenderer_tpu_torch.models.julia import render_c_sweep
+    from fractalrenderer_tpu_torch.ops import escape
+    from fractalrenderer_tpu_torch.utils.image import to_export_orientation
+
+    esc_w, pert_w = "escape_fields_cuda", "perturbation_fields_cuda"
+    cone_w, march_w = "cone_fields_cuda", "march_fields_cuda"
+
+    def flipped8(img):
+        """The uint8 PNG pixels of a device image (f32 or uint8)."""
+        if img.dtype == torch.float32:
+            img = common.quantize_image(img, bit_depth=8)
+        return to_export_orientation(img).cpu().numpy()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # cli sweep: 16 c values at 1080p, one K1 launch each; each entry of
+        # render_c_sweep is models.render of its c, bit for bit
+        sw_dir = os.path.join(tmp, "sweep")
+        sw = ["sweep", "--width", str(W), "--height", str(H), "--count",
+              "16", "--out-dir", sw_dir]
+        rc, said, wall, launches = verb(sw)
+        assert rc == 0, f"cli sweep exited {rc}"
+        assert launches.pop(esc_w) == 16 and not any(launches.values()), \
+            launches
+        kernels["escape_julia_fused"]["launches"] += 16
+        files = sorted(os.listdir(sw_dir))
+        assert files == [f"sweep_{k:03d}.png" for k in range(16)], files
+        args = cli.build_parser().parse_args(sw)
+        sc = cli.scene_from_args(args).with_(fractal_type=FractalType.JULIA)
+        c0 = [float(v) for v in args.c_start.split(",")]
+        c1 = [float(v) for v in args.c_end.split(",")]
+        cs = [(c0[0] + (c1[0] - c0[0]) * k / 15,
+               c0[1] + (c1[1] - c0[1]) * k / 15) for k in range(16)]
+        frames = render_c_sweep(sc, cs, W, H, device=dev)
+        for k, (cr, ci) in enumerate(cs):
+            one = models.render(sc.with_(julia_c_real=cr, julia_c_imag=ci),
+                                W, H, device=dev)
+            assert torch.equal(frames[k], one), f"sweep entry {k} != render"
+            png_k = read_png_rgb(os.path.join(sw_dir, files[k]))
+            assert np.array_equal(png_k, flipped8(frames[k])), \
+                f"sweep PNG {k} is not its frame"
+        # one entry's K1 planes against the plain version: the fields
+        # bit-equal, the fused colour within the colour contract
+        k = 5
+        dyn = common.scene_dyn_params(sc.with_(julia_c_real=cs[k][0],
+                                               julia_c_imag=cs[k][1]))
+        params = escape.pack_params(
+            family="julia", center_x=dyn["center_x"],
+            center_y=dyn["center_y"], zoom=dyn["zoom"],
+            iter_limit=dyn["iter_limit"], bailout=dyn["bailout"],
+            julia_c=cs[k], color_offset=dyn["color_offset"],
+            color_scale=dyn["color_scale"], brightness=dyn["brightness"],
+            saturation=dyn["saturation"], contrast=dyn["contrast"])
+        kw = dict(width=W, height=H, map_height=H, row0=0,
+                  max_iter_cap=common._iter_bucket(sc.max_iterations),
+                  interior_skip=False, device=dev, family="julia")
+        fields_k = escape.escape_fields_cuda(params, fused_color=None, **kw)
+        fields_p = escape.escape_fields_plain(params, fused_color=None, **kw)
+        fused = (sc.palette_mode, sc.interior_style, True, True)
+        rgb_k = escape.escape_fields_cuda(params, fused_color=fused, **kw)
+        rgb_p = escape.escape_fields_plain(params, fused_color=fused, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(fields_k, fields_p)), \
+            "sweep entry: K1 fields differ from the plain version"
+        assert torch.equal(torch.stack(rgb_k, -1), frames[k])
+        err = max((a - b).abs().max().item() for a, b in zip(rgb_k, rgb_p))
+        assert err <= COLOR_ATOL, f"sweep entry: colour |diff| {err}"
+        entry("escape_julia_fused", ESCAPE_SRC, K1_TPU, err)
+        print(f"path cli sweep 16 c values at {W}x{H}: 16 launches of "
+              f"escape_julia_fused, 16 PNGs equal to their frames; every "
+              f"entry of render_c_sweep equal to models.render of its c; "
+              f"entry {k}'s n/zx/zy bit-equal to the plain version, colour "
+              f"max |diff| {err:.3g} (bit-equal: "
+              f"{all(torch.equal(a, b) for a, b in zip(rgb_k, rgb_p))}); "
+              f"{wall * 1e3:.1f} ms wall ({said.strip().splitlines()[-1]})",
+              flush=True)
+
+        # cli animate: a two-keyframe zoom, off-axis, 12 frames at 1080p in
+        # a chunk of 8 and one of 4, under a cap (600) no single render's
+        # bucket (1024) equals; then qtpng, --resume, --sharded
+        an_dir, mov = os.path.join(tmp, "anim"), os.path.join(tmp, "a.mov")
+        fpath = os.path.join(tmp, "a.franim")
+        an = ["animate", "--width", str(W), "--height", str(H), "--center",
+              "-0.7453", "0.1127", "--zoom", "0.05", "--zoom-to", "0.002",
+              "--iters", "600", "--duration", "0.4", "--fps", "30",
+              "--batch-size", "8", "--out-dir", an_dir]
+        rc, said, wall, launches = verb([*an, "--save-franim", fpath,
+                                         "--encode", "--codec", "qtpng",
+                                         "--video-out", mov])
+        assert rc == 0, f"cli animate exited {rc}: {said[-300:]}"
+        assert launches.pop(esc_w) == 12 and not any(launches.values()), \
+            launches
+        kernels["escape_mandelbrot_fused"]["launches"] += 12
+        anim = franim.load(fpath)
+        assert anim.total_frames == 12
+        files = sorted(f for f in os.listdir(an_dir) if f.endswith(".png"))
+        assert files == [f"frame_{f:06d}.png" for f in range(12)], files
+        means = []
+        for f in range(12):
+            scene_f = anim.interpolate(anim.frame_time(f))
+            want = flipped8(models.render(scene_f, W, H, device=dev,
+                                          quantize=8))
+            got = read_png_rgb(os.path.join(an_dir, files[f]))
+            assert np.array_equal(got, want), f"animate frame {f} != render"
+            means.append(float(got.mean()))
+        assert 0 < min(means) and max(means) < 255, means
+        dec = qtpng.read_mov(mov)
+        assert len(dec["frames"]) == 12 and (dec["width"], dec["height"]) \
+            == (W, H), (len(dec["frames"]), dec["width"], dec["height"])
+        with open(os.path.join(an_dir, files[0]), "rb") as fh:
+            assert dec["frames"][0] == fh.read()
+        print(f"path cli animate 12 frames at {W}x{H} (--batch-size 8; "
+              f"the cap 600, a single render's 1024): 12 launches of "
+              f"escape_mandelbrot_fused, every PNG equal to models.render "
+              f"of its interpolated scene (means {min(means):.1f}-"
+              f"{max(means):.1f}); --encode --codec qtpng: a {W}x{H} .mov "
+              f"of {len(dec['frames'])} samples, {os.path.getsize(mov)} B; "
+              f"{wall:.2f} s wall", flush=True)
+        rc, said, wall, launches = verb([*an, "--resume"])
+        assert rc == 0 and not any(launches.values()), (rc, launches)
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            rc = cli.main([*an, "--sharded"])
+        assert rc == 2 and "ROADMAP Queue 1 item 8" in err.getvalue(), rc
+        print(f"path cli animate --resume: 0 launches, {wall:.2f} s wall; "
+              f"--sharded: exit 2, {err.getvalue().strip()!r}", flush=True)
+
+        # the fetch of one chunk: 8 planar uint8 1080p frames
+        cfg = dataclasses.replace(common.scene_static_cfg(
+            anim.interpolate(0.0), W, H, "mandelbrot", "centered", False,
+            device=str(dev)), max_iter=600)
+        dyns = [common.scene_dyn_params(anim.interpolate(anim.frame_time(f)))
+                for f in range(8)]
+        chunk = common.batch_render_fn(cfg, quantize=8, planar=True)(
+            {k: np.asarray([d[k] for d in dyns], np.float32)
+             for k in dyns[0]})
+        torch.cuda.synchronize()
+        fetch = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            host = chunk.cpu()
+            fetch.append(time.perf_counter() - t0)
+        for f in range(8):
+            assert np.array_equal(host[f].permute(1, 2, 0).flip(0).numpy(),
+                                  read_png_rgb(os.path.join(an_dir,
+                                                            files[f])))
+        mb = chunk.numel() / 1e6
+        print(f"batch fetch: a chunk of 8 planar uint8 {W}x{H} frames "
+              f"({mb:.1f} MB) to pageable memory in "
+              f"{statistics.median(fetch) * 1e3:.2f} ms (median of 3: "
+              f"{mb / statistics.median(fetch) / 1e3:.2f} GB/s)", flush=True)
+
+        # a mixed .franim at 320x180: Mandelbrot, then the bulb, then deep
+        # zoom frames, through the per-frame branch; one reference orbit for
+        # every deep-zoom frame; each frame the scene rendered alone
+        mixed = Animation(duration=3.0, target_fps=4, export_width=320,
+                          export_height=180)
+        dz = Scene(fractal_type=FractalType.DEEP_ZOOM, use_perturbation=True,
+                   hp_center_x="-0.743643887037151",
+                   hp_center_y="0.13182590420533", hp_zoom="3e-5",
+                   max_iterations=1000)
+        mixed.keyframes += [
+            Keyframe(0.0, Scene(center_x=-0.7453, center_y=0.1127,
+                                zoom=0.05, max_iterations=400)),
+            Keyframe(0.75, Scene(fractal_type=FractalType.MANDELBULB,
+                                 rotation_y=0.4)),
+            Keyframe(1.75, dz), Keyframe(3.0, dz.with_(hp_zoom="1e-5"))]
+        mpath, m_dir = os.path.join(tmp, "m.franim"), os.path.join(tmp, "m")
+        franim.save(mixed, mpath)
+        n_orb, n_fb = len(orbit_log), len(fallback_log)
+        with k3_tiers() as tiers:
+            rc, said, wall, launches = verb(["animate", "--franim", mpath,
+                                             "--out-dir", m_dir])
+        assert rc == 0, f"cli animate (mixed) exited {rc}"
+        launches = {w_: n for w_, n in launches.items() if n}
+        assert launches == {esc_w: 4, cone_w: 4, march_w: 4, pert_w: 4}, \
+            launches
+        assert tiers == ["f32"] * 4, tiers
+        assert len(orbit_log) == n_orb + 1 and len(fallback_log) == n_fb, \
+            "mixed .franim: not one reference orbit, or an HP fallback"
+        for inst, w_ in (("escape_mandelbrot_fused", esc_w),
+                         ("bulb_cone_trig", cone_w),
+                         ("bulb_march_trig", march_w),
+                         ("pert_mandelbrot_f32", pert_w)):
+            kernels[inst]["launches"] += launches[w_]
+        lsbs = []
+        for f in range(12):
+            scene_f = mixed.interpolate(mixed.frame_time(f))
+            if scene_f.fractal_type == FractalType.MANDELBULB:
+                scene_f = scene_f.with_(time=mixed.frame_time(f))
+            want = flipped8(models.render(scene_f, 320, 180, device=dev,
+                                          quantize=8))
+            got = read_png_rgb(os.path.join(m_dir, f"frame_{f:06d}.png"))
+            lsbs.append(int(np.abs(got.astype(np.int32)
+                                   - want.astype(np.int32)).max()))
+            assert lsbs[-1] <= 1 and 0 < got.mean() < 255, (f, lsbs)
+        print(f"path cli animate .franim at 320x180 (Mandelbrot, bulb, "
+              f"deep zoom: 4 frames each): the per-frame branch, launches "
+              + ", ".join(f"{w_} {n}" for w_, n in launches.items())
+              + f"; one reference orbit; each frame within {max(lsbs)} LSB "
+              f"of its scene rendered alone (per frame {lsbs}); {wall:.2f} s "
+              "wall", flush=True)
+
+    # bench config 3: 300 frames at 1080p, 256 -> 1024 iterations, planar
+    # uint8 summed into an accumulator; K1's kernel record of each frame and
+    # the device lane's idle share
+    t0 = time.monotonic()
+    before = escape.escape_fields_cuda.launches
+    row = bench_all.bench_animation(device=dev)
+    k1_runs = escape.escape_fields_cuda.launches - before
+    print(f"bench_all config3 ({time.monotonic() - t0:.1f} s, {k1_runs} K1 "
+          f"launches: 300 per run of the frames): " + json.dumps(row),
+          flush=True)
+    rec = row["k1_records_ms"]
+    assert row["frames"] == 300 and row["timing_method"] == "torch_profiler"
+    assert 0 <= row["idle_share"] < 1 and row["fps"] > 0, row
+    print(f"config 3: {row['fps']:.1f} fps on the device lane "
+          f"({row['seconds'] * 1e3:.3f} ms for 300 frames), "
+          f"{row['window_fps']:.1f} fps over the lane's window "
+          f"({row['window_s'] * 1e3:.3f} ms); K1 per frame by its records: "
+          f"sum {rec['sum']:.3f} ms, mean {rec['mean']:.5f}, p50 "
+          f"{rec['p50']:.5f}, min {rec['min']:.5f}, max {rec['max']:.4f}; "
+          f"{row['frames_under_2x_floor']} of 300 frames under 2x the "
+          f"least record ({row['frames_under_2x_floor'] / 300:.1%}), "
+          f"{row['frames_all_interior']} wholly inside the interior skip; "
+          f"idle share {row['idle_share']:.4f} (all-interior frames "
+          f"{row['idle_share_all_interior']:.4f}, the rest "
+          f"{row['idle_share_other']:.4f}); useful iterations "
+          f"{row['useful_over_main_path']:.3f}x the main path's per frame",
+          flush=True)
+
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "fractalrenderer_tpu_torch")):
         print("error: run chip_smoke.py from a checkout of the repository "
@@ -1855,21 +2138,10 @@ def main() -> int:
               "-0.74364388703715158", "--target-y", "0.13182590420531198",
               "--target-zoom", "1e-9", "--iters", "1500", "--frames", "4",
               "--width", "480", "--height", "270"]
-        tiers = []
-        real = perturbation.perturbation_fields_cuda
-
-        def tier_of(*a, **kw):
-            tiers.append(kw["tier"])
-            return real(*a, **kw)
-
-        tier_of.launches = 0
         n_orb, n_fb = len(orbit_log), len(fallback_log)
-        perturbation.perturbation_fields_cuda = tier_of
-        try:
+        with k3_tiers() as tiers:
             rc, said, wall, launches = verb([*zp, "--out-dir",
                                              os.path.join(tmp, "k")])
-        finally:
-            perturbation.perturbation_fields_cuda = real
         assert rc == 0, f"cli zoom-path exited {rc}"
         assert launches.pop(pert_w) == 4 and not any(launches.values())
         assert tiers == ["f32", "f32", "dd", "dd"], tiers
@@ -1897,6 +2169,9 @@ def main() -> int:
               f"{plain_wall:.2f} s", flush=True)
 
     lap("export-print, render --golden, zoom-path")
+
+    animation_phase(dev, kernels, entry, verb, orbit_log, fallback_log)
+    lap("animation")
 
     # the distance field (library entry point: K1 with the derivative)
     scene = Scene()
@@ -2214,18 +2489,47 @@ def main() -> int:
     lap("warm breakdowns")
 
     # -- time per 1080p frame, each instance against its plain version -------
-    def timed(name, kernel_fn, plain_fn, kernel_reps=20, plain_reps=1):
+    # K1 and K2 by their kernel records: one profiler session runs every
+    # instance's 1080p frame in turn (records_ms); beside them the call ms,
+    # CUDA events over the same number of queued wrapper calls (the figure
+    # these lines gave before), and the plain version by CUDA events
+    k12_fns = {}
+    for family in FAMILIES:
+        for kind in ("fused", "fields"):
+            params, kw = k1_frame(family, kind)
+            k12_fns[f"escape_{family}_{kind}"] = [
+                lambda impl=impl, params=params, kw=kw, **extra: impl(
+                    params, device=dev, **kw, **extra)
+                for impl in (escape.escape_fields_cuda,
+                             escape.escape_fields_plain)]
+    dd_fn = (lambda **extra: dd_escape.dd_escape_fields_cuda(
+        dd_params, **dd_frame, **extra))
+    k12_fns["dd_escape_mandelbrot"] = [
+        dd_fn, lambda: dd_escape.dd_escape_fields_plain(dd_params,
+                                                        **dd_frame)]
+    k12_reps = {name: (50 if name == "escape_mandelbrot_fused" else
+                       5 if name.startswith("dd_") else 20)
+                for name in k12_fns}
+    k12_rec = records_ms(dev, [(name, fns[0], k12_reps[name])
+                               for name, fns in k12_fns.items()],
+                         ("escape_kernel<",))
+
+    def timed(name, kernel_fn, plain_fn, plain_reps=1):
+        reps = k12_reps[name]
         ms = {}
-        for label, fn, reps in (("plain", plain_fn, plain_reps),
-                                ("kernel", kernel_fn, kernel_reps),
-                                ("kernel", kernel_fn, kernel_reps),
-                                ("plain", plain_fn, plain_reps)):
-            ms.setdefault(label, []).append(cuda_ms(fn, reps))
+        for label, fn, n in (("plain", plain_fn, plain_reps),
+                             ("call", kernel_fn, reps),
+                             ("call", kernel_fn, reps),
+                             ("plain", plain_fn, plain_reps)):
+            ms.setdefault(label, []).append(cuda_ms(fn, n))
         e = kernels[name]
-        e["ms"] = statistics.median(ms["kernel"])
+        e["ms"], kname = k12_rec[name]
         e["plain_ms"] = statistics.median(ms["plain"])
-        print(f"time per {W}x{H} frame, {name}: kernel {e['ms']:.4f} ms "
-              f"(runs {[round(t, 4) for t in ms['kernel']]}), plain "
+        print(f"time per {W}x{H} frame, {name}: kernel {e['ms']:.4f} ms by "
+              f"its records (mean of {reps} launches of {kname}); call ms "
+              f"{statistics.median(ms['call']):.4f} (CUDA events over "
+              f"{reps} queued wrapper calls, runs "
+              f"{[round(t, 4) for t in ms['call']]}), plain "
               f"{e['plain_ms']:.3f} ms (runs "
               f"{[round(t, 3) for t in ms['plain']]}); "
               f"{W * H / e['ms'] / 1e3:.0f} Mpix/s", flush=True)
@@ -2244,12 +2548,8 @@ def main() -> int:
         for kind in ("fused", "fields"):
             name = f"escape_{family}_{kind}"
             params, kw = k1_frame(family, kind)
-            fns = [lambda impl=impl, **extra: impl(params, device=dev, **kw,
-                                                   **extra)
-                   for impl in (escape.escape_fields_cuda,
-                                escape.escape_fields_plain)]
-            timed(name, *fns, kernel_reps=50 if name ==
-                  "escape_mandelbrot_fused" else 20)
+            fns = k12_fns[name]
+            timed(name, *fns)
             outs[kind] = fns[0]()
             counters(name, fns[0], escape.trips_buffer(W, H, dev),
                      k1_lane_iters(params, kw, dev))
@@ -2270,11 +2570,7 @@ def main() -> int:
                       extra=f" (sum n; {int(skipped.sum())} skipped pixels "
                       "excluded)" if kind == "fused" and skipped.any()
                       else " (sum n)")
-    dd_fn = (lambda **extra: dd_escape.dd_escape_fields_cuda(
-        dd_params, **dd_frame, **extra))
-    timed("dd_escape_mandelbrot", dd_fn,
-          lambda: dd_escape.dd_escape_fields_plain(dd_params, **dd_frame),
-          kernel_reps=5)
+    timed("dd_escape_mandelbrot", *k12_fns["dd_escape_mandelbrot"])
     counters("dd_escape_mandelbrot", dd_fn, dd_escape.trips_buffer(W, H, dev),
              int(dd_n.clamp(max=DD_VIEW["iters"] - 1).double().sum()))
     set_bound("dd_escape_mandelbrot", dd_work[0],

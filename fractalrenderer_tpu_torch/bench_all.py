@@ -16,12 +16,15 @@ Ported configs (keys as in the JAX rows wherever the meaning holds):
 1. Mandelbrot 1080p / 256 iterations, 64 frames of the main path, with the
    roofline against the FP32 peak that K5 measures;
 2. Julia c-sweep, 16 frames per batch at 1080p;
+3. a 300-frame zoom animation at 1080p (256 -> 1024 iterations), each frame
+   quantized to planar uint8 and summed into an accumulator, with K1's
+   per-frame kernel records and the device lane's idle share;
 4. deep zoom 1e-12 / 10000 iterations at 1080p (spp 1 and 2, series skip,
    the per-pixel rebase-round histogram);
 6. the Mandelbulb at 1080p;
 7. deep zoom 1e-50 / 2000 iterations at 960x540.
 
-Configs 3, 5 and 8 print ``not_ported`` with their ROADMAP item.  Device
+Configs 5 and 8 print ``not_ported`` with their ROADMAP item.  Device
 times are the device lane of torch.profiler traces
 (utils/diag.measure_device_seconds, ``timing_method`` "torch_profiler"):
 host gaps between launches, such as a deep zoom's orbit on the host, are
@@ -33,6 +36,7 @@ default) and a device, so the CPU tests run them small.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -45,12 +49,13 @@ import numpy as np
 import torch
 
 from .scene import FractalType, Scene
-from .utils.diag import (measure_device_seconds, measure_link_bandwidth,
+from .utils.diag import (busy_and_window, device_events_from_trace,
+                         measure_device_seconds, measure_link_bandwidth,
                          measure_vpu_peak)
 
 W, H = 1920, 1080
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NOT_PORTED = {3: 3, 5: 8, 8: 9}  # config -> ROADMAP Queue 1 item
+NOT_PORTED = {5: 8, 8: 9}  # config -> ROADMAP Queue 1 item
 DZ4 = dict(hp_center_x="-0.74364388703715158",
            hp_center_y="0.13182590420531198", hp_zoom="1e-12")
 # K1's fused Mandelbrot loop: 8 f32 operations per iteration as counted
@@ -291,6 +296,152 @@ def bench_julia_sweep(width: int = W, height: int = H, iters: int = 256,
             "timing_method": TIMING}
 
 
+def _stats(xs) -> dict:
+    a = np.asarray(xs, np.float64)
+    return {"sum": float(a.sum()), "mean": float(a.mean()),
+            "p50": float(np.percentile(a, 50)), "min": float(a.min()),
+            "max": float(a.max())}
+
+
+def animation_frames(frames: int = 300):
+    """Config 3's frames: the root bench's two keyframes (the default view
+    at 256 iterations to Seahorse Valley at zoom 0.008 and 1024), linear,
+    at 30 fps, interpolated as the animation renderer does."""
+    from .anim.keyframes import Animation, InterpolationType, Keyframe
+
+    anim = Animation(duration=frames / 30.0, target_fps=30)
+    anim.keyframes.append(Keyframe(0.0, Scene(zoom=2.5, max_iterations=256),
+                                   InterpolationType.LINEAR))
+    anim.keyframes.append(Keyframe(anim.duration,
+                                   Scene(center_x=-0.743643887037151,
+                                         center_y=0.13182590420533,
+                                         zoom=0.008, max_iterations=1024),
+                                   InterpolationType.LINEAR))
+    return [anim.interpolate(anim.frame_time(f)) for f in range(frames)]
+
+
+def animation_work(scenes, width: int, height: int, device) -> tuple:
+    """(useful iterations, wholly interior) of each Mandelbrot frame of
+    ``scenes``: the loop updates K1's n plane counts over the pixels the
+    analytic interior skip leaves in the loop (K1's own fields launch on
+    a card, the plain version on the CPU), and whether the skip covers
+    every pixel.  The cap is the frames' largest limit, as in an
+    animation's batch."""
+    from .ops import escape
+
+    frame = dict(width=width, height=height, map_height=height, row0=0)
+    cap = max(s.max_iterations for s in scenes)
+    useful, interior = [], []
+    for s in scenes:
+        params = escape.pack_params(center_x=s.center_x, center_y=s.center_y,
+                                    zoom=s.zoom, iter_limit=s.max_iterations)
+        skipped = escape.interior_skip_mask(params, device=device, **frame)
+        n = escape.escape_fields("mandelbrot", width, height,
+                                 center_x=s.center_x, center_y=s.center_y,
+                                 zoom=s.zoom, max_iter=cap,
+                                 iter_limit=s.max_iterations,
+                                 interior_skip=True, device=device)["n"]
+        useful.append(float(n.double()[~skipped].sum()))
+        interior.append(bool(skipped.all()))
+    return useful, interior
+
+
+def bench_animation(width: int = W, height: int = H, frames: int = 300,
+                    device="cuda") -> dict:
+    """Config 3: the 300-frame zoom animation of the batch path — every
+    frame the fused K1 under the animation's iteration cap, its planes
+    quantized to planar uint8 on the device and summed into one uint8
+    accumulator (no frame is fetched).  ``seconds`` and ``fps`` read the
+    profiler's device lane (best of 2 sessions).  On a card also: K1's
+    kernel record of each frame (sum, mean, p50, min, max, in ms), the
+    frames whose record is under twice the run's least (the launch's fixed
+    floor), and the lane's idle share, 1 - busy / window (the window runs
+    from the first device event to the last), over the run and over the
+    frames wholly inside the analytic interior skip and the rest (a
+    frame's span runs from its K1 record's start to the next's).  The
+    frames' loop work: useful iterations from K1's n plane (the kernel's
+    own fields launch on a card), against the main path's frame."""
+    from .models import common
+
+    dev = resolve_device(device)
+    scenes = animation_frames(frames)
+    cap = max(s.max_iterations for s in scenes)
+    cfg = dataclasses.replace(common.scene_static_cfg(
+        scenes[0], width, height, "mandelbrot", "centered", False,
+        device=str(dev)), max_iter=cap)
+    dyns = [common.scene_dyn_params(s) for s in scenes]
+    band = common.band_render_fn(cfg, height, height, planar_quantize=8)
+
+    def run():
+        acc = torch.zeros((3, height, width), dtype=torch.uint8, device=dev)
+        for d in dyns:
+            acc.add_(band(d, 0))
+        int(acc[0, 0, 0])
+
+    run()  # warm
+    best = None
+    for _ in range(2):
+        with tempfile.TemporaryDirectory() as d:
+            secs = measure_device_seconds(run, d, dev)
+            events = (device_events_from_trace(d) if dev.type == "cuda"
+                      else None)
+        if best is None or secs < best[0]:
+            best = (secs, events)
+    secs, events = best
+    row = {"config": f"zoom_animation_{frames}f_1080p", "frames": frames,
+           "seconds": secs, "fps": frames / secs, "timing_method": TIMING,
+           "iteration_cap": cap}
+
+    main = animation_work([Scene()], width, height, dev)[0][0]
+    useful, interior = animation_work(scenes, width, height, dev)
+    row.update(useful_iters=_stats(useful), main_path_useful_iters=main,
+               useful_over_main_path=float(np.mean(useful)) / main,
+               frames_all_interior=int(sum(interior)))
+    if events is None:
+        row.update(k1_records_ms=None, idle_share=None, reason="cpu")
+        return row
+    row.update(animation_lane(events, interior))
+    return row
+
+
+def animation_lane(events, interior) -> dict:
+    """Config 3's device lane from its trace's device ``events`` (as
+    diag.device_events_from_trace gives them) and whether each frame lies
+    wholly inside the interior skip: K1's record of each frame, in ms (its
+    statistics, the least record as the launch's fixed floor, the frames
+    under twice it), and the idle share, 1 - busy / window, over the run
+    and over the all-interior frames and the rest (a frame's span runs from
+    its K1 record's start to the next one's, the last to the lane's
+    end)."""
+    frames = len(interior)
+    k1 = [(start, dur) for name, cat, start, dur in events
+          if cat == "kernel" and "escape_kernel<" in name]
+    if len(k1) != frames:
+        raise RuntimeError(f"{len(k1)} K1 records for {frames} frames")
+    ms = [dur * 1e3 for _, dur in k1]
+    floor = min(ms)
+    busy, window = busy_and_window(events)
+    bounds = [start for start, _ in k1] + [max(e[2] + e[3] for e in events)]
+    spans = {True: [0.0, 0.0], False: [0.0, 0.0]}  # busy, span
+    for f in range(frames):
+        lo, hi = bounds[f], bounds[f + 1]
+        part = [e for e in events if lo <= e[2] < hi]
+        spans[interior[f]][0] += busy_and_window(part)[0]
+        spans[interior[f]][1] += hi - lo
+
+    def idle(kind):
+        b, span = spans[kind]
+        return 1 - b / span if span else None
+
+    return {"k1_records_ms": _stats(ms), "k1_floor_ms": floor,
+            "frames_under_2x_floor": sum(m < 2 * floor for m in ms),
+            "busy_s": busy, "window_s": window,
+            "idle_share": 1 - busy / window, "window_fps": frames / window,
+            "idle_share_all_interior": idle(True),
+            "idle_share_other": idle(False),
+            "device_events_per_frame": len(events) / frames}
+
+
 def _wall(dev, fn):
     t0 = time.perf_counter()
     out = fn()
@@ -400,8 +551,8 @@ def bench_link(device="cuda") -> dict:
 
 
 CONFIGS = {0: bench_cold_start, 1: bench_mandelbrot_1080p,
-           2: bench_julia_sweep, 4: bench_deep_zoom, 6: bench_mandelbulb,
-           7: bench_scaled_deep_zoom}
+           2: bench_julia_sweep, 3: bench_animation, 4: bench_deep_zoom,
+           6: bench_mandelbulb, 7: bench_scaled_deep_zoom}
 
 
 def main(argv=None) -> int:

@@ -1,6 +1,7 @@
 """Command-line interface of the PyTorch port (counterpart of
 ``fractalrenderer_tpu/cli.py``).  The ``info``, ``presets``,
-``export-print`` and ``zoom-path`` verbs are ported, and ``render`` for the
+``export-print``, ``zoom-path``, ``sweep``, ``animate`` and ``encode`` verbs
+are ported (``animate --sharded`` excepted), and ``render`` for the
 four 2D families (every AA, trap, stripe, interior-style and Julia option),
 ``--golden`` (the CPU golden reference of the 2D families), ``--precision
 dd``, ``--type deep-zoom`` (the rebasing perturbation path at every depth:
@@ -37,12 +38,18 @@ Usage examples:
       --height 3000 --supersample --out print.png
   python -m fractalrenderer_tpu_torch.cli zoom-path --preset-zoom Seahorse \\
       --frames 60 --out-dir zoom_frames
+  python -m fractalrenderer_tpu_torch.cli sweep --count 16 --out-dir sweep
+  python -m fractalrenderer_tpu_torch.cli animate --zoom-to 0.01 \\
+      --duration 10 --fps 30 --out-dir frames --encode --codec qtpng
+  python -m fractalrenderer_tpu_torch.cli encode frames --codec qtpng \\
+      --out zoom.mov
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import json
+import os
 import sys
 import time
 
@@ -194,9 +201,7 @@ _UNPORTED_RENDER_FLAGS = (
 )
 
 # verbs of the JAX CLI the port does not run yet → ROADMAP Queue 1 item
-_UNPORTED_VERBS = {
-    "animate": 3, "encode": 3, "sweep": 3, "giant": 8, "interactive": 9,
-}
+_UNPORTED_VERBS = {"giant": 8, "interactive": 9}
 
 
 @contextlib.contextmanager
@@ -404,7 +409,6 @@ def cmd_zoom_path(args) -> int:
     frame sequence with log-zoom interpolation.  Every frame renders on
     the device against one reference orbit at the final centre."""
     import math
-    import os
 
     from .deepzoom.manager import ZoomKeyframe, preset_zoom_path
     from .models import render as model_render
@@ -460,6 +464,139 @@ def cmd_zoom_path(args) -> int:
     return 0
 
 
+def cmd_animate(args) -> int:
+    """Render an animation (a .franim file, or a two-keyframe zoom from the
+    scene flags) to a PNG sequence, optionally encoded to video."""
+    from .anim import AnimationRenderer, franim, video
+    from .anim.keyframes import Animation, Keyframe
+
+    if args.sharded:
+        print("error: --sharded renders frames across devices "
+              "(render_frames_sharded), which is not ported yet (ROADMAP "
+              "Queue 1 item 8)", file=sys.stderr)
+        return 2
+    dev = _device_or_none(args.device)
+    if dev is None:
+        return 2
+    if args.franim:
+        try:
+            anim = franim.load(args.franim)
+        except (ValueError, OSError) as e:
+            print(f"error: cannot load {args.franim}: {e}",
+                  file=sys.stderr)
+            return 2
+    else:
+        # Build a two-keyframe zoom animation from CLI args
+        scene = scene_from_args(args)
+        end = scene.with_(zoom=args.zoom_to) if args.zoom_to else scene
+        anim = Animation(duration=args.duration, target_fps=args.fps or 60)
+        anim.keyframes.append(Keyframe(0.0, scene))
+        anim.keyframes.append(Keyframe(args.duration, end))
+    if args.fps:
+        anim.target_fps = args.fps
+    if args.duration and args.franim is None:
+        anim.duration = args.duration
+    if args.width:
+        anim.export_width = args.width
+    if args.height:
+        anim.export_height = args.height
+    if args.save_franim:
+        franim.save(anim, args.save_franim)
+        print(f"Saved animation -> {args.save_franim}")
+
+    r = AnimationRenderer(batch_size=args.batch_size, device=dev)
+    last = [-1]
+
+    def on_frame(f, total):
+        pct = 100.0 * r.progress.progress
+        if f - last[0] >= max(1, total // 100):
+            print(f"\rRendering frame {f+1}/{total} ({pct:.1f}%) "
+                  f"ETA {r.progress.estimated_time_remaining:.0f}s",
+                  end="", flush=True)
+            last[0] = f
+
+    r.on_frame_complete = on_frame
+    ok = r.start_render(anim, args.out_dir, args.width, args.height,
+                        bit_depth=args.bit_depth, resume=args.resume)
+    print()
+    if not ok:
+        print("render failed or cancelled", file=sys.stderr)
+        return 1
+    print(f"Rendered {anim.total_frames} frames -> {args.out_dir}")
+    if args.encode:
+        settings = video.VideoEncodeSettings(
+            output_filename=args.video_out
+            or os.path.join(args.out_dir, "animation.mp4"),
+            codec=video.VideoCodec(args.codec),
+            quality=video.VideoQuality(args.quality),
+            fps=anim.target_fps, crf=args.crf,
+            cleanup_frames=args.cleanup_frames)
+        enc = video.VideoEncoder()
+        if not enc.encode(args.out_dir, settings):
+            print(f"encode failed: {enc.progress.error}", file=sys.stderr)
+            return 1
+        print(f"Encoded -> {settings.output_filename}")
+    return 0
+
+
+def cmd_encode(args) -> int:
+    """Encode an existing frame sequence (ffmpeg, or the built-in qtpng
+    muxer)."""
+    from .anim import video
+
+    settings = video.VideoEncodeSettings(
+        output_filename=args.out, codec=video.VideoCodec(args.codec),
+        quality=video.VideoQuality(args.quality), fps=args.fps,
+        crf=args.crf, audio_file=args.audio or "",
+        cleanup_frames=args.cleanup_frames)
+    enc = video.VideoEncoder()
+
+    def on_p(p):
+        print(f"\rframe {p.current_frame}/{p.total_frames} fps={p.fps:.0f}",
+              end="", flush=True)
+
+    enc.on_progress = on_p
+    ok = enc.encode(args.frames_dir, settings)
+    print()
+    if not ok:
+        print(f"encode failed: {enc.progress.error}", file=sys.stderr)
+        return 1
+    # qtpng corrects the extension to .mov in settings
+    print(f"Encoded -> {settings.output_filename}")
+    return 0
+
+
+def cmd_sweep(args) -> int:
+    """BASELINE config #2: render a batch of Julia c values (one K1 launch
+    each, on one stream) and write a PNG per c."""
+    from .models.julia import render_c_sweep
+
+    if not _size_ok(args):
+        return 2
+    dev = _device_or_none(args.device)
+    if dev is None:
+        return 2
+    scene = scene_from_args(args).with_(fractal_type=FractalType.JULIA)
+    c0 = tuple(float(v) for v in args.c_start.split(","))
+    c1 = tuple(float(v) for v in args.c_end.split(","))
+    n = max(args.count, 1)
+    cs = [(c0[0] + (c1[0] - c0[0]) * k / max(n - 1, 1),
+           c0[1] + (c1[1] - c0[1]) * k / max(n - 1, 1)) for k in range(n)]
+    t0 = time.monotonic()
+    out = render_c_sweep(scene, cs, args.width, args.height,
+                         device=dev).cpu()
+    dt = time.monotonic() - t0
+    os.makedirs(args.out_dir, exist_ok=True)
+    for k, (img, c) in enumerate(zip(out, cs)):
+        png.write_png(os.path.join(args.out_dir, f"sweep_{k:03d}.png"),
+                      to_export_orientation(img).numpy(),
+                      metadata={"Julia c": f"{c[0]} + {c[1]}i"})
+    mpix = n * args.width * args.height / dt / 1e6
+    print(f"Rendered {n} c values in {dt:.2f}s ({mpix:.0f} Mpix/s) "
+          f"-> {args.out_dir}")
+    return 0
+
+
 def cmd_presets(args) -> int:
     print("Location presets (fractal_state.h:171-189):")
     for p in presets_mod.MANDELBROT_PRESETS + presets_mod.BURNING_SHIP_PRESETS:
@@ -500,7 +637,6 @@ def cmd_info(args) -> int:
     """The package, torch and CUDA versions, each CUDA device, the nvcc
     the kernels build with, and whether the kernel library of these
     sources is built (nothing is built or launched)."""
-    import os
     import subprocess
 
     from . import __version__
@@ -586,6 +722,61 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out-dir", default="zoom_frames")
     p.add_argument("--device", default="cuda", help=device_help)
     p.set_defaults(fn=cmd_zoom_path)
+
+    p = sub.add_parser("animate", help="render an animation (.franim or zoom)")
+    _add_scene_args(p)
+    p.add_argument("--franim", default=None, help=".franim animation file")
+    p.add_argument("--zoom-to", type=float, default=None,
+                   help="end zoom for a 2-keyframe zoom animation")
+    p.add_argument("--duration", type=float, default=10.0)
+    p.add_argument("--fps", type=int, default=None)
+    p.add_argument("--width", type=int, default=None)
+    p.add_argument("--height", type=int, default=None)
+    p.add_argument("--out-dir", default="frames")
+    p.add_argument("--save-franim", default=None,
+                   help="also write the animation as a .franim file")
+    p.add_argument("--bit-depth", type=int, default=8, choices=(8, 16))
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--resume", action="store_true",
+                   help="skip frames already complete in --out-dir "
+                        "(resume an interrupted sequence render)")
+    p.add_argument("--sharded", action="store_true",
+                   help="shard frame batches across devices (not ported)")
+    p.add_argument("--encode", action="store_true")
+    p.add_argument("--video-out", default=None)
+    p.add_argument("--codec", default="h264",
+                   choices=["h264", "h265", "vp9", "prores", "av1", "qtpng"])
+    p.add_argument("--quality", default="high",
+                   choices=["draft", "good", "high", "lossless"])
+    p.add_argument("--crf", type=int, default=18)
+    p.add_argument("--cleanup-frames", action="store_true")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=cmd_animate)
+
+    p = sub.add_parser("encode", help="encode an existing frame sequence")
+    p.add_argument("frames_dir")
+    p.add_argument("--out", default="animation.mp4")
+    p.add_argument("--codec", default="h264",
+                   choices=["h264", "h265", "vp9", "prores", "av1", "qtpng"])
+    p.add_argument("--quality", default="high",
+                   choices=["draft", "good", "high", "lossless"])
+    p.add_argument("--fps", type=int, default=60)
+    p.add_argument("--crf", type=int, default=18)
+    p.add_argument("--audio", default=None)
+    p.add_argument("--cleanup-frames", action="store_true")
+    p.set_defaults(fn=cmd_encode)
+
+    p = sub.add_parser("sweep", help="batched Julia c-parameter sweep")
+    _add_scene_args(p)
+    p.add_argument("--width", type=int, default=960)
+    p.add_argument("--height", type=int, default=540)
+    p.add_argument("--c-start", default="-0.9,0.1",
+                   help="start c as 're,im'")
+    p.add_argument("--c-end", default="-0.6,0.3", help="end c as 're,im'")
+    p.add_argument("--count", type=int, default=16)
+    p.add_argument("--out-dir", default="sweep")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=cmd_sweep)
 
     p = sub.add_parser("presets", help="list the built-in presets")
     p.set_defaults(fn=cmd_presets)

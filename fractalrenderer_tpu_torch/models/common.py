@@ -15,13 +15,15 @@ parameter vector (ops/escape.pack_params) and the glue's f32 tensors on
 the device.
 
 PyTorch runs eagerly, so there is no compiled-function cache: ``render_fn``
-builds the per-configuration closure directly.
+builds the per-configuration closure directly, and ``batch_render_fn``
+renders a batch of frames as one launch sequence on the current stream.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ..ops import coloring, mapping
@@ -45,6 +47,19 @@ class StaticCfg:
     clamp_mins: bool          # julia/bs/phoenix clamp brightness/sat/contrast
     aa_convention: str        # 'centered' (mandelbrot) or 'uv'
     device: str = "cuda"
+
+
+# fractal type → (kernel family, AA convention, post-chain clamp) for the
+# four 2D escape-time families (mandelbulb/deep-zoom have their own models).
+def family_map():
+    from ..scene import FractalType
+
+    return {
+        FractalType.MANDELBROT: ("mandelbrot", "centered", False),
+        FractalType.JULIA: ("julia", "uv", True),
+        FractalType.BURNING_SHIP: ("burning_ship", "uv", True),
+        FractalType.PHOENIX: ("phoenix", "uv", True),
+    }
 
 
 # Dynamic parameters: plain dict of floats.
@@ -194,10 +209,11 @@ def _average_then_post(cfg: StaticCfg, dyn: dict, acc: torch.Tensor,
 
 def band_render_fn(cfg: StaticCfg, band_h: int, full_h: int,
                    planar_quantize: int = 0):
-    """Build fn(dyn, row0) rendering ``band_h`` local rows whose global
-    first row is ``row0``.  Returns f32 (band_h, W, 3), or with
+    """Build fn(dyn, row0, out=None) rendering ``band_h`` local rows whose
+    global first row is ``row0``.  Returns f32 (band_h, W, 3), or with
     ``planar_quantize`` 8/16 the quantized (3, band_h, W) planes (only
-    when ``planar_export_ok(cfg)``)."""
+    when ``planar_export_ok(cfg)``).  ``out``, a tensor of that shape and
+    dtype, receives the result in the pipeline's last operation."""
     if torch.device(cfg.device).type == "cuda":
         from ..ops._cuda import cuda_device
 
@@ -217,9 +233,11 @@ def band_render_fn(cfg: StaticCfg, band_h: int, full_h: int,
         # summed in offset order and post-chained here.
         with_post = len(offsets) == 1
 
-        def fused(dyn, row0: int):
-            acc = torch.zeros((band_h, cfg.width, 3), dtype=torch.float32,
-                              device=cfg.device)
+        def fused(dyn, row0: int, out=None):
+            # only a sum of samples needs the accumulator: one sample returns
+            # the kernel's planes, so a frame fills no buffer it never reads
+            acc = None if with_post else torch.zeros(
+                (band_h, cfg.width, 3), dtype=torch.float32, device=cfg.device)
             for off in offsets:
                 f = _sample(cfg, dyn, band_h, full_h, row0, off,
                             fused_color=(cfg.palette_mode,
@@ -232,16 +250,18 @@ def band_render_fn(cfg: StaticCfg, band_h: int, full_h: int,
                             contrast=dyn["contrast"])
                 if planar_quantize:
                     planes = torch.stack([f["r"], f["g"], f["b"]], dim=0)
-                    return quantize_image(planes, bit_depth=planar_quantize)
+                    return quantize_image(planes, bit_depth=planar_quantize,
+                                          out=out)
                 if with_post:  # the one sample, already post-chained
-                    return torch.stack([f["r"], f["g"], f["b"]], dim=-1)
+                    return torch.stack([f["r"], f["g"], f["b"]], dim=-1,
+                                       out=out)
                 acc = acc + torch.stack([f["r"], f["g"], f["b"]], dim=-1)
-            return _average_then_post(cfg, _dyn_f32(dyn, cfg.device), acc,
-                                      len(offsets))
+            return _into(out, _average_then_post(
+                cfg, _dyn_f32(dyn, cfg.device), acc, len(offsets)))
 
         return fused
 
-    def unfused(dyn, row0: int):
+    def unfused(dyn, row0: int, out=None):
         dyn_t = _dyn_f32(dyn, cfg.device)
         p = _color_params(cfg, dyn_t)
         acc = torch.zeros((band_h, cfg.width, 3), dtype=torch.float32,
@@ -260,19 +280,26 @@ def band_render_fn(cfg: StaticCfg, band_h: int, full_h: int,
                     f["n"], f["zx"], f["zy"], trap, stripe, p)
             acc = acc + color
         # julia.comp:319-322 clamp floors live inside post_chain_traced
-        return _average_then_post(cfg, dyn_t, acc, len(offsets))
+        return _into(out, _average_then_post(cfg, dyn_t, acc, len(offsets)))
 
     return unfused
 
 
-def quantize_image(img: torch.Tensor, *, bit_depth: int) -> torch.Tensor:
+def _into(out, img: torch.Tensor) -> torch.Tensor:
+    return img if out is None else out.copy_(img)
+
+
+def quantize_image(img: torch.Tensor, *, bit_depth: int,
+                   out=None) -> torch.Tensor:
     """Clip/scale/round an f32 [0,1] image to uint8/uint16 on its device —
     the exact utils.png._prepare_rows expression, so a device-quantized
-    frame produces byte-identical PNGs."""
+    frame produces byte-identical PNGs.  ``out``, a uint8/uint16 tensor of
+    the image's shape, receives the result (the same cast as ``.to``)."""
     img = torch.clamp(img, 0.0, 1.0)
-    if bit_depth == 8:
-        return (img * 255.0 + 0.5).to(torch.uint8)
-    return (img * 65535.0 + 0.5).to(torch.uint16)
+    img = img * (255.0 if bit_depth == 8 else 65535.0) + 0.5
+    if out is not None:
+        return out.copy_(img)
+    return img.to(torch.uint8 if bit_depth == 8 else torch.uint16)
 
 
 def render_fn(cfg: StaticCfg):
@@ -287,6 +314,46 @@ def planar_render_fn(cfg: StaticCfg, quantize: int = 8):
     band = band_render_fn(cfg, cfg.height, cfg.height,
                           planar_quantize=quantize)
     return lambda dyn: band(dyn, 0)
+
+
+def batch_render_fn(cfg: StaticCfg, quantize: int = 0, planar: bool = False):
+    """render(dyn_batch) for a batch of frames of one static configuration:
+    a dict of (B,)-shaped dynamic parameters → f32 (B, H, W, 3) in [0, 1].
+
+    ``quantize`` 8/16 returns the frames quantized to uint8/uint16 on the
+    device (quantize_image's expression); with ``planar`` (which needs
+    ``quantize`` and ``planar_export_ok(cfg)``) as (B, 3, H, W) planes, for
+    the caller to interleave after the fetch.
+
+    The frames render one after another on the current stream, each as the
+    single-frame pipeline (one K1 launch per frame and AA sample, with its
+    parameters by value, so a frame's launch needs no copy to the device)
+    writing into its slot of one output tensor.  The parameters are f32
+    first, as the JAX batch casts them, so a frame equals a single render
+    of its scene bit for bit."""
+    if planar and not (quantize and planar_export_ok(cfg)):
+        raise ValueError("planar batch export requires quantize=8|16 and "
+                         "planar_export_ok(cfg)")
+    band = band_render_fn(cfg, cfg.height, cfg.height,
+                          planar_quantize=quantize if planar else 0)
+    dtype = {0: torch.float32, 8: torch.uint8, 16: torch.uint16}[quantize]
+
+    def fn(dyn_batch: dict) -> torch.Tensor:
+        cols = {k: np.asarray(v, np.float32).reshape(-1)
+                for k, v in dyn_batch.items()}
+        b = len(next(iter(cols.values())))
+        shape = ((b, 3, cfg.height, cfg.width) if planar
+                 else (b, cfg.height, cfg.width, 3))
+        out = torch.empty(shape, dtype=dtype, device=cfg.device)
+        for i in range(b):
+            dyn = {k: v[i] for k, v in cols.items()}
+            if quantize and not planar:
+                quantize_image(band(dyn, 0), bit_depth=quantize, out=out[i])
+            else:
+                band(dyn, 0, out=out[i])
+        return out
+
+    return fn
 
 
 def render_scene(scene: Scene, width: int, height: int, family: str,

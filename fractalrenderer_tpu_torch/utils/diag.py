@@ -312,19 +312,42 @@ def device_seconds_from_trace(log_dir: str, lane: str = "device",
     return max(per_device.values(), default=0.0) / 1e6
 
 
-def kernel_records_from_trace(log_dir: str) -> list:
-    """``[(kernel name, seconds), ...]`` of every kernel record of the
-    newest trace under ``log_dir`` (a card's run), in the order the card
-    ran them."""
+def device_events_from_trace(log_dir: str) -> list:
+    """``[(name, category, start seconds, seconds), ...]`` of every device
+    event (kernel, copy, memset) of the newest trace under ``log_dir`` (a
+    card's run), in the order the card ran them; raises as
+    device_seconds_from_trace does."""
     device_seconds_from_trace(log_dir)  # the same checks
     paths = glob.glob(os.path.join(log_dir, "**", "*.pt.trace.json"),
                       recursive=True)
     with open(max(paths, key=os.path.getmtime)) as f:
         events = json.load(f).get("traceEvents", [])
-    kernels = [e for e in events
-               if e.get("ph") == "X" and e.get("cat") == "kernel"]
-    return [(e.get("name", ""), e.get("dur", 0) / 1e6)
-            for e in sorted(kernels, key=lambda e: e.get("ts", 0))]
+    on_device = [e for e in events
+                 if e.get("ph") == "X" and e.get("cat") in _DEVICE_CATS]
+    return [(e.get("name", ""), e["cat"], e.get("ts", 0) / 1e6,
+             e.get("dur", 0) / 1e6)
+            for e in sorted(on_device, key=lambda e: e.get("ts", 0))]
+
+
+def busy_and_window(events) -> tuple:
+    """(busy seconds, window seconds) of device ``events`` (as
+    device_events_from_trace gives them): the union of their intervals,
+    and the span from the first one's start to the last one's end.  The
+    idle share of the window is 1 - busy / window."""
+    busy, end, first, last = 0.0, -math.inf, math.inf, -math.inf
+    for _, _, start, dur in sorted(events, key=lambda e: e[2]):
+        busy += max(0.0, start + dur - max(start, end))
+        end = max(end, start + dur)
+        first, last = min(first, start), max(last, start + dur)
+    return busy, (last - first if events else 0.0)
+
+
+def kernel_records_from_trace(log_dir: str) -> list:
+    """``[(kernel name, seconds), ...]`` of every kernel record of the
+    newest trace under ``log_dir`` (a card's run), in the order the card
+    ran them."""
+    return [(name, dur) for name, cat, _, dur
+            in device_events_from_trace(log_dir) if cat == "kernel"]
 
 
 def kernel_seconds_from_trace(log_dir: str) -> dict:

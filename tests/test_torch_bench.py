@@ -26,6 +26,7 @@ JAX_KEYS = {
         "useful_iters_per_s", "issued_iters_per_s", "issued_over_useful",
         "vpu_peak_gflops_f32"},
     2: {"config", "ms_per_batch", "mpix_s", "timing_method"},
+    3: {"config", "seconds", "fps", "timing_method"},
     4: {"config", "seconds", "cold_seconds_incl_compile", "algorithm",
         "rebase_passes", "seconds_with_series_skip",
         "series_skip_iterations", "seconds_spp2_stacked",
@@ -39,6 +40,7 @@ JAX_KEYS = {
 SMALL = {
     1: dict(width=64, height=36, iters=64, frames=2),
     2: dict(width=32, height=18, iters=32, batches=1),
+    3: dict(width=32, height=18, frames=6),
     4: dict(width=24, height=16, iters=200),
     6: dict(width=12, height=8, iters=8),
     7: dict(width=24, height=16, iters=100),
@@ -77,6 +79,73 @@ def test_config4_reports_rounds_per_pixel():
     assert 1 <= rp["p50"] <= rp["p95"] <= rp["max"] == row["rebase_passes"]
     assert row["glitched_pixels_remaining"] == 0
     assert row["series_skip_iterations"] > 0
+
+
+def test_config3_frames_are_the_jax_benchs():
+    # the root bench's two keyframes and 30 fps, interpolated as the JAX
+    # animation renderer does
+    from fractalrenderer_tpu.anim.keyframes import (Animation,
+                                                    InterpolationType,
+                                                    Keyframe)
+    from fractalrenderer_tpu.scene import Scene
+
+    anim = Animation(duration=300 / 30.0, target_fps=30)
+    anim.keyframes.append(Keyframe(0.0, Scene(zoom=2.5, max_iterations=256),
+                                   InterpolationType.LINEAR))
+    anim.keyframes.append(Keyframe(anim.duration,
+                                   Scene(center_x=-0.743643887037151,
+                                         center_y=0.13182590420533,
+                                         zoom=0.008, max_iterations=1024),
+                                   InterpolationType.LINEAR))
+    mine = bench_all.animation_frames(300)
+    assert len(mine) == 300
+    for f, s in enumerate(mine):
+        ref = anim.interpolate(anim.frame_time(f))
+        assert json.loads(s.to_json()) == json.loads(ref.to_json()), f
+    assert {s.max_iterations for s in mine} == {256, 640, 1024}
+
+
+def test_config3_on_the_cpu_reports_the_frames_work():
+    row = bench_all.bench_animation(device="cpu", **SMALL[3])
+    assert row["frames"] == 6 and row["iteration_cap"] == 1024
+    # records and the idle share are a card's numbers
+    assert row["k1_records_ms"] is None and row["idle_share"] is None
+    assert row["reason"] == "cpu"
+    u = row["useful_iters"]
+    assert 0 <= u["min"] <= u["p50"] <= u["max"] and u["sum"] > 0
+    assert row["useful_over_main_path"] == pytest.approx(
+        u["mean"] / row["main_path_useful_iters"])
+    # the path crosses the main cardioid: a frame wholly inside the skip
+    # loops on no pixel
+    assert 0 < row["frames_all_interior"] < 6 and u["min"] == 0
+
+
+def test_animation_lane_records_and_idle_shares():
+    # three frames: K1 then two glue kernels each, the host's gaps between
+    # them; frame 1 lies wholly inside the interior skip
+    k1 = "void escape_kernel<0, true, false>(Params, ...)"
+    events = [("memset", "gpu_memset", 0.0, 1.0)]
+    for start, k1_ms in ((1.0, 4.0), (10.0, 1.0), (14.0, 2.0)):
+        events += [(k1, "kernel", start, k1_ms),
+                   ("stack", "kernel", start + k1_ms, 1.0),
+                   ("add", "kernel", start + k1_ms + 1.0, 1.0)]
+    events.append(("copy", "gpu_memcpy", 19.0, 1.0))
+    lane = bench_all.animation_lane(events, [False, True, False])
+    assert lane["k1_records_ms"] == {"sum": 7e3, "mean": 7e3 / 3,
+                                     "p50": 2e3, "min": 1e3, "max": 4e3}
+    assert lane["k1_floor_ms"] == 1e3 and lane["frames_under_2x_floor"] == 1
+    # busy 1 + (6 + 3 + 4) + 1 = 15 of a 20 s window
+    assert lane["busy_s"] == pytest.approx(15.0)
+    assert lane["window_s"] == pytest.approx(20.0)
+    assert lane["idle_share"] == pytest.approx(0.25)
+    assert lane["window_fps"] == pytest.approx(3 / 20)
+    # frame 1's span 10-14 holds 3 s of work; frames 0 and 2 span 1-10 and
+    # 14-20 with 6 and 4 + 1 s
+    assert lane["idle_share_all_interior"] == pytest.approx(0.25)
+    assert lane["idle_share_other"] == pytest.approx(1 - 11 / 15)
+    assert lane["device_events_per_frame"] == pytest.approx(11 / 3)
+    with pytest.raises(RuntimeError, match="2 K1 records for 3 frames"):
+        bench_all.animation_lane(events[:-4], [False, True, False])
 
 
 def test_config0_two_fresh_processes(tmp_path):
@@ -126,18 +195,18 @@ def test_main_prints_unported_rows_and_writes_only_out(tmp_path, capsys,
                                                        monkeypatch):
     monkeypatch.chdir(tmp_path)
     out = tmp_path / "rows.json"
-    rc = bench_all.main(["--device", "cpu", "--skip", "0,1,2,4,6,7",
+    rc = bench_all.main(["--device", "cpu", "--skip", "0,1,2,3,4,6,7",
                          "--out", str(out)])
     assert rc == 0
     lines = [json.loads(ln) for ln in
              capsys.readouterr().out.strip().splitlines()]
-    assert lines[:3] == [
-        {"config3": {"not_ported": "ROADMAP Queue 1 item 3"}},
+    assert bench_all.NOT_PORTED == {5: 8, 8: 9}
+    assert lines[:2] == [
         {"config5": {"not_ported": "ROADMAP Queue 1 item 8"}},
         {"config8": {"not_ported": "ROADMAP Queue 1 item 9"}}]
-    assert "skipped" in lines[3]["link_probe"]
+    assert "skipped" in lines[2]["link_probe"]
     saved = json.loads(out.read_text())
-    assert saved["card"] == "cpu" and saved["config5"] == lines[1]["config5"]
+    assert saved["card"] == "cpu" and saved["config5"] == lines[0]["config5"]
     assert sorted(os.listdir(tmp_path)) == ["rows.json"]
 
 

@@ -840,3 +840,66 @@ def test_device_seconds_of_a_kernel(dev, tmp_path):
     recs = diag.kernel_seconds_from_trace(str(tmp_path))
     peak = [v for k, v in recs.items() if "peak_kernel<8>" in k]
     assert peak == [[1, pytest.approx(kernels)]]
+
+
+# -- the batch path: a batch of frames is its frames' single renders -------
+def _batch_scenes(family):
+    """Four off-axis frames of ``family`` whose iteration limit steps
+    under a cap (500) that no single render's bucket equals."""
+    from fractalrenderer_tpu_torch import FractalType, Scene
+
+    ft = {"mandelbrot": FractalType.MANDELBROT,
+          "julia": FractalType.JULIA}[family]
+    return [Scene(fractal_type=ft, center_x=-0.3 - 0.05 * k,
+                  center_y=0.35 + 0.04 * k, zoom=1.6 / (k + 1),
+                  max_iterations=(64, 282, 282, 500)[k],
+                  julia_c_real=-0.8, julia_c_imag=0.156) for k in range(4)]
+
+
+@pytest.mark.parametrize("planar", [False, True],
+                         ids=["interleaved", "planar"])
+@pytest.mark.parametrize("family", ["mandelbrot", "julia"])
+def test_batch_render_fn_equals_single_renders(dev, family, planar):
+    import dataclasses
+
+    import numpy as np
+
+    from fractalrenderer_tpu_torch import models
+    from fractalrenderer_tpu_torch.models import common
+
+    scenes = _batch_scenes(family)
+    conv, clamp = common.family_map()[scenes[0].fractal_type][1:]
+    cfg = dataclasses.replace(common.scene_static_cfg(
+        scenes[0], 200, 113, family, conv, clamp, device=str(dev)),
+        max_iter=500)
+    dyns = [common.scene_dyn_params(s) for s in scenes]
+    batch = {k: np.asarray([d[k] for d in dyns], np.float32)
+             for k in dyns[0]}
+    before = escape.escape_fields_cuda.launches
+    out = common.batch_render_fn(cfg, quantize=8, planar=planar)(batch)
+    torch.cuda.synchronize()
+    # one K1 launch per frame, no more
+    assert escape.escape_fields_cuda.launches - before == len(scenes)
+    assert out.device.type == "cuda" and out.dtype == torch.uint8
+    f32 = common.batch_render_fn(cfg)(batch)
+    for i, s in enumerate(scenes):
+        ref = models.render(s, 200, 113, device=dev, quantize=8)
+        got = out[i].permute(1, 2, 0) if planar else out[i]
+        assert torch.equal(got, ref), i
+        assert torch.equal(f32[i], models.render(s, 200, 113, device=dev)), i
+
+
+def test_c_sweep_is_one_launch_per_c(dev):
+    from fractalrenderer_tpu_torch import FractalType, Scene, models
+    from fractalrenderer_tpu_torch.models.julia import render_c_sweep
+
+    s = Scene(fractal_type=FractalType.JULIA, max_iterations=128, zoom=3.0)
+    cs = [(-0.9 + 0.02 * k, 0.1 + 0.013 * k) for k in range(6)]
+    before = escape.escape_fields_cuda.launches
+    out = render_c_sweep(s, cs, 160, 90, device=dev)
+    torch.cuda.synchronize()
+    assert escape.escape_fields_cuda.launches - before == len(cs)
+    for i, (cr, ci) in enumerate(cs):
+        ref = models.render(s.with_(julia_c_real=cr, julia_c_imag=ci), 160,
+                            90, device=dev)
+        assert torch.equal(out[i], ref), i

@@ -373,6 +373,31 @@ def test_kernel_records_from_trace_in_launch_order(tmp_path):
         diag.kernel_records_from_trace(str(tmp_path))
 
 
+def test_device_events_from_trace_in_order_with_copies(tmp_path):
+    _write_trace(tmp_path / "d.pt.trace.json", _launches([3, 2, 1]))
+    assert diag.device_events_from_trace(str(tmp_path)) == [
+        ("a", "kernel", pytest.approx(100e-6), pytest.approx(300e-6)),
+        ("m", "gpu_memcpy", pytest.approx(400e-6), pytest.approx(20e-6)),
+        ("a", "kernel", pytest.approx(500e-6), pytest.approx(100e-6))]
+    _write_trace(tmp_path / "d.pt.trace.json", _launches([2, 3]))
+    with pytest.raises(diag.NoDeviceEvents):
+        diag.device_events_from_trace(str(tmp_path))
+
+
+@pytest.mark.parametrize("events,busy,window", [
+    ([], 0.0, 0.0),
+    ([("a", "kernel", 1.0, 0.5)], 0.5, 0.5),
+    # a gap: idle share 1 - 0.4 / 1.0
+    ([("a", "kernel", 0.0, 0.2), ("b", "kernel", 0.8, 0.2)], 0.4, 1.0),
+    # overlapping and nested events count their union once, in any order
+    ([("c", "gpu_memcpy", 0.5, 0.1), ("a", "kernel", 0.0, 0.4),
+      ("b", "kernel", 0.3, 0.3), ("d", "kernel", 0.35, 0.05)], 0.6, 0.6),
+], ids=["none", "one", "gap", "overlap"])
+def test_busy_and_window(events, busy, window):
+    b, w = diag.busy_and_window(events)
+    assert b == pytest.approx(busy) and w == pytest.approx(window)
+
+
 def test_measure_device_seconds_of_a_cpu_op(tmp_path):
     x = torch.ones((256, 256))
     s = diag.measure_device_seconds(lambda: (x @ x).sum(), device="cpu")

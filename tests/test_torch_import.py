@@ -17,6 +17,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = """
 import sys
 import fractalrenderer_tpu_torch
+import fractalrenderer_tpu_torch.anim
+import fractalrenderer_tpu_torch.anim.franim
+import fractalrenderer_tpu_torch.anim.keyframes
+import fractalrenderer_tpu_torch.anim.qtpng
+import fractalrenderer_tpu_torch.anim.renderer
+import fractalrenderer_tpu_torch.anim.video
+import fractalrenderer_tpu_torch.bench_all
 import fractalrenderer_tpu_torch.cli
 import fractalrenderer_tpu_torch.deepzoom
 import fractalrenderer_tpu_torch.deepzoom.hp
@@ -100,6 +107,32 @@ def test_cuda_device_never_falls_back(monkeypatch, scene):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         frt.render(frt.Scene(max_iterations=16, **scene), 8, 8,
                    device="cuda")
+
+
+def test_batch_paths_on_cuda_never_fall_back(monkeypatch, tmp_path):
+    # the batch pipeline, the c sweep and the animation renderer raise on a
+    # CUDA device without CUDA, before any launch or file
+    from fractalrenderer_tpu_torch.anim import AnimationRenderer
+    from fractalrenderer_tpu_torch.anim.keyframes import Animation, Keyframe
+    from fractalrenderer_tpu_torch.models import common, julia
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = escape.escape_fields_cuda.launches
+    scene = frt.Scene(max_iterations=16)
+    cfg = common.scene_static_cfg(scene, 8, 8, "mandelbrot", "centered",
+                                  False)
+    assert cfg.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        common.batch_render_fn(cfg, quantize=8, planar=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        julia.render_c_sweep(scene, [(0.1, 0.2)], 8, 8)
+    a = Animation(duration=2.0, target_fps=1, export_width=8,
+                  export_height=8)
+    a.keyframes += [Keyframe(0.0, scene), Keyframe(2.0, scene)]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AnimationRenderer().start_render(a, str(tmp_path / "f"))
+    assert not os.listdir(tmp_path / "f")
+    assert escape.escape_fields_cuda.launches == before
 
 
 def test_dd_cuda_device_without_cuda_raises(monkeypatch):
