@@ -41,12 +41,22 @@ launches, each entry of render_c_sweep equal to models.render of its c,
 one entry's K1 fields bit-equal to the plain version), ``cli animate`` of
 a 12-frame zoom at 1920x1080 in chunks of 8 (12 launches, every PNG equal
 to models.render of its interpolated scene) with ``--encode --codec
-qtpng`` (12 samples), ``--resume`` (no launch) and ``--sharded`` (exit
-2), the fetch of one chunk, a mixed .franim at 320x180 through the
-per-frame branch (Mandelbrot, bulb and deep-zoom frames: their K1, K4a/K4b
-and K3 launches, one reference orbit, each frame within 1 LSB of its scene
-rendered alone) and bench_all's config 3 (300 frames: fps, K1's record of
-each frame, the device lane's idle share).  It times kernel
+qtpng`` (12 samples) and ``--resume`` (no launch), the fetch of one chunk,
+a mixed .franim at 320x180 through the per-frame branch (Mandelbrot, bulb
+and deep-zoom frames: their K1, K4a/K4b and K3 launches, one reference
+orbit, each frame within 1 LSB of its scene rendered alone) and
+bench_all's config 3 (300 frames: fps, K1's record of each frame, the
+device lane's idle share); then the bands phase (parallel/, over grids
+that repeat the one card): the main-path frame through render_sharded
+over 4 and 7 bands and ``cli render --sharded``, the bulb and config 4's
+deep zoom over 4 bands (one reference orbit), ``cli animate --sharded``
+(12 frames at 1080p, the PNGs of ``cli animate``), bench_all's config 5
+(the 16384x16384 16-bit giant still in 1024-row bands, read back with
+utils/png.read_png and held row for row against the whole render on the
+card), a resume at 4096x4096 (3 tiles deleted, then one corrupted), the
+banded ``export-print --supersample --downsample`` at 8192x8192 (equal to
+downsample2x of the monolithic 2x render) and deep-zoom and bulb giants at
+1080p in 256-row bands, each bit-equal to its whole frame.  It times kernel
 against plain version (K1 and K2, K3, K4a and K4b by the profiler's
 kernel records; the CUDA-event time of queued wrapper calls (K1, K2) or
 of one wrapper call (K3, K4) printed beside them as "call ms"; K4a also by
@@ -347,6 +357,267 @@ FAMILIES = {
                               phoenix_r=-0.5, stripe_density=10.0),
                     track=dict(track_trap=True, track_stripe=True)),
 }
+
+
+# the bands phase's sizes: bench config 5's giant (side, band rows), the
+# resumed giant's, the banded export-print's output side (rendered at 2x
+# in export-print's default 512-row bands) and the 1080p giants' band rows
+GIANT = (16384, 1024)
+RESUME = (4096, 512)
+PRINT_SIDE = 8192
+GIANT_1080_BAND = 256
+
+# cli animate's 12-frame 1080p zoom (the animation phase's)
+ANIMATE = ["animate", "--width", str(W), "--height", str(H), "--center",
+           "-0.7453", "0.1127", "--zoom", "0.05", "--zoom-to", "0.002",
+           "--iters", "600", "--duration", "0.4", "--fps", "30",
+           "--batch-size", "8"]
+
+
+def bands_phase(dev, kernels, verb, reset_counts, counts,
+                orbit_log) -> None:
+    """Row bands and giant stills on the card (parallel/), over grids that
+    repeat ``dev`` (the machine has one card): the main-path frame through
+    render_sharded over 4 and 7 bands and ``cli render --sharded``; the
+    bulb and config 4's deep zoom over 4 bands; ``cli animate --sharded``;
+    bench config 5 (the 16384^2 16-bit giant, held row for row against the
+    whole render); a resume at 4096^2; the banded ``export-print
+    --supersample --downsample`` at 8192^2; and deep-zoom and bulb giants
+    at 1080p.  Every result is bit-equal to its whole frame.  ``verb``,
+    ``reset_counts`` and ``counts`` are main()'s; ``orbit_log`` grows by
+    each reference orbit."""
+    import numpy as np
+    import torch
+
+    from fractalrenderer_tpu_torch import (FractalType, Scene, bench_all,
+                                           cli, models)
+    from fractalrenderer_tpu_torch.models import common, deep_zoom, mandelbulb
+    from fractalrenderer_tpu_torch.parallel import (make_render_mesh,
+                                                    render_giant_still,
+                                                    render_sharded)
+    from fractalrenderer_tpu_torch.parallel.mesh import row_bands
+    from fractalrenderer_tpu_torch.utils import png
+    from fractalrenderer_tpu_torch.utils.image import (downsample2x,
+                                                       to_export_orientation)
+
+    esc_w, pert_w = "escape_fields_cuda", "perturbation_fields_cuda"
+    cone_w, march_w = "cone_fields_cuda", "march_fields_cuda"
+
+    def add(launches, **want):
+        """Hold a path's launches to ``want`` (wrapper -> (instance, n))
+        and add them to the instances' counts."""
+        got = {w_: n for w_, n in launches.items() if n}
+        assert got == {w_: n for w_, (_, n) in want.items()}, (got, want)
+        for w_, (inst, n) in want.items():
+            kernels[inst]["launches"] += n
+
+    def export16(img):
+        """The 16-bit PNG pixels of a device image (f32 or uint16)."""
+        if img.dtype == torch.float32:
+            img = common.quantize_image(img, bit_depth=16)
+        return to_export_orientation(img).cpu().numpy()
+
+    def bands(height, rows):
+        return -(-height // rows)
+
+    main = Scene()
+    whole8 = models.render(main, W, H, device=dev, quantize=8).cpu()
+    whole32 = models.render(main, W, H, device=dev).cpu()
+    for n, q, whole in ((4, 8, whole8), (7, 0, whole32)):
+        reset_counts()
+        out = render_sharded(main, W, H, quantize=q,
+                             mesh=make_render_mesh(devices=[dev] * n))
+        add(counts(), escape_fields_cuda=("escape_mandelbrot_fused", n))
+        assert torch.equal(out, whole), f"render_sharded over {n} bands"
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "a.png"), os.path.join(tmp, "b.png")
+        rc, _, _, launches = verb(["render", "--sharded", "--out", a])
+        assert rc == 0
+        add(launches, escape_fields_cuda=("escape_mandelbrot_fused", 1))
+        assert verb(["render", "--out", b])[0] == 0
+        assert np.array_equal(read_png_rgb(a), read_png_rgb(b)), \
+            "cli render --sharded != cli render"
+    split = {n: row_bands(H, n) for n in (4, 7)}
+    print(f"path parallel.render_sharded {W}x{H} over cuda:0 x4 (uint8, "
+          f"bands of {split[4][0][1]} rows) and x7 (f32, {split[7][0][1]} "
+          f"rows, the last {split[7][-1][1]}): 4 and 7 launches of "
+          f"escape_mandelbrot_fused, each bit-equal to "
+          f"models.render; cli render --sharded (one band per visible "
+          f"card: 1 launch) gives cli render's pixels", flush=True)
+
+    mesh4 = make_render_mesh(devices=[dev] * 4)
+    bulb = Scene(fractal_type=FractalType.MANDELBULB)
+    whole = mandelbulb.render(bulb, W, H, device=dev)
+    reset_counts()
+    out = mandelbulb.render_sharded(bulb, W, H, mesh=mesh4)
+    add(counts(), cone_fields_cuda=("bulb_cone_p8", 4),
+        march_fields_cuda=("bulb_march_p8", 4))
+    assert torch.equal(out, whole.cpu()), "bulb render_sharded != render"
+    dz = dz_scene("config4")
+    whole, info1 = deep_zoom.render(dz, W, H, device=dev, quantize=16,
+                                    return_info=True)
+    reset_counts()
+    n_orb = len(orbit_log)
+    t0 = time.perf_counter()
+    out, info = deep_zoom.render(dz, W, H, device=dev, quantize=16,
+                                 mesh=mesh4, return_info=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    add(counts(), perturbation_fields_cuda=("pert_mandelbrot_dd", 4))
+    assert len(orbit_log) == n_orb + 1, "config 4 bands: not one orbit"
+    assert info["fields_on_device"] and info["fallback_pixels"] == 0, info
+    assert info["rebase_passes"] == info1["rebase_passes"], (info, info1)
+    assert torch.equal(out, whole), "config 4 over 4 bands != whole frame"
+    print(f"path mandelbulb.render_sharded {W}x{H} power 8 over cuda:0 x4: "
+          f"4 launches each of bulb_cone_p8 and bulb_march_p8, bit-equal to "
+          f"mandelbulb.render; deep_zoom.render(mesh=) config 4 over x4: 4 "
+          f"launches of pert_mandelbrot_dd, one reference orbit, rebase "
+          f"passes {info['rebase_passes']} (the whole frame's), uint16 "
+          f"bit-equal to the whole frame, fields kept on the card; "
+          f"{wall:.2f} s wall", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        one, sh = os.path.join(tmp, "one"), os.path.join(tmp, "sh")
+        rc, _, _, launches = verb([*ANIMATE, "--out-dir", one])
+        assert rc == 0
+        add(launches, escape_fields_cuda=("escape_mandelbrot_fused", 12))
+        rc, _, wall, launches = verb([*ANIMATE, "--sharded", "--out-dir",
+                                      sh])
+        assert rc == 0
+        # the last chunk of 4 is padded to the batch of 8, as in JAX
+        add(launches, escape_fields_cuda=("escape_mandelbrot_fused", 16))
+        files = sorted(os.listdir(one))
+        assert files == sorted(os.listdir(sh)) and len(files) == 12, files
+        for f in files:
+            assert np.array_equal(read_png_rgb(os.path.join(one, f)),
+                                  read_png_rgb(os.path.join(sh, f))), f
+    print(f"path cli animate --sharded 12 frames at {W}x{H} (one frame "
+          f"group per visible card, chunks of 8, the last padded): 16 "
+          f"launches of escape_mandelbrot_fused, every PNG equal to cli "
+          f"animate's; {wall:.2f} s wall", flush=True)
+
+    # bench config 5: the 16384^2 16-bit giant, 1024-row bands
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "giant.png")
+        reset_counts()
+        t0 = time.monotonic()
+        side, band = GIANT
+        row = bench_all.bench_giant(side, side, band, device=dev,
+                                    out_path=out)
+        k1 = counts()[esc_w]
+        assert k1 >= bands(side, band) + 4, k1
+        kernels["escape_mandelbrot_fused"]["launches"] += k1
+        print(f"bench_all config5 ({time.monotonic() - t0:.1f} s, {k1} K1 "
+              f"launches: {bands(side, band)} bands, the warm-up and the "
+              f"timed bands): " + json.dumps(row), flush=True)
+        t0 = time.perf_counter()
+        got = png.read_png(out)
+        read_s = time.perf_counter() - t0
+        engine = ("native (native/pngfilter.cpp)"
+                  if png._load_pngfilter() is not None else "NumPy")
+        ref = export16(models.render(Scene(max_iterations=256), side, side,
+                                     device=dev, quantize=16))
+        assert got.shape == ref.shape == (side, side, 3), got.shape
+        bad = np.nonzero((got != ref).any(axis=(1, 2)))[0]
+        assert bad.size == 0, f"config 5: rows {bad[:8]} differ from the " \
+            "whole render"
+        assert 0 < got.mean() < 65535
+        del got, ref
+    spread = row["device_band_seconds_spread"]
+    print(f"config 5 giant {side}x{side} 16-bit: {row['seconds']:.3f} s end "
+          f"to end, {row['mpix_s_end_to_end']:.2f} Mpix/s, "
+          f"{row['rows_per_second']:.1f} rows/s; K1 per {band}-row band "
+          f"(device lane) mean {row['device_band_seconds_mean'] * 1e3:.4f} "
+          f"ms, at rows 0, H/4, H/2-{band // 2}: "
+          f"{[round(t * 1e3, 4) for t in spread]} ms; fetch-blocked "
+          f"{row['fetch_blocked_seconds']:.3f} s; deflate "
+          f"{row['deflate_seconds']:.3f} worker-s, tiles "
+          f"{row['tile_seconds']:.3f} worker-s; {row['bytes_over_link']} "
+          f"bytes over the link, PNG {row['png_bytes']} bytes; link probe "
+          f"{row['link_probe_mb_s']['best_mb_s']:.0f} MB/s pageable, "
+          f"{row['link_probe_mb_s']['pinned_best_mb_s']:.0f} MB/s pinned; "
+          f"read back by png.read_png in {read_s:.2f} s (unfilter: "
+          f"{engine}), every row equal to models.render of the scene "
+          "quantized and flipped", flush=True)
+
+    # a resume: 3 tiles deleted, then one corrupted
+    side, band = RESUME
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "r.png")
+        reset_counts()
+        info = render_giant_still(main, side, side, out, band_rows=band,
+                                  device=dev)
+        assert info["rendered"] == bands(side, band) == 8, info
+        first = png.read_png(out)
+        tiles = info["tile_dir"]
+        for b in (0, 3, 7):
+            os.remove(os.path.join(tiles, f"band_{b:05d}.png"))
+        info = render_giant_still(main, side, side, out, band_rows=band,
+                                  device=dev)
+        assert (info["rendered"], info["skipped"]) == (3, 5), info
+        assert np.array_equal(png.read_png(out), first), "resume changed"
+        with open(os.path.join(tiles, "band_00005.png"), "wb") as f:
+            f.write(b"\x89PNG\r\n\x1a\nnot a tile")
+        info = render_giant_still(main, side, side, out, band_rows=band,
+                                  device=dev)
+        assert (info["rendered"], info["skipped"]) == (1, 7), info
+        assert np.array_equal(png.read_png(out), first), "re-render changed"
+        add(counts(), escape_fields_cuda=("escape_mandelbrot_fused", 12))
+        assert np.array_equal(first, export16(models.render(
+            main, side, side, device=dev, quantize=16)))
+    print(f"path render_giant_still {side}x{side} band {band} (8 bands): 3 "
+          f"tiles deleted -> 3 rendered, 5 resumed; 1 tile corrupted -> 1 "
+          f"rendered; the PNG unchanged and equal to the whole render; 12 "
+          f"launches of escape_mandelbrot_fused", flush=True)
+
+    # banded export-print: 8192^2 supersampled renders 16384^2 > 2^27
+    side = PRINT_SIDE
+    n_print = bands(side, 512)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "print.png")
+        argv = ["export-print", "--width", str(side), "--height", str(side),
+                "--supersample", "--downsample"]
+        rc, said, wall, launches = verb([*argv, "--out", out])
+        assert rc == 0 and "streaming in bands" in said, said
+        add(launches, escape_fields_cuda=("escape_mandelbrot_fused",
+                                          n_print))
+        assert not os.path.exists(out + ".tiles"), "tiles left behind"
+        scene = cli.scene_from_args(cli.build_parser().parse_args(argv))
+        ref = export16(downsample2x(models.render(scene, 2 * side, 2 * side,
+                                                  device=dev)))
+        got = png.read_png(out)
+        assert np.array_equal(got, ref), \
+            "banded export-print != downsample2x of the 2x render"
+        del got, ref
+    print(f"path cli export-print --supersample --downsample {side}x{side} "
+          f"(a {2 * side}x{2 * side} render, banded): {n_print} launches of "
+          f"escape_mandelbrot_fused, pixels equal to downsample2x of the "
+          f"monolithic 2x render, quantized; tiles removed; {wall:.2f} s "
+          "wall", flush=True)
+
+    # deep-zoom and bulb giants at 1080p, 256-row bands (the last 56)
+    n_1080 = bands(H, GIANT_1080_BAND)
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, scene, w_, inst, whole in (
+                ("config 4 deep zoom", dz, (pert_w,), ("pert_mandelbrot_dd",),
+                 deep_zoom.render(dz, W, H, device=dev, quantize=16)),
+                ("bulb power 8", bulb, (cone_w, march_w),
+                 ("bulb_cone_p8", "bulb_march_p8"),
+                 mandelbulb.render(bulb, W, H, device=dev, quantize=16))):
+            out = os.path.join(tmp, "g.png")
+            reset_counts()
+            t0 = time.perf_counter()
+            info = render_giant_still(scene, W, H, out,
+                                      band_rows=GIANT_1080_BAND,
+                                      resume=False, device=dev)
+            wall = time.perf_counter() - t0
+            add(counts(), **{x: (i, n_1080) for x, i in zip(w_, inst)})
+            assert info["rendered"] == n_1080, info
+            assert np.array_equal(png.read_png(out), export16(whole)), label
+            print(f"path render_giant_still {label} {W}x{H} band "
+                  f"{GIANT_1080_BAND}: {n_1080} bands, {n_1080} launches of "
+                  f"{' and '.join(inst)}, equal to the whole frame; "
+                  f"{wall:.2f} s wall", flush=True)
 
 
 def read_png_rgb(path: str):
@@ -1012,7 +1283,7 @@ def animation_phase(dev, kernels, entry, verb, orbit_log,
                     fallback_log) -> None:
     """The batch path at full width: ``cli sweep`` (16 c values at 1080p),
     ``cli animate`` (12 frames at 1080p in chunks of 8, ``--encode --codec
-    qtpng``, ``--resume``, ``--sharded``), the fetch of one chunk, a mixed
+    qtpng``, ``--resume``), the fetch of one chunk, a mixed
     .franim through the per-frame branch at 320x180, and bench config 3.
     ``verb(argv)`` runs a CLI verb with the launch counts reset: (exit
     code, stdout, host seconds, the wrappers' launches); ``orbit_log`` and
@@ -1103,13 +1374,10 @@ def animation_phase(dev, kernels, entry, verb, orbit_log,
 
         # cli animate: a two-keyframe zoom, off-axis, 12 frames at 1080p in
         # a chunk of 8 and one of 4, under a cap (600) no single render's
-        # bucket (1024) equals; then qtpng, --resume, --sharded
+        # bucket (1024) equals; then qtpng and --resume
         an_dir, mov = os.path.join(tmp, "anim"), os.path.join(tmp, "a.mov")
         fpath = os.path.join(tmp, "a.franim")
-        an = ["animate", "--width", str(W), "--height", str(H), "--center",
-              "-0.7453", "0.1127", "--zoom", "0.05", "--zoom-to", "0.002",
-              "--iters", "600", "--duration", "0.4", "--fps", "30",
-              "--batch-size", "8", "--out-dir", an_dir]
+        an = [*ANIMATE, "--out-dir", an_dir]
         rc, said, wall, launches = verb([*an, "--save-franim", fpath,
                                          "--encode", "--codec", "qtpng",
                                          "--video-out", mov])
@@ -1144,11 +1412,8 @@ def animation_phase(dev, kernels, entry, verb, orbit_log,
               f"{wall:.2f} s wall", flush=True)
         rc, said, wall, launches = verb([*an, "--resume"])
         assert rc == 0 and not any(launches.values()), (rc, launches)
-        with contextlib.redirect_stderr(io.StringIO()) as err:
-            rc = cli.main([*an, "--sharded"])
-        assert rc == 2 and "ROADMAP Queue 1 item 8" in err.getvalue(), rc
-        print(f"path cli animate --resume: 0 launches, {wall:.2f} s wall; "
-              f"--sharded: exit 2, {err.getvalue().strip()!r}", flush=True)
+        print(f"path cli animate --resume: 0 launches, {wall:.2f} s wall",
+              flush=True)
 
         # the fetch of one chunk: 8 planar uint8 1080p frames
         cfg = dataclasses.replace(common.scene_static_cfg(
@@ -2172,6 +2437,9 @@ def main() -> int:
 
     animation_phase(dev, kernels, entry, verb, orbit_log, fallback_log)
     lap("animation")
+
+    bands_phase(dev, kernels, verb, reset_counts, counts, orbit_log)
+    lap("bands")
 
     # the distance field (library entry point: K1 with the derivative)
     scene = Scene()

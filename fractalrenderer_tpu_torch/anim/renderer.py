@@ -9,9 +9,10 @@ toggles; iteration counts stay dynamic under the group's cap), and rendered
 in batches of ``batch_size`` frames (models.common.batch_render_fn: one K1
 launch per frame on one stream, each quantized on the device into its slot
 of the batch), fetched once per batch; PNG encoding runs on the host
-between batches.  Mandelbulb and deep-zoom frames take the per-frame model
-path.  Progress/ETA and cancellation mirror the reference's RenderProgress
-(animation_renderer.h:20-29) and cancel flag (:90).
+between batches; with a mesh, each batch splits over its devices
+(parallel.render_frames_sharded).  Mandelbulb and deep-zoom frames take the
+per-frame model path.  Progress/ETA and cancellation mirror the reference's
+RenderProgress (animation_renderer.h:20-29) and cancel flag (:90).
 """
 from __future__ import annotations
 
@@ -105,16 +106,13 @@ class AnimationRenderer:
     callbacks."""
 
     def __init__(self, batch_size: int = 8, device="cuda", mesh=None):
-        """``mesh`` (the JAX package's frame sharding across chips) is not
-        ported: a mesh raises NotImplementedError naming its ROADMAP
-        item."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "AnimationRenderer(mesh=...) renders frames across devices "
-                "(render_frames_sharded), which is not ported yet (ROADMAP "
-                "Queue 1 item 8)")
+        """``mesh``: a parallel.RenderMesh with ('frames', 'rows') axes (see
+        parallel.make_render_mesh) — 2D-family frame batches then render
+        data-parallel across its devices via render_frames_sharded instead
+        of one after another on ``device``."""
         self.batch_size = batch_size
         self.device = torch.device(device)
+        self.mesh = mesh
         self.progress = RenderProgress()
         self._cancel = False
         self.on_frame_complete: Optional[Callable[[int, int], None]] = None
@@ -249,20 +247,35 @@ class AnimationRenderer:
             # interleave
             q = bit_depth if bit_depth in (8, 16) else 0
             planar = bool(q) and common.planar_export_ok(g.cfg)
-            fn = common.batch_render_fn(g.cfg, quantize=q, planar=planar)
+            fn = None if self.mesh is not None else common.batch_render_fn(
+                g.cfg, quantize=q, planar=planar)
             for i in range(0, len(g.dyns), self.batch_size):
                 if self._cancel:
                     self.progress.status = RenderStatus.CANCELLED
                     return False
                 chunk = g.dyns[i:i + self.batch_size]
                 idxs = g.frame_indices[i:i + self.batch_size]
-                # only the chunk's real frames: the JAX path pads the last
-                # chunk to keep one compiled shape, which the port has not
-                batch = {k: np.asarray([d[k] for d in chunk], np.float32)
-                         for k in chunk[0]}
-                imgs = fn(batch).cpu()  # one fetch per chunk
-                if planar:  # (B, 3, H, W) -> (B, H, W, 3) on the host
-                    imgs = imgs.permute(0, 2, 3, 1)
+                if self.mesh is not None:
+                    from ..parallel import render_frames_sharded
+
+                    # padded to the batch size, as the JAX path pads it, so
+                    # every chunk splits over the frame groups alike;
+                    # quantized inside each band on its device, so the
+                    # fetch moves uint bytes
+                    sc = g.scenes[i:i + self.batch_size]
+                    sc = sc + [sc[-1]] * (self.batch_size - len(sc))
+                    imgs = render_frames_sharded(
+                        sc, width, height, mesh=self.mesh, cap=cap,
+                        quantize=q)[:len(chunk)]
+                else:
+                    # only the chunk's real frames: the JAX path pads the
+                    # last chunk to keep one compiled shape, which the port
+                    # has not
+                    batch = {k: np.asarray([d[k] for d in chunk], np.float32)
+                             for k in chunk[0]}
+                    imgs = fn(batch).cpu()  # one fetch per chunk
+                    if planar:  # (B, 3, H, W) -> (B, H, W, 3) on the host
+                        imgs = imgs.permute(0, 2, 3, 1)
                 for img, fidx in zip(imgs, idxs):
                     path = os.path.join(output_folder,
                                         f"frame_{fidx:06d}.png")

@@ -2,7 +2,7 @@
 repository root's ``bench_all.py`` (the JAX package's), config for config.
 
     python -m fractalrenderer_tpu_torch.bench_all [--skip 0,4]
-        [--device cuda|cpu] [--out PATH]
+        [--device cuda|cpu] [--out PATH] [--quick]
 
 Prints one JSON line per config, ``{"configN": {...}}``, each row with the
 card's name and power limit (``nvidia-smi``), or ``"cpu"``; then a row for
@@ -21,10 +21,15 @@ Ported configs (keys as in the JAX rows wherever the meaning holds):
    per-frame kernel records and the device lane's idle share;
 4. deep zoom 1e-12 / 10000 iterations at 1080p (spp 1 and 2, series skip,
    the per-pixel rebase-round histogram);
+5. the giant still: a 16384x16384 16-bit PNG in 1024-row bands
+   (parallel.render_giant_still), with K1's device time per band, the link
+   probe, the host time blocked on fetches and the workers' deflate time;
 6. the Mandelbulb at 1080p;
 7. deep zoom 1e-50 / 2000 iterations at 960x540.
 
-Configs 5 and 8 print ``not_ported`` with their ROADMAP item.  Device
+``--quick`` runs config 3 at 60 frames and config 5 at 4096x4096, as the
+root bench's ``--quick`` does.  Config 8 prints ``not_ported`` with its
+ROADMAP item.  Device
 times are the device lane of torch.profiler traces
 (utils/diag.measure_device_seconds, ``timing_method`` "torch_profiler"):
 host gaps between launches, such as a deep zoom's orbit on the host, are
@@ -55,7 +60,7 @@ from .utils.diag import (busy_and_window, device_events_from_trace,
 
 W, H = 1920, 1080
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NOT_PORTED = {5: 8, 8: 9}  # config -> ROADMAP Queue 1 item
+NOT_PORTED = {8: 9}  # config -> ROADMAP Queue 1 item
 DZ4 = dict(hp_center_x="-0.74364388703715158",
            hp_center_y="0.13182590420531198", hp_zoom="1e-12")
 # K1's fused Mandelbrot loop: 8 f32 operations per iteration as counted
@@ -507,6 +512,68 @@ def bench_deep_zoom(width: int = W, height: int = H, iters: int = 10000,
     return row
 
 
+def bench_giant(width: int = 16384, height: int = 16384,
+                band_rows: int = 1024, device="cuda",
+                out_path: str = None) -> dict:
+    """Config 5: the giant still of the default Mandelbrot view at 256
+    iterations, 16-bit, through render_giant_still (no resume), written to
+    ``out_path`` (default: a temporary directory, removed).
+
+    The end-to-end seconds are dominated by the device-to-host link and the
+    PNG deflate by design (the exporter exists to stream what cannot be
+    held), so the device side is timed apart: one band's render (fused K1,
+    f32) by the profiler's device lane at rows 0, H/4 and H/2 - band/2
+    (bands differ a lot in iteration load), its mean and spread.  Then the
+    link probe (on a card), the export's wall seconds and Mpix/s, the host
+    seconds blocked on fetches, the workers' seconds deflating the final
+    IDAT chunks and writing the tiles, the bytes over the link (the 16-bit
+    image) and the PNG's size."""
+    from .models import common
+    from .parallel import render_giant_still
+
+    dev = resolve_device(device)
+    scene = Scene(max_iterations=256)
+    cfg = common.scene_static_cfg(scene, width, height, "mandelbrot",
+                                  "centered", False, device=str(dev))
+    band_fn = common.band_render_fn(cfg, band_rows, height)
+    dyn = common.scene_dyn_params(scene)
+    float(band_fn(dyn, 0)[0, 0, 0])  # warm
+    secs = [measure_device_seconds(
+        lambda r=r: float(band_fn(dyn, r)[0, 0, 0]), device=dev)
+        for r in (0, height // 4, height // 2 - band_rows // 2)]
+    mean_s = sum(secs) / len(secs)
+    bytes_moved = width * height * 3 * 2
+    row = {"config": f"giant_{width}x{height}_16bit",
+           "band_rows": band_rows, "bands": -(-height // band_rows),
+           "device_band_seconds_mean": mean_s,
+           "device_band_seconds_spread": secs,
+           "device_render_mpix_s": width * band_rows / mean_s / 1e6,
+           "timing_method": TIMING}
+    link = bench_link(dev) if dev.type == "cuda" else None
+
+    with tempfile.TemporaryDirectory() as td:
+        out = out_path or os.path.join(td, "giant.png")
+        t0 = time.perf_counter()
+        info = render_giant_still(scene, width, height, out,
+                                  band_rows=band_rows, bit_depth=16,
+                                  resume=False, device=dev)
+        dt = time.perf_counter() - t0
+        size = os.path.getsize(out)
+    row.update(seconds=dt, mpix_s_end_to_end=width * height / dt / 1e6,
+               rows_per_second=height / dt,
+               fetch_blocked_seconds=info["fetch_seconds"],
+               deflate_seconds=info["deflate_seconds"],
+               tile_seconds=info["tile_seconds"],
+               bytes_over_link=bytes_moved, png_bytes=size)
+    if link:
+        row["link_probe_mb_s"] = link
+        row["predicted_link_seconds"] = bytes_moved / (link["best_mb_s"]
+                                                       * 1e6)
+        row["predicted_pinned_link_seconds"] = bytes_moved / (
+            link["pinned_best_mb_s"] * 1e6)
+    return row
+
+
 def bench_mandelbulb(width: int = W, height: int = H, iters: int = 256,
                      device="cuda") -> dict:
     """Config 6: the Mandelbulb's default scene (K4a + K4b + the shading
@@ -552,7 +619,9 @@ def bench_link(device="cuda") -> dict:
 
 CONFIGS = {0: bench_cold_start, 1: bench_mandelbrot_1080p,
            2: bench_julia_sweep, 3: bench_animation, 4: bench_deep_zoom,
-           6: bench_mandelbulb, 7: bench_scaled_deep_zoom}
+           5: bench_giant, 6: bench_mandelbulb, 7: bench_scaled_deep_zoom}
+# --quick: the root bench's quick sizes
+QUICK = {3: dict(frames=60), 5: dict(width=4096, height=4096)}
 
 
 def main(argv=None) -> int:
@@ -565,6 +634,8 @@ def main(argv=None) -> int:
                     help="cuda (the kernels, default) or cpu (their plain "
                          "versions)")
     ap.add_argument("--out", default=None, help="also write the rows here")
+    ap.add_argument("--quick", action="store_true",
+                    help="config 3 at 60 frames, config 5 at 4096x4096")
     args = ap.parse_args(argv)
     skip = {int(x) for x in args.skip.split(",") if x}
     dev = resolve_device(args.device)
@@ -572,6 +643,7 @@ def main(argv=None) -> int:
     results = {"device": str(dev), "card": who}
     rows = [(f"config{num}", CONFIGS.get(num)) for num in range(9)
             if num not in skip]
+    sizes = QUICK if args.quick else {}
     rows.append(("link_probe", bench_link))
     failed = []
     for key, fn in rows:
@@ -583,7 +655,7 @@ def main(argv=None) -> int:
         else:
             t0 = time.perf_counter()
             try:
-                row = fn(device=dev)
+                row = fn(device=dev, **sizes.get(num, {}))
             except Exception as e:  # record, keep going
                 traceback.print_exc()
                 row = {"error": f"{type(e).__name__}: {e}"[:300]}

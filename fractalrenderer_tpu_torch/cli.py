@@ -1,15 +1,17 @@
 """Command-line interface of the PyTorch port (counterpart of
 ``fractalrenderer_tpu/cli.py``).  The ``info``, ``presets``,
-``export-print``, ``zoom-path``, ``sweep``, ``animate`` and ``encode`` verbs
-are ported (``animate --sharded`` excepted), and ``render`` for the
-four 2D families (every AA, trap, stripe, interior-style and Julia option),
-``--golden`` (the CPU golden reference of the 2D families), ``--precision
-dd``, ``--type deep-zoom`` (the rebasing perturbation path at every depth:
-Mandelbrot with ``--series``, ``--deep-julia``, ``--deep-ship`` with
-``--exact-dust``, ``--deep-phoenix``, and ``--spp 2|4`` supersampling) and
-``--type mandelbulb`` (``--power``, ``--time``, ``--aa``, ``--palette``);
-the other verbs and the unported options exit with code 2 and a one-line
-message naming the ROADMAP item that ports them.
+``export-print`` (banded above 2^27 rendered pixels), ``zoom-path``,
+``sweep``, ``animate`` (with ``--sharded``), ``encode`` and ``giant`` verbs
+are ported, and ``render`` for the four 2D families (every AA, trap,
+stripe, interior-style and Julia option), ``--golden`` (the CPU golden
+reference of the 2D families), ``--precision dd``, ``--type deep-zoom``
+(the rebasing perturbation path at every depth: Mandelbrot with
+``--series``, ``--deep-julia``, ``--deep-ship`` with ``--exact-dust``,
+``--deep-phoenix``, and ``--spp 2|4`` supersampling), ``--type mandelbulb``
+(``--power``, ``--time``, ``--aa``, ``--palette``) and ``--sharded`` (row
+bands across the visible CUDA devices, or the one CPU with ``--device
+cpu``); the ``interactive`` verb exits with code 2 and a one-line message
+naming the ROADMAP item that ports it.
 
 Usage examples:
   python -m fractalrenderer_tpu_torch.cli render --out m.png
@@ -43,6 +45,8 @@ Usage examples:
       --duration 10 --fps 30 --out-dir frames --encode --codec qtpng
   python -m fractalrenderer_tpu_torch.cli encode frames --codec qtpng \\
       --out zoom.mov
+  python -m fractalrenderer_tpu_torch.cli giant --width 16384 \\
+      --height 16384 --band-rows 1024 --out giant.png
 """
 from __future__ import annotations
 
@@ -195,13 +199,8 @@ def _size_ok(args) -> bool:
     return True
 
 
-# render options the port does not run yet → ROADMAP Queue 1 item
-_UNPORTED_RENDER_FLAGS = (
-    ("sharded", "--sharded", 8),
-)
-
 # verbs of the JAX CLI the port does not run yet → ROADMAP Queue 1 item
-_UNPORTED_VERBS = {"giant": 8, "interactive": 9}
+_UNPORTED_VERBS = {"interactive": 9}
 
 
 @contextlib.contextmanager
@@ -256,6 +255,19 @@ def _device_or_none(name: str):
     return dev
 
 
+def _mesh_for(dev, frames: bool = False):
+    """The device grid of ``--sharded`` and ``--mesh``: every visible CUDA
+    device for a CUDA ``dev`` (as row bands, or with ``frames`` one frame
+    group each, as the JAX CLI's mesh takes every chip), the one CPU for
+    ``--device cpu``."""
+    from .parallel import make_render_mesh
+
+    if dev.type == "cpu":
+        return make_render_mesh(devices=[dev])
+    return make_render_mesh(frames=torch.cuda.device_count() if frames
+                            else 1)
+
+
 def _render(scene: Scene, width: int, height: int, golden: bool, dev):
     """The f32 (H, W, 3) image: the CPU golden reference, or models.render
     on ``dev`` (the JAX CLI's ``_render``)."""
@@ -271,11 +283,10 @@ def _render(scene: Scene, width: int, height: int, golden: bool, dev):
 def cmd_render(args) -> int:
     if not _size_ok(args):
         return 2
-    for attr, flag, item in _UNPORTED_RENDER_FLAGS:
-        if getattr(args, attr):
-            print(f"error: {flag} is not ported yet (ROADMAP Queue 1 item "
-                  f"{item})", file=sys.stderr)
-            return 2
+    if args.sharded and (args.golden or args.precision == "dd"):
+        print("error: --sharded does not combine with --golden or "
+              "--precision dd", file=sys.stderr)
+        return 2
     # --golden is the CPU reference; --precision dd takes the dd kernel
     # before it, as in the JAX CLI
     golden = args.golden and args.precision != "dd"
@@ -295,6 +306,11 @@ def cmd_render(args) -> int:
               "--type deep-zoom --deep-ship (see DESIGN.md §8)",
               file=sys.stderr)
         return 2
+    if args.exact_dust and args.sharded:
+        # the deep-zoom model's own guard, as a clean exit
+        print("error: --exact-dust does not compose with --sharded yet (its "
+              "HP fallback is per pixel)", file=sys.stderr)
+        return 2
     if args.debug:
         from .utils.diag import scene_debug_summary
 
@@ -312,6 +328,8 @@ def cmd_render(args) -> int:
             from .utils.diag import validate_scene
 
             dz_kw = {"exact_dust": True} if args.exact_dust else {}
+            if args.sharded:
+                dz_kw["mesh"] = _mesh_for(dev)
             with _orbit_progress():
                 img, dz_info = deep_zoom.render(
                     validate_scene(scene), args.width, args.height,
@@ -324,6 +342,22 @@ def cmd_render(args) -> int:
             img = quantize_image(render_dd(scene, args.width, args.height,
                                            device=dev),
                                  bit_depth=args.bit_depth)
+        elif args.sharded:
+            # row bands across devices, bit-identical to the one-device
+            # render (gather-free: parallel/tiled.py), joined on the host
+            if scene.fractal_type == FractalType.MANDELBULB:
+                from .models.common import quantize_image
+                from .models.mandelbulb import render_sharded
+
+                img = quantize_image(render_sharded(
+                    scene, args.width, args.height, mesh=_mesh_for(dev)),
+                    bit_depth=args.bit_depth)
+            else:
+                from .parallel import render_sharded
+
+                img = render_sharded(scene, args.width, args.height,
+                                     mesh=_mesh_for(dev),
+                                     quantize=args.bit_depth)
         else:
             img = models.render(scene, args.width, args.height, device=dev,
                                 quantize=args.bit_depth)
@@ -355,16 +389,18 @@ def cmd_render(args) -> int:
     return 0
 
 
-# Above this many rendered pixels (supersampling included) the JAX CLI's
-# export-print streams through the banded giant-still path
-# (render_giant_still), which the port does not have yet.
+# Above this many rendered pixels (supersampling included) export-print
+# streams through the banded giant-still path (render_giant_still): the
+# reference's one-allocation staging buffer capped print sizes there
+# (vk_engine.cpp:1939-2003); here the 32000-cap presets stay reachable on
+# one device.
 _BANDED_EXPORT_PIXELS = 1 << 27  # 134M px ≈ 1.6 GB f32 RGB
 
 
 def cmd_export_print(args) -> int:
     """16-bit print export (vk_engine.cpp:1796-2232): renders at 2x when
-    supersampling and embeds gAMA/sRGB/pHYs/tEXt metadata.  A render above
-    _BANDED_EXPORT_PIXELS exits 2: its banded exporter is not ported."""
+    supersampling and embeds gAMA/sRGB/pHYs/tEXt metadata.  Oversized
+    renders delegate to the resumable banded exporter."""
     if not _size_ok(args):
         return 2
     scene = scene_from_args(args)
@@ -373,15 +409,31 @@ def cmd_export_print(args) -> int:
     if max(rw, rh) > 32000:  # ui_manager.cpp:617-618
         print("error: render dimension exceeds 32000 cap", file=sys.stderr)
         return 2
-    if rw * rh > _BANDED_EXPORT_PIXELS and not args.golden:
-        print(f"error: a {rw}x{rh} export renders in bands "
-              "(render_giant_still), which is not ported yet (ROADMAP "
-              "Queue 1 item 8)", file=sys.stderr)
-        return 2
     dev = torch.device("cpu") if args.golden \
         else _device_or_none(args.device)
     if dev is None:
         return 2
+    if rw * rh > _BANDED_EXPORT_PIXELS and not args.golden:
+        from .parallel import render_giant_still
+
+        meta = {
+            "Software": "fractalrenderer_tpu_torch (print export)",
+            "Print Size (inches)":
+                f"{args.width/args.dpi:.2f} x {args.height/args.dpi:.2f}",
+        }
+        ss = bool(args.supersample and args.downsample)
+        w, h = ((args.width, args.height) if ss or not args.supersample
+                else (rw, rh))
+        print(f"{rw}x{rh} render exceeds one-pass size; streaming in "
+              "bands (resumable)")
+        t0 = time.monotonic()
+        render_giant_still(scene, w, h, args.out, bit_depth=16,
+                           dpi=args.dpi, supersample=ss,
+                           extra_metadata=meta, keep_tiles=False,
+                           device=dev)
+        print(f"Exported {w}x{h} 16-bit PNG in "
+              f"{time.monotonic()-t0:.1f}s -> {args.out}")
+        return 0
     t0 = time.monotonic()
     try:
         img = _render(scene, rw, rh, args.golden, dev)
@@ -470,11 +522,6 @@ def cmd_animate(args) -> int:
     from .anim import AnimationRenderer, franim, video
     from .anim.keyframes import Animation, Keyframe
 
-    if args.sharded:
-        print("error: --sharded renders frames across devices "
-              "(render_frames_sharded), which is not ported yet (ROADMAP "
-              "Queue 1 item 8)", file=sys.stderr)
-        return 2
     dev = _device_or_none(args.device)
     if dev is None:
         return 2
@@ -504,7 +551,11 @@ def cmd_animate(args) -> int:
         franim.save(anim, args.save_franim)
         print(f"Saved animation -> {args.save_franim}")
 
-    r = AnimationRenderer(batch_size=args.batch_size, device=dev)
+    # --sharded: frame batches split over every visible device, one frame
+    # group each (render_frames_sharded)
+    r = AnimationRenderer(batch_size=args.batch_size, device=dev,
+                          mesh=_mesh_for(dev, frames=True) if args.sharded
+                          else None)
     last = [-1]
 
     def on_frame(f, total):
@@ -563,6 +614,35 @@ def cmd_encode(args) -> int:
         return 1
     # qtpng corrects the extension to .mov in settings
     print(f"Encoded -> {settings.output_filename}")
+    return 0
+
+
+def cmd_giant(args) -> int:
+    """BASELINE config #5: a progressive, resumable giant still, rendered
+    in row bands and streamed into one PNG (parallel.render_giant_still)."""
+    from .parallel import render_giant_still
+
+    if not _size_ok(args):
+        return 2
+    if args.band_rows < 1:
+        print(f"error: bad --band-rows {args.band_rows}", file=sys.stderr)
+        return 2
+    dev = _device_or_none(args.device)
+    if dev is None:
+        return 2
+    scene = scene_from_args(args)
+
+    def cb(b, total):
+        print(f"\rband {b}/{total}", end="", flush=True)
+
+    info = render_giant_still(
+        scene, args.width, args.height, args.out,
+        band_rows=args.band_rows, tile_dir=args.tile_dir,
+        resume=not args.no_resume, bit_depth=args.bit_depth, dpi=args.dpi,
+        mesh=_mesh_for(dev) if args.mesh else None, use_mesh=args.mesh,
+        supersample=args.supersample, progress_cb=cb, device=dev)
+    print(f"\n{info['rendered']} bands rendered, {info['skipped']} resumed "
+          f"-> {info['out']}")
     return 0
 
 
@@ -687,7 +767,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug", action="store_true",
                    help="print a scene debug summary")
     p.add_argument("--sharded", action="store_true",
-                   help="shard the frame's rows across devices (not ported)")
+                   help="split the frame's rows across the visible devices")
     p.set_defaults(fn=cmd_render)
 
     p = sub.add_parser("export-print",
@@ -741,7 +821,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="skip frames already complete in --out-dir "
                         "(resume an interrupted sequence render)")
     p.add_argument("--sharded", action="store_true",
-                   help="shard frame batches across devices (not ported)")
+                   help="split frame batches across the visible devices")
     p.add_argument("--encode", action="store_true")
     p.add_argument("--video-out", default=None)
     p.add_argument("--codec", default="h264",
@@ -765,6 +845,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--audio", default=None)
     p.add_argument("--cleanup-frames", action="store_true")
     p.set_defaults(fn=cmd_encode)
+
+    p = sub.add_parser("giant", help="progressive/resumable giant still")
+    _add_scene_args(p)
+    p.add_argument("--width", type=int, required=True)
+    p.add_argument("--height", type=int, required=True)
+    p.add_argument("--band-rows", type=int, default=512)
+    p.add_argument("--out", default="giant.png")
+    p.add_argument("--bit-depth", type=int, default=16, choices=(8, 16))
+    p.add_argument("--dpi", type=float, default=300.0)
+    p.add_argument("--tile-dir", default=None)
+    p.add_argument("--no-resume", action="store_true")
+    p.add_argument("--mesh", action="store_true",
+                   help="split each band across all devices")
+    p.add_argument("--supersample", action="store_true",
+                   help="render bands at 2x and box-downsample "
+                        "(banded form of export-print --supersample)")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=cmd_giant)
 
     p = sub.add_parser("sweep", help="batched Julia c-parameter sweep")
     _add_scene_args(p)

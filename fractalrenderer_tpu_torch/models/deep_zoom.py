@@ -23,10 +23,12 @@ Supersampling: scene.samples_per_pixel (1/2/4, fractal_state.h:91) renders
 spp² subpixel samples per pixel, stacked into one K3 launch (power-of-two
 spp, rebasing) and averaged in sample order.
 
-Mesh sharding raises NotImplementedError naming its ROADMAP item.
+``mesh``: a parallel.RenderMesh routes every kernel pass through the
+gather-free row bands of parallel/tiled.py.
 """
 from __future__ import annotations
 
+import functools
 import math
 from fractions import Fraction
 from typing import Tuple
@@ -90,6 +92,11 @@ def render_fields(scene: Scene, width: int, height: int,
     pixel mapping, series bound and HP fallback keep the full geometry).
     ``orbit_cache``: optional dict keyed by exact HP center values and the
     recurrence; reuses reference orbits across calls.
+    ``mesh``: a parallel.RenderMesh with a 'rows' axis routes every kernel
+    pass through the gather-free row bands (parallel/tiled.py) on the
+    mesh's devices instead of ``device``; with ``keep_device`` the planes
+    stay on the device where every band sits on one, else they are joined
+    on the host.
     ``ref_center``: optional (cx, cy) decimal strings — compute/reuse the
     reference orbit at THIS point and render via the shift mechanism
     (c = ref + pixel-delta + (center - ref)).
@@ -115,9 +122,6 @@ def render_fields(scene: Scene, width: int, height: int,
         if mesh is not None:
             raise ValueError("exact_dust does not compose with mesh "
                              "sharding yet (host fallback is per-pixel)")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh sharding is not ported yet (ROADMAP Queue 1 item 8)")
     if aa_spp > 1 and not (rebasing and tuple(offset) == (0.0, 0.0)):
         raise ValueError("aa_spp needs the rebasing pipeline and the "
                          "default offset")
@@ -134,6 +138,13 @@ def render_fields(scene: Scene, width: int, height: int,
         band_kw = {"row0": float(row_off), "map_height": height}
     else:
         band_h = height
+    if mesh is not None:
+        from ..parallel.tiled import perturbation_fields_sharded
+
+        field_fn = functools.partial(perturbation_fields_sharded, mesh=mesh,
+                                     keep_device=keep_device)
+    else:
+        field_fn = functools.partial(perturbation_fields, device=device)
     cx, cy, zoom = _scene_coords(scene)
     zoom_fr = Fraction(str(zoom))
     zoom_f = float(zoom_fr)
@@ -244,7 +255,7 @@ def render_fields(scene: Scene, width: int, height: int,
             dc_max = zoom_f * 4.0 / height * corner
             series = compute_series_skip(orbit, dc_max)
 
-    f = perturbation_fields(
+    f = field_fn(
         orbit, width, band_h, center_x_dd=center_x_dd,
         center_y_dd=center_y_dd, zoom_dd=zoom_dd, max_iter=max_iter,
         bailout=scene.bailout, glitch_tol=glitch_tol, offset=offset,
@@ -255,7 +266,7 @@ def render_fields(scene: Scene, width: int, height: int,
         julia_z0=((float(Fraction(str(orbit_center[0]))),
                    float(Fraction(str(orbit_center[1])))) if julia else None),
         orbit_exp=orbit_exp, aa_spp=aa_spp, track_err=exact_dust,
-        device=device, **band_kw, **shift_kw)
+        **band_kw, **shift_kw)
     # rebasing: lanes still wanting a round after max_passes (a
     # pathological short-orbit case); legacy: the Pauldelbrot and starved
     # flags
@@ -331,7 +342,7 @@ def render_fields(scene: Scene, width: int, height: int,
         # the delta against the new reference needs shift = center - ref
         sx_str = (cx_hp - ref_cx).to_string(digs)
         sy_str = (cy_hp - ref_cy).to_string(digs)
-        f2 = perturbation_fields(
+        f2 = field_fn(
             orbit2, width, band_h,
             center_x_dd=dd_from_string(ref_cx.to_string(40)),
             center_y_dd=dd_from_string(ref_cy.to_string(40)),
@@ -341,7 +352,7 @@ def render_fields(scene: Scene, width: int, height: int,
             float_continuation=float_cont, dd_delta=dd_delta,
             scaled_delta=scaled, zoom_frac=str(zoom),
             ref_shift_x_frac=sx_str, ref_shift_y_frac=sy_str, rebase=False,
-            device=device, **band_kw)
+            **band_kw)
         fix = glitch & ~(f2["glitch"] > 0.5).cpu().numpy()
         n[fix] = f2["n"].cpu().numpy()[fix]
         zx[fix] = f2["zx"].cpu().numpy()[fix]

@@ -155,3 +155,24 @@ def render(scene: Scene, width: int, height: int, device="cuda",
     img = band_render_fn(scene, width, height, height,
                          device=device)(dyn_params(scene), 0)
     return quantize_image(img, bit_depth=quantize) if quantize else img
+
+
+def render_sharded(scene: Scene, width: int, height: int,
+                   mesh=None) -> torch.Tensor:
+    """Row-band bulb render (gather-free, the decomposition of the 2D
+    families in parallel/tiled.py): each device raymarches and shades its
+    own contiguous band, every band dispatched before the first fetch, and
+    the bands are joined on the host as an f32 (H, W, 3) tensor.  K4a's
+    cone blocks are aligned to the image, not to the band, so every band
+    equals the same rows of the whole frame."""
+    from ..parallel.mesh import make_render_mesh, row_bands
+    from ..utils.diag import validate_scene
+
+    scene = validate_scene(scene)  # parity with models.render dispatch
+    if mesh is None:
+        mesh = make_render_mesh()
+    devs = mesh.devices[0]
+    dyn = dyn_params(scene)
+    bands = [band_render_fn(scene, width, rows, height, device=dev)(dyn, row0)
+             for dev, (row0, rows) in zip(devs, row_bands(height, len(devs)))]
+    return torch.cat([b.cpu() for b in bands])

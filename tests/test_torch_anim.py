@@ -541,9 +541,28 @@ def test_animation_renderer_needs_two_keyframes(tmp_path):
     assert errs and "2 keyframes" in errs[0]
 
 
-def test_animation_renderer_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        AnimationRenderer(mesh=object())
+def test_animation_renderer_takes_a_mesh(tmp_path):
+    # AnimationRenderer(mesh=...): 5 frames in chunks of 2 over 2 frame
+    # groups of 2 rows (the last chunk padded to the batch size), 16-bit,
+    # each PNG the unsharded renderer's
+    from fractalrenderer_tpu_torch.parallel import make_render_mesh
+
+    a = Animation(duration=5.0, target_fps=1, export_width=40,
+                  export_height=18)
+    a.keyframes.append(Keyframe(0.0, Scene(max_iterations=24, zoom=2.5)))
+    a.keyframes.append(Keyframe(5.0, Scene(max_iterations=40, zoom=0.6,
+                                           center_x=-0.7)))
+    mesh = make_render_mesh(devices=[torch.device("cpu")] * 4, frames=2)
+    r = AnimationRenderer(batch_size=2, device="cpu", mesh=mesh)
+    assert r.mesh is mesh
+    assert r.start_render(a, str(tmp_path / "m"), bit_depth=16)
+    assert AnimationRenderer(batch_size=2, device="cpu").start_render(
+        a, str(tmp_path / "s"), bit_depth=16)
+    mine, ref = _read_frames(tmp_path / "m"), _read_frames(tmp_path / "s")
+    assert list(mine) == list(ref) and len(mine) == 5
+    for name in mine:
+        assert mine[name].dtype == np.uint16
+        np.testing.assert_array_equal(mine[name], ref[name])
 
 
 def test_palette_switch_splits_groups(tmp_path):
@@ -1085,12 +1104,19 @@ def test_animate_bad_franim_exits_2(tmp_path, capsys):
     assert rc == 2 and "cannot load" in capsys.readouterr().err
 
 
-def test_animate_sharded_exits_2_naming_item_8(tmp_path, capsys):
-    rc = cli.main(["animate", "--sharded", "--out-dir",
-                   str(tmp_path / "x")])
-    assert rc == 2
-    assert "ROADMAP Queue 1 item 8" in capsys.readouterr().err
-    assert not (tmp_path / "x").exists()
+def test_animate_sharded_matches_animate(tmp_path):
+    # --sharded splits the frame batches over the visible devices (the one
+    # CPU with --device cpu): the same files as without it
+    argv = ["animate", "--device", "cpu", "--zoom-to", "0.2", "--duration",
+            "3", "--fps", "1", "--width", "32", "--height", "20", "--iters",
+            "32", "--batch-size", "2"]
+    assert cli.main([*argv, "--out-dir", str(tmp_path / "s")]) == 0
+    assert cli.main([*argv, "--sharded", "--out-dir",
+                     str(tmp_path / "m")]) == 0
+    mine, ref = _read_frames(tmp_path / "m"), _read_frames(tmp_path / "s")
+    assert list(mine) == list(ref) and len(mine) == 3
+    for name in mine:
+        np.testing.assert_array_equal(mine[name], ref[name])
 
 
 def test_animate_refuses_cuda_without_cuda(tmp_path, capsys, monkeypatch):

@@ -1,7 +1,7 @@
 """The port's bench entry points (fractalrenderer_tpu_torch/bench_all.py and
 bench.py) on the CPU device, at small frames with the iterations cut: each
 ported config's row carries the JAX rows' keys (bench_all.py at the
-repository root), the unported ones name their ROADMAP item, a failing
+repository root), the unported one names its ROADMAP item, a failing
 config is recorded and fails the exit code, and neither module loads JAX.
 The numbers are CPU numbers; the card's come from chip_smoke.py."""
 import json
@@ -33,6 +33,9 @@ JAX_KEYS = {
         "spp2_vs_spp1_ratio", "references_used", "glitched_pixels_initial",
         "glitched_pixels_remaining", "device_s_series_off",
         "device_s_series_on"},
+    5: {"config", "seconds", "mpix_s_end_to_end", "device_band_seconds_mean",
+        "device_band_seconds_spread", "device_render_mpix_s",
+        "fetch_blocked_seconds", "bytes_over_link", "png_bytes"},
     6: {"config", "seconds", "mpix_s", "timing_method"},
     7: {"config", "seconds", "precision_mode", "rebase_passes",
         "glitched_pixels_remaining"},
@@ -42,6 +45,7 @@ SMALL = {
     2: dict(width=32, height=18, iters=32, batches=1),
     3: dict(width=32, height=18, frames=6),
     4: dict(width=24, height=16, iters=200),
+    5: dict(width=64, height=48, band_rows=16),
     6: dict(width=12, height=8, iters=8),
     7: dict(width=24, height=16, iters=100),
 }
@@ -195,19 +199,53 @@ def test_main_prints_unported_rows_and_writes_only_out(tmp_path, capsys,
                                                        monkeypatch):
     monkeypatch.chdir(tmp_path)
     out = tmp_path / "rows.json"
-    rc = bench_all.main(["--device", "cpu", "--skip", "0,1,2,3,4,6,7",
+    rc = bench_all.main(["--device", "cpu", "--skip", "0,1,2,3,4,5,6,7",
                          "--out", str(out)])
     assert rc == 0
     lines = [json.loads(ln) for ln in
              capsys.readouterr().out.strip().splitlines()]
-    assert bench_all.NOT_PORTED == {5: 8, 8: 9}
-    assert lines[:2] == [
-        {"config5": {"not_ported": "ROADMAP Queue 1 item 8"}},
+    assert bench_all.NOT_PORTED == {8: 9}
+    assert lines[:1] == [
         {"config8": {"not_ported": "ROADMAP Queue 1 item 9"}}]
-    assert "skipped" in lines[2]["link_probe"]
+    assert "skipped" in lines[1]["link_probe"]
     saved = json.loads(out.read_text())
-    assert saved["card"] == "cpu" and saved["config5"] == lines[0]["config5"]
+    assert saved["card"] == "cpu" and saved["config8"] == lines[0]["config8"]
     assert sorted(os.listdir(tmp_path)) == ["rows.json"]
+
+
+def test_config5_giant_is_the_whole_render(tmp_path):
+    # the giant still the config streams equals the monolithic render of
+    # its scene (16-bit, flipped at export); the device seconds of three
+    # bands, the worker and fetch seconds and the sizes are reported
+    from fractalrenderer_tpu_torch import Scene, models
+    from fractalrenderer_tpu_torch.models import common
+    from fractalrenderer_tpu_torch.utils.png import read_png
+
+    out = str(tmp_path / "g.png")
+    row = bench_all.bench_giant(64, 48, 16, device="cpu", out_path=out)
+    assert row["config"] == "giant_64x48_16bit" and row["bands"] == 3
+    assert len(row["device_band_seconds_spread"]) == 3
+    assert row["bytes_over_link"] == 64 * 48 * 6
+    assert row["png_bytes"] == os.path.getsize(out)
+    assert "link_probe_mb_s" not in row  # no link on the CPU
+    want = common.quantize_image(models.render(Scene(max_iterations=256), 64,
+                                               48, device="cpu"),
+                                 bit_depth=16).numpy()[::-1]
+    assert (read_png(out) == want).all()
+
+
+def test_quick_runs_config5_at_4096(monkeypatch, capsys):
+    seen = {}
+
+    def fake(device, **kw):
+        seen.update(kw)
+        return {"config": "giant"}
+
+    monkeypatch.setitem(bench_all.CONFIGS, 5, fake)
+    rc = bench_all.main(["--device", "cpu", "--quick", "--skip",
+                         "0,1,2,3,4,6,7"])
+    assert rc == 0 and seen == {"width": 4096, "height": 4096}
+    capsys.readouterr()
 
 
 def test_main_records_a_failing_config_and_exits_1(capsys, monkeypatch):

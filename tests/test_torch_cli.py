@@ -68,24 +68,34 @@ def test_render_scene_file_written_by_jax(tmp_path, capsys):
 
 UNPORTED = [
     ["--type", "deep-zoom", "--spp", "2", "--exact-dust"],
-    ["--type", "deep-zoom", "--deep-ship", "--sharded"],
-    ["--sharded"], ["--exact-dust"], ["--width", "0"],
+    # the JAX CLI's own refusals: --sharded with --golden or dd, and the
+    # deep-zoom model's exact-dust + mesh guard
+    ["--type", "deep-zoom", "--deep-ship", "--exact-dust", "--sharded"],
+    ["--sharded", "--golden"], ["--exact-dust"], ["--width", "0"],
     # the JAX CLI's own refusal: dd is the Mandelbrot kernel
     ["--precision", "dd", "--type", "julia"],
+    ["--sharded", "--precision", "dd"],
 ]
 
-# deep-zoom options the port refuses → what its message names: the ROADMAP
-# item of the unported --sharded, or (the JAX CLI's own guard) the Burning
-# Ship tier that --exact-dust belongs to.  The families, --spp and
-# --deep-ship --exact-dust render (test_torch_deepzoom_aa.py,
-# test_torch_exact_dust.py).
+# deep-zoom options the port refuses → what its message names: (the JAX
+# CLI's own guard) the Burning Ship tier that --exact-dust belongs to.  The
+# families, --spp and --deep-ship --exact-dust render
+# (test_torch_deepzoom_aa.py, test_torch_exact_dust.py), and so does
+# --sharded (DEEP_ZOOM_SHARDED below).
 DEEP_ZOOM_UNPORTED = [
     (["--deep-julia", "--exact-dust"], "Burning Ship dust tier"),
-    (["--deep-julia", "--sharded"], "ROADMAP Queue 1 item 8"),
-    (["--deep-phoenix", "--sharded"], "ROADMAP Queue 1 item 8"),
     (["--spp", "2", "--exact-dust"], "Burning Ship dust tier"),
-    (["--spp", "4", "--sharded"], "ROADMAP Queue 1 item 8"),
     (["--exact-dust"], "Burning Ship dust tier"),
+]
+
+# deep-zoom --sharded renders: the family or stacked spp over row bands
+DEEP_ZOOM_SHARDED = [
+    ["--deep-julia", "--julia-cr", "-0.7", "--julia-ci", "0.27015",
+     "--hp-center-x", "-0.2", "--hp-center-y", "0.65"],
+    ["--deep-phoenix", "--hp-center-x", "-0.1465", "--hp-center-y",
+     "0.2115"],
+    ["--spp", "4", "--hp-center-x", "-0.743643887037151", "--hp-center-y",
+     "0.13182590420533"],
 ]
 
 # every family option of the render verb, alone and combined
@@ -172,6 +182,21 @@ def test_deep_zoom_unported_options_name_their_item(tmp_path, capsys, extra,
     assert not out.exists()
 
 
+@pytest.mark.parametrize("extra", DEEP_ZOOM_SHARDED,
+                         ids=["deep-julia", "deep-phoenix", "spp 4"])
+def test_deep_zoom_sharded_renders_the_same_png(tmp_path, capsys, extra):
+    # --sharded: the frame's rows over the CPU grid of --device cpu, one
+    # reference orbit; the PNG is the unsharded render's
+    argv = ["render", "--device", "cpu", "--type", "deep-zoom", "--width",
+            "16", "--height", "10", "--hp-zoom", "1e-9", "--iters", "200",
+            *extra]
+    a, b = str(tmp_path / "a.png"), str(tmp_path / "b.png")
+    assert cli.main([*argv, "--out", a]) == 0
+    assert cli.main([*argv, "--sharded", "--out", b]) == 0
+    assert "0 HP-fallback, 0 remaining" in capsys.readouterr().out
+    np.testing.assert_array_equal(read_png(a), read_png(b))
+
+
 DEEP_ZOOM_VIEW = ["--type", "deep-zoom", "--hp-center-x",
                   "0.245670923653024", "--hp-center-y", "0.580340963154017",
                   "--hp-zoom", "1e-9", "--iters", "400"]
@@ -201,6 +226,25 @@ def test_deep_zoom_renders_png(tmp_path, capsys, extra):
     assert ref.dtype == img.dtype
     np.testing.assert_array_equal(img, ref)
     assert 0 < img.mean() < (255 if bit_depth == 8 else 65535)
+
+
+@pytest.mark.parametrize("extra", [["--type", "mandelbulb", "--iters", "12"],
+                                   ["--type", "burning-ship", "--aa", "2",
+                                    "--orbit-trap"]],
+                         ids=["mandelbulb", "burning-ship aa 2 trap"])
+def test_sharded_render_equals_render(tmp_path, extra):
+    # --sharded over the CPU grid of --device cpu: the unsharded PNG
+    argv = ["render", "--device", "cpu", "--width", "24", "--height", "18",
+            *extra]
+    a, b = str(tmp_path / "a.png"), str(tmp_path / "b.png")
+    assert cli.main([*argv, "--out", a]) == 0
+    assert cli.main([*argv, "--sharded", "--out", b]) == 0
+    np.testing.assert_array_equal(read_png(a), read_png(b))
+
+
+def test_unported_verbs_are_the_live_session():
+    assert cli._UNPORTED_VERBS == {"interactive": 9}
+    assert not hasattr(cli, "_UNPORTED_RENDER_FLAGS")
 
 
 @pytest.mark.parametrize("verb", sorted(cli._UNPORTED_VERBS))

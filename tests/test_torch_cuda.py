@@ -903,3 +903,120 @@ def test_c_sweep_is_one_launch_per_c(dev):
         ref = models.render(s.with_(julia_c_real=cr, julia_c_imag=ci), 160,
                             90, device=dev)
         assert torch.equal(out[i], ref), i
+
+
+# ---------------------------------------------------------------------------
+# Row bands and giant stills (parallel/) over grids that repeat the card
+# ---------------------------------------------------------------------------
+
+def _card_mesh(dev, n):
+    from fractalrenderer_tpu_torch.parallel import make_render_mesh
+
+    return make_render_mesh(devices=[dev] * n)
+
+
+@pytest.mark.parametrize("n", [4, 7])
+@pytest.mark.parametrize("kind", ["2d", "bulb", "deep"])
+def test_sharded_1080p_equals_whole_frame(dev, kind, n):
+    # 4 bands of 270 rows, or 7 of 155 with the last clamped to 150
+    from fractalrenderer_tpu_torch import FractalType, Scene, models
+    from fractalrenderer_tpu_torch.models import deep_zoom, mandelbulb
+    from fractalrenderer_tpu_torch.parallel import render_sharded
+
+    mesh = _card_mesh(dev, n)
+    if kind == "2d":
+        s = Scene(antialiasing_samples=2, orbit_trap_enabled=True)
+        got = render_sharded(s, 1920, 1080, mesh=mesh)
+        want = models.render(s, 1920, 1080, device=dev)
+    elif kind == "bulb":
+        s = Scene(fractal_type=FractalType.MANDELBULB, time=1.0)
+        got = mandelbulb.render_sharded(s, 1920, 1080, mesh=mesh)
+        want = mandelbulb.render(s, 1920, 1080, device=dev)
+    else:
+        s = Scene(fractal_type=FractalType.DEEP_ZOOM, use_perturbation=True,
+                  hp_center_x="-0.743643887037151",
+                  hp_center_y="0.13182590420533", hp_zoom="1e-9",
+                  max_iterations=1500, samples_per_pixel=2)
+        got = deep_zoom.render(s, 1920, 1080, mesh=mesh, device=dev)
+        want = deep_zoom.render(s, 1920, 1080, device=dev)
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+def test_giant_2048_equals_the_whole_render(dev, tmp_path):
+    from fractalrenderer_tpu_torch import Scene, models
+    from fractalrenderer_tpu_torch.models import common
+    from fractalrenderer_tpu_torch.parallel import render_giant_still
+    from fractalrenderer_tpu_torch.utils.png import read_png
+
+    s = Scene(max_iterations=512, center_x=-0.745, center_y=0.11,
+              zoom=0.05)
+    out = str(tmp_path / "g.png")
+    before = escape.escape_fields_cuda.launches
+    info = render_giant_still(s, 2048, 2048, out, band_rows=300,
+                              device=dev)
+    assert escape.escape_fields_cuda.launches - before == 7
+    assert info["rendered"] == 7 and info["fetch_seconds"] >= 0
+    want = common.quantize_image(models.render(s, 2048, 2048, device=dev),
+                                 bit_depth=16).flip(0).cpu().numpy()
+    got = read_png(out)
+    assert (got == want).all()
+    # the 2x supersampled giant over a 3-band grid of the card
+    out2 = str(tmp_path / "ss.png")
+    render_giant_still(s, 1024, 1024, out2, band_rows=200, device=dev,
+                       supersample=True, use_mesh=True,
+                       mesh=_card_mesh(dev, 3))
+    from fractalrenderer_tpu_torch.utils.image import downsample2x
+
+    want2 = common.quantize_image(downsample2x(models.render(
+        s, 2048, 2048, device=dev)), bit_depth=16).flip(0).cpu().numpy()
+    assert (read_png(out2) == want2).all()
+
+
+def test_every_wrapper_clamps_the_last_band(dev):
+    # 1080 rows in 7 bands (155 rows, the last 150) through each kernel's
+    # wrapper at its global row0: the rows of the whole frame
+    from fractalrenderer_tpu_torch.ops import perturbation
+    from fractalrenderer_tpu_torch.parallel.mesh import row_bands
+
+    W, H = 640, 1080
+    bands = row_bands(H, 7)
+    assert bands[-1] == (930, 150)
+    kw = dict(center_x=-0.5, center_y=0.0, zoom=3.0, max_iter=256,
+              interior_skip=True, device=dev)
+    whole = escape.escape_fields("mandelbrot", W, H, **kw)["n"]
+    got = torch.cat([escape.escape_fields("mandelbrot", W, rows, row0=r0,
+                                          map_height=H, **kw)["n"]
+                     for r0, rows in bands])
+    assert torch.equal(got, whole)
+    dkw = dict(center_x_dd=dd.dd_from_string("-0.743643887037151"),
+               center_y_dd=dd.dd_from_string("0.13182590420533"),
+               zoom_dd=dd.dd_from_string("1e-9"), max_iter=800, device=dev)
+    whole = dd_escape.dd_escape_fields(W, H, **dkw)
+    parts = [dd_escape.dd_escape_fields(W, rows, row0=r0, map_height=H,
+                                        **dkw) for r0, rows in bands]
+    for k in ("n", "zx", "zy"):
+        assert torch.equal(torch.cat([p[k] for p in parts]), whole[k]), k
+    from fractalrenderer_tpu_torch.deepzoom import orbit as om
+
+    cx, cy = "-0.743643887037151", "0.13182590420533"
+    orb = om.compute_orbit(cx, cy, 64, 1001)
+    pkw = dict(center_x_dd=dd.dd_from_string(cx),
+               center_y_dd=dd.dd_from_string(cy),
+               zoom_dd=dd.dd_from_string("1e-9"), max_iter=1000,
+               rebase=True, float_continuation=False, dd_delta=True,
+               device=dev)
+    whole = perturbation.perturbation_fields(orb, W, H, **pkw)
+    parts = [perturbation.perturbation_fields(orb, W, rows, row0=r0,
+                                              map_height=H, **pkw)
+             for r0, rows in bands]
+    for k in ("n", "zx", "zy", "want"):
+        assert torch.equal(torch.cat([p[k] for p in parts]), whole[k]), k
+    from fractalrenderer_tpu_torch import FractalType, Scene
+    from fractalrenderer_tpu_torch.models import mandelbulb
+
+    s = Scene(fractal_type=FractalType.MANDELBULB)
+    fn_dyn = mandelbulb.dyn_params(s)
+    whole = mandelbulb.band_render_fn(s, W, H, H, device=dev)(fn_dyn, 0)
+    got = torch.cat([mandelbulb.band_render_fn(s, W, rows, H, device=dev)(
+        fn_dyn, r0) for r0, rows in bands])
+    assert torch.equal(got, whole)

@@ -219,13 +219,14 @@ def test_unported_options_raise_before_any_orbit():
     deep_zoom.orbit_mod.compute_orbit = lambda *a, **k: calls.append(1)
     try:
         for kw, extra, exc, match in [
-                # the families, spp, exact dust and the legacy pipeline
-                # render (test_torch_pert_families.py,
+                # the families, spp, exact dust, the legacy pipeline and
+                # mesh sharding render (test_torch_pert_families.py,
                 # test_torch_deepzoom_aa.py, test_torch_exact_dust.py,
-                # test_torch_pert_single.py); mesh sharding is unported and
-                # the rest are the JAX model's own guards
-                (dict(deep_zoom_julia=True), dict(mesh=object()),
-                 NotImplementedError, "ROADMAP Queue 1 item 8"),
+                # test_torch_pert_single.py, test_torch_parallel_deep.py);
+                # these are the JAX model's own guards
+                (dict(deep_zoom_ship=True),
+                 dict(exact_dust=True, mesh=object()), ValueError,
+                 "does not compose with mesh"),
                 (dict(deep_zoom_phoenix=True), dict(rebasing=False),
                  ValueError, "phoenix requires the rebasing"),
                 (dict(samples_per_pixel=4), dict(exact_dust=True),
@@ -241,3 +242,17 @@ def test_unported_options_raise_before_any_orbit():
     finally:
         deep_zoom.orbit_mod.compute_orbit = orig
     assert not calls
+
+
+def test_render_takes_a_mesh():
+    # mesh=: every kernel pass over the grid's row bands (3 CPU devices,
+    # 12 rows in bands of 4), one reference orbit; the same image
+    from fractalrenderer_tpu_torch.parallel import make_render_mesh
+
+    s = _scene(SEAHORSE, "1e-9", 300)
+    mesh = make_render_mesh(devices=[torch.device("cpu")] * 3)
+    img, info = deep_zoom.render(s, 16, 12, device="cpu", mesh=mesh,
+                                 return_info=True, quantize=16)
+    assert info["references_used"] == 1 and info["fields_on_device"]
+    assert torch.equal(img, deep_zoom.render(s, 16, 12, device="cpu",
+                                             quantize=16))

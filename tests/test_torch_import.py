@@ -42,6 +42,9 @@ import fractalrenderer_tpu_torch.ops.dd_escape
 import fractalrenderer_tpu_torch.ops.escape
 import fractalrenderer_tpu_torch.ops.perturbation
 import fractalrenderer_tpu_torch.ops.trig
+import fractalrenderer_tpu_torch.parallel
+import fractalrenderer_tpu_torch.parallel.mesh
+import fractalrenderer_tpu_torch.parallel.tiled
 import fractalrenderer_tpu_torch.reference.golden
 import fractalrenderer_tpu_torch.utils.native_build
 import fractalrenderer_tpu_torch.utils.png
@@ -132,6 +135,31 @@ def test_batch_paths_on_cuda_never_fall_back(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         AnimationRenderer().start_render(a, str(tmp_path / "f"))
     assert not os.listdir(tmp_path / "f")
+    assert escape.escape_fields_cuda.launches == before
+
+
+def test_band_paths_on_cuda_never_fall_back(monkeypatch, tmp_path):
+    # the row-band renders and the giant still raise on a CUDA device
+    # without CUDA, before any launch or file
+    from fractalrenderer_tpu_torch.models import mandelbulb
+    from fractalrenderer_tpu_torch.parallel import (make_render_mesh,
+                                                    render_giant_still,
+                                                    render_sharded)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = escape.escape_fields_cuda.launches
+    scene = frt.Scene(max_iterations=16)
+    mesh = make_render_mesh(devices=["cuda:0"] * 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        render_sharded(scene, 8, 8, mesh=mesh)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mandelbulb.render_sharded(
+            frt.Scene(fractal_type=frt.FractalType.MANDELBULB), 8, 8,
+            mesh=mesh)
+    out = tmp_path / "g.png"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        render_giant_still(scene, 8, 8, str(out), band_rows=4)
+    assert not os.listdir(tmp_path)
     assert escape.escape_fields_cuda.launches == before
 
 

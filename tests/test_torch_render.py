@@ -7,8 +7,6 @@ agree within atol 1e-5; against the JAX ``fr.render`` (interpret mode, not
 count-exact on CPU) the bad-pixel fraction bound of test_golden_vs_kernel.py
 applies (|diff| > 2e-2 on < 1% of pixels).
 """
-import re
-
 import numpy as np
 import pytest
 import torch
@@ -105,20 +103,30 @@ def test_oversized_iter_limit_colors_interior_consistently():
 @pytest.mark.parametrize("kw,extra,exc,match", [
     # the deep zoom renders every family, spp, exact dust and the legacy
     # pipeline (test_torch_pert_families, test_torch_deepzoom_aa,
-    # test_torch_exact_dust, test_torch_pert_single); the JAX model's own
-    # guards refuse them outside their domain, and mesh sharding names its
-    # item
+    # test_torch_exact_dust, test_torch_pert_single) and takes a mesh
+    # (below); the JAX model's own guards refuse them outside their domain
     (dict(fractal_type=frt.FractalType.DEEP_ZOOM),
      dict(exact_dust=True), ValueError, "Burning Ship dust tier"),
     (dict(fractal_type=frt.FractalType.DEEP_ZOOM, deep_zoom_phoenix=True),
      dict(rebasing=False), ValueError, "requires the rebasing pipeline"),
-    (dict(fractal_type=frt.FractalType.DEEP_ZOOM, samples_per_pixel=2),
-     dict(mesh=object()), NotImplementedError,
-     re.escape("ROADMAP Queue 1 item 8")),
 ])
 def test_unported_scenes_raise(kw, extra, exc, match):
     with pytest.raises(exc, match=match):
         frt.render(frt.Scene(**kw), 16, 8, device="cpu", **extra)
+
+
+def test_deep_zoom_spp_renders_over_a_mesh():
+    # models.render passes mesh= to the deep zoom: the stacked spp-2
+    # samples of each band of a 2-device CPU grid, the unsharded image
+    from fractalrenderer_tpu_torch.parallel import make_render_mesh
+
+    s = frt.Scene(fractal_type=frt.FractalType.DEEP_ZOOM,
+                  samples_per_pixel=2, max_iterations=200,
+                  hp_center_x="-0.743643887037151",
+                  hp_center_y="0.13182590420533", hp_zoom="1e-8")
+    mesh = make_render_mesh(devices=[torch.device("cpu")] * 2)
+    img = frt.render(s, 16, 8, device="cpu", mesh=mesh)
+    assert torch.equal(img, frt.render(s, 16, 8, device="cpu"))
 
 
 FT = fr.FractalType

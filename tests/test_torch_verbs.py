@@ -76,22 +76,33 @@ def test_downsample2x_equals_the_jax_helper():
     np.testing.assert_array_equal(got.numpy(), jax_ds(img))
 
 
-def test_export_print_above_the_one_pass_size_names_item_8(tmp_path,
+def test_export_print_above_the_one_pass_size_streams_bands(tmp_path,
                                                            capsys,
                                                            monkeypatch):
-    def no_render(*a, **kw):
-        raise AssertionError("rendered")
+    # above the one-pass size export-print streams through the banded
+    # giant still (models.render never holds the whole image) and writes
+    # the one-pass pixels; its resume tiles go once the PNG is written
+    def one_pass(*a, **kw):
+        raise AssertionError("rendered in one pass")
 
-    monkeypatch.setattr(models, "render", no_render)
-    out = tmp_path / "big.png"
-    rc = cli.main(["export-print", "--device", "cpu", "--width", "8200",
-                   "--height", "8200", "--supersample", "--downsample",
-                   "--out", str(out)])
-    assert rc == 2
-    err = capsys.readouterr().err.strip()
-    assert "\n" not in err and "ROADMAP Queue 1 item 8" in err
-    assert "16400x16400" in err
-    assert not out.exists()
+    argv = ["export-print", "--device", "cpu", "--width", "40", "--height",
+            "30", "--iters", "40", "--supersample", "--dpi", "150"]
+    ref = str(tmp_path / "ref.png")
+    assert cli.main([*argv, "--out", ref]) == 0
+    monkeypatch.setattr(cli, "_BANDED_EXPORT_PIXELS", 1000)
+    monkeypatch.setattr(models, "render", one_pass)
+    out = str(tmp_path / "big.png")
+    capsys.readouterr()
+    assert cli.main([*argv, "--out", out]) == 0
+    said = capsys.readouterr().out
+    assert "80x60 render exceeds one-pass size" in said
+    assert "Exported 80x60 16-bit PNG" in said
+    img = read_png(out)
+    assert img.dtype == np.uint16 and img.shape == (60, 80, 3)
+    np.testing.assert_array_equal(img, read_png(ref))
+    raw = open(out, "rb").read()
+    assert b"Print Size (inches)" in raw and b"pHYs" in raw
+    assert not os.path.exists(out + ".tiles")
 
 
 @pytest.mark.parametrize("extra", [
