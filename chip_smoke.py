@@ -56,7 +56,15 @@ utils/png.read_png and held row for row against the whole render on the
 card), a resume at 4096x4096 (3 tiles deleted, then one corrupted), the
 banded ``export-print --supersample --downsample`` at 8192x8192 (equal to
 downsample2x of the monolithic 2x render) and deep-zoom and bulb giants at
-1080p in 256-row bands, each bit-equal to its whole frame.  It times kernel
+1080p in 256-row bands, each bit-equal to its whole frame; then the live
+phase (live.py's LiveSession in this process, a forced-sixel pixel session
+at the reference's 1700x900 window, driven by a scripted event stream: a
+held ``e`` through the iteration ladder's rungs 256-2048, the ``z``
+Seahorse preset and ``+``, Tab to the bulb and ``o`` with a tick; each
+frame popped by its CUDA event, fetched and composed to sixel; its
+launches per frame and each frame bit-equal to the plain versions, the
+deep and bulb frames on their middle 64 rows; each rung's first render
+against a warm one at scales 1 and 2).  It times kernel
 against plain version (K1 and K2, K3, K4a and K4b by the profiler's
 kernel records; the CUDA-event time of queued wrapper calls (K1, K2) or
 of one wrapper call (K3, K4) printed beside them as "call ms"; K4a also by
@@ -85,9 +93,11 @@ Before those phases: the diagnostics (the parameter-layout selfcheck
 against the CUDA sources; the profiler's device lane of the frames the
 bench times, each against the CUDA-event times of its kernels' launches
 in the same run; the link probe), the bench path (bench_all's configs 0,
-1, 2, 4, 6 and 7, which launch K6 and K5 -- config 1 measures the FP32
+1, 2, 4, 6, 7 and 8, which launch K6 and K5 -- config 1 measures the FP32
 rate once, with measure_vpu_peak, and it must exceed half the data sheet's
-67 TFLOP/s -- with their launch counts reset before and read after, and
+67 TFLOP/s; config 8 runs ``cli interactive --live`` twice on a pty for
+the keypress-to-frame latency -- with their launch counts reset before and
+read after, and
 ``python -m fractalrenderer_tpu_torch.bench``), and ``cli info`` and ``cli
 presets``.
 Each phase prints one line; any failure raises, so the exit code is
@@ -618,6 +628,188 @@ def bands_phase(dev, kernels, verb, reset_counts, counts,
                   f"{GIANT_1080_BAND}: {n_1080} bands, {n_1080} launches of "
                   f"{' and '.join(inst)}, equal to the whole frame; "
                   f"{wall:.2f} s wall", flush=True)
+
+
+# the live phase: the reference's 1700x900 window as a sixel session (the
+# window report's height over LINES rows leaves 900 pixel rows above the
+# status line), the held-e autorepeat interval, the plain band's rows
+LIVE_WINDOW = (1700, 920)
+LIVE_TERM = ("200", "46")
+LIVE_SIZE = (1700, 900)
+LIVE_DT = 0.05
+LIVE_BAND = 64
+
+
+def live_phase(dev, kernels, plain_kernels, reset_counts, counts) -> None:
+    """The live session (live.py) in-process on ``dev``, driven by a
+    scripted event stream in a forced-sixel pixel session at 1700x900: a
+    held ``e`` on the default Mandelbrot through the iteration ladder's
+    rungs 256 -> 2048, the ``z`` Seahorse preset and ``+``, then ``r`` and
+    Tab to the bulb and ``o`` with a tick.  Each frame is dispatched,
+    popped by its CUDA event (live.pop_ready), fetched and composed to a
+    sixel escape, as the session's loop does; the launch counts are reset
+    before the drive and read after it, per frame and in all.  Afterwards
+    every frame is held bit-equal to the same scene through the plain
+    versions (the 2D frames whole; the deep and bulb frames on the
+    frame's middle 64 rows), and each rung is rendered again at scales 1
+    and 2 to set its first render's time against a warm one."""
+    from collections import deque
+
+    import torch
+
+    from fractalrenderer_tpu_torch import Scene, gfx, live
+    from fractalrenderer_tpu_torch.models import deep_zoom, mandelbulb
+
+    saved_env = {k: os.environ.get(k) for k in ("COLUMNS", "LINES")}
+    os.environ["COLUMNS"], os.environ["LINES"] = LIVE_TERM
+    try:
+        sess = live.LiveSession(Scene().with_(zoom=2.5), device=dev)
+        sess.enable_gfx(gfx.GfxInfo("sixel", LIVE_WINDOW))
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    assert (sess.width, sess.height) == LIVE_SIZE, (sess.width, sess.height)
+    sixel_head = '"1;1;{};{}'.format(*LIVE_SIZE)
+    wrappers = list(counts())
+    frames = []  # (path, scene, scale, host frame, launches, ms)
+
+    def ready_ms(scene=None, scale=None):
+        """Dispatch (the session's frame, or ``scene`` at ``scale``) and
+        poll the frame's event until it completes, as the loop does: (ms,
+        frame)."""
+        t0 = time.perf_counter()
+        f = (sess.dispatch() if scene is None
+             else sess._render_async(scene, scale=scale))
+        q = deque([(t0, f, live.frame_event(f))])
+        while live.pop_ready(q) is None:
+            pass
+        return (time.perf_counter() - t0) * 1e3, f
+
+    def frame(path):
+        """One turn of the session's loop: dispatch, poll the frame's
+        event, fetch, compose."""
+        before = counts()
+        t0 = time.perf_counter()
+        f = ready_ms()[1]
+        t_ready = time.perf_counter()
+        host = live.fetch(f)
+        t_fetch = time.perf_counter()
+        out = live.compose_frame(sess, host)
+        t_enc = time.perf_counter()
+        assert out.count("\x1bP0;1;0q") == 1 and sixel_head in out
+        got = counts()
+        frames.append((path, sess.scene, sess._last_scale, host,
+                       {w: got[w] - before[w] for w in wrappers},
+                       ((t_ready - t0) * 1e3, (t_fetch - t_ready) * 1e3,
+                        (t_enc - t_fetch) * 1e3)))
+
+    reset_counts()
+    with k3_tiers() as tiers:
+        now = 0.0
+        frame("planar")                    # the first frame, 256 iterations
+        rung_first = {256: frames[-1]}
+        while sess.scene.max_iterations < 2048 or \
+                sess.scene.max_iterations not in rung_first:
+            now += LIVE_DT
+            sess.handle_event(("key", "e"), now)  # autorepeat of a held e
+            sess.tick(now, LIVE_DT)
+            frame("planar")
+            rung_first.setdefault(sess.scene.max_iterations, frames[-1])
+        sess.held.clear()
+        for key in ("z", "+"):
+            sess.handle_event(("key", key), now)
+            frame("deep")
+        for key in ("r", "tab", "tab", "tab", "tab"):  # one burst of input
+            sess.handle_event(("key", key), now)
+        assert sess.scene.fractal_type.name == "MANDELBULB"
+        frame("bulb")
+        sess.handle_event(("key", "o"), now)
+        now += 0.1
+        sess.tick(now, 0.1)
+        frame("bulb")
+        total = counts()  # K3's count is on its stand-in while it stands
+    assert sorted(rung_first) == [256, 512, 1024, 1536, 2048], rung_first
+    assert sess._orbit_cache and len(set(tiers)) == 1, tiers
+    inst = {"planar": {"escape_fields_cuda": "escape_mandelbrot_fused"},
+            "deep": {"perturbation_fields_cuda":
+                     f"pert_mandelbrot_{tiers[0]}"},
+            "bulb": {"cone_fields_cuda": "bulb_cone_p8",
+                     "march_fields_cuda": "bulb_march_p8"}}
+    per_path = {}
+    for path, _, _, _, launches, _ in frames:
+        got = {w: n for w, n in launches.items() if n}
+        assert set(got) == set(inst[path]), (path, got)
+        per_path.setdefault(path, []).append(got)
+    for path, wmap in inst.items():
+        for w, name in wmap.items():
+            n = sum(g[w] for g in per_path[path])
+            assert n >= 1, f"the live {path} path launched no {name}"
+            kernels[name]["launches"] += n
+    assert sum(total.values()) == sum(
+        sum(g.values()) for gs in per_path.values() for g in gs), total
+    for path, gs in per_path.items():
+        ms = [f[5] for f in frames if f[0] == path]
+        print(f"live {path}: {len(gs)} frames, launches per frame "
+              + ", ".join(f"{inst[path][w]} "
+                          + "/".join(str(g[w]) for g in gs)
+                          for w in inst[path])
+              + "; dispatch to event ms " + ", ".join(f"{m[0]:.3f}"
+                                                     for m in ms)
+              + "; fetch ms median "
+              f"{statistics.median(m[1] for m in ms):.3f}, sixel encode ms "
+              f"median {statistics.median(m[2] for m in ms):.3f}",
+              flush=True)
+
+    # -- every frame against the plain versions (not counted) --------------
+    h, w = sess.height, sess.width
+    r0 = h // 2 - LIVE_BAND // 2
+    with plain_kernels():
+        for k, (path, scene, scale, host, _, _) in enumerate(frames):
+            if path == "planar":
+                want = sess._render_async(scene, scale=scale).cpu().numpy()
+                got = host
+            elif path == "deep":
+                want = deep_zoom.render(
+                    scene, w, h, orbit_cache=sess._orbit_cache, quantize=8,
+                    device=dev, row_band=(r0, LIVE_BAND)).cpu().numpy()
+                got = host[r0:r0 + LIVE_BAND]
+            else:
+                want = mandelbulb.band_render_fn(
+                    scene, w, LIVE_BAND, h, device=dev)(
+                        mandelbulb.dyn_params(scene), r0).cpu().numpy()
+                got = host[r0:r0 + LIVE_BAND]
+            assert got.shape == want.shape and got.dtype == want.dtype, \
+                (path, got.shape, want.shape)
+            assert same_bits(torch.from_numpy(got), torch.from_numpy(want)), \
+                f"live frame {k} ({path}) differs from the plain versions"
+    bulb_px = frames[-1][3]
+    assert 0.05 < bulb_px.mean() < 0.95 and not (
+        frames[-1][1].rotation_y == frames[-2][1].rotation_y), \
+        "the spin tick did not move the bulb"
+    print(f"live frames against the plain versions: {len(frames)} "
+          f"bit-equal ({len(per_path['planar'])} planar uint8 {w}x{h} "
+          f"whole, {len(per_path['deep'])} deep and "
+          f"{len(per_path['bulb'])} bulb on rows {r0}-{r0 + LIVE_BAND - 1})",
+          flush=True)
+
+    # -- each rung's first render against a warm one, scales 1 and 2 -------
+    parts = []
+    for rung, f in sorted(rung_first.items()):
+        scene = f[1]
+        row = []
+        for scale in (1, 2):
+            first = f[5][0] if scale == 1 else ready_ms(scene, 2)[0]
+            warm = statistics.median(ready_ms(scene, scale)[0]
+                                     for _ in range(3))
+            row.append(f"scale {scale}: first {first:.3f} / warm "
+                       f"{warm:.3f}")
+        parts.append(f"{rung} ({'; '.join(row)})")
+    print("live ladder, host ms from dispatch to the frame's event (first "
+          "render at the rung / median of 3 warm; scale 1's first is the "
+          "session's own frame): " + ", ".join(parts), flush=True)
 
 
 def read_png_rgb(path: str):
@@ -1190,9 +1382,10 @@ def diagnostics_phase(dev) -> None:
 
 
 def bench_phase(dev, kernels) -> float:
-    """bench_all's configs 0, 1, 2, 4, 6 and 7 (K6 runs in config 0, K5 in
-    config 1: their launch counts are reset before and read after), each
-    row printed; then ``python -m fractalrenderer_tpu_torch.bench``.
+    """bench_all's configs 0, 1, 2, 4, 6, 7 and 8 (K6 runs in config 0, K5
+    in config 1: their launch counts are reset before and read after; config
+    8 is the live session's keypress latency, in two processes of its
+    own), each row printed; then ``python -m fractalrenderer_tpu_torch.bench``.
     Returns the FP32 rate K5 measured in config 1 (measure_vpu_peak, best
     of 3 by the profiler's device lane), which is also K5's time."""
     from fractalrenderer_tpu_torch import bench_all
@@ -1204,11 +1397,28 @@ def bench_phase(dev, kernels) -> float:
     for w in wrappers.values():
         w.launches = 0
     rows = {}
-    for num in (0, 1, 2, 4, 6, 7):
+    for num in (0, 1, 2, 4, 6, 7, 8):
         t0 = time.monotonic()
         rows[num] = bench_all.CONFIGS[num](device=dev)
         print(f"bench_all config{num} ({time.monotonic() - t0:.1f} s): "
               + json.dumps(rows[num]), flush=True)
+    # config 8: two `cli interactive --live` processes on a pty, sixel at
+    # 800x624; keypress -> complete frame on the pty
+    live = rows[8]
+    assert live["f32_mandelbrot"]["n"] == 16, live
+    assert live["deep_zoom_1e-12"]["n"] == 6, live
+    print(f"config 8 on {bench_all.card(dev)}: sixel encode "
+          f"{live['sixel_encode_ms']:.3f} ms, kitty PNG encode "
+          f"{live['kitty_png_encode_ms']:.3f} ms (800x624, best of 3), the "
+          f"pty {live['pty_mb_s']:.2f} MB/s; keypress -> sixel frame p50 / "
+          "p95: f32 Mandelbrot "
+          f"{live['f32_mandelbrot']['p50_ms']:.3f} / "
+          f"{live['f32_mandelbrot']['p95_ms']:.3f} ms "
+          f"({live['f32_mandelbrot']['frame_bytes']:.0f} B a frame), deep "
+          f"zoom 1e-12 x 10000 {live['deep_zoom_1e-12']['p50_ms']:.3f} / "
+          f"{live['deep_zoom_1e-12']['p95_ms']:.3f} ms "
+          f"({live['deep_zoom_1e-12']['frame_bytes']:.0f} B a frame)",
+          flush=True)
     for name, w in wrappers.items():
         kernels[name]["launches"] = w.launches
     for num in (1, 2, 4, 6):
@@ -2440,6 +2650,9 @@ def main() -> int:
 
     bands_phase(dev, kernels, verb, reset_counts, counts, orbit_log)
     lap("bands")
+
+    live_phase(dev, kernels, plain_kernels, reset_counts, counts)
+    lap("live session")
 
     # the distance field (library entry point: K1 with the derivative)
     scene = Scene()

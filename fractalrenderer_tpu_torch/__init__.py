@@ -11,7 +11,8 @@ from . import presets
 
 __version__ = "0.1.0"
 
-__all__ = ["Scene", "FractalType", "InteriorStyle", "presets", "render"]
+__all__ = ["Scene", "FractalType", "InteriorStyle", "presets", "render",
+           "render_numpy"]
 
 
 def render(scene, width, height, device="cuda", **kw):
@@ -19,3 +20,11 @@ def render(scene, width, height, device="cuda", **kw):
     from .models import render as _render
 
     return _render(scene, width, height, device=device, **kw)
+
+
+def render_numpy(scene, width, height):
+    """CPU golden-reference render of a 2D scene → f32 RGB NumPy array
+    (H, W, 3) in [0, 1] (slow; for verification)."""
+    from .reference import golden
+
+    return golden.render_scene(scene, width, height).numpy()

@@ -25,11 +25,15 @@ Ported configs (keys as in the JAX rows wherever the meaning holds):
    (parallel.render_giant_still), with K1's device time per band, the link
    probe, the host time blocked on fetches and the workers' deflate time;
 6. the Mandelbulb at 1080p;
-7. deep zoom 1e-50 / 2000 iterations at 960x540.
+7. deep zoom 1e-50 / 2000 iterations at 960x540;
+8. the live session's keypress-to-frame latency: the sixel and kitty-PNG
+   encodes of an 800x624 frame, then ``cli interactive --live`` on a pty
+   (100x40 cells, sixel), 16 ``e`` keys on the default Mandelbrot and 6 on
+   the deep zoom 1e-12 / 10000, p50 and p95 from the key's write to the
+   complete sixel frame on the pty.
 
 ``--quick`` runs config 3 at 60 frames and config 5 at 4096x4096, as the
-root bench's ``--quick`` does.  Config 8 prints ``not_ported`` with its
-ROADMAP item.  Device
+root bench's ``--quick`` does.  Device
 times are the device lane of torch.profiler traces
 (utils/diag.measure_device_seconds, ``timing_method`` "torch_profiler"):
 host gaps between launches, such as a deep zoom's orbit on the host, are
@@ -60,7 +64,6 @@ from .utils.diag import (busy_and_window, device_events_from_trace,
 
 W, H = 1920, 1080
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NOT_PORTED = {8: 9}  # config -> ROADMAP Queue 1 item
 DZ4 = dict(hp_center_x="-0.74364388703715158",
            hp_center_y="0.13182590420531198", hp_zoom="1e-12")
 # K1's fused Mandelbrot loop: 8 f32 operations per iteration as counted
@@ -611,6 +614,204 @@ def bench_scaled_deep_zoom(width: int = 960, height: int = 540,
             "glitched_pixels_remaining": info["glitched_pixels_remaining"]}
 
 
+def _percentiles(lats) -> dict:
+    """n, p50 and p95 (ms) of latencies in seconds, as the JAX row takes
+    them (the sorted list's middle and its 95% index)."""
+    arr = sorted(lats)
+    return {"n": len(arr), "p50_ms": arr[len(arr) // 2] * 1e3,
+            "p95_ms": arr[min(len(arr) - 1, int(len(arr) * 0.95))] * 1e3}
+
+
+SIXEL_START, SIXEL_END = b"\x1bP0;1;0q", b"\x1b\\"
+# config 8's bounds: the first frame (process start, the kernel library's
+# load or build, the first render), each key's frame, and the quiet spell
+# before each key: past the key's tap window (live._TAP_S) and any frame
+# still in flight, so that the next key's frame is its own
+FIRST_FRAME_S, KEY_FRAME_S, QUIET_S = 120.0, 60.0, 0.3
+
+
+def pty_latency(dev: torch.device, scene_json, keys: int, iters: int,
+                cols: int = 100, lines: int = 40) -> dict:
+    """Keypress -> complete sixel frame on a pty, through the real
+    ``cli interactive --live --fresh`` process on ``dev``: wait for the
+    first frame, then ``keys`` times write one ``e`` and time until a
+    whole sixel image (its DCS start to its string terminator) has arrived
+    after it, the output drained for QUIET_S before each key.  Returns n,
+    p50 and p95 ms, the first frame's seconds and the key frames' mean
+    sixel bytes.  Raises when no frame lands."""
+    import pty
+    import select
+    import signal
+
+    # PYTHONFAULTHANDLER: a child that does not quit when asked gets
+    # SIGABRT, and its stacks go to the stderr this function reports
+    env = dict(os.environ, COLUMNS=str(cols), LINES=str(lines),
+               FRACTAL_TPU_GFX="sixel", FRACTAL_TPU_SESSION_FILE=os.devnull,
+               PYTHONFAULTHANDLER="1", PYTHONPATH=os.pathsep.join(
+                   [REPO, *filter(None, [os.environ.get("PYTHONPATH")])]))
+    with tempfile.TemporaryDirectory() as td:
+        cmd = [sys.executable, "-m", "fractalrenderer_tpu_torch.cli",
+               "interactive", "--live", "--fresh", "--iters", str(iters),
+               "--device", str(dev)]
+        if scene_json is not None:
+            sp = os.path.join(td, "scene.json")
+            with open(sp, "w") as f:
+                json.dump(scene_json, f)
+            cmd += ["--scene", sp]
+        m, sl = pty.openpty()
+        err_path = os.path.join(td, "err.txt")
+        with open(err_path, "wb") as err:
+            p = subprocess.Popen(cmd, stdin=sl, stdout=sl, stderr=err,
+                                 env=env, cwd=td)
+        os.close(sl)
+        buf = b""
+        sizes = []
+
+        def read(timeout: float) -> bool:
+            nonlocal buf
+            r, _, _ = select.select([m], [], [], timeout)
+            if r:
+                try:
+                    buf += os.read(m, 1 << 20)
+                except OSError:
+                    return False
+            return True
+
+        def wait_frame(timeout: float):
+            """Seconds until a complete sixel image is in ``buf``, or
+            None."""
+            nonlocal buf
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < timeout:
+                if not read(0.005):
+                    return None
+                i = buf.rfind(SIXEL_START)
+                j = buf.find(SIXEL_END, i) if i >= 0 else -1
+                if j >= 0:
+                    sizes.append(j + len(SIXEL_END) - i)
+                    buf = b""
+                    return time.perf_counter() - t0
+                if p.poll() is not None:
+                    return None
+            return None
+
+        def drain(seconds: float) -> None:
+            end = time.perf_counter() + seconds
+            while time.perf_counter() < end and read(0.01):
+                pass
+
+        lats = []
+        try:
+            first = wait_frame(FIRST_FRAME_S)
+            if first is not None:
+                for _ in range(keys):
+                    drain(QUIET_S)
+                    buf = b""
+                    os.write(m, b"e")
+                    dt = wait_frame(KEY_FRAME_S)
+                    if dt is not None:
+                        lats.append(dt)
+        finally:
+            try:
+                os.write(m, b"\x1b")
+            except OSError:
+                pass
+            for _ in range(100):
+                if p.poll() is not None:
+                    break
+                # drain so the child never blocks on a full pty
+                read(0.1)
+            if p.poll() is None:
+                p.send_signal(signal.SIGABRT)
+                drain(2.0)
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            os.close(m)
+        if first is None or not lats:
+            with open(err_path, "rb") as f:
+                tail = f.read()[-3000:].decode("utf-8", "replace")
+            raise RuntimeError(
+                f"cli interactive on {dev}: "
+                + ("no first frame" if first is None else "no key's frame")
+                + f" on the pty (exit {p.returncode}); stderr: {tail}")
+        return dict(_percentiles(lats), first_frame_s=first,
+                    frame_bytes=float(np.mean(sizes[1:])))
+
+
+def pty_throughput(text: str) -> float:
+    """MB/s of ``text`` through a pty: written by the session's
+    live.TermUI.write on the slave side, read whole on the master side."""
+    import io
+    import pty
+    import select
+    import threading
+
+    from .live import TermUI
+
+    data = text.encode()
+    m, sl = pty.openpty()
+    try:
+        with open(sl, "w", closefd=False) as fout:
+            ui = TermUI(infile=io.BytesIO(), outfile=fout)
+            writer = threading.Thread(target=ui.write, args=(text,))
+            t0 = time.perf_counter()
+            writer.start()
+            got = b""
+            while len(got) < len(data):
+                if not select.select([m], [], [], KEY_FRAME_S)[0]:
+                    raise RuntimeError("the pty probe stalled")
+                got += os.read(m, 1 << 20)
+            dt = time.perf_counter() - t0
+            writer.join(KEY_FRAME_S)
+    finally:
+        os.close(m)
+        os.close(sl)
+    if got != data:
+        raise RuntimeError("the pty probe lost bytes")
+    return len(data) / dt / 1e6
+
+
+def bench_live_latency(cols: int = 100, lines: int = 40, iters: int = 256,
+                       keys: int = 16, deep_iters: int = 10000,
+                       deep_keys: int = 6, device="cuda") -> dict:
+    """Config 8: the live session's latency (the counterpart of the root
+    bench's ``bench_live_latency``).  The sixel and kitty-PNG encodes of a
+    frame of the pty's pixel size (``cols`` x ``lines - 1`` cells at the
+    default 8x16 cell: 800x624), best of 3; then ``pty_latency`` on the
+    default Mandelbrot (``keys`` presses, starting at ``iters``) and on the
+    deep zoom 1e-12 (``deep_keys`` presses at ``deep_iters``); with the
+    pty's throughput for the sixel of that frame (``pty_throughput``), by
+    which a frame's bytes cost their time on the pty."""
+    from . import gfx as gfx_mod
+    from .utils.png import encode_png
+
+    dev = resolve_device(device)
+    w_px, h_px = gfx_mod.pick_render_size(gfx_mod.GfxInfo("sixel", None),
+                                          cols, lines, lines - 1)
+    img8 = np.random.default_rng(0).integers(0, 256, (h_px, w_px, 3),
+                                             dtype=np.uint8)
+    enc = {}
+    for key, fn in (("sixel_encode_ms", gfx_mod.sixel_frame),
+                    ("kitty_png_encode_ms", encode_png)):
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn(img8)
+            best = min(best, time.perf_counter() - t0)
+        enc[key] = best * 1e3
+    enc["pty_mb_s"] = pty_throughput(gfx_mod.sixel_frame(img8))
+    f32 = pty_latency(dev, None, keys, iters, cols, lines)
+    deep = pty_latency(dev, dict(fractal_type="deep_zoom",
+                                 use_perturbation=True, **DZ4,
+                                 max_iterations=deep_iters),
+                       deep_keys, deep_iters, cols, lines)
+    return {"config": f"live_latency_{cols}x{lines}_sixel",
+            "frame_px": [w_px, h_px], **enc, "f32_mandelbrot": f32,
+            "deep_zoom_1e-12": deep,
+            "sixel_native": gfx_mod._load_sixel_native() is not None}
+
+
 def bench_link(device="cuda") -> dict:
     """The device-to-host link probe: 96 MiB, best and mean of 3, pageable
     and pinned (a fetched 1080p frame crosses this link)."""
@@ -619,7 +820,8 @@ def bench_link(device="cuda") -> dict:
 
 CONFIGS = {0: bench_cold_start, 1: bench_mandelbrot_1080p,
            2: bench_julia_sweep, 3: bench_animation, 4: bench_deep_zoom,
-           5: bench_giant, 6: bench_mandelbulb, 7: bench_scaled_deep_zoom}
+           5: bench_giant, 6: bench_mandelbulb, 7: bench_scaled_deep_zoom,
+           8: bench_live_latency}
 # --quick: the root bench's quick sizes
 QUICK = {3: dict(frames=60), 5: dict(width=4096, height=4096)}
 
@@ -648,9 +850,7 @@ def main(argv=None) -> int:
     failed = []
     for key, fn in rows:
         num = int(key[6:]) if key.startswith("config") else None
-        if num in NOT_PORTED:
-            row = {"not_ported": f"ROADMAP Queue 1 item {NOT_PORTED[num]}"}
-        elif fn is bench_link and dev.type != "cuda":
+        if fn is bench_link and dev.type != "cuda":
             row = {"skipped": "cpu: no device-to-host link"}
         else:
             t0 = time.perf_counter()

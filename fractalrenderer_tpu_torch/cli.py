@@ -10,8 +10,8 @@ reference of the 2D families), ``--precision dd``, ``--type deep-zoom``
 ``--deep-phoenix``, and ``--spp 2|4`` supersampling), ``--type mandelbulb``
 (``--power``, ``--time``, ``--aa``, ``--palette``) and ``--sharded`` (row
 bands across the visible CUDA devices, or the one CPU with ``--device
-cpu``); the ``interactive`` verb exits with code 2 and a one-line message
-naming the ROADMAP item that ports it.
+cpu``), and ``interactive``, the terminal viewer (the live raw-terminal
+session on a TTY, the line REPL when piped).
 
 Usage examples:
   python -m fractalrenderer_tpu_torch.cli render --out m.png
@@ -47,6 +47,8 @@ Usage examples:
       --out zoom.mov
   python -m fractalrenderer_tpu_torch.cli giant --width 16384 \\
       --height 16384 --band-rows 1024 --out giant.png
+  python -m fractalrenderer_tpu_torch.cli interactive
+  python -m fractalrenderer_tpu_torch.cli interactive --device cpu --repl
 """
 from __future__ import annotations
 
@@ -199,10 +201,6 @@ def _size_ok(args) -> bool:
     return True
 
 
-# verbs of the JAX CLI the port does not run yet → ROADMAP Queue 1 item
-_UNPORTED_VERBS = {"interactive": 9}
-
-
 @contextlib.contextmanager
 def _orbit_progress():
     """Print reference-orbit progress to stderr during deep-zoom renders
@@ -251,6 +249,10 @@ def _device_or_none(name: str):
         return None
     if dev.type not in ("cuda", "cpu"):
         print(f"error: unsupported device {name!r}", file=sys.stderr)
+        return None
+    if dev.type == "cuda" and (dev.index or 0) >= torch.cuda.device_count():
+        print(f"error: --device {name}: no such CUDA device (this machine "
+              f"has {torch.cuda.device_count()})", file=sys.stderr)
         return None
     return dev
 
@@ -677,6 +679,54 @@ def cmd_sweep(args) -> int:
     return 0
 
 
+def cmd_interactive(args) -> int:
+    """The terminal viewer on ``--device``: the live raw-terminal loop on a
+    TTY (live.py), the line REPL when piped or with ``--repl``
+    (viewer.py).  Where the JAX CLI probes its device link first
+    (cli.py:708), this verb makes the other verbs' check: a CUDA device
+    that does not exist exits 2 before the session starts, and nothing
+    renders on the CPU instead."""
+    dev = _device_or_none(args.device)
+    if dev is None:
+        return 2
+    scene = scene_from_args(args)
+    no_explicit_view = (args.zoom is None and args.scene is None
+                        and args.preset is None)
+    if no_explicit_view:
+        scene = scene.with_(zoom=2.5)
+    # Live raw-terminal loop on a TTY (the reference's real-time event
+    # loop); line-based REPL when piped or forced with --repl.
+    live_mode = args.live or (not args.repl and sys.stdin.isatty())
+    if live_mode:
+        from . import live
+
+        # the reference resumes where you left it (imgui.ini persists
+        # next to the binary); explicit view args or --fresh start clean.
+        # Exit without interpreter teardown on every path (normal return,
+        # ^C, device errors), as the JAX CLI does: run_live restores the
+        # terminal and persists the session on all of these paths itself,
+        # nothing later relies on atexit, and no thread still running is
+        # joined.
+        rc = 1
+        try:
+            rc = live.run_live(
+                scene, cols=args.cols, rows=args.rows,
+                spin=args.spin, max_frames=args.max_frames,
+                resume_last=no_explicit_view and not args.fresh,
+                persist=not args.fresh, gfx=args.gfx, device=dev)
+        except BaseException:
+            import traceback
+
+            traceback.print_exc()
+        finally:
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(rc)
+    from . import viewer
+
+    return viewer.run(scene, cols=args.cols, rows=args.rows, device=dev)
+
+
 def cmd_presets(args) -> int:
     print("Location presets (fractal_state.h:171-189):")
     for p in presets_mod.MANDELBROT_PRESETS + presets_mod.BURNING_SHIP_PRESETS:
@@ -876,28 +926,45 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", help=device_help)
     p.set_defaults(fn=cmd_sweep)
 
+    p = sub.add_parser("interactive",
+                       help="terminal viewer (live loop on a TTY; REPL "
+                            "when piped)")
+    _add_scene_args(p)
+    p.add_argument("--cols", type=int, default=None)
+    p.add_argument("--rows", type=int, default=None)
+    p.add_argument("--live", action="store_true",
+                   help="force the raw-terminal live loop")
+    p.add_argument("--repl", action="store_true",
+                   help="force the line-based REPL")
+    p.add_argument("--spin", action="store_true",
+                   help="start with mandelbulb auto-rotate on "
+                        "(vk_engine.cpp:713)")
+    p.add_argument("--max-frames", type=int, default=None,
+                   help="exit after N drawn frames (for testing)")
+    p.add_argument("--fresh", action="store_true",
+                   help="don't resume the previous session or persist "
+                        "this one (default resumes like the reference's "
+                        "imgui.ini)")
+    p.add_argument("--gfx", default=None,
+                   choices=["auto", "kitty", "iterm", "sixel", "off"],
+                   help="pixel-frame protocol for the live session "
+                        "(default auto: in-band handshake; kitty/ghostty/"
+                        "wezTerm/konsole speak kitty, iTerm2 its own, "
+                        "xterm/foot/mlterm sixel; falls back to "
+                        "half-block cells)")
+    p.add_argument("--device", default="cuda", help=device_help)
+    p.set_defaults(fn=cmd_interactive)
+
     p = sub.add_parser("presets", help="list the built-in presets")
     p.set_defaults(fn=cmd_presets)
     p = sub.add_parser("info", help="versions, CUDA devices, nvcc and the "
                                     "kernel library")
     p.set_defaults(fn=cmd_info)
-
-    for verb, item in _UNPORTED_VERBS.items():
-        p = sub.add_parser(verb, help=f"not ported yet (ROADMAP Queue 1 "
-                                      f"item {item})")
-        p.set_defaults(fn=None, roadmap_item=item)
     return ap
 
 
 def main(argv=None) -> int:
-    ap = build_parser()
-    args, extra = ap.parse_known_args(argv)
-    if args.fn is None:
-        print(f"error: the {args.command!r} verb is not ported yet (ROADMAP "
-              f"Queue 1 item {args.roadmap_item})", file=sys.stderr)
-        return 2
-    if extra:
-        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

@@ -1,8 +1,9 @@
 """The port's bench entry points (fractalrenderer_tpu_torch/bench_all.py and
 bench.py) on the CPU device, at small frames with the iterations cut: each
-ported config's row carries the JAX rows' keys (bench_all.py at the
-repository root), the unported one names its ROADMAP item, a failing
-config is recorded and fails the exit code, and neither module loads JAX.
+config's row carries the JAX rows' keys (bench_all.py at the repository
+root), config 8 drives the live session on a pty and raises when no frame
+lands, a failing config is recorded and fails the exit code, and neither
+module loads JAX.
 The numbers are CPU numbers; the card's come from chip_smoke.py."""
 import json
 import os
@@ -39,6 +40,8 @@ JAX_KEYS = {
     6: {"config", "seconds", "mpix_s", "timing_method"},
     7: {"config", "seconds", "precision_mode", "rebase_passes",
         "glitched_pixels_remaining"},
+    8: {"config", "sixel_encode_ms", "kitty_png_encode_ms", "f32_mandelbrot",
+        "deep_zoom_1e-12"},
 }
 SMALL = {
     1: dict(width=64, height=36, iters=64, frames=2),
@@ -48,11 +51,20 @@ SMALL = {
     5: dict(width=64, height=48, band_rows=16),
     6: dict(width=12, height=8, iters=8),
     7: dict(width=24, height=16, iters=100),
+    8: dict(cols=12, lines=5, iters=32, keys=2, deep_iters=64,
+            deep_keys=2),
 }
 
 
+@pytest.fixture
+def one_thread_children(monkeypatch):
+    # config 8's CLI children render on the CPU here: one intra-op thread
+    # each keeps a loaded test host from starving their frames
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+
+
 @pytest.mark.parametrize("num", sorted(SMALL))
-def test_config_rows_carry_the_jax_keys(num):
+def test_config_rows_carry_the_jax_keys(num, one_thread_children):
     row = bench_all.CONFIGS[num](device="cpu", **SMALL[num])
     assert JAX_KEYS[num] <= set(row), JAX_KEYS[num] - set(row)
     json.dumps(row)  # one JSON line
@@ -195,22 +207,52 @@ def test_interior_skip_mask_is_the_plain_kernels_skip():
     assert bool((n[mask] == 64).all())
 
 
-def test_main_prints_unported_rows_and_writes_only_out(tmp_path, capsys,
-                                                       monkeypatch):
+def test_main_runs_every_config_and_writes_only_out(tmp_path, capsys,
+                                                   monkeypatch):
+    # every config of the JAX bench is ported (0-8): none is refused, and
+    # with all skipped only the link probe's row is printed
+    assert sorted(bench_all.CONFIGS) == list(range(9))
+    assert not hasattr(bench_all, "NOT_PORTED")
     monkeypatch.chdir(tmp_path)
     out = tmp_path / "rows.json"
-    rc = bench_all.main(["--device", "cpu", "--skip", "0,1,2,3,4,5,6,7",
+    rc = bench_all.main(["--device", "cpu", "--skip", "0,1,2,3,4,5,6,7,8",
                          "--out", str(out)])
     assert rc == 0
     lines = [json.loads(ln) for ln in
              capsys.readouterr().out.strip().splitlines()]
-    assert bench_all.NOT_PORTED == {8: 9}
-    assert lines[:1] == [
-        {"config8": {"not_ported": "ROADMAP Queue 1 item 9"}}]
-    assert "skipped" in lines[1]["link_probe"]
+    assert len(lines) == 1 and "skipped" in lines[0]["link_probe"]
     saved = json.loads(out.read_text())
-    assert saved["card"] == "cpu" and saved["config8"] == lines[0]["config8"]
+    assert saved["card"] == "cpu" and "config8" not in saved
     assert sorted(os.listdir(tmp_path)) == ["rows.json"]
+
+
+def test_config8_latencies_and_encodes(one_thread_children):
+    # the pty run of config 8 (keys as the JAX row's, each latency case
+    # with n, p50 and p95 of its keys) on a 12x5-cell terminal
+    row = bench_all.bench_live_latency(device="cpu", **SMALL[8])
+    assert row["config"] == "live_latency_12x5_sixel"
+    assert row["frame_px"] == [96, 64]
+    for case in ("f32_mandelbrot", "deep_zoom_1e-12"):
+        lat = row[case]
+        assert lat["n"] == 2 and 0 < lat["p50_ms"] <= lat["p95_ms"]
+        assert lat["first_frame_s"] > 0 and lat["frame_bytes"] > 1000
+    assert row["sixel_encode_ms"] > 0 and row["kitty_png_encode_ms"] > 0
+    assert row["pty_mb_s"] > 0
+
+
+def test_config8_raises_when_no_frame_lands():
+    # a session that never draws (here: --device cuda without CUDA, which
+    # exits 2 at once) is an error with the child's stderr, not a row
+    with pytest.raises(RuntimeError, match="no first frame") as e:
+        bench_all.pty_latency(torch.device("cuda", 0), None, keys=1,
+                              iters=16, cols=20, lines=8)
+    assert "CUDA is not available" in str(e.value)
+
+
+def test_percentiles_take_the_jax_rows_indices():
+    lat = bench_all._percentiles([0.004, 0.001, 0.003, 0.002])
+    assert lat == {"n": 4, "p50_ms": pytest.approx(3.0),
+                   "p95_ms": pytest.approx(4.0)}
 
 
 def test_config5_giant_is_the_whole_render(tmp_path):
@@ -243,7 +285,7 @@ def test_quick_runs_config5_at_4096(monkeypatch, capsys):
 
     monkeypatch.setitem(bench_all.CONFIGS, 5, fake)
     rc = bench_all.main(["--device", "cpu", "--quick", "--skip",
-                         "0,1,2,3,4,6,7"])
+                         "0,1,2,3,4,6,7,8"])
     assert rc == 0 and seen == {"width": 4096, "height": 4096}
     capsys.readouterr()
 

@@ -1,8 +1,10 @@
 """The port's CLI ``render`` verb on the CPU device (the four families with
 their options, ``--precision dd`` and ``--type deep-zoom``; ``--type
 mandelbulb`` is in test_torch_bulb.py, the deep-zoom families and ``--spp``
-in test_torch_deepzoom_aa.py), and its rejection of everything not ported
-yet (exit code 2, one line on stderr)."""
+in test_torch_deepzoom_aa.py) with the JAX CLI's own refusals (exit code
+2, one line on stderr), and the ``interactive`` verb: its arguments, its
+REPL on the CPU and its refusal of a missing CUDA device (the session
+itself is in test_torch_live.py)."""
 import json
 import os
 
@@ -242,17 +244,68 @@ def test_sharded_render_equals_render(tmp_path, extra):
     np.testing.assert_array_equal(read_png(a), read_png(b))
 
 
-def test_unported_verbs_are_the_live_session():
-    assert cli._UNPORTED_VERBS == {"interactive": 9}
-    assert not hasattr(cli, "_UNPORTED_RENDER_FLAGS")
+def test_interactive_verb_has_the_jax_arguments():
+    # the JAX parser's interactive flags (cli.py:907-933), + --device
+    from fractalrenderer_tpu import cli as jax_cli
+
+    def flags(ap):
+        sub = next(a for a in ap._actions if a.dest == "command")
+        return {o for a in sub.choices["interactive"]._actions
+                for o in a.option_strings}
+
+    mine = flags(cli.build_parser())
+    assert mine == (flags(jax_cli.build_parser()) - {"--cpu"}) | {"--device"}
+    assert not hasattr(cli, "_UNPORTED_VERBS")
+    args = cli.build_parser().parse_args(["interactive"])
+    assert args.device == "cuda" and args.fn is cli.cmd_interactive
 
 
-@pytest.mark.parametrize("verb", sorted(cli._UNPORTED_VERBS))
-def test_unported_verbs_exit_2(capsys, verb):
-    rc = cli.main([verb, "--out", "x", "positional"])
-    assert rc == 2
-    err = capsys.readouterr().err.strip()
-    assert err.startswith("error:") and "not ported yet" in err
+@pytest.mark.parametrize("argv,lines", [
+    ([], ["+", "q"]),
+    (["--type", "julia", "--zoom", "2"], ["p 3", "d"]),
+], ids=["mandelbrot", "julia"])
+def test_interactive_repl_on_the_cpu(monkeypatch, capsys, argv, lines):
+    # piped stdin (not a TTY) takes the line REPL; EOF ends it
+    feed = iter(lines)
+
+    def fake_input(prompt=""):
+        try:
+            return next(feed)
+        except StopIteration:
+            raise EOFError from None
+
+    monkeypatch.setattr("builtins.input", fake_input)
+    monkeypatch.setattr("sys.stdin.isatty", lambda: False, raising=False)
+    rc = cli.main(["interactive", "--device", "cpu", "--cols", "12",
+                   "--rows", "3", "--iters", "8", *argv])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "▀" in out and out.count("center=") >= 2
+
+
+def test_interactive_without_cuda_exits_2(capsys, monkeypatch):
+    from fractalrenderer_tpu_torch import models
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = []
+    monkeypatch.setattr(models, "render", lambda *a, **k: calls.append(k))
+    for argv in (["interactive"], ["interactive", "--live"],
+                 ["interactive", "--repl", "--device", "cuda:0"]):
+        assert cli.main(argv) == 2
+        err = capsys.readouterr().err.strip()
+        assert err.startswith("error:") and "CUDA is not available" in err
+        assert len(err.splitlines()) == 1
+    assert not calls
+
+
+def test_no_such_cuda_device_exits_2(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for verb in (["interactive", "--repl"],
+                 ["render", "--out", str(tmp_path / "x.png")]):
+        assert cli.main([*verb, "--device", "cuda:1"]) == 2
+        assert "no such CUDA device" in capsys.readouterr().err
+    assert not os.listdir(tmp_path)
 
 
 def test_cuda_device_without_cuda_exits_2(tmp_path, capsys, monkeypatch):

@@ -1020,3 +1020,104 @@ def test_every_wrapper_clamps_the_last_band(dev):
     got = torch.cat([mandelbulb.band_render_fn(s, W, rows, H, device=dev)(
         fn_dyn, r0) for r0, rows in bands])
     assert torch.equal(got, whole)
+
+
+# ---- the live session on the card ----------------------------------------
+
+def _plain_on_card(monkeypatch):
+    """Point every kernel wrapper the session reaches at its plain version,
+    which then runs on the card (chip_smoke.py's plain_kernels)."""
+    from fractalrenderer_tpu_torch.ops import perturbation
+
+    for mod, cuda, plain in (
+            (escape, "escape_fields_cuda", "escape_fields_plain"),
+            (dd_escape, "dd_escape_fields_cuda", "dd_escape_fields_plain"),
+            (perturbation, "perturbation_fields_cuda",
+             "perturbation_fields_plain"),
+            (bulb_kernel, "cone_fields_cuda", "cone_fields_plain"),
+            (bulb_kernel, "march_fields_cuda", "march_fields_plain")):
+        monkeypatch.setattr(mod, cuda, getattr(mod, plain))
+
+
+_LIVE_PATHS = {
+    # name: (scene fields, gfx kind or None, rows of the frame compared)
+    "planar": (dict(max_iterations=512), "sixel", None),
+    "cell": (dict(max_iterations=256, fractal_type="julia"), None, None),
+    "deep": (dict(fractal_type="deep_zoom", use_perturbation=True,
+                  hp_center_x="-0.74364388703715158",
+                  hp_center_y="0.13182590420531198", hp_zoom="1e-12",
+                  max_iterations=2000), "sixel", 64),
+    "bulb": (dict(fractal_type="mandelbulb", max_iterations=64), "sixel",
+             None),
+}
+
+
+@pytest.mark.parametrize("path", list(_LIVE_PATHS))
+def test_live_session_frame_equals_plain(dev, monkeypatch, path):
+    """One session frame per path on cuda:0 (the sixel pixel session at
+    320x240, the half-block one at 80x48), bit-equal to the same dispatch
+    with the plain versions on the card; the deep frame's middle 64 rows
+    against a 64-row plain band (K3's plain version is launch-bound)."""
+    from fractalrenderer_tpu_torch import gfx, live
+    from fractalrenderer_tpu_torch.scene import Scene
+
+    fields, kind, band = _LIVE_PATHS[path]
+    monkeypatch.setenv("COLUMNS", "40")
+    monkeypatch.setenv("LINES", "16")
+    scene = Scene.from_dict(fields)
+    sess = live.LiveSession(scene, cols=80, rows=24, device=dev)
+    if kind:
+        sess.enable_gfx(gfx.GfxInfo(kind, None))
+    frame = sess.dispatch()
+    torch.cuda.synchronize()
+    assert frame.device == dev
+    with monkeypatch.context() as m:
+        _plain_on_card(m)
+        if band is None:
+            want = sess.dispatch()
+        else:
+            from fractalrenderer_tpu_torch.models import deep_zoom
+
+            h = sess.height
+            r0 = h // 2 - band // 2
+            want = deep_zoom.render(scene, sess.width, h, quantize=8,
+                                    device=dev, row_band=(r0, band))
+            frame = frame[r0:r0 + band]
+    assert frame.shape == want.shape and frame.dtype == want.dtype
+    assert torch.equal(frame, want), path
+
+
+def test_two_frames_in_flight_pop_by_their_events(dev, monkeypatch):
+    """FRAME_OVERLAP=2 on the card: two planar frames dispatched back to
+    back, each with a CUDA event recorded behind it; the oldest is popped
+    when its event completes (or when two are in flight), and the fetched
+    frames are the frames."""
+    from collections import deque
+
+    import numpy as np
+
+    from fractalrenderer_tpu_torch import gfx, live
+    from fractalrenderer_tpu_torch.scene import Scene
+
+    monkeypatch.setenv("COLUMNS", "240")
+    monkeypatch.setenv("LINES", "68")
+    sess = live.LiveSession(Scene(max_iterations=2048), device=dev)
+    sess.enable_gfx(gfx.GfxInfo("sixel", None))
+    q = deque()
+    for k in range(2):
+        sess.scene = sess.scene.with_(zoom=2.5 - 0.1 * k)
+        f = sess.dispatch()
+        ev = live.frame_event(f)
+        assert isinstance(ev, torch.cuda.Event)
+        q.append((k, f, ev))
+    t0, first, ev0 = live.pop_ready(q)       # two in flight: the oldest
+    assert t0 == 0 and len(q) == 1
+    host = live.fetch(first)                  # waits for its kernels
+    assert ev0.query()
+    ev1 = q[0][2]
+    ev1.synchronize()
+    t1, second, _ = live.pop_ready(q)
+    assert t1 == 1 and not q
+    np.testing.assert_array_equal(host, first.cpu().numpy())
+    assert host.shape == (3, 1072, 1920) and host.dtype == np.uint8
+    assert not torch.equal(first, second)

@@ -137,3 +137,18 @@ def test_render_golden_of_a_3d_type_exits_2(tmp_path, capsys):
     err = capsys.readouterr().err.strip()
     assert err.startswith("error: golden render for") and "\n" not in err
     assert not out.exists()
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(fractal_type="julia",
+                                             antialiasing_samples=2)],
+                         ids=["mandelbrot", "julia_aa2"])
+def test_package_render_numpy_is_the_jax_packages(kw):
+    # the package-level entry point of both packages (JAX __init__.py:33)
+    import fractalrenderer_tpu_torch as frt
+
+    s = Scene.from_dict(dict(kw, max_iterations=48))
+    got = frt.render_numpy(s, 24, 16)
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32
+    want = np.asarray(fr.render_numpy(fr.Scene.from_json(s.to_json()), 24,
+                                      16))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

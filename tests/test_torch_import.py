@@ -1,7 +1,7 @@
 """The port's import boundary and its device dispatch: it loads neither jax
 nor the JAX package, its kernel-build module imports without a CUDA
 toolkit, and a CUDA device never falls back to the CPU path (K1, K2 and
-K3)."""
+K3; the live session's in test_torch_live.py)."""
 import os
 import subprocess
 import sys
@@ -30,6 +30,8 @@ import fractalrenderer_tpu_torch.deepzoom.hp
 import fractalrenderer_tpu_torch.deepzoom.manager
 import fractalrenderer_tpu_torch.deepzoom.orbit
 import fractalrenderer_tpu_torch.deepzoom.series
+import fractalrenderer_tpu_torch.gfx
+import fractalrenderer_tpu_torch.live
 import fractalrenderer_tpu_torch.models.burning_ship
 import fractalrenderer_tpu_torch.models.deep_zoom
 import fractalrenderer_tpu_torch.models.julia
@@ -48,6 +50,7 @@ import fractalrenderer_tpu_torch.parallel.tiled
 import fractalrenderer_tpu_torch.reference.golden
 import fractalrenderer_tpu_torch.utils.native_build
 import fractalrenderer_tpu_torch.utils.png
+import fractalrenderer_tpu_torch.viewer
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "fractalrenderer_tpu")]
 print(",".join(sorted(bad)))
