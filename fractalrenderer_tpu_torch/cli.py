@@ -40,6 +40,8 @@ Usage examples:
       --height 3000 --supersample --out print.png
   python -m fractalrenderer_tpu_torch.cli zoom-path --preset-zoom Seahorse \\
       --frames 60 --out-dir zoom_frames
+  python -m fractalrenderer_tpu_torch.cli zoom-path --preset-zoom Seahorse \\
+      --frames 8 --out-dir zoom_frames --profile traces
   python -m fractalrenderer_tpu_torch.cli sweep --count 16 --out-dir sweep
   python -m fractalrenderer_tpu_torch.cli animate --zoom-to 0.01 \\
       --duration 10 --fps 30 --out-dir frames --encode --codec qtpng
@@ -466,6 +468,7 @@ def cmd_zoom_path(args) -> int:
 
     from .deepzoom.manager import ZoomKeyframe, preset_zoom_path
     from .models import render as model_render
+    from .utils.diag import trace
 
     base = scene_from_args(args).with_(fractal_type=FractalType.DEEP_ZOOM,
                                        use_perturbation=True)
@@ -494,7 +497,7 @@ def cmd_zoom_path(args) -> int:
     # reference recomputed per frame (deep_zoom_system.cpp:454-559).
     ref_center = (repr(end.center_x), repr(end.center_y))
     cache = {}
-    with _orbit_progress():
+    with trace(args.profile, device=dev), _orbit_progress():
         for f in range(args.frames):
             t = f / max(args.frames - 1, 1)
             cx = start.center_x + t * (end.center_x - start.center_x)
@@ -523,6 +526,7 @@ def cmd_animate(args) -> int:
     scene flags) to a PNG sequence, optionally encoded to video."""
     from .anim import AnimationRenderer, franim, video
     from .anim.keyframes import Animation, Keyframe
+    from .utils.diag import trace
 
     dev = _device_or_none(args.device)
     if dev is None:
@@ -569,8 +573,9 @@ def cmd_animate(args) -> int:
             last[0] = f
 
     r.on_frame_complete = on_frame
-    ok = r.start_render(anim, args.out_dir, args.width, args.height,
-                        bit_depth=args.bit_depth, resume=args.resume)
+    with trace(args.profile, device=dev):
+        ok = r.start_render(anim, args.out_dir, args.width, args.height,
+                            bit_depth=args.bit_depth, resume=args.resume)
     print()
     if not ok:
         print("render failed or cancelled", file=sys.stderr)
@@ -800,6 +805,9 @@ def build_parser() -> argparse.ArgumentParser:
     sub = ap.add_subparsers(dest="command", required=True)
     device_help = ("torch device: cuda (the CUDA kernels, default) or cpu "
                    "(their plain PyTorch versions)")
+    profile_help = ("run the verb under torch.profiler and write a chrome "
+                    "trace into DIR: the program's stage spans beside the "
+                    "card's records")
 
     p = sub.add_parser("render", help="render one frame to PNG")
     _add_scene_args(p)
@@ -851,6 +859,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--height", type=int, default=540)
     p.add_argument("--out-dir", default="zoom_frames")
     p.add_argument("--device", default="cuda", help=device_help)
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help=profile_help)
     p.set_defaults(fn=cmd_zoom_path)
 
     p = sub.add_parser("animate", help="render an animation (.franim or zoom)")
@@ -881,6 +891,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--crf", type=int, default=18)
     p.add_argument("--cleanup-frames", action="store_true")
     p.add_argument("--device", default="cuda", help=device_help)
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help=profile_help)
     p.set_defaults(fn=cmd_animate)
 
     p = sub.add_parser("encode", help="encode an existing frame sequence")

@@ -30,6 +30,7 @@ from ..ops import coloring, mapping
 from ..ops.coloring import ColorParams
 from ..ops.escape import escape_fields
 from ..scene import Scene
+from ..utils.diag import span
 
 
 @dataclass(frozen=True)
@@ -248,14 +249,16 @@ def band_render_fn(cfg: StaticCfg, band_h: int, full_h: int,
                             brightness=dyn["brightness"],
                             saturation=dyn["saturation"],
                             contrast=dyn["contrast"])
-                if planar_quantize:
-                    planes = torch.stack([f["r"], f["g"], f["b"]], dim=0)
-                    return quantize_image(planes, bit_depth=planar_quantize,
-                                          out=out)
-                if with_post:  # the one sample, already post-chained
-                    return torch.stack([f["r"], f["g"], f["b"]], dim=-1,
-                                       out=out)
-                acc = acc + torch.stack([f["r"], f["g"], f["b"]], dim=-1)
+                with span("batch.glue"):
+                    if planar_quantize:
+                        planes = torch.stack([f["r"], f["g"], f["b"]], dim=0)
+                        return quantize_image(planes,
+                                              bit_depth=planar_quantize,
+                                              out=out)
+                    if with_post:  # the one sample, already post-chained
+                        return torch.stack([f["r"], f["g"], f["b"]], dim=-1,
+                                           out=out)
+                    acc = acc + torch.stack([f["r"], f["g"], f["b"]], dim=-1)
             return _into(out, _average_then_post(
                 cfg, _dyn_f32(dyn, cfg.device), acc, len(offsets)))
 
@@ -330,7 +333,9 @@ def batch_render_fn(cfg: StaticCfg, quantize: int = 0, planar: bool = False):
     parameters by value, so a frame's launch needs no copy to the device)
     writing into its slot of one output tensor.  The parameters are f32
     first, as the JAX batch casts them, so a frame equals a single render
-    of its scene bit for bit."""
+    of its scene bit for bit.  Each frame runs in the span
+    ``batch.frame``, its glue's launches in ``batch.glue``; the chunk's
+    parameter columns and each frame's parameters are ``k1.prepare``."""
     if planar and not (quantize and planar_export_ok(cfg)):
         raise ValueError("planar batch export requires quantize=8|16 and "
                          "planar_export_ok(cfg)")
@@ -339,18 +344,24 @@ def batch_render_fn(cfg: StaticCfg, quantize: int = 0, planar: bool = False):
     dtype = {0: torch.float32, 8: torch.uint8, 16: torch.uint16}[quantize]
 
     def fn(dyn_batch: dict) -> torch.Tensor:
-        cols = {k: np.asarray(v, np.float32).reshape(-1)
-                for k, v in dyn_batch.items()}
+        with span("k1.prepare"):
+            cols = {k: np.asarray(v, np.float32).reshape(-1)
+                    for k, v in dyn_batch.items()}
         b = len(next(iter(cols.values())))
         shape = ((b, 3, cfg.height, cfg.width) if planar
                  else (b, cfg.height, cfg.width, 3))
         out = torch.empty(shape, dtype=dtype, device=cfg.device)
         for i in range(b):
-            dyn = {k: v[i] for k, v in cols.items()}
-            if quantize and not planar:
-                quantize_image(band(dyn, 0), bit_depth=quantize, out=out[i])
-            else:
-                band(dyn, 0, out=out[i])
+            with span("batch.frame"):
+                with span("k1.prepare"):
+                    dyn = {k: v[i] for k, v in cols.items()}
+                    slot = out[i]
+                if quantize and not planar:
+                    img = band(dyn, 0)
+                    with span("batch.glue"):
+                        quantize_image(img, bit_depth=quantize, out=slot)
+                else:
+                    band(dyn, 0, out=slot)
         return out
 
     return fn

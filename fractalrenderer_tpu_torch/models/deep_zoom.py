@@ -43,6 +43,7 @@ from ..ops.coloring import ColorParams
 from ..ops.dd import dd_from_string
 from ..ops.perturbation import perturbation_fields
 from ..scene import Scene
+from ..utils.diag import span
 
 
 # Suspect threshold of the exact-dust tier: a pixel whose error ledger
@@ -56,6 +57,20 @@ def _dd_of(value, fallback: float) -> Tuple[float, float]:
     if value is not None:
         return dd_from_string(str(value))
     return dd_from_string(repr(float(fallback)))
+
+
+def _host_int(t: torch.Tensor) -> int:
+    """The one-element tensor ``t`` as a Python int: a read that waits for
+    the card, in the span ``deep.readback``."""
+    with span("deep.readback"):
+        return int(t)
+
+
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a host numpy array: a read that waits for the card, in the
+    span ``deep.readback``."""
+    with span("deep.readback"):
+        return t.cpu().numpy()
 
 
 def _scene_coords(scene: Scene):
@@ -109,151 +124,155 @@ def render_fields(scene: Scene, width: int, height: int,
     flags (``glitch_tol``) and up to ``max_references`` secondary
     reference orbits, each centred on the deepest-running flagged pixel.
     Every option check raises before any orbit is computed."""
-    aa_spp = int(aa_spp)
-    julia = bool(getattr(scene, "deep_zoom_julia", False))
-    ship = bool(getattr(scene, "deep_zoom_ship", False))
-    phoenix = bool(getattr(scene, "deep_zoom_phoenix", False))
-    if exact_dust:
-        # the ledger runs in the Ship kernel's rebasing dd / floatexp
-        # tiers; suspects re-render per pixel on the host
-        if not (ship and rebasing):
-            raise ValueError("exact_dust is the Burning Ship dust tier "
-                             "(deep_zoom_ship scenes, rebasing pipeline)")
+    with span("deep.prepare"):
+        aa_spp = int(aa_spp)
+        julia = bool(getattr(scene, "deep_zoom_julia", False))
+        ship = bool(getattr(scene, "deep_zoom_ship", False))
+        phoenix = bool(getattr(scene, "deep_zoom_phoenix", False))
+        if exact_dust:
+            # the ledger runs in the Ship kernel's rebasing dd / floatexp
+            # tiers; suspects re-render per pixel on the host
+            if not (ship and rebasing):
+                raise ValueError("exact_dust is the Burning Ship dust tier "
+                                 "(deep_zoom_ship scenes, rebasing pipeline)")
+            if mesh is not None:
+                raise ValueError("exact_dust does not compose with mesh "
+                                 "sharding yet (host fallback is per-pixel)")
+        if aa_spp > 1 and not (rebasing and tuple(offset) == (0.0, 0.0)):
+            raise ValueError("aa_spp needs the rebasing pipeline and the "
+                             "default offset")
+        if julia + ship + phoenix > 1:
+            raise ValueError("pick ONE of deep_zoom_julia / _ship / _phoenix")
+        if (julia or ship or phoenix) and not rebasing:
+            family = "julia" if julia else ("ship" if ship else "phoenix")
+            raise ValueError(f"deep-zoom {family} requires the rebasing "
+                             "pipeline")
+        band_kw = {}
+        row_off = 0
+        if row_band is not None:
+            row_off, band_h = int(row_band[0]), int(row_band[1])
+            band_kw = {"row0": float(row_off), "map_height": height}
+        else:
+            band_h = height
         if mesh is not None:
-            raise ValueError("exact_dust does not compose with mesh "
-                             "sharding yet (host fallback is per-pixel)")
-    if aa_spp > 1 and not (rebasing and tuple(offset) == (0.0, 0.0)):
-        raise ValueError("aa_spp needs the rebasing pipeline and the "
-                         "default offset")
-    if julia + ship + phoenix > 1:
-        raise ValueError("pick ONE of deep_zoom_julia / _ship / _phoenix")
-    if (julia or ship or phoenix) and not rebasing:
-        family = "julia" if julia else ("ship" if ship else "phoenix")
-        raise ValueError(f"deep-zoom {family} requires the rebasing "
-                         "pipeline")
-    band_kw = {}
-    row_off = 0
-    if row_band is not None:
-        row_off, band_h = int(row_band[0]), int(row_band[1])
-        band_kw = {"row0": float(row_off), "map_height": height}
-    else:
-        band_h = height
-    if mesh is not None:
-        from ..parallel.tiled import perturbation_fields_sharded
+            from ..parallel.tiled import perturbation_fields_sharded
 
-        field_fn = functools.partial(perturbation_fields_sharded, mesh=mesh,
-                                     keep_device=keep_device)
-    else:
-        field_fn = functools.partial(perturbation_fields, device=device)
-    cx, cy, zoom = _scene_coords(scene)
-    zoom_fr = Fraction(str(zoom))
-    zoom_f = float(zoom_fr)
-    mode, bits = precision_mode_for_zoom_frac(zoom_fr)
-    # Bucket the orbit precision UP to the next 64-bit step, so one orbit
-    # serves ~19 digits of an interactive descent (never less accurate).
-    bits = -(-bits // 64) * 64
-    if exact_dust:
-        # dust counts pin only over a high-precision orbit (96-bit deltas
-        # over a 160-bit table): the table's own recurrence error amplifies
-        # chaotically just like the delta's
-        bits = max(bits + 96, 160)
-    max_iter = scene.max_iterations
-
-    center_x_dd = _dd_of(cx, 0.0)
-    center_y_dd = _dd_of(cy, 0.0)
-    zoom_dd = _dd_of(zoom, 0.0)
-
-    # Deltas iterate in double-double past 1e-7 (f32's 2^-24 relative
-    # error is below pixel scale above it) and in floatexp in ARBITRARY
-    # mode (zoom < 1e-30).  The legacy pipeline continues starved lanes in
-    # f32 above 1e-7, where f32 c still resolves the pixel; deeper, they
-    # are flagged and re-referenced.
-    scaled = mode.name == "ARBITRARY"
-    dd_delta = (zoom_f <= 1e-7) and not scaled
-    float_cont = zoom_f > 1e-7 and not rebasing
-    if ship:
-        # the armada dust flips f32-tier counts even at 1e-5 — always dd
-        dd_delta = not scaled
-    jc = (repr(float(scene.julia_c_real)), repr(float(scene.julia_c_imag)))
-
-    # +1: the kernel's index-consistent escape test reads orbit[i+1], so a
-    # full-strength (interior) reference needs max_iter+1 stored entries.
-    def _ckey(v):
-        # exact cache identity (HPFloat by mantissa, strings by value)
-        return (v.man, v.bits) if isinstance(v, HPFloat) \
-            else Fraction(str(v))
-
-    def cached_orbit(ocx, ocy):
-        # the orbit depends on the recurrence too: the key carries every
-        # field of the JAX package's key, so the two caches key alike
-        key = (_ckey(ocx), _ckey(ocy), bits, max_iter, julia,
-               jc if julia else None, ship, phoenix,
-               (float(scene.phoenix_p), float(scene.phoenix_r))
-               if phoenix else None,
-               scaled if julia else None)  # drift emission format
-        if orbit_cache is not None and key in orbit_cache:
-            return orbit_cache[key]
-        if julia:
-            # z0 = the view point, c = the shared Julia constant; the table
-            # holds the drift D = Z - Z0, floatexp-emitted (mantissa,
-            # exponent) in the ARBITRARY tier so no depth underflows it
-            o = orbit_mod.compute_orbit(jc[0], jc[1], bits, max_iter + 1,
-                                        force_python=force_python_orbit,
-                                        z0x=ocx, z0y=ocy, emit_rel=True,
-                                        emit_fx=scaled)
+            field_fn = functools.partial(perturbation_fields_sharded,
+                                         mesh=mesh, keep_device=keep_device)
         else:
-            o = orbit_mod.compute_orbit(
-                ocx, ocy, bits, max_iter + 1,
-                force_python=force_python_orbit,
-                kind=1 if ship else (2 if phoenix else 0),
-                pp=float(scene.phoenix_p), rr=float(scene.phoenix_r))
-        if orbit_cache is not None:
-            orbit_cache[key] = o
-        return o
+            field_fn = functools.partial(perturbation_fields, device=device)
+        cx, cy, zoom = _scene_coords(scene)
+        zoom_fr = Fraction(str(zoom))
+        zoom_f = float(zoom_fr)
+        mode, bits = precision_mode_for_zoom_frac(zoom_fr)
+        # Bucket the orbit precision UP to the next 64-bit step, so one orbit
+        # serves ~19 digits of an interactive descent (never less accurate).
+        bits = -(-bits // 64) * 64
+        if exact_dust:
+            # dust counts pin only over a high-precision orbit (96-bit deltas
+            # over a 160-bit table): the table's own recurrence error amplifies
+            # chaotically just like the delta's
+            bits = max(bits + 96, 160)
+        max_iter = scene.max_iterations
 
-    hp_bits = max(bits, 128)
-    digs = max(40, int(hp_bits * 0.302) + 12)
-    shift_kw = {}
-    if ref_center is not None:
-        # One shared orbit at ref_center; the pixel deltas pick up
-        # shift = (scene center - ref), exactly like a secondary reference.
-        rcx_s, rcy_s = ref_center
-        orbit = cached_orbit(rcx_s, rcy_s)
-        center_x_dd = dd_from_string(rcx_s)
-        center_y_dd = dd_from_string(rcy_s)
-        sx_s = (HPFloat(str(cx), hp_bits)
-                - HPFloat(rcx_s, hp_bits)).to_string(digs)
-        sy_s = (HPFloat(str(cy), hp_bits)
-                - HPFloat(rcy_s, hp_bits)).to_string(digs)
-        shift_kw = dict(ref_shift_x=dd_from_string(sx_s),
-                        ref_shift_y=dd_from_string(sy_s),
-                        ref_shift_x_frac=sx_s, ref_shift_y_frac=sy_s)
-        orbit_center = (rcx_s, rcy_s)
-    else:
-        orbit = cached_orbit(cx, cy)
-        orbit_center = (cx, cy)
-    # emit_fx orbits come back as (mantissas, exponents); plain ones bare
-    orbit, orbit_exp = orbit if isinstance(orbit, tuple) else (orbit, None)
+        center_x_dd = _dd_of(cx, 0.0)
+        center_y_dd = _dd_of(cy, 0.0)
+        zoom_dd = _dd_of(zoom, 0.0)
 
-    series = None
-    if scene.use_series_approximation and max(scene.bailout, 2.0) >= 4.0 \
-            and ref_center is None and not (julia or ship or phoenix):
-        aspect = width / height
-        # +1/height: subpixel AA offsets push |dc| up to one pixel past the
-        # geometric corner; the series exactness bound must cover them
-        corner = math.hypot(0.5 * aspect + 1.0 / height, 0.5 + 1.0 / height)
-        if scaled:
-            # zoom may underflow f64 here — dc_max stays exact-rational and
-            # the coefficients accumulate in floatexp
-            from ..deepzoom.series import compute_series_skip_fx
+        # Deltas iterate in double-double past 1e-7 (f32's 2^-24 relative
+        # error is below pixel scale above it) and in floatexp in ARBITRARY
+        # mode (zoom < 1e-30).  The legacy pipeline continues starved lanes in
+        # f32 above 1e-7, where f32 c still resolves the pixel; deeper, they
+        # are flagged and re-referenced.
+        scaled = mode.name == "ARBITRARY"
+        dd_delta = (zoom_f <= 1e-7) and not scaled
+        float_cont = zoom_f > 1e-7 and not rebasing
+        if ship:
+            # the armada dust flips f32-tier counts even at 1e-5 — always dd
+            dd_delta = not scaled
+        jc = (repr(float(scene.julia_c_real)), repr(float(scene.julia_c_imag)))
 
-            dc_max_fr = zoom_fr * 4 * Fraction(corner) / height
-            series = compute_series_skip_fx(orbit, dc_max_fr)
+        # +1: the kernel's index-consistent escape test reads orbit[i+1], so a
+        # full-strength (interior) reference needs max_iter+1 stored entries.
+        def _ckey(v):
+            # exact cache identity (HPFloat by mantissa, strings by value)
+            return (v.man, v.bits) if isinstance(v, HPFloat) \
+                else Fraction(str(v))
+
+        def cached_orbit(ocx, ocy):
+            # the orbit depends on the recurrence too: the key carries every
+            # field of the JAX package's key, so the two caches key alike
+            key = (_ckey(ocx), _ckey(ocy), bits, max_iter, julia,
+                   jc if julia else None, ship, phoenix,
+                   (float(scene.phoenix_p), float(scene.phoenix_r))
+                   if phoenix else None,
+                   scaled if julia else None)  # drift emission format
+            if orbit_cache is not None and key in orbit_cache:
+                return orbit_cache[key]
+            with span("deep.orbit"):
+                if julia:
+                    # z0 = the view point, c = the shared Julia constant; the
+                    # table holds the drift D = Z - Z0, floatexp-emitted
+                    # (mantissa, exponent) in the ARBITRARY tier so no depth
+                    # underflows it
+                    o = orbit_mod.compute_orbit(
+                        jc[0], jc[1], bits, max_iter + 1,
+                        force_python=force_python_orbit, z0x=ocx, z0y=ocy,
+                        emit_rel=True, emit_fx=scaled)
+                else:
+                    o = orbit_mod.compute_orbit(
+                        ocx, ocy, bits, max_iter + 1,
+                        force_python=force_python_orbit,
+                        kind=1 if ship else (2 if phoenix else 0),
+                        pp=float(scene.phoenix_p), rr=float(scene.phoenix_r))
+            if orbit_cache is not None:
+                orbit_cache[key] = o
+            return o
+
+        hp_bits = max(bits, 128)
+        digs = max(40, int(hp_bits * 0.302) + 12)
+        shift_kw = {}
+        if ref_center is not None:
+            # One shared orbit at ref_center; the pixel deltas pick up
+            # shift = (scene center - ref), exactly like a secondary reference.
+            rcx_s, rcy_s = ref_center
+            orbit = cached_orbit(rcx_s, rcy_s)
+            center_x_dd = dd_from_string(rcx_s)
+            center_y_dd = dd_from_string(rcy_s)
+            sx_s = (HPFloat(str(cx), hp_bits)
+                    - HPFloat(rcx_s, hp_bits)).to_string(digs)
+            sy_s = (HPFloat(str(cy), hp_bits)
+                    - HPFloat(rcy_s, hp_bits)).to_string(digs)
+            shift_kw = dict(ref_shift_x=dd_from_string(sx_s),
+                            ref_shift_y=dd_from_string(sy_s),
+                            ref_shift_x_frac=sx_s, ref_shift_y_frac=sy_s)
+            orbit_center = (rcx_s, rcy_s)
         else:
-            from ..deepzoom.series import compute_series_skip
+            orbit = cached_orbit(cx, cy)
+            orbit_center = (cx, cy)
+        # emit_fx orbits come back as (mantissas, exponents); plain ones bare
+        orbit, orbit_exp = orbit if isinstance(orbit, tuple) else (orbit, None)
 
-            dc_max = zoom_f * 4.0 / height * corner
-            series = compute_series_skip(orbit, dc_max)
+        series = None
+        if scene.use_series_approximation and max(scene.bailout, 2.0) >= 4.0 \
+                and ref_center is None and not (julia or ship or phoenix):
+            aspect = width / height
+            # +1/height: subpixel AA offsets push |dc| up to one pixel past
+            # the geometric corner; the series exactness bound must cover them
+            corner = math.hypot(0.5 * aspect + 1.0 / height,
+                                0.5 + 1.0 / height)
+            if scaled:
+                # zoom may underflow f64 here — dc_max stays exact-rational
+                # and the coefficients accumulate in floatexp
+                from ..deepzoom.series import compute_series_skip_fx
+
+                dc_max_fr = zoom_fr * 4 * Fraction(corner) / height
+                series = compute_series_skip_fx(orbit, dc_max_fr)
+            else:
+                from ..deepzoom.series import compute_series_skip
+
+                dc_max = zoom_f * 4.0 / height * corner
+                series = compute_series_skip(orbit, dc_max)
 
     f = field_fn(
         orbit, width, band_h, center_x_dd=center_x_dd,
@@ -276,15 +295,15 @@ def render_fields(scene: Scene, width: int, height: int,
         # precision-starved dust lanes join the HP-fallback set: the
         # per-pixel orbit below pins their counts exactly
         suspect = f["errx"] > _DUST_SUSPECT_LOG2
-        dust_suspect = int(suspect.sum())
+        dust_suspect = _host_int(suspect.sum())
         flagged = flagged | suspect
-    n_flagged = int(flagged.sum())
+    n_flagged = _host_int(flagged.sum())
     info = {"precision_mode": mode.name, "precision_bits": bits,
             "dd_delta": dd_delta, "scaled_delta": scaled,
             "deep_zoom_julia": julia, "deep_zoom_ship": ship,
             "deep_zoom_phoenix": phoenix,
             "algorithm": "rebase" if rebasing else "secondary_refs",
-            "rebase_passes": int(f["passes"]) if rebasing else 0,
+            "rebase_passes": _host_int(f["passes"]) if rebasing else 0,
             "reference_iterations": len(orbit), "references_used": 1,
             "series_skip": series.n_skip if series else 0,
             "dust_suspect_pixels": dust_suspect,
@@ -298,10 +317,10 @@ def render_fields(scene: Scene, width: int, height: int,
                     fields_on_device=True)
         return (f["n"], f["zx"], f["zy"],
                 np.zeros(tuple(f["n"].shape), bool), info)
-    n = f["n"].cpu().numpy()
-    zx = f["zx"].cpu().numpy()
-    zy = f["zy"].cpu().numpy()
-    glitch = flagged.cpu().numpy()
+    n = _host_array(f["n"])
+    zx = _host_array(f["zx"])
+    zy = _host_array(f["zy"])
+    glitch = _host_array(flagged)
 
     cx_hp = HPFloat(str(cx), hp_bits)
     cy_hp = HPFloat(str(cy), hp_bits)
@@ -353,10 +372,10 @@ def render_fields(scene: Scene, width: int, height: int,
             scaled_delta=scaled, zoom_frac=str(zoom),
             ref_shift_x_frac=sx_str, ref_shift_y_frac=sy_str, rebase=False,
             **band_kw)
-        fix = glitch & ~(f2["glitch"] > 0.5).cpu().numpy()
-        n[fix] = f2["n"].cpu().numpy()[fix]
-        zx[fix] = f2["zx"].cpu().numpy()[fix]
-        zy[fix] = f2["zy"].cpu().numpy()[fix]
+        fix = glitch & ~_host_array(f2["glitch"] > 0.5)
+        n[fix] = _host_array(f2["n"])[fix]
+        zx[fix] = _host_array(f2["zx"])[fix]
+        zy[fix] = _host_array(f2["zy"])[fix]
         glitch = glitch & ~fix
         refs += 1
 
@@ -365,39 +384,40 @@ def render_fields(scene: Scene, width: int, height: int,
     # the pixel IS the reference, so by construction it cannot glitch.
     info["fallback_pixels"] = int(glitch.sum())
     if glitch.any():
-        bail = max(2.0, float(scene.bailout))
-        bail2 = bail * bail
-        if n.ndim == 3:  # stacked AA: per-sample subpixel offsets
-            lanes = [(int(s), int(y), int(x))
-                     for s, y, x in np.argwhere(glitch)]
-        else:
-            lanes = [(None, int(y), int(x))
-                     for y, x in zip(*np.nonzero(glitch))]
-        for smp, y, x in lanes:
-            off = offset if smp is None else \
-                ((smp % aa_spp) / aa_spp, (smp // aa_spp) / aa_spp)
-            pcx, pcy = pixel_c(y, x, off)
-            if julia:
-                o = orbit_mod.compute_orbit(
-                    jc[0], jc[1], hp_bits, max_iter + 1,
-                    escape_mag_sq=bail2, force_python=force_python_orbit,
-                    z0x=pcx, z0y=pcy)
+        with span("deep.hp_fallback"):
+            bail = max(2.0, float(scene.bailout))
+            bail2 = bail * bail
+            if n.ndim == 3:  # stacked AA: per-sample subpixel offsets
+                lanes = [(int(s), int(y), int(x))
+                         for s, y, x in np.argwhere(glitch)]
             else:
-                o = orbit_mod.compute_orbit(
-                    pcx, pcy, hp_bits, max_iter + 1, escape_mag_sq=bail2,
-                    force_python=force_python_orbit,
-                    kind=1 if ship else (2 if phoenix else 0),
-                    pp=float(scene.phoenix_p), rr=float(scene.phoenix_r))
-            zfx, zfy = float(o[-1, 0]), float(o[-1, 1])
-            escaped = zfx * zfx + zfy * zfy > bail2
-            # kernel count convention: n = #{i >= 1 : |z_i| <= bail} — the
-            # first escaped index k gives n = k - 1; interior reports the
-            # limit
-            at = (y, x) if smp is None else (smp, y, x)
-            n[at] = (len(o) - 2) if escaped else max_iter
-            zx[at] = zfx
-            zy[at] = zfy
-        glitch = np.zeros_like(glitch)
+                lanes = [(None, int(y), int(x))
+                         for y, x in zip(*np.nonzero(glitch))]
+            for smp, y, x in lanes:
+                off = offset if smp is None else \
+                    ((smp % aa_spp) / aa_spp, (smp // aa_spp) / aa_spp)
+                pcx, pcy = pixel_c(y, x, off)
+                if julia:
+                    o = orbit_mod.compute_orbit(
+                        jc[0], jc[1], hp_bits, max_iter + 1,
+                        escape_mag_sq=bail2, force_python=force_python_orbit,
+                        z0x=pcx, z0y=pcy)
+                else:
+                    o = orbit_mod.compute_orbit(
+                        pcx, pcy, hp_bits, max_iter + 1, escape_mag_sq=bail2,
+                        force_python=force_python_orbit,
+                        kind=1 if ship else (2 if phoenix else 0),
+                        pp=float(scene.phoenix_p), rr=float(scene.phoenix_r))
+                zfx, zfy = float(o[-1, 0]), float(o[-1, 1])
+                escaped = zfx * zfx + zfy * zfy > bail2
+                # kernel count convention: n = #{i >= 1 : |z_i| <= bail} —
+                # the first escaped index k gives n = k - 1; interior reports
+                # the limit
+                at = (y, x) if smp is None else (smp, y, x)
+                n[at] = (len(o) - 2) if escaped else max_iter
+                zx[at] = zfx
+                zy[at] = zfy
+            glitch = np.zeros_like(glitch)
     info["references_used"] = refs
     info["glitched_pixels_remaining"] = int(glitch.sum())
     return n, zx, zy, glitch, info
@@ -477,41 +497,50 @@ def render(scene: Scene, width: int, height: int,
     renders the spp² samples in one stacked K3 launch (``info`` then has
     ``aa_samples`` and ``aa_batched``); another spp renders them one launch
     each at offsets (sx/spp, sy/spp).  Fields from the HP fallback (host
-    arrays) are colored on the device too, with the same expression."""
+    arrays) are colored on the device too, with the same expression.
+
+    The call runs in the span ``deep.frame``, its colour and quantize in
+    ``deep.colour``; ``render.frames`` counts the frames finished."""
     from .common import quantize_image
 
-    p = ColorParams(
-        max_iterations=scene.max_iterations, bailout=scene.bailout,
-        palette_mode=scene.palette_mode, color_offset=scene.color_offset,
-        color_scale=scene.color_scale)
-    spp = max(int(scene.samples_per_pixel), 1)
-    cache = orbit_cache if orbit_cache is not None else {}
-    stacked = spp > 1 and (spp & (spp - 1)) == 0 \
-        and kw.get("rebasing", True)
-    if stacked:
-        n, zx, zy, _, info = render_fields(scene, width, height,
-                                           orbit_cache=cache, aa_spp=spp,
-                                           keep_device=True, device=device,
-                                           **kw)
-        img = color_stacked_samples(n, zx, zy, p, spp * spp, device)
-        info = dict(info, aa_samples=spp * spp, aa_batched=True)
-    else:
-        accu = SampleAccumulator(p, device)
-        infos = []
-        for sy in range(spp):
-            for sx in range(spp):
-                off = (sx / spp, sy / spp) if spp > 1 else (0.0, 0.0)
-                n, zx, zy, _, i = render_fields(scene, width, height,
-                                                offset=off,
-                                                orbit_cache=cache,
-                                                keep_device=True,
-                                                device=device, **kw)
-                accu.add(n, zx, zy)
-                infos.append(i)
-        img = accu.average(spp * spp)
-        info = infos[0]
-    if quantize in (8, 16):
-        img = quantize_image(img, bit_depth=quantize)
+    with span("deep.frame"):
+        p = ColorParams(
+            max_iterations=scene.max_iterations, bailout=scene.bailout,
+            palette_mode=scene.palette_mode,
+            color_offset=scene.color_offset, color_scale=scene.color_scale)
+        spp = max(int(scene.samples_per_pixel), 1)
+        cache = orbit_cache if orbit_cache is not None else {}
+        stacked = spp > 1 and (spp & (spp - 1)) == 0 \
+            and kw.get("rebasing", True)
+        if stacked:
+            n, zx, zy, _, info = render_fields(
+                scene, width, height, orbit_cache=cache, aa_spp=spp,
+                keep_device=True, device=device, **kw)
+            info = dict(info, aa_samples=spp * spp, aa_batched=True)
+        else:
+            accu = SampleAccumulator(p, device)
+            infos = []
+            for sy in range(spp):
+                for sx in range(spp):
+                    off = (sx / spp, sy / spp) if spp > 1 else (0.0, 0.0)
+                    n, zx, zy, _, i = render_fields(
+                        scene, width, height, offset=off, orbit_cache=cache,
+                        keep_device=True, device=device, **kw)
+                    with span("deep.colour"):
+                        accu.add(n, zx, zy)
+                    infos.append(i)
+            info = infos[0]
+        with span("deep.colour"):
+            if stacked:
+                img = color_stacked_samples(n, zx, zy, p, spp * spp, device)
+            else:
+                img = accu.average(spp * spp)
+            if quantize in (8, 16):
+                img = quantize_image(img, bit_depth=quantize)
+    render.frames += 1
     if return_info:
         return img, info
     return img
+
+
+render.frames = 0

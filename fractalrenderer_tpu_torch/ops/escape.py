@@ -35,6 +35,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.diag import span
 from . import coloring, mapping, trig
 from . import palettes as pal
 
@@ -498,33 +499,36 @@ def escape_fields_cuda(params: np.ndarray, *, width: int, height: int,
     as escape_fields_plain).  ``trips``, a buffer from trips_buffer, is
     zeroed and filled with the launch's per-warp counters (decode_trips
     reads it); without it the kernel writes none.  Counts its launches in
-    ``escape_fields_cuda.launches``."""
+    ``escape_fields_cuda.launches``.  Its checks, colour table and flags
+    run in the span ``k1.prepare``, the launch block in ``k1.launch``."""
     from . import _cuda
 
-    _check_launch(params, width, height, map_height, row0, max_iter_cap)
-    _check_options(family, fused_color, interior_skip, track_trap,
-                   track_stripe, track_deriv)
-    dev = _cuda.cuda_device(device)
-    check_trips(trips, launch_warps(width, height), dev)
-    params = np.ascontiguousarray(params)
-    flags = ((F_SKIP if interior_skip else 0) | (F_JULIA if use_julia else 0)
-             | (F_TRAP if track_trap else 0)
-             | (F_STRIPE if track_stripe else 0)
-             | (F_DERIV if track_deriv else 0))
-    names = output_names(family, fused_color is not None, track_trap,
-                         track_stripe, track_deriv)
-    if fused_color is None:
-        table = np.zeros(COLOR_TABLE_LEN, np.float32)
-        interior_style = 0
-        slots = [OUTPUT_SLOTS[name] for name in names]
-    else:
-        palette_mode, interior_style, clamp_mins, with_post = fused_color
-        flags |= (F_FUSED | (F_CLAMP if clamp_mins else 0)
-                  | (F_POST if with_post else 0))
-        table = color_table(palette_mode, PALETTE_FAMILY[family])
-        slots = [0, 1, 2]
-    lib = _cuda.load_library()
-    with torch.cuda.device(dev):
+    with span("k1.prepare"):
+        _check_launch(params, width, height, map_height, row0, max_iter_cap)
+        _check_options(family, fused_color, interior_skip, track_trap,
+                       track_stripe, track_deriv)
+        dev = _cuda.cuda_device(device)
+        check_trips(trips, launch_warps(width, height), dev)
+        params = np.ascontiguousarray(params)
+        flags = ((F_SKIP if interior_skip else 0)
+                 | (F_JULIA if use_julia else 0)
+                 | (F_TRAP if track_trap else 0)
+                 | (F_STRIPE if track_stripe else 0)
+                 | (F_DERIV if track_deriv else 0))
+        names = output_names(family, fused_color is not None, track_trap,
+                             track_stripe, track_deriv)
+        if fused_color is None:
+            table = np.zeros(COLOR_TABLE_LEN, np.float32)
+            interior_style = 0
+            slots = [OUTPUT_SLOTS[name] for name in names]
+        else:
+            palette_mode, interior_style, clamp_mins, with_post = fused_color
+            flags |= (F_FUSED | (F_CLAMP if clamp_mins else 0)
+                      | (F_POST if with_post else 0))
+            table = color_table(palette_mode, PALETTE_FAMILY[family])
+            slots = [0, 1, 2]
+        lib = _cuda.load_library()
+    with span("k1.launch"), torch.cuda.device(dev):
         outs = tuple(torch.empty((height, width), device=dev,
                                  dtype=torch.int32 if name == "n"
                                  else torch.float32) for name in names)
@@ -574,28 +578,30 @@ def escape_fields(family: str, width: int, height: int, *,
     renders.  As in the JAX package, ``interior_skip`` and ``track_deriv``
     act only for the Mandelbrot family.
     """
-    if fused_color is not None:
-        fused_color = (int(fused_color[0]), int(fused_color[1]),
-                       bool(fused_color[2]),
-                       bool(fused_color[3]) if len(fused_color) > 3
-                       else True)
-    interior_skip = bool(interior_skip and family == "mandelbrot")
-    track_deriv = bool(track_deriv and family == "mandelbrot")
-    params = pack_params(
-        family=family, center_x=center_x, center_y=center_y, zoom=zoom,
-        iter_limit=max_iter if iter_limit is None else iter_limit,
-        bailout=bailout, offset=offset, julia_c=julia_c,
-        phoenix_p=phoenix_p, phoenix_r=phoenix_r, trap_radius=trap_radius,
-        stripe_density=stripe_density, row0=row0,
-        color_offset=color_offset, color_scale=color_scale,
-        brightness=brightness, saturation=saturation, contrast=contrast)
-    dev = torch.device(device)
-    if dev.type == "cpu":
-        impl = escape_fields_plain
-    elif dev.type == "cuda":
-        impl = escape_fields_cuda
-    else:
-        raise ValueError(f"unsupported device {dev}")
+    with span("k1.prepare"):
+        if fused_color is not None:
+            fused_color = (int(fused_color[0]), int(fused_color[1]),
+                           bool(fused_color[2]),
+                           bool(fused_color[3]) if len(fused_color) > 3
+                           else True)
+        interior_skip = bool(interior_skip and family == "mandelbrot")
+        track_deriv = bool(track_deriv and family == "mandelbrot")
+        params = pack_params(
+            family=family, center_x=center_x, center_y=center_y, zoom=zoom,
+            iter_limit=max_iter if iter_limit is None else iter_limit,
+            bailout=bailout, offset=offset, julia_c=julia_c,
+            phoenix_p=phoenix_p, phoenix_r=phoenix_r,
+            trap_radius=trap_radius, stripe_density=stripe_density,
+            row0=row0, color_offset=color_offset, color_scale=color_scale,
+            brightness=brightness, saturation=saturation,
+            contrast=contrast)
+        dev = torch.device(device)
+        if dev.type == "cpu":
+            impl = escape_fields_plain
+        elif dev.type == "cuda":
+            impl = escape_fields_cuda
+        else:
+            raise ValueError(f"unsupported device {dev}")
     outs = impl(params, width=width, height=height,
                 map_height=int(height if map_height is None else map_height),
                 row0=int(row0), max_iter_cap=int(max_iter),

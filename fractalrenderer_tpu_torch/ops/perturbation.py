@@ -67,6 +67,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils.diag import span
 from . import dd
 
 # Parameter vector layout, identical to the JAX package's
@@ -444,6 +445,18 @@ def _device_streams(streams: Sequence, dev: torch.device):
     return [s.to(dev) if isinstance(s, torch.Tensor)
             else torch.from_numpy(np.ascontiguousarray(s)).to(dev)
             for s in streams]
+
+
+def _upload_bytes(streams: Sequence, dev: torch.device) -> int:
+    """The bytes _device_streams copies to ``dev``: every host array, and
+    every tensor on another device."""
+    total = 0
+    for s in streams:
+        if not isinstance(s, torch.Tensor):
+            total += np.asarray(s).nbytes
+        elif s.device != dev:
+            total += s.numel() * s.element_size()
+    return total
 
 
 def _pow2(k: torch.Tensor) -> torch.Tensor:
@@ -1072,38 +1085,45 @@ def perturbation_fields_cuda(params: np.ndarray, streams: Sequence, *,
     as perturbation_fields_plain; ``streams`` may be numpy arrays or
     tensors already on the device).  One launch per call, stacked spp²
     segments included; counts its launches in
-    ``perturbation_fields_cuda.launches``."""
+    ``perturbation_fields_cuda.launches`` and the bytes it copies to the
+    card in ``perturbation_fields_cuda.upload_bytes``.  Its checks run in
+    the span ``k3.prepare``, the orbit's copy and interleave in
+    ``deep.upload``, the launch in ``k3.launch``."""
     from . import _cuda
 
-    _check_launch(params, streams, tier, family, form, float_cont, width,
-                  height, map_height, max_passes, spp)
-    dev = _cuda.cuda_device(device)
-    params = np.ascontiguousarray(params)
-    lib = _cuda.load_library()
-    nseg = spp * spp
-    single = form == "single"
+    with span("k3.prepare"):
+        _check_launch(params, streams, tier, family, form, float_cont, width,
+                      height, map_height, max_passes, spp)
+        dev = _cuda.cuda_device(device)
+        params = np.ascontiguousarray(params)
+        lib = _cuda.load_library()
+        nseg = spp * spp
+        single = form == "single"
     with torch.cuda.device(dev):
-        orbit = _orbit_table(_device_streams(streams, dev), tier, family)
-        shape = (nseg * height, width)
-        n = torch.empty(shape, dtype=torch.int32, device=dev)
+        with span("deep.upload"):
+            orbit = _orbit_table(_device_streams(streams, dev), tier, family)
+        perturbation_fields_cuda.upload_bytes += _upload_bytes(streams, dev)
+        with span("k3.launch"):
+            shape = (nseg * height, width)
+            n = torch.empty(shape, dtype=torch.int32, device=dev)
 
-        def plane(written=True):
-            return (torch.empty if written else torch.zeros)(
-                shape, dtype=torch.float32, device=dev)
+            def plane(written=True):
+                return (torch.empty if written else torch.zeros)(
+                    shape, dtype=torch.float32, device=dev)
 
-        # the rebasing forms leave glitch at 0; the single pass writes no
-        # want or rounds, only the ledger writes errx
-        zx, zy, glitch = plane(), plane(), plane(single)
-        want, rounds = (None, None) if single else (plane(), plane())
-        errx = plane() if form == "ledger" else None
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fr_perturbation(
-            FAMILIES.index(family), TIERS.index(tier), FORMS.index(form),
-            params.ctypes.data, orbit.data_ptr(), width,
-            height, map_height, max_passes, spp, int(float_cont),
-            *(None if q is None else q.data_ptr()
-              for q in (n, zx, zy, glitch, want, rounds, errx)), stream)
-    _cuda.check(lib, rc, "perturbation")
+            # the rebasing forms leave glitch at 0; the single pass writes
+            # no want or rounds, only the ledger writes errx
+            zx, zy, glitch = plane(), plane(), plane(single)
+            want, rounds = (None, None) if single else (plane(), plane())
+            errx = plane() if form == "ledger" else None
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.fr_perturbation(
+                FAMILIES.index(family), TIERS.index(tier), FORMS.index(form),
+                params.ctypes.data, orbit.data_ptr(), width,
+                height, map_height, max_passes, spp, int(float_cont),
+                *(None if q is None else q.data_ptr()
+                  for q in (n, zx, zy, glitch, want, rounds, errx)), stream)
+            _cuda.check(lib, rc, "perturbation")
     perturbation_fields_cuda.launches += 1
     outs = ((n, zx, zy, glitch) if single
             else (n, zx, zy, glitch, want, rounds)
@@ -1114,6 +1134,7 @@ def perturbation_fields_cuda(params: np.ndarray, streams: Sequence, *,
 
 
 perturbation_fields_cuda.launches = 0
+perturbation_fields_cuda.upload_bytes = 0
 
 
 def perturbation_fields(orbit: np.ndarray, width: int, height: int, *,
@@ -1147,29 +1168,33 @@ def perturbation_fields(orbit: np.ndarray, width: int, height: int, *,
     dd / floatexp); with ``aa_spp`` > 1 the planes are (aa_spp², height,
     width).  ``passes`` is the most rounds any pixel took, ``rounds_plane``
     the per-pixel rounds.  ``rebase=False`` (Mandelbrot) runs the single
-    pass and returns {"n", "zx", "zy", "glitch"}."""
+    pass and returns {"n", "zx", "zy", "glitch"}.  The packing runs in
+    the span ``k3.prepare``."""
     if rebase and not rebase_inkernel:
         raise NotImplementedError("the multi-pass rebase form is the JAX "
                                   "package's oracle and is not ported")
-    params, streams, launch = pack_pert_operands(
-        orbit, width, height, center_x_dd=center_x_dd,
-        center_y_dd=center_y_dd, zoom_dd=zoom_dd, max_iter=max_iter,
-        bailout=bailout, glitch_tol=glitch_tol, ref_shift_x=ref_shift_x,
-        ref_shift_y=ref_shift_y, offset=offset, iter_limit=iter_limit,
-        series=series, row0=row0, map_height=map_height, dd_delta=dd_delta,
-        scaled_delta=scaled_delta, zoom_frac=zoom_frac,
-        ref_shift_x_frac=ref_shift_x_frac, ref_shift_y_frac=ref_shift_y_frac,
-        julia=julia, julia_z0=julia_z0, ship=ship, phoenix=phoenix,
-        phoenix_p=phoenix_p, phoenix_r=phoenix_r, aa_spp=aa_spp,
-        orbit_exp=orbit_exp, rebase=rebase,
-        float_continuation=float_continuation, track_err=track_err)
-    dev = torch.device(device)
-    if dev.type == "cpu":
-        impl = perturbation_fields_plain
-    elif dev.type == "cuda":
-        impl = perturbation_fields_cuda
-    else:
-        raise ValueError(f"unsupported device {dev}")
+    with span("k3.prepare"):
+        params, streams, launch = pack_pert_operands(
+            orbit, width, height, center_x_dd=center_x_dd,
+            center_y_dd=center_y_dd, zoom_dd=zoom_dd, max_iter=max_iter,
+            bailout=bailout, glitch_tol=glitch_tol,
+            ref_shift_x=ref_shift_x, ref_shift_y=ref_shift_y, offset=offset,
+            iter_limit=iter_limit, series=series, row0=row0,
+            map_height=map_height, dd_delta=dd_delta,
+            scaled_delta=scaled_delta, zoom_frac=zoom_frac,
+            ref_shift_x_frac=ref_shift_x_frac,
+            ref_shift_y_frac=ref_shift_y_frac,
+            julia=julia, julia_z0=julia_z0, ship=ship, phoenix=phoenix,
+            phoenix_p=phoenix_p, phoenix_r=phoenix_r, aa_spp=aa_spp,
+            orbit_exp=orbit_exp, rebase=rebase,
+            float_continuation=float_continuation, track_err=track_err)
+        dev = torch.device(device)
+        if dev.type == "cpu":
+            impl = perturbation_fields_plain
+        elif dev.type == "cuda":
+            impl = perturbation_fields_cuda
+        else:
+            raise ValueError(f"unsupported device {dev}")
     outs = impl(params, streams, max_passes=int(max_passes), device=dev,
                 **launch)
     res = dict(zip(("n", "zx", "zy", "glitch"), outs))

@@ -7,6 +7,8 @@
 - params_layout_selfcheck: verify_push_constant_layout (vk_engine.cpp:
   420-446) — the Python packers' index constants against the CUDA
   sources' own
+- span: a named stage of the program on the profiler's clock, a no-op
+  when no profiler session records
 - trace, device_seconds_from_trace, measure_device_seconds: device time
   from a torch.profiler trace
 - measure_link_bandwidth: the device-to-host copy rate, pageable and
@@ -28,6 +30,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from ..scene import Scene
 
@@ -184,6 +187,23 @@ def params_layout_selfcheck() -> bool:
         _require('#include "warp_counters.cuh"' in text,
                  f"{path} does not include warp_counters.cuh")
     return True
+
+
+# the span of a stage when no profiler session records: shared, reentrant
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks a stage of the program, ``name``, as a
+    ``torch.profiler.record_function`` span while a profiler session
+    records (an operator's ``trace``, the benchmark's traced stretch), so
+    the stage lies on the clock of the card's records in the exported
+    trace.  With no session recording it returns one shared no-op object:
+    the hot path pays one flag test.  Names carry their layer as a prefix
+    (``batch.``, ``k1.``, ``deep.``, ``k3.``); the README lists them."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 class NoDeviceEvents(ValueError):

@@ -1143,11 +1143,12 @@ def test_encode_qtpng_cli(tmp_path, capsys):
 
 @pytest.mark.parametrize("verb", ["animate", "encode"])
 def test_verb_flags_match_jax_cli(verb):
-    # the JAX parsers' flags and defaults, plus --device where frames render
+    # the JAX parsers' flags and defaults, plus the port's own --device
+    # where frames render and --profile (a torch.profiler trace of the verb)
     def flags(parser):
         sp = parser._subparsers._group_actions[0].choices[verb]
         return {a.dest: (a.default, tuple(a.choices or ()))
                 for a in sp._actions
-                if a.dest not in ("help", "cpu", "device")}
+                if a.dest not in ("help", "cpu", "device", "profile")}
 
     assert flags(cli.build_parser()) == flags(jax_cli.build_parser())

@@ -454,3 +454,33 @@ def test_measure_device_seconds_takes_a_trace_again_without_device_events(
     with pytest.raises(diag.NoDeviceEvents):
         diag.measure_device_seconds(lambda: runs.append(1), device="cpu")
     assert len(runs) == 5
+
+
+# -- span -----------------------------------------------------------------
+
+def test_span_without_a_session_is_one_shared_no_op(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) called")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    a, b = diag.span("k1.prepare"), diag.span("deep.frame")
+    assert a is b
+    with a:
+        with b:
+            pass
+
+
+def test_span_inside_a_session_records_an_annotation(tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        s = diag.span("test.stage")
+        assert isinstance(s, torch.profiler.record_function)
+        with s:
+            torch.ones(4).sum()
+    assert diag.span("test.stage") is diag.span("other")  # off again
+    path = tmp_path / "t.json"
+    prof.export_chrome_trace(str(path))
+    names = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("cat") == "user_annotation"]
+    assert names == ["test.stage"]
