@@ -1,6 +1,8 @@
 // K1 on Hopper: the escape-time kernel of the four 2D families (Mandelbrot,
 // Julia, Burning Ship, Phoenix) with the trap, stripe and derivative
-// outputs, the analytic interior skip and the fused colour epilogue.
+// outputs, the analytic interior skip and the fused colour epilogue, which
+// can also quantize the finished colour into the caller's uint8 or uint16
+// planes.
 //
 // Replaces fractalrenderer_tpu/ops/escape.py:_make_kernel (with _iter_chunk
 // and _cardioid_or_bulb).  The plain PyTorch version is
@@ -33,7 +35,7 @@
 // plus a sqrt or a sinf when a trap or the stripe is tracked) and
 // divergence inside a warp, which runs until its slowest lane escapes
 // (86-90% of its lanes busy on the main views).  Memory is minor: 12 to
-// 28 B per pixel written.
+// 28 B per pixel written, 3 or 6 B with the quantized planes.
 
 // Exactness.  Build with -fmad=false and without --use_fast_math: the
 // reference counts rest on the shaders' operation order with no fused
@@ -41,10 +43,13 @@
 // colour floors of 1e-38 are subnormal).  Every literal is an f32 equal to
 // numpy.float32 of the Python constant; constants Python folds in double
 // (palette spans, 1/gamma, ln 2) come in the table from the wrapper.  min,
-// max and clamp propagate NaN as torch.minimum/maximum/clamp do.
+// max and clamp propagate NaN as torch.minimum/maximum/clamp do.  The
+// quantized store repeats models/common.quantize_image operation for
+// operation (see quantize8).
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <cstring>
 
 #include "warp_counters.cuh"
@@ -67,9 +72,10 @@ constexpr int C_KIND = 0, C_EXPO = 1, C_GRAY = 2, C_LO = 3, C_SPAN = 7,
 // Families (ops/escape.py:FAMILIES) and launch flags (ops/escape.py:F_*).
 constexpr int kMandelbrot = 0, kJulia = 1, kBurningShip = 2, kPhoenix = 3;
 constexpr int F_FUSED = 1, F_SKIP = 2, F_JULIA = 4, F_TRAP = 8,
-              F_STRIPE = 16, F_DERIV = 32, F_CLAMP = 64, F_POST = 128;
+              F_STRIPE = 16, F_DERIV = 32, F_CLAMP = 64, F_POST = 128,
+              F_Q8 = 256, F_Q16 = 512;
 // Output slots (ops/escape.py:OUTPUT_SLOTS); fused mode writes r, g, b to
-// slots 0-2.
+// slots 0-2, as f32 or, under F_Q8 / F_Q16, quantized.
 constexpr int O_N = 0, O_ZX = 1, O_ZY = 2, O_TRAP = 3, O_STRIPE = 4,
               O_DZX = 5, O_DZY = 6;
 constexpr int kMaxOutputs = 7;
@@ -110,6 +116,20 @@ __device__ __forceinline__ float clip01(float x) {
 }
 
 __device__ __forceinline__ float fract(float t) { return t - floorf(t); }
+
+// models/common.quantize_image on one value: torch.clamp(x, 0, 1) (NaN
+// stays NaN), an f32 multiply by 255 (65535), a separate f32 add of 0.5
+// (-fmad=false keeps the two apart), then the float-to-integer cast of
+// PyTorch's CUDA copy_ (c10::static_cast_with_inter_type): through int64
+// for uint8, direct for uint16.
+__device__ __forceinline__ uint8_t quantize8(float x) {
+  const float v = clip01(x) * 255.0f + 0.5f;
+  return static_cast<uint8_t>(static_cast<int64_t>(v));
+}
+__device__ __forceinline__ uint16_t quantize16(float x) {
+  const float v = clip01(x) * 65535.0f + 0.5f;
+  return static_cast<uint16_t>(v);
+}
 
 // _cardioid_or_bulb: main cardioid or period-2 bulb (exact interior).
 __device__ __forceinline__ bool cardioid_or_bulb(float cr, float ci) {
@@ -497,9 +517,20 @@ __global__ void __launch_bounds__(256)
         rgb[ch] = powf(clamp_lo(aces(c), 0.0f), inv_gamma);
       }
     }
-    static_cast<float*>(out.p[0])[idx] = rgb[0];
-    static_cast<float*>(out.p[1])[idx] = rgb[1];
-    static_cast<float*>(out.p[2])[idx] = rgb[2];
+    // the store flags are the same for the whole launch: one uniform branch
+    if (flags & F_Q8) {
+      static_cast<uint8_t*>(out.p[0])[idx] = quantize8(rgb[0]);
+      static_cast<uint8_t*>(out.p[1])[idx] = quantize8(rgb[1]);
+      static_cast<uint8_t*>(out.p[2])[idx] = quantize8(rgb[2]);
+    } else if (flags & F_Q16) {
+      static_cast<uint16_t*>(out.p[0])[idx] = quantize16(rgb[0]);
+      static_cast<uint16_t*>(out.p[1])[idx] = quantize16(rgb[1]);
+      static_cast<uint16_t*>(out.p[2])[idx] = quantize16(rgb[2]);
+    } else {
+      static_cast<float*>(out.p[0])[idx] = rgb[0];
+      static_cast<float*>(out.p[1])[idx] = rgb[1];
+      static_cast<float*>(out.p[2])[idx] = rgb[2];
+    }
   }
   if (kCount) {
     finish_row_trips(warp_row(trips), lanes, iters, looped, t_start, t_loop);
@@ -554,7 +585,11 @@ extern "C" {
 // kernel's by-value arguments; `flags` is a sum of the F_* bits.  Fields
 // mode writes n (int32) to out0, zx and zy (f32) to out1 and out2, and the
 // tracked trap, stripe, dzx and dzy (f32) to out3 to out6; fused mode
-// writes r, g, b (f32) to out0 to out2; each (height, width), row-major.
+// writes r, g, b to out0 to out2: f32, or with F_Q8 in `flags` the uint8
+// (uint8_t)(int64_t)(clamp(x, 0, 1) * 255.0f + 0.5f), with F_Q16 the
+// uint16 (uint16_t)(clamp(x, 0, 1) * 65535.0f + 0.5f) (clamp keeping NaN,
+// a multiply then a separate add: models/common.quantize_image's
+// expression); each (height, width), row-major.
 // The pointers of outputs not written may be null.  `trips`, if not null,
 // receives the per-warp counters (csrc/warp_counters.cuh), one zeroed row
 // of kTripFields int32 for each warp of the launch's 32x8 blocks.

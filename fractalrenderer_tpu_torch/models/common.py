@@ -214,7 +214,9 @@ def band_render_fn(cfg: StaticCfg, band_h: int, full_h: int,
     global first row is ``row0``.  Returns f32 (band_h, W, 3), or with
     ``planar_quantize`` 8/16 the quantized (3, band_h, W) planes (only
     when ``planar_export_ok(cfg)``).  ``out``, a tensor of that shape and
-    dtype, receives the result in the pipeline's last operation."""
+    dtype, receives the result in the pipeline's last operation; on the
+    card the quantized planes are K1's own stores, into ``out`` (which
+    must then be contiguous) or a tensor made for the call."""
     if torch.device(cfg.device).type == "cuda":
         from ..ops._cuda import cuda_device
 
@@ -233,12 +235,21 @@ def band_render_fn(cfg: StaticCfg, band_h: int, full_h: int,
         # the post chain, with more it emits pre-post-chain planes that are
         # summed in offset order and post-chained here.
         with_post = len(offsets) == 1
+        # on the card K1's epilogue quantizes the planar frame itself, so
+        # the frame launches no glue; the plain K1 on the CPU leaves it to
+        # the stack and quantize_image below
+        in_kernel = (bool(planar_quantize)
+                     and torch.device(cfg.device).type == "cuda")
+        qdtype = torch.uint8 if planar_quantize == 8 else torch.uint16
 
         def fused(dyn, row0: int, out=None):
             # only a sum of samples needs the accumulator: one sample returns
             # the kernel's planes, so a frame fills no buffer it never reads
             acc = None if with_post else torch.zeros(
                 (band_h, cfg.width, 3), dtype=torch.float32, device=cfg.device)
+            if in_kernel and out is None:
+                out = torch.empty((3, band_h, cfg.width), dtype=qdtype,
+                                  device=cfg.device)
             for off in offsets:
                 f = _sample(cfg, dyn, band_h, full_h, row0, off,
                             fused_color=(cfg.palette_mode,
@@ -248,7 +259,10 @@ def band_render_fn(cfg: StaticCfg, band_h: int, full_h: int,
                             color_scale=dyn["color_scale"],
                             brightness=dyn["brightness"],
                             saturation=dyn["saturation"],
-                            contrast=dyn["contrast"])
+                            contrast=dyn["contrast"],
+                            quantized=out if in_kernel else None)
+                if in_kernel:
+                    return out
                 with span("batch.glue"):
                     if planar_quantize:
                         planes = torch.stack([f["r"], f["g"], f["b"]], dim=0)
@@ -331,7 +345,8 @@ def batch_render_fn(cfg: StaticCfg, quantize: int = 0, planar: bool = False):
     The frames render one after another on the current stream, each as the
     single-frame pipeline (one K1 launch per frame and AA sample, with its
     parameters by value, so a frame's launch needs no copy to the device)
-    writing into its slot of one output tensor.  The parameters are f32
+    writing into its slot of one output tensor; a planar frame on the card
+    is K1's quantized stores into its slot alone.  The parameters are f32
     first, as the JAX batch casts them, so a frame equals a single render
     of its scene bit for bit.  Each frame runs in the span
     ``batch.frame``, its glue's launches in ``batch.glue``; the chunk's

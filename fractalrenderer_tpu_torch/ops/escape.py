@@ -26,7 +26,9 @@ Outputs per pixel (fields mode), in this order:
       pre-update z (0 for the other families)
   dzx, dzy (f32, ``track_deriv``, Mandelbrot only) — dz/dc, dz ← 2·z·dz + 1
       on the pre-update z
-With ``fused_color`` the colour planes r, g, b (f32) come out instead.
+With ``fused_color`` the colour planes r, g, b (f32) come out instead, or,
+given ``quantized``, the same planes quantized (models/common.quantize_image's
+expression) into that uint8/uint16 (3, height, width) tensor.
 """
 from __future__ import annotations
 
@@ -60,8 +62,11 @@ T_LOG2 = pal.TABLE_LEN + 1
 COLOR_TABLE_LEN = pal.TABLE_LEN + 2
 
 # Launch flags of fr_escape (csrc/escape.cu, keep the two in sync).
-F_FUSED, F_SKIP, F_JULIA, F_TRAP, F_STRIPE, F_DERIV, F_CLAMP, F_POST = (
-    1 << i for i in range(8))
+(F_FUSED, F_SKIP, F_JULIA, F_TRAP, F_STRIPE, F_DERIV, F_CLAMP, F_POST, F_Q8,
+ F_Q16) = (1 << i for i in range(10))
+# the planes the fused epilogue quantizes into: dtype -> (store flag,
+# quantize_image's scale)
+QUANTIZED = {torch.uint8: (F_Q8, 255.0), torch.uint16: (F_Q16, 65535.0)}
 # fr_escape's output slot of each field (fused mode: r, g, b in 0-2)
 OUTPUT_SLOTS = {"n": 0, "zx": 1, "zy": 2, "trap": 3, "stripe": 4, "dzx": 5,
                 "dzy": 6}
@@ -204,6 +209,27 @@ def _check_options(family: str, fused_color: Optional[FusedColor],
                              "pipeline")
 
 
+def check_quantized(quantized: Optional[torch.Tensor], fused: bool,
+                    height: int, width: int, dev) -> int:
+    """The store flag of a launch's quantized planes, 0 without them.
+    Raises ValueError unless ``quantized`` is None or, for a fused launch,
+    a contiguous uint8 or uint16 (3, height, width) tensor on ``dev``."""
+    if quantized is None:
+        return 0
+    want = (3, height, width)
+    if not fused:
+        raise ValueError("quantized planes need a fused launch")
+    if (quantized.dtype not in QUANTIZED or quantized.device != dev
+            or tuple(quantized.shape) != want
+            or not quantized.is_contiguous()):
+        raise ValueError(f"the quantized planes must be a contiguous uint8 "
+                         f"or uint16 {want} tensor on {dev}, got "
+                         f"{quantized.dtype} {tuple(quantized.shape)} "
+                         f"strides {quantized.stride()} on "
+                         f"{quantized.device}")
+    return QUANTIZED[quantized.dtype][0]
+
+
 def output_names(family: str, fused: bool, track_trap: bool = False,
                  track_stripe: bool = False,
                  track_deriv: bool = False) -> Tuple[str, ...]:
@@ -227,15 +253,20 @@ def escape_fields_plain(params: np.ndarray, *, width: int, height: int,
                         device, family: str = "mandelbrot",
                         use_julia: bool = False, track_trap: bool = False,
                         track_stripe: bool = False,
-                        track_deriv: bool = False) -> Tuple[torch.Tensor, ...]:
+                        track_deriv: bool = False,
+                        quantized: Optional[torch.Tensor] = None,
+                        ) -> Tuple[torch.Tensor, ...]:
     """K1 as plain PyTorch ops on ``device``: returns the fields named by
-    ``output_names``, or (r, g, b) with ``fused_color``.  The CPU path of
+    ``output_names``, or (r, g, b) with ``fused_color``, quantized into
+    ``quantized``'s planes where it is given.  The CPU path of
     escape_fields, and the comparator of the CUDA kernel on the card."""
     _check_launch(params, width, height, map_height, row0, max_iter_cap)
     _check_options(family, fused_color, interior_skip, track_trap,
                    track_stripe, track_deriv)
     dev = torch.device(device)
     p = torch.from_numpy(params).to(dev)
+    check_quantized(quantized, fused_color is not None, height, width,
+                    p.device)
     # the static cap is real: the limit is clamped to it and to the f32
     # counter ceiling (JAX escape.py:185-188)
     limit_f = np.minimum(params[P_LIMIT],
@@ -387,7 +418,12 @@ def escape_fields_plain(params: np.ndarray, *, width: int, height: int,
     if with_post:
         rgb = coloring.post_chain_planar(*rgb, p[P_BRIGHT], p[P_SAT],
                                          p[P_CONTRAST], clamp_mins=clamp_mins)
-    return tuple(rgb)
+    if quantized is None:
+        return tuple(rgb)
+    scale = QUANTIZED[quantized.dtype][1]
+    for plane, c in zip(quantized, rgb):
+        plane.copy_(torch.clamp(c, 0.0, 1.0) * scale + 0.5)
+    return quantized.unbind(0)
 
 
 def _combined_trap(zx, zy, cr, ci, sqx=None, sqy=None):
@@ -493,14 +529,19 @@ def escape_fields_cuda(params: np.ndarray, *, width: int, height: int,
                        use_julia: bool = False, track_trap: bool = False,
                        track_stripe: bool = False,
                        track_deriv: bool = False,
+                       quantized: Optional[torch.Tensor] = None,
                        trips: Optional[torch.Tensor] = None,
                        ) -> Tuple[torch.Tensor, ...]:
     """Launch the CUDA kernel K1 on ``device`` (same signature and results
-    as escape_fields_plain).  ``trips``, a buffer from trips_buffer, is
-    zeroed and filled with the launch's per-warp counters (decode_trips
-    reads it); without it the kernel writes none.  Counts its launches in
-    ``escape_fields_cuda.launches``.  Its checks, colour table and flags
-    run in the span ``k1.prepare``, the launch block in ``k1.launch``."""
+    as escape_fields_plain).  With ``quantized`` the fused epilogue stores
+    the quantized colour into its planes and the launch allocates nothing.
+    ``trips``, a buffer from trips_buffer, is zeroed and filled with the
+    launch's per-warp counters (decode_trips reads it); without it the
+    kernel writes none.  Counts its launches in
+    ``escape_fields_cuda.launches``, those that store quantized planes also
+    in ``escape_fields_cuda.quantized_launches``.  Its checks, colour table
+    and flags run in the span ``k1.prepare``, the launch block in
+    ``k1.launch``."""
     from . import _cuda
 
     with span("k1.prepare"):
@@ -509,6 +550,8 @@ def escape_fields_cuda(params: np.ndarray, *, width: int, height: int,
                        track_stripe, track_deriv)
         dev = _cuda.cuda_device(device)
         check_trips(trips, launch_warps(width, height), dev)
+        qflag = check_quantized(quantized, fused_color is not None, height,
+                                width, dev)
         params = np.ascontiguousarray(params)
         flags = ((F_SKIP if interior_skip else 0)
                  | (F_JULIA if use_julia else 0)
@@ -524,14 +567,15 @@ def escape_fields_cuda(params: np.ndarray, *, width: int, height: int,
         else:
             palette_mode, interior_style, clamp_mins, with_post = fused_color
             flags |= (F_FUSED | (F_CLAMP if clamp_mins else 0)
-                      | (F_POST if with_post else 0))
+                      | (F_POST if with_post else 0) | qflag)
             table = color_table(palette_mode, PALETTE_FAMILY[family])
             slots = [0, 1, 2]
         lib = _cuda.load_library()
     with span("k1.launch"), torch.cuda.device(dev):
-        outs = tuple(torch.empty((height, width), device=dev,
-                                 dtype=torch.int32 if name == "n"
-                                 else torch.float32) for name in names)
+        outs = quantized.unbind(0) if qflag else tuple(
+            torch.empty((height, width), device=dev,
+                        dtype=torch.int32 if name == "n" else torch.float32)
+            for name in names)
         ptrs = [None] * len(OUTPUT_SLOTS)
         for slot, o in zip(slots, outs):
             ptrs[slot] = o.data_ptr()
@@ -545,10 +589,12 @@ def escape_fields_cuda(params: np.ndarray, *, width: int, height: int,
                            None if trips is None else trips.data_ptr())
     _cuda.check(lib, rc, "escape")
     escape_fields_cuda.launches += 1
+    escape_fields_cuda.quantized_launches += bool(qflag)
     return outs
 
 
 escape_fields_cuda.launches = 0
+escape_fields_cuda.quantized_launches = 0
 
 
 def escape_fields(family: str, width: int, height: int, *,
@@ -563,6 +609,7 @@ def escape_fields(family: str, width: int, height: int, *,
                   interior_skip: bool = False, track_deriv: bool = False,
                   fused_color=None, color_offset=0.0, color_scale=1.0,
                   brightness=1.0, saturation=1.2, contrast=1.1,
+                  quantized: Optional[torch.Tensor] = None,
                   device="cuda") -> Dict[str, torch.Tensor]:
     """Compute escape-time fields for one AA sample on ``device`` (the JAX
     ``escape_fields`` signature, with ``device`` for ``interpret``).
@@ -575,8 +622,10 @@ def escape_fields(family: str, width: int, height: int, *,
     with_post])`` tuple (no trap/stripe/deriv tracking) — the result is
     then the colour planes {"r", "g", "b"}; ``with_post`` (default True)
     also applies enhance/ACES/gamma, which is right only for single-sample
-    renders.  As in the JAX package, ``interior_skip`` and ``track_deriv``
-    act only for the Mandelbrot family.
+    renders.  ``quantized``, a contiguous uint8/uint16 (3, height, width)
+    tensor on ``device``, receives those planes quantized and the result's
+    planes are its views.  As in the JAX package, ``interior_skip`` and
+    ``track_deriv`` act only for the Mandelbrot family.
     """
     with span("k1.prepare"):
         if fused_color is not None:
@@ -608,7 +657,8 @@ def escape_fields(family: str, width: int, height: int, *,
                 interior_skip=interior_skip, fused_color=fused_color,
                 device=dev, family=family, use_julia=bool(use_julia),
                 track_trap=bool(track_trap),
-                track_stripe=bool(track_stripe), track_deriv=track_deriv)
+                track_stripe=bool(track_stripe), track_deriv=track_deriv,
+                quantized=quantized)
     names = output_names(family, fused_color is not None, track_trap,
                          track_stripe, track_deriv)
     return dict(zip(names, outs))

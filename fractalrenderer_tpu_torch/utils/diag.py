@@ -115,7 +115,7 @@ def params_layout_selfcheck() -> bool:
     """Cross-module layout assertion (analog of the reference's
     verify_push_constant_layout memory self-check): the JAX package's
     asserts on the port's index constants, and the same constants as the
-    CUDA sources define them (``csrc/escape.cu`` ``P_*``,
+    CUDA sources define them (``csrc/escape.cu`` ``P_*`` and ``F_*``,
     ``csrc/dd_escape.cu`` ``kND``/``D_*``, the ``Q_*`` enum of
     ``csrc/pert_kernel.cuh``, the ``T_*`` enums of K4b's counters in
     ``csrc/bulb.cu`` and of K1's and K2's in ``csrc/warp_counters.cuh``,
@@ -158,6 +158,10 @@ def params_layout_selfcheck() -> bool:
         for name, val in cu.items():
             _require(py[name] == val, f"{path} {name} = {val}, the Python "
                      f"packer's is {py[name]}")
+    # K1's launch flags
+    flags = {n: getattr(escape, n) for n in dir(escape) if n.startswith("F_")}
+    _require(_cuda_constants(os.path.join(src, "escape.cu"), "F_", "")
+             == flags, "escape.cu F_* flags differ from ops/escape")
     cuh = os.path.join(src, "pert_kernel.cuh")
     _require(_cuda_constants(cuh, "Q_", "kNQ").get("kNQ") == perturbation.NQ,
              f"pert_kernel.cuh kNQ != {perturbation.NQ}")

@@ -167,6 +167,49 @@ def test_fused_kernel_matches_plain(dev, family, fused, extra):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("band", [False, True], ids=["frame", "band"])
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("family", list(_FAMILY_VIEWS))
+def test_fused_kernel_quantizes_as_quantize_image(dev, family, bits, band):
+    # the quantized planes are quantize_image of the same launch's f32
+    # planes, bit for bit: with the post chain (the planar export) and
+    # without it, where palette 0's ends put pixels at exactly 0 and 1
+    from fractalrenderer_tpu_torch.models import common
+
+    w, h, full_h, row0 = (200, 40, 120, 50) if band else (200, 120, 120, 0)
+    params = escape.pack_params(family=family, iter_limit=256, row0=row0,
+                                color_offset=0.3, color_scale=1.7,
+                                brightness=1.2, saturation=0.8,
+                                contrast=1.3, **_FAMILY_VIEWS[family])
+    dtype, top = {8: (torch.uint8, 255), 16: (torch.uint16, 65535)}[bits]
+    ends = set()
+    for with_post in (True, False):
+        kw = dict(width=w, height=h, map_height=full_h, row0=row0,
+                  max_iter_cap=256, interior_skip=family == "mandelbrot",
+                  fused_color=(0, 0, family != "mandelbrot", with_post),
+                  device=dev, family=family)
+        planes = escape.escape_fields_cuda(params, **kw)
+        q = torch.full((3, h, w), 7, dtype=dtype, device=dev)
+        launches = escape.escape_fields_cuda.launches
+        quantized = escape.escape_fields_cuda.quantized_launches
+        got = escape.escape_fields_cuda(params, quantized=q, **kw)
+        torch.cuda.synchronize()
+        assert escape.escape_fields_cuda.launches == launches + 1
+        assert escape.escape_fields_cuda.quantized_launches == quantized + 1
+        assert [g.data_ptr() for g in got] == [p.data_ptr() for p in q]
+        want = common.quantize_image(torch.stack(planes), bit_depth=bits)
+        assert torch.equal(q, want)
+        ends |= {v for v in (0, top) if bool((want == v).any())}
+    assert ends == {0, top}
+    # a wrong plane tensor raises before any launch
+    launches = escape.escape_fields_cuda.launches
+    with pytest.raises(ValueError, match="quantized planes"):
+        escape.escape_fields_cuda(params, quantized=q[:, :-1], **kw)
+    with pytest.raises(ValueError, match="quantized planes"):
+        escape.escape_fields_cuda(params, quantized=q.cpu(), **kw)
+    assert escape.escape_fields_cuda.launches == launches
+
+
 _SCHEDULE_MODES = {
     # mode: (fused colour, tracked outputs of Mandelbrot, of the others)
     "fused": ((0, 0, True, True), (), ()),
@@ -887,6 +930,37 @@ def test_batch_render_fn_equals_single_renders(dev, family, planar):
         got = out[i].permute(1, 2, 0) if planar else out[i]
         assert torch.equal(got, ref), i
         assert torch.equal(f32[i], models.render(s, 200, 113, device=dev)), i
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("family", ["mandelbrot", "julia"])
+def test_planar_batch_is_k1_quantized_stores(dev, family, bits):
+    # a planar frame on the card is one K1 launch that stores the quantized
+    # planes, equal to quantize_image of the f32 frame
+    import dataclasses
+
+    import numpy as np
+
+    from fractalrenderer_tpu_torch.models import common
+
+    scenes = _batch_scenes(family)
+    conv, clamp = common.family_map()[scenes[0].fractal_type][1:]
+    cfg = dataclasses.replace(common.scene_static_cfg(
+        scenes[0], 200, 113, family, conv, clamp, device=str(dev)),
+        max_iter=500)
+    dyns = [common.scene_dyn_params(s) for s in scenes]
+    batch = {k: np.asarray([d[k] for d in dyns], np.float32)
+             for k in dyns[0]}
+    launches = escape.escape_fields_cuda.launches
+    quantized = escape.escape_fields_cuda.quantized_launches
+    out = common.batch_render_fn(cfg, quantize=bits, planar=True)(batch)
+    torch.cuda.synchronize()
+    assert escape.escape_fields_cuda.launches - launches == len(scenes)
+    assert (escape.escape_fields_cuda.quantized_launches - quantized
+            == len(scenes))
+    f32 = common.batch_render_fn(cfg)(batch)
+    assert torch.equal(out, common.quantize_image(f32.permute(0, 3, 1, 2),
+                                                  bit_depth=bits))
 
 
 def test_c_sweep_is_one_launch_per_c(dev):

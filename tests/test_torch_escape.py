@@ -475,3 +475,65 @@ def test_trips_buffer_has_a_row_per_warp_of_the_grid(size, warps):
     assert buf.dtype == torch.int32 and not bool(buf.any())
     from fractalrenderer_tpu_torch.ops import dd_escape
     assert dd_escape.trips_buffer is escape.trips_buffer
+
+
+def _planes(shape=(3, 6, 8), dtype=torch.uint8):
+    return torch.zeros(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(planes=_planes(dtype=torch.float32)),
+    dict(planes=_planes(dtype=torch.int16)),
+    dict(planes=_planes((2, 6, 8))),
+    dict(planes=_planes((3, 8, 6))),
+    dict(planes=_planes((3, 8, 6)).transpose(1, 2)),
+    dict(planes=_planes((3, 12, 8))[:, 2:8]),
+    dict(planes=_planes(), dev=torch.device("cuda", 0)),
+    dict(planes=_planes(), fused=False),
+], ids=["f32", "int16", "planes", "rows", "transposed", "band_view",
+        "device", "fields"])
+def test_check_quantized_rejects_wrong_planes(bad):
+    # what the launch would store into is checked without a card
+    dev = torch.device("cpu")
+    assert escape.check_quantized(None, True, 6, 8, dev) == 0
+    assert escape.check_quantized(_planes(), True, 6, 8, dev) == escape.F_Q8
+    assert escape.check_quantized(_planes(dtype=torch.uint16), True, 6, 8,
+                                  dev) == escape.F_Q16
+    with pytest.raises(ValueError, match="quantized planes"):
+        escape.check_quantized(bad["planes"], bad.get("fused", True), 6, 8,
+                               bad.get("dev", dev))
+
+
+_QUANTIZED_VIEWS = {
+    "mandelbrot": dict(center_x=-0.5, center_y=0.0, zoom=3.0),
+    "julia": dict(center_x=0.0, center_y=0.0, zoom=3.0,
+                  julia_c=(-0.7, 0.27015)),
+    "burning_ship": dict(center_x=-0.5, center_y=-0.6, zoom=2.0),
+    "phoenix": dict(center_x=0.0, center_y=0.0, zoom=3.0,
+                    julia_c=(0.5667, 0.0), phoenix_p=0.1, phoenix_r=-0.5,
+                    stripe_density=8.0),
+}
+
+
+@pytest.mark.parametrize("band", [False, True], ids=["frame", "band"])
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("family", sorted(_QUANTIZED_VIEWS))
+def test_plain_quantized_planes_equal_quantize_image(family, bits, band):
+    # the plain K1's quantized store is quantize_image of its f32 planes,
+    # and the result's planes are views of the tensor it was given
+    from fractalrenderer_tpu_torch.models import common
+
+    w, h, full_h, row0 = (48, 10, 30, 12) if band else (48, 30, 30, 0)
+    dtype = torch.uint8 if bits == 8 else torch.uint16
+    kw = dict(width=w, height=h, map_height=full_h, row0=row0, max_iter=64,
+              interior_skip=family == "mandelbrot",
+              fused_color=(0, 0, family != "mandelbrot"), color_offset=0.3,
+              color_scale=1.7, brightness=1.2, saturation=0.8, contrast=1.3,
+              device="cpu", **_QUANTIZED_VIEWS[family])
+    f32 = escape.escape_fields(family, **kw)
+    q = torch.full((3, h, w), 7, dtype=dtype)
+    got = escape.escape_fields(family, quantized=q, **kw)
+    want = common.quantize_image(torch.stack([f32[c] for c in "rgb"]),
+                                 bit_depth=bits)
+    assert torch.equal(q, want)
+    assert [got[c].data_ptr() for c in "rgb"] == [p.data_ptr() for p in q]
