@@ -12,6 +12,13 @@ divided by a device tensor, and run through enhance → ACES → gamma.
 Every scalar is rounded to f32 first, as the JAX render casts its traced
 values: the camera and dynamic power on the host (the kernels take them
 by value), the colour parameters as f32 tensors on the device.
+
+A frame's stages are spans (``utils.diag.span``): ``bulb.prepare`` (the
+camera, the scalar tensors, the ray grid and its directions), ``k4a.launch``
+and ``k4b.launch`` (in ``ops/bulb_kernel.march_fields``), ``bulb.shade``
+(``shade_hit``, ``sky_color`` and the select) and ``bulb.post`` (the AA
+sum and divide, the post chain and the quantize), all inside
+``render``'s ``bulb.frame``.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from ..ops import bulb_math as bm
 from ..ops import coloring
 from ..ops.bulb_kernel import march_fields
 from ..scene import Scene
+from ..utils.diag import span
 from .common import quantize_image
 
 # The camera/power/colour fields the JAX render traces (one compile serves
@@ -76,32 +84,34 @@ def _render_sample(p: bm.BulbParams, ro, dyn_power, dyn_t: dict, width: int,
     frame's f32 scalars and ``ro``/``dyn_power`` its camera (numpy);
     ``dyn_t`` the same scalars as device tensors."""
     dev = dyn_t["fov"].device
-    ro_t = tuple(torch.tensor(float(v), dtype=torch.float32, device=dev)
-                 for v in ro)
-    f32 = torch.float32
-    pyg = torch.arange(height, dtype=f32, device=dev)[:, None] \
-        .expand(height, width)
-    pxg = torch.arange(width, dtype=f32, device=dev)[None, :] \
-        .expand(height, width)
-    pxg = pxg + float(np.float32(off[0]))
-    pyg = pyg + float(np.float32(off[1]))
-    if row0:
-        pyg = pyg + float(row0)
-    rd = bm.ray_dirs(pxg, pyg, width, map_height, ro_t, dyn_t["fov"])
+    with span("bulb.prepare"):
+        ro_t = tuple(torch.tensor(float(v), dtype=torch.float32, device=dev)
+                     for v in ro)
+        f32 = torch.float32
+        pyg = torch.arange(height, dtype=f32, device=dev)[:, None] \
+            .expand(height, width)
+        pxg = torch.arange(width, dtype=f32, device=dev)[None, :] \
+            .expand(height, width)
+        pxg = pxg + float(np.float32(off[0]))
+        pyg = pyg + float(np.float32(off[1]))
+        if row0:
+            pyg = pyg + float(row0)
+        rd = bm.ray_dirs(pxg, pyg, width, map_height, ro_t, dyn_t["fov"])
 
     f = march_fields(width, height, ro=ro, fov=p.fov, power=dyn_power,
                      max_iter=p.max_iterations, offset=off, row0=row0,
                      map_height=map_height, shade=True, int_power=int_power,
                      device=device)
-    hit = f["hit"] > 0.5
-    t = f["t"]
-    pos = tuple(o + r * t for o, r in zip(ro_t, rd))
-    pt = replace(p, **{k: dyn_t[k] for k in ("color_offset", "color_scale",
-                                             "time")})
-    hit_color = bm.shade_hit(pos, (f["nx"], f["ny"], f["nz"]), rd, f["d"],
-                             f["esc"], t, pt, dyn_t["dyn_power"],
-                             ao_sum=f["ao"])
-    return torch.where(hit[..., None], hit_color, bm.sky_color(rd))
+    with span("bulb.shade"):
+        hit = f["hit"] > 0.5
+        t = f["t"]
+        pos = tuple(o + r * t for o, r in zip(ro_t, rd))
+        pt = replace(p, **{k: dyn_t[k] for k in ("color_offset",
+                                                 "color_scale", "time")})
+        hit_color = bm.shade_hit(pos, (f["nx"], f["ny"], f["nz"]), rd,
+                                 f["d"], f["esc"], t, pt,
+                                 dyn_t["dyn_power"], ao_sum=f["ao"])
+        return torch.where(hit[..., None], hit_color, bm.sky_color(rd))
 
 
 def band_render_fn(scene: Scene, width: int, band_h: int, full_h: int,
@@ -118,30 +128,34 @@ def band_render_fn(scene: Scene, width: int, band_h: int, full_h: int,
         cuda_device(device)  # raises before any tensor is made
 
     def fn(dyn, row0: int):
-        # the frame's scalars as f32 (the JAX render's traced values), on
-        # the host for the camera and on the device for the colour glue
-        p = replace(base, **{k: np.float32(dyn[k]) for k in _DYN_FIELDS})
-        ro, dyn_power = bm.camera_setup(p)
-        keys = (*_DYN_FIELDS, "dyn_power")
-        vals = torch.tensor([float(getattr(p, k)) for k in _DYN_FIELDS]
-                            + [float(dyn_power)], dtype=torch.float32,
-                            device=device)
-        dyn_t = {k: vals[i] for i, k in enumerate(keys)}
-        aa = p.aa_samples
-        acc = torch.zeros((band_h, width, 3), dtype=torch.float32,
-                          device=device)
+        with span("bulb.prepare"):
+            # the frame's scalars as f32 (the JAX render's traced values),
+            # on the host for the camera and on the device for the colour
+            # glue
+            p = replace(base, **{k: np.float32(dyn[k]) for k in _DYN_FIELDS})
+            ro, dyn_power = bm.camera_setup(p)
+            keys = (*_DYN_FIELDS, "dyn_power")
+            vals = torch.tensor([float(getattr(p, k)) for k in _DYN_FIELDS]
+                                + [float(dyn_power)], dtype=torch.float32,
+                                device=device)
+            dyn_t = {k: vals[i] for i, k in enumerate(keys)}
+            aa = p.aa_samples
+            acc = torch.zeros((band_h, width, 3), dtype=torch.float32,
+                              device=device)
         for sy in range(aa):
             for sx in range(aa):
-                acc = acc + _render_sample(p, ro, dyn_power, dyn_t, width,
-                                           band_h,
-                                           (sx / aa, sy / aa), int(row0),
-                                           full_h, int_power, device)
-        color = acc / torch.tensor(float(aa * aa), dtype=torch.float32,
-                                   device=acc.device)
-        color = coloring.enhance_color(color, dyn_t["brightness"],
-                                       dyn_t["saturation"],
-                                       dyn_t["contrast"])
-        return coloring.gamma_correct(coloring.aces_tonemap(color))
+                sample = _render_sample(p, ro, dyn_power, dyn_t, width,
+                                        band_h, (sx / aa, sy / aa),
+                                        int(row0), full_h, int_power, device)
+                with span("bulb.post"):
+                    acc = acc + sample
+        with span("bulb.post"):
+            color = acc / torch.tensor(float(aa * aa), dtype=torch.float32,
+                                       device=acc.device)
+            color = coloring.enhance_color(color, dyn_t["brightness"],
+                                           dyn_t["saturation"],
+                                           dyn_t["contrast"])
+            return coloring.gamma_correct(coloring.aces_tonemap(color))
 
     return fn
 
@@ -151,10 +165,21 @@ def render(scene: Scene, width: int, height: int, device="cuda",
     """Render the bulb on ``device``: f32 (H, W, 3) in [0, 1], or with
     ``quantize`` 8/16 the image quantized on the device.  The default
     scene (power 8, time 0) takes the trig-free integer DE step; a
-    non-integer dynamic power (time != 0) the polynomial-trig step."""
-    img = band_render_fn(scene, width, height, height,
-                         device=device)(dyn_params(scene), 0)
-    return quantize_image(img, bit_depth=quantize) if quantize else img
+    non-integer dynamic power (time != 0) the polynomial-trig step.
+
+    The call runs in the span ``bulb.frame``, its quantize in
+    ``bulb.post``; ``render.frames`` counts the frames finished."""
+    with span("bulb.frame"):
+        img = band_render_fn(scene, width, height, height,
+                             device=device)(dyn_params(scene), 0)
+        if quantize:
+            with span("bulb.post"):
+                img = quantize_image(img, bit_depth=quantize)
+    render.frames += 1
+    return img
+
+
+render.frames = 0
 
 
 def render_sharded(scene: Scene, width: int, height: int,

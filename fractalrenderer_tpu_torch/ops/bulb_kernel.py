@@ -47,6 +47,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.diag import span
 from . import bulb_math as bm
 from . import trig
 
@@ -563,7 +564,9 @@ def march_fields_cuda(params: np.ndarray, tc: Optional[torch.Tensor], *,
     as march_fields_plain; ``tc`` must lie on ``device``).  ``trips``, a
     buffer from trips_buffer, is zeroed and filled with the launch's
     per-warp counters (decode_trips reads it); without it the kernel
-    writes none.  Counts its launches in ``march_fields_cuda.launches``."""
+    writes none.  Counts its launches in ``march_fields_cuda.launches``,
+    and those of the polynomial-trig DE step (``int_power`` None) in
+    ``march_fields_cuda.trig_launches``."""
     from . import _cuda
 
     _check_march(params, tc, width, height, map_height, cone, int_power)
@@ -602,10 +605,12 @@ def march_fields_cuda(params: np.ndarray, tc: Optional[torch.Tensor], *,
             height, map_height, int(bool(shade)), *ptrs, stream)
     _cuda.check(lib, rc, "bulb march")
     march_fields_cuda.launches += 1
+    march_fields_cuda.trig_launches += int(int_power is None)
     return outs
 
 
 march_fields_cuda.launches = 0
+march_fields_cuda.trig_launches = 0
 
 
 def patch_order_xy(width: int, height: int, device="cpu"):
@@ -649,28 +654,35 @@ def march_fields(width: int, height: int, *, ro, fov, power, max_iter: int,
     with the JAX signature.  ``ro``/``fov``/``power`` are host scalars
     (rounded to f32); for a row band pass its global first row as ``row0``
     and the image height as ``map_height``.  ``cone``: the prepass block
-    size (0 disables it)."""
-    params = pack_march_params(ro=ro, fov=fov, power=power,
-                               max_iter=max_iter, offset=offset, row0=row0)
-    int_power = resolve_int_power(power, int_power)
-    map_h = int(map_height if map_height is not None else height)
-    cone = int(cone)
-    dev = torch.device(device)
-    if dev.type == "cpu":
-        cone_impl, march_impl = cone_fields_plain, march_fields_plain
-    elif dev.type == "cuda":
-        cone_impl, march_impl = cone_fields_cuda, march_fields_cuda
-    else:
-        raise ValueError(f"unsupported device {dev}")
+    size (0 disables it).  The march vector and K4b run in the span
+    ``k4b.launch``, the cone vector and K4a in ``k4a.launch``."""
+    with span("k4b.launch"):
+        params = pack_march_params(ro=ro, fov=fov, power=power,
+                                   max_iter=max_iter, offset=offset,
+                                   row0=row0)
+        int_power = resolve_int_power(power, int_power)
+        map_h = int(map_height if map_height is not None else height)
+        cone = int(cone)
+        dev = torch.device(device)
+        if dev.type == "cpu":
+            cone_impl, march_impl = cone_fields_plain, march_fields_plain
+        elif dev.type == "cuda":
+            cone_impl, march_impl = cone_fields_cuda, march_fields_cuda
+        else:
+            raise ValueError(f"unsupported device {dev}")
     tc = None
     if cone:
-        tc = cone_impl(pack_cone_params(params, cone, map_h),
-                       coarse_w=cdiv(width, cone),
-                       coarse_h=cdiv(height, cone) + 1, width=width,
-                       map_height=map_h, int_power=int_power, device=dev)
-    outs = march_impl(params, tc, width=width, height=height,
-                      map_height=map_h, cone=cone, shade=bool(shade),
-                      int_power=int_power, stats=bool(stats), device=dev)
+        with span("k4a.launch"):
+            tc = cone_impl(pack_cone_params(params, cone, map_h),
+                           coarse_w=cdiv(width, cone),
+                           coarse_h=cdiv(height, cone) + 1, width=width,
+                           map_height=map_h, int_power=int_power,
+                           device=dev)
+    with span("k4b.launch"):
+        outs = march_impl(params, tc, width=width, height=height,
+                          map_height=map_h, cone=cone, shade=bool(shade),
+                          int_power=int_power, stats=bool(stats),
+                          device=dev)
     names = ["hit", "t", "d", "esc"] + (["nx", "ny", "nz", "ao"]
                                         if shade else [])
     if stats:

@@ -1,6 +1,7 @@
-"""The program's stage spans (``utils.diag.span``) and counters in the two
-export paths: the batch path (``models/common.batch_render_fn``) and the
-deep zoom (``models/deep_zoom.render``).
+"""The program's stage spans (``utils.diag.span``) and counters in the
+export paths: the batch path (``models/common.batch_render_fn``), the
+deep zoom (``models/deep_zoom.render``) and the Mandelbulb
+(``models/mandelbulb.render``).
 
 On the CPU: each frame's stages come out as ``user_annotation`` events of a
 profiler session, nested under the frame's span in the order they run;
@@ -22,11 +23,17 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from fractalrenderer_tpu_torch import FractalType, Scene, cli
-from fractalrenderer_tpu_torch.models import common, deep_zoom
-from fractalrenderer_tpu_torch.ops import perturbation
+from fractalrenderer_tpu_torch.models import common, deep_zoom, mandelbulb
+from fractalrenderer_tpu_torch.ops import bulb_kernel, perturbation
+from fractalrenderer_tpu_torch.utils import diag
 
 BENIGN = ("0.245670923653024", "0.580340963154017")
-FRAMES = ("batch.frame", "deep.frame")
+FRAMES = ("batch.frame", "deep.frame", "bulb.frame")
+# a bulb frame's stages: the camera and the ray grid, the march vector, K4a,
+# K4b, the shading, then the AA sum, the post chain and the quantize
+BULB_STAGES = ["bulb.prepare", "bulb.prepare", "k4b.launch", "k4a.launch",
+               "k4b.launch", "bulb.shade", "bulb.post", "bulb.post",
+               "bulb.post"]
 
 
 def _spans(prof, tmp_path):
@@ -93,6 +100,14 @@ def _deep_frames(device="cpu", n=2, **kw):
             for z in ("1e-9", "5e-10")[:n]]
 
 
+def _bulb_frames(device="cpu", times=(1.3, 0.0)):
+    """Bulb frames at the trig instance's time and at t = 0 (the integer
+    power's)."""
+    return [mandelbulb.render(Scene(fractal_type=FractalType.MANDELBULB,
+                                    max_iterations=16, time=t), 24, 16,
+                              device=device, quantize=8) for t in times]
+
+
 @pytest.mark.parametrize("quantize,planar,stages", [
     (8, True, ["k1.prepare", "k1.prepare", "batch.glue"]),
     (8, False, ["k1.prepare", "k1.prepare", "batch.glue", "batch.glue"]),
@@ -141,11 +156,35 @@ def test_hp_fallback_and_its_reads_are_spans(tmp_path):
     assert names.count("deep.readback") == 5
 
 
-@pytest.mark.parametrize("path", ["batch", "deep"])
+def test_bulb_frames_nest_their_stages(tmp_path):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _bulb_frames()
+    spans = _spans(prof, tmp_path)
+    frames = _frames(spans, "bulb.frame")
+    assert len(frames) == 2
+    for f in frames:
+        assert _children(spans, f) == BULB_STAGES
+
+
+def test_bulb_spans_are_the_shared_no_op_without_a_session(monkeypatch):
+    # no session records: every span is the one shared object, and the
+    # frame opens no record_function
+    assert all(diag.span(n) is diag._NO_SPAN
+               for n in ["bulb.frame"] + BULB_STAGES)
+
+    def no_record(name):
+        raise AssertionError(f"span {name} recorded without a session")
+    monkeypatch.setattr(torch.profiler, "record_function", no_record)
+    _bulb_frames(times=(1.3,))
+
+
+@pytest.mark.parametrize("path", ["batch", "deep", "bulb"])
 def test_bytes_equal_with_a_session_on_and_off(path):
     if path == "batch":
         fn, batch = _batch(8, True)
         run = lambda: [fn(batch)]  # noqa: E731
+    elif path == "bulb":
+        run = _bulb_frames
     else:
         run = _deep_frames
     off = run()
@@ -163,6 +202,16 @@ def test_render_counts_its_frames():
     # the spp^2 samples of a stacked frame are one frame
     deep_zoom.render(_deep_scene(samples_per_pixel=2), 12, 8, device="cpu")
     assert deep_zoom.render.frames == before + 3
+
+
+def test_bulb_render_counts_its_frames():
+    before = mandelbulb.render.frames
+    _bulb_frames()
+    assert mandelbulb.render.frames == before + 2
+    # an f32 frame (no quantize) is a frame too
+    mandelbulb.render(Scene(fractal_type=FractalType.MANDELBULB,
+                            max_iterations=8), 8, 6, device="cpu")
+    assert mandelbulb.render.frames == before + 3
 
 
 def test_cpu_path_uploads_nothing():
@@ -252,6 +301,27 @@ def test_card_deep_frames_nest_the_wrappers_stages(tmp_path, dev):
 
 
 @pytest.mark.cuda
+def test_card_bulb_frames_nest_the_wrappers_stages(tmp_path, dev):
+    _bulb_frames(dev, times=(1.3,))
+    spans = _card_spans(lambda: _bulb_frames(dev), tmp_path)
+    frames = _frames(spans, "bulb.frame")
+    assert len(frames) == 2
+    for f in frames:
+        assert _children(spans, f) == BULB_STAGES
+
+
+@pytest.mark.cuda
+def test_card_trig_launches_count_the_trig_instance_alone(dev):
+    launches = bulb_kernel.march_fields_cuda.launches
+    trig = bulb_kernel.march_fields_cuda.trig_launches
+    # t = 1.3: power 8.38, the trig step; t = 0: power 8, the integer one
+    _bulb_frames(dev, times=(1.3, 0.0, 2.0))
+    torch.cuda.synchronize()
+    assert bulb_kernel.march_fields_cuda.launches == launches + 3
+    assert bulb_kernel.march_fields_cuda.trig_launches == trig + 2
+
+
+@pytest.mark.cuda
 def test_card_upload_bytes_grow_by_the_orbit_streams(dev):
     cache = {}
     deep_zoom.render(_deep_scene(), 24, 16, orbit_cache=cache, device=dev)
@@ -269,9 +339,9 @@ def test_card_upload_bytes_grow_by_the_orbit_streams(dev):
 @pytest.mark.cuda
 def test_card_bytes_equal_with_a_session_on_and_off(dev):
     fn, batch = _batch(8, True, device=dev)
-    off = [fn(batch)] + _deep_frames(dev)
+    off = [fn(batch)] + _deep_frames(dev) + _bulb_frames(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        on = [fn(batch)] + _deep_frames(dev)
+        on = [fn(batch)] + _deep_frames(dev) + _bulb_frames(dev)
         torch.cuda.synchronize()
     for a, b in zip(on, off):
         assert torch.equal(a, b)

@@ -11,10 +11,11 @@ prints one JSON line:
 - ``idle_in_dispatch_s``: the card's idle seconds inside the harness's
   ``dispatch`` annotations; ``stage_share`` the part of them that a
   program stage span covers (any span but the harness's and the frame
-  spans ``batch.frame``/``deep.frame``), ``frame_only_share`` the part
-  under a frame span alone, ``idle_by_stage_s`` the idle seconds under
-  each stage, ``idle_outside_frames_s`` those under no frame span by the
-  innermost span open, ``longest_idle_gaps`` as the harness labels them;
+  spans ``batch.frame``/``deep.frame``/``bulb.frame``),
+  ``frame_only_share`` the part under a frame span alone,
+  ``idle_by_stage_s`` the idle seconds under each stage,
+  ``idle_outside_frames_s`` those under no frame span by the innermost
+  span open, ``longest_idle_gaps`` as the harness labels them;
 - ``per_frame_ms``: per frame of the pass, each span's self time, the
   frame span's duration and the harness's dispatch;
 - ``frame_self``: the host's operator and runtime calls in the frame
@@ -42,7 +43,7 @@ os.environ["FRACTAL_TORCH_BUILD_DIR"] = os.path.join(
 sys.path.insert(0, ROOT)
 
 HARNESS = {"stretch", "unit", "dispatch", "wait"}
-FRAMES = {"batch.frame", "deep.frame"}
+FRAMES = {"batch.frame", "deep.frame", "bulb.frame"}
 
 
 def _union(intervals):
