@@ -11,10 +11,15 @@ divided by a device tensor, and run through enhance → ACES → gamma.
 
 Every scalar is rounded to f32 first, as the JAX render casts its traced
 values: the camera and dynamic power on the host (the kernels take them
-by value), the colour parameters as f32 tensors on the device.
+by value), the colour parameters, dynamic power and camera origin also as
+f32 tensors on the device for the glue.  Those 15 values reach the card
+as one vector, copied from a fresh pinned host tensor without waiting for
+the stream; the glue's constants come from ``ops/consts.f32``, built once
+per device.  So a warm frame makes no synchronising copy, and the host
+queues the shading behind K4b.
 
 A frame's stages are spans (``utils.diag.span``): ``bulb.prepare`` (the
-camera, the scalar tensors, the ray grid and its directions), ``k4a.launch``
+camera, the frame's vector, the ray grid and its directions), ``k4a.launch``
 and ``k4b.launch`` (in ``ops/bulb_kernel.march_fields``), ``bulb.shade``
 (``shade_hit``, ``sky_color`` and the select) and ``bulb.post`` (the AA
 sum and divide, the post chain and the quantize), all inside
@@ -29,7 +34,7 @@ import numpy as np
 import torch
 
 from ..ops import bulb_math as bm
-from ..ops import coloring
+from ..ops import coloring, consts
 from ..ops.bulb_kernel import march_fields
 from ..scene import Scene
 from ..utils.diag import span
@@ -40,6 +45,10 @@ from .common import quantize_image
 _DYN_FIELDS = ("camera_distance", "rotation_y", "power", "time", "fov",
                "rotation_speed", "color_offset", "color_scale",
                "brightness", "saturation", "contrast")
+_RO_KEYS = ("ro_x", "ro_y", "ro_z")
+# the frame's vector on the device: the fields, the dynamic power and the
+# camera origin
+_VEC_KEYS = (*_DYN_FIELDS, "dyn_power", *_RO_KEYS)
 
 
 def _bulb_params(scene: Scene) -> bm.BulbParams:
@@ -76,17 +85,27 @@ def dyn_params(scene: Scene) -> dict:
     return {k: float(getattr(p, k)) for k in _DYN_FIELDS}
 
 
+def _upload(values, device) -> torch.Tensor:
+    """``values`` as one f32 vector on ``device``.  On a CUDA device the
+    copy leaves from a fresh pinned host tensor without waiting for the
+    stream; the caching host allocator keeps that tensor's block until the
+    copy has run, so frames in flight never share a buffer."""
+    if torch.device(device).type != "cuda":
+        return torch.tensor(values, dtype=torch.float32, device=device)
+    host = torch.tensor(values, dtype=torch.float32, pin_memory=True)
+    return host.to(device, non_blocking=True)
+
+
 def _render_sample(p: bm.BulbParams, ro, dyn_power, dyn_t: dict, width: int,
                    height: int, off, row0: int, map_height: int, int_power,
                    device):
     """One AA sample of a band of ``height`` rows from global row ``row0``
     (kernel-shaded path of the JAX ``_render_sample``).  ``p`` holds the
     frame's f32 scalars and ``ro``/``dyn_power`` its camera (numpy);
-    ``dyn_t`` the same scalars as device tensors."""
+    ``dyn_t`` the same scalars and the camera origin as device tensors."""
     dev = dyn_t["fov"].device
     with span("bulb.prepare"):
-        ro_t = tuple(torch.tensor(float(v), dtype=torch.float32, device=dev)
-                     for v in ro)
+        ro_t = tuple(dyn_t[k] for k in _RO_KEYS)
         f32 = torch.float32
         pyg = torch.arange(height, dtype=f32, device=dev)[:, None] \
             .expand(height, width)
@@ -128,17 +147,18 @@ def band_render_fn(scene: Scene, width: int, band_h: int, full_h: int,
         cuda_device(device)  # raises before any tensor is made
 
     def fn(dyn, row0: int):
+        builds = consts.f32.builds
         with span("bulb.prepare"):
             # the frame's scalars as f32 (the JAX render's traced values),
             # on the host for the camera and on the device for the colour
             # glue
             p = replace(base, **{k: np.float32(dyn[k]) for k in _DYN_FIELDS})
             ro, dyn_power = bm.camera_setup(p)
-            keys = (*_DYN_FIELDS, "dyn_power")
-            vals = torch.tensor([float(getattr(p, k)) for k in _DYN_FIELDS]
-                                + [float(dyn_power)], dtype=torch.float32,
-                                device=device)
-            dyn_t = {k: vals[i] for i, k in enumerate(keys)}
+            vals = _upload([float(getattr(p, k)) for k in _DYN_FIELDS]
+                           + [float(dyn_power)] + [float(v) for v in ro],
+                           device)
+            render.param_uploads += 1
+            dyn_t = {k: vals[i] for i, k in enumerate(_VEC_KEYS)}
             aa = p.aa_samples
             acc = torch.zeros((band_h, width, 3), dtype=torch.float32,
                               device=device)
@@ -150,12 +170,13 @@ def band_render_fn(scene: Scene, width: int, band_h: int, full_h: int,
                 with span("bulb.post"):
                     acc = acc + sample
         with span("bulb.post"):
-            color = acc / torch.tensor(float(aa * aa), dtype=torch.float32,
-                                       device=acc.device)
+            color = acc / consts.f32(aa * aa, acc.device)
             color = coloring.enhance_color(color, dyn_t["brightness"],
                                            dyn_t["saturation"],
                                            dyn_t["contrast"])
-            return coloring.gamma_correct(coloring.aces_tonemap(color))
+            color = coloring.gamma_correct(coloring.aces_tonemap(color))
+        render.const_builds += consts.f32.builds - builds
+        return color
 
     return fn
 
@@ -168,7 +189,11 @@ def render(scene: Scene, width: int, height: int, device="cuda",
     non-integer dynamic power (time != 0) the polynomial-trig step.
 
     The call runs in the span ``bulb.frame``, its quantize in
-    ``bulb.post``; ``render.frames`` counts the frames finished."""
+    ``bulb.post``; ``render.frames`` counts the frames finished.  Every
+    frame or band (``band_render_fn``'s, ``render_sharded``'s too) adds
+    one to ``render.param_uploads``, its copy of the frame's vector, and
+    to ``render.const_builds`` the constant tensors it built
+    (``ops/consts.f32``'s misses): a warm frame builds none."""
     with span("bulb.frame"):
         img = band_render_fn(scene, width, height, height,
                              device=device)(dyn_params(scene), 0)
@@ -180,6 +205,8 @@ def render(scene: Scene, width: int, height: int, device="cuda",
 
 
 render.frames = 0
+render.param_uploads = 0
+render.const_builds = 0
 
 
 def render_sharded(scene: Scene, width: int, height: int,

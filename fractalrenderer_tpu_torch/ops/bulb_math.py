@@ -12,7 +12,9 @@ DE steps use only +, −, ×, ÷ and the IEEE square root (``trig.sqrt``) on
 the integer path, so they are bit-equal to the numpy reference there; the
 trig path reads ``trig.acos``/``trig.atan2`` and torch's ``pow``/``sin``/
 ``cos``.  Every divisor is a tensor on the operands' device, so CUDA
-divides exactly rather than by a rounded reciprocal.  ``csrc/bulb.cu``
+divides exactly rather than by a rounded reciprocal; the constant ones and
+the fixed colours come from ``consts.f32``, built once per device, so the
+glue makes no copy that waits for the stream.  ``csrc/bulb.cu``
 repeats the DE steps, ``ray_dirs`` and ``de_finish`` operation for
 operation; the shading is tensor glue after the kernels.
 """
@@ -25,6 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from . import consts
 from . import palettes as pal
 from . import trig
 
@@ -90,7 +93,7 @@ def ray_dirs(px, py, width: int, height: int, ro, fov):
     """Per-pixel ray directions (mandelbulb.comp:204-209).  ``ro`` is three
     0-dim f32 tensors and ``fov`` one, on the device of ``px``; the
     degenerate camera-overhead case clamps the basis length."""
-    h = torch.tensor(float(height), dtype=torch.float32, device=px.device)
+    h = consts.f32(height, px.device)
     ux = (px - width * 0.5) / h
     uy = (py - height * 0.5) / h
     rox, roy, roz = ro
@@ -196,10 +199,6 @@ def de_finish(r, dr):
     return torch.where((r < 1e-4) | (dr < 1e-4), torch.zeros_like(de), de)
 
 
-def _vec3(r, g, b, device) -> torch.Tensor:
-    return torch.tensor([r, g, b], dtype=torch.float32, device=device)
-
-
 def shade_hit(pos, normal, rd, d_at_hit, escape_iter, t, p: BulbParams,
               dyn_power, ao_sum) -> torch.Tensor:
     """Hit shading (mandelbulb.comp:141-160) from the kernel's normals and
@@ -228,8 +227,7 @@ def shade_hit(pos, normal, rd, d_at_hit, escape_iter, t, p: BulbParams,
     log_pr = torch.log(torch.clamp_min(pr, 1e-12))
     it = escape_iter + 1.0 - torch.log(torch.clamp_min(log_pr, 1e-12)) \
         / torch.log(dyn_power + 1e-4)
-    it = it / torch.tensor(float(p.max_iterations), dtype=torch.float32,
-                           device=dev)
+    it = it / consts.f32(p.max_iterations, dev)
     it = pal._fract(p.color_offset + torch.pow(
         torch.clamp_min(it, 0.0), float(_f32(0.6))) * p.color_scale)
     base = pal.bulb_color(it, p.palette_mode)
@@ -247,17 +245,16 @@ def shade_hit(pos, normal, rd, d_at_hit, escape_iter, t, p: BulbParams,
                                  torch.full_like(filament, 0.8),
                                  torch.full_like(filament, 0.5)],
                                 dim=-1) * fil * 0.5
-    ao = 1.0 - ao_sum / torch.tensor(8.0, dtype=torch.float32, device=dev)
+    ao = 1.0 - ao_sum / consts.f32(8.0, dev)
     color = color * (ao * 0.8 + 0.2)[..., None]
-    dist_factor = torch.clamp(
-        t / torch.tensor(MAX_DIST, dtype=torch.float32, device=dev), 0.0, 1.0)
+    dist_factor = torch.clamp(t / consts.f32(MAX_DIST, dev), 0.0, 1.0)
     fog = (dist_factor * 0.6)[..., None]
-    return color * (1.0 - fog) + _vec3(0.0, 0.0, 0.1, dev) * fog
+    return color * (1.0 - fog) + consts.f32((0.0, 0.0, 0.1), dev) * fog
 
 
 def sky_color(rd: Tuple[torch.Tensor, ...]) -> torch.Tensor:
     """Miss shading (mandelbulb.comp:165-166)."""
     dev = rd[1].device
     sky = torch.clamp(rd[1] * 0.5 + 0.5, 0.0, 1.0)[..., None]
-    return _vec3(0.02, 0.02, 0.05, dev) * (1.0 - sky) \
-        + _vec3(0.5, 0.6, 0.8, dev) * sky
+    return consts.f32((0.02, 0.02, 0.05), dev) * (1.0 - sky) \
+        + consts.f32((0.5, 0.6, 0.8), dev) * sky

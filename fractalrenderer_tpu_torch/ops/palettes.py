@@ -26,9 +26,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-
-def _f32(v, device) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32, device=device)
+from . import consts
 
 
 def _fract(t):
@@ -36,8 +34,8 @@ def _fract(t):
 
 
 def _clamp(t, lo, hi):
-    return torch.minimum(torch.maximum(t, _f32(lo, t.device)),
-                         _f32(hi, t.device))
+    return torch.minimum(torch.maximum(t, consts.f32(lo, t.device)),
+                         consts.f32(hi, t.device))
 
 
 def _smoothstep(t):
@@ -55,7 +53,7 @@ def _piecewise5_planar(t, cols: Sequence[Tuple[float, float, float]],
     # Build from the last segment backwards so earlier segments win.
     for i in reversed(range(len(bounds) - 1)):
         lo, hi = bounds[i], bounds[i + 1]
-        f = (t - lo) / _f32(hi - lo, t.device)
+        f = (t - lo) / consts.f32(hi - lo, t.device)
         sel = t < hi
         for ch in range(3):
             seg = (1.0 - f) * float(np.float32(cols[i][ch])) \
@@ -175,10 +173,6 @@ def _spec(mode: int, family: str):
     return specs[idx] if 0 <= idx < len(specs) else specs[0]
 
 
-def _vec3(r, g, b, device) -> torch.Tensor:
-    return torch.tensor([r, g, b], dtype=torch.float32, device=device)
-
-
 def _mix(a, b, t):
     """GLSL mix(a, b, t) with ``t`` broadcast onto the colour axis."""
     t = t[..., None]
@@ -206,12 +200,12 @@ def deepzoom_color(t: torch.Tensor, mode: int) -> torch.Tensor:
                        torch.full_like(hue, 0.9))
     if mode == 1:
         s = _fract(t * 0.03)
-        return _mix(_vec3(0.0, 0.1, 0.3, t.device),
-                    _vec3(1.0, 1.0, 1.0, t.device), s)
+        return _mix(consts.f32((0.0, 0.1, 0.3), t.device),
+                    consts.f32((1.0, 1.0, 1.0), t.device), s)
     if mode == 2:
         s = _fract(t * 0.04)
-        return _mix(_vec3(0.1, 0.0, 0.0, t.device),
-                    _vec3(1.0, 0.8, 0.0, t.device), s)
+        return _mix(consts.f32((0.1, 0.0, 0.0), t.device),
+                    consts.f32((1.0, 0.8, 0.0), t.device), s)
     s = _fract(t * 0.02)
     return s[..., None].expand(s.shape + (3,)).contiguous()
 
@@ -276,8 +270,10 @@ def bulb_lava(t):
 def bulb_neon(t):
     """mandelbulb.comp:57-61."""
     dev = t.device
-    lo = _mix(_vec3(0.0, 0.0, 0.1, dev), _vec3(0.0, 0.2, 0.6, dev), t)
-    hi = _mix(_vec3(0.0, 0.8, 1.0, dev), _vec3(0.5, 1.0, 1.0, dev), t)
+    lo = _mix(consts.f32((0.0, 0.0, 0.1), dev),
+              consts.f32((0.0, 0.2, 0.6), dev), t)
+    hi = _mix(consts.f32((0.0, 0.8, 1.0), dev),
+              consts.f32((0.5, 1.0, 1.0), dev), t)
     return _mix(lo, hi, torch.pow(t, 2.0))
 
 

@@ -31,6 +31,7 @@ from fractalrenderer_tpu_torch.models import mandelbulb
 from fractalrenderer_tpu_torch.models.common import quantize_image
 from fractalrenderer_tpu_torch.ops import bulb_kernel as bk
 from fractalrenderer_tpu_torch.ops import bulb_math as bm
+from fractalrenderer_tpu_torch.ops import consts
 from fractalrenderer_tpu_torch.ops import palettes as pal
 from fractalrenderer_tpu_torch.ops import trig
 from fractalrenderer_tpu_torch.utils.image import to_export_orientation
@@ -583,6 +584,45 @@ def test_models_render_dispatches_the_bulb():
     q = frt.render(scene, 24, 16, device="cpu", quantize=8)
     assert q.dtype == torch.uint8
     assert torch.equal(q, quantize_image(img, bit_depth=8))
+
+
+@pytest.mark.parametrize("value", [8.0, 1080, -0.0, 0.0, 1e-30,
+                                   (0.0, 0.0, 0.1), [0.5, 0.6, 0.8]],
+                         ids=str)
+def test_cached_constant_equals_a_fresh_tensor(value):
+    want = torch.tensor(value, dtype=torch.float32, device="cpu")
+    got = consts.f32(value, "cpu")
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.device == want.device
+    # bit for bit: -0.0 keeps its sign apart from 0.0
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    builds = consts.f32.builds
+    assert consts.f32(value, torch.device("cpu")) is got
+    assert consts.f32.builds == builds
+
+
+def test_warm_cpu_frames_build_no_constants_and_upload_once():
+    scenes = [Scene(fractal_type=FractalType.MANDELBULB, max_iterations=16,
+                    **kw)
+              for kw in (dict(), dict(time=1.3), dict(time=0.4,
+                                                      antialiasing_samples=2),
+                         dict(time=2.0, palette_mode=3))]
+    for s in scenes:
+        mandelbulb.render(s, 24, 16, device="cpu")
+    builds = mandelbulb.render.const_builds
+    uploads = mandelbulb.render.param_uploads
+    versions = {k: t._version for k, t in consts._CACHE.items()}
+    for s in scenes * 2:
+        mandelbulb.render(s, 24, 16, device="cpu", quantize=8)
+    assert mandelbulb.render.const_builds == builds
+    assert mandelbulb.render.param_uploads == uploads + 2 * len(scenes)
+    # nothing wrote into a shared constant
+    assert {k: consts._CACHE[k]._version for k in versions} == versions
+    # a band counts its own copy
+    mandelbulb.band_render_fn(scenes[1], 24, 5, 16, device="cpu")(
+        mandelbulb.dyn_params(scenes[1]), 7)
+    assert mandelbulb.render.param_uploads == uploads + 2 * len(scenes) + 1
+    assert mandelbulb.render.const_builds == builds
 
 
 def test_cli_mandelbulb_png(tmp_path, capsys):

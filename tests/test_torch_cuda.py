@@ -812,6 +812,67 @@ def test_bulb_render_launches_one_cone_and_one_march_per_sample(
     assert torch.equal(img, mandelbulb.render(scene, 40, 24))
 
 
+# the benchmark's bulb export frame (benchmark/configs/mandelbulb_p8.json)
+_BULB_EXPORT = dict(width=1920, height=1080, row_stride=64, time=5.0)
+
+
+def _bulb_reference():
+    """``benchmark/reference/bulb.py``, loaded by its path (plain PyTorch,
+    frozen copies of the bulb's plain versions)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark", "reference", "bulb.py")
+    spec = importlib.util.spec_from_file_location("bulb_reference", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_warm_bulb_frames_make_no_synchronising_copy(dev):
+    import fractalrenderer_tpu_torch as frt
+    from fractalrenderer_tpu_torch.models import mandelbulb
+
+    w, h, t = (_BULB_EXPORT[k] for k in ("width", "height", "time"))
+    scenes = {
+        # the cell's frame: power 8 + 0.5 sin(0.7 t) off the integers
+        "trig": frt.Scene(fractal_type=frt.FractalType.MANDELBULB, time=t),
+        "int": frt.Scene(fractal_type=frt.FractalType.MANDELBULB),
+        "aa2": frt.Scene(fractal_type=frt.FractalType.MANDELBULB, time=t,
+                         antialiasing_samples=2),
+    }
+    for s in scenes.values():
+        frt.render(s, w, h, device=dev, quantize=8)
+    torch.cuda.synchronize()
+    builds = mandelbulb.render.const_builds
+    uploads = mandelbulb.render.param_uploads
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        frames = {k: frt.render(s, w, h, device=dev, quantize=8)
+                  for k, s in scenes.items()}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert mandelbulb.render.const_builds == builds
+    assert mandelbulb.render.param_uploads == uploads + 3
+    # the cell's check: every 64th row equal to the plain reference's
+    ref = _bulb_reference()
+    rows = list(range(0, h, _BULB_EXPORT["row_stride"]))
+    s = scenes["trig"]
+    (img, _), = ref.frames([{
+        "camera_distance": s.camera_distance, "rotation_y": s.rotation_y,
+        "power": s.mandelbulb_power, "max_iterations": s.max_iterations,
+        "fov": s.fov, "rotation_speed": 0.3, "aa": 1,
+        "palette_mode": s.palette_mode, "color_offset": s.color_offset,
+        "color_scale": s.color_scale, "brightness": s.color_brightness,
+        "saturation": s.color_saturation, "contrast": s.color_contrast,
+        "time": s.time}], rows, w, h, dev)
+    got = frames["trig"][rows]
+    assert got.dtype == img.dtype == torch.uint8
+    assert int((got.int() - img.int()).abs().max()) == 0
+
+
 # -- K5 (csrc/peak.cu) and K6 (csrc/probe/compile_probe.cu), and the
 # -- diagnostics that need the card
 
