@@ -401,7 +401,8 @@ def bands_phase(dev, kernels, verb, reset_counts, counts,
 
     from fractalrenderer_tpu_torch import (FractalType, Scene, bench_all,
                                            cli, models)
-    from fractalrenderer_tpu_torch.models import common, deep_zoom, mandelbulb
+    from fractalrenderer_tpu_torch.models import deep_zoom, mandelbulb
+    from fractalrenderer_tpu_torch.ops.coloring import quantize_image
     from fractalrenderer_tpu_torch.parallel import (make_render_mesh,
                                                     render_giant_still,
                                                     render_sharded)
@@ -424,7 +425,7 @@ def bands_phase(dev, kernels, verb, reset_counts, counts,
     def export16(img):
         """The 16-bit PNG pixels of a device image (f32 or uint16)."""
         if img.dtype == torch.float32:
-            img = common.quantize_image(img, bit_depth=16)
+            img = quantize_image(img, bit_depth=16)
         return to_export_orientation(img).cpu().numpy()
 
     def bands(height, rows):
@@ -459,7 +460,7 @@ def bands_phase(dev, kernels, verb, reset_counts, counts,
     bulb = Scene(fractal_type=FractalType.MANDELBULB)
     whole = mandelbulb.render(bulb, W, H, device=dev)
     reset_counts()
-    out = mandelbulb.render_sharded(bulb, W, H, mesh=mesh4)
+    out = render_sharded(bulb, W, H, mesh=mesh4)
     add(counts(), cone_fields_cuda=("bulb_cone_p8", 4),
         march_fields_cuda=("bulb_march_p8", 4))
     assert torch.equal(out, whole.cpu()), "bulb render_sharded != render"
@@ -478,7 +479,7 @@ def bands_phase(dev, kernels, verb, reset_counts, counts,
     assert info["fields_on_device"] and info["fallback_pixels"] == 0, info
     assert info["rebase_passes"] == info1["rebase_passes"], (info, info1)
     assert torch.equal(out, whole), "config 4 over 4 bands != whole frame"
-    print(f"path mandelbulb.render_sharded {W}x{H} power 8 over cuda:0 x4: "
+    print(f"path parallel.render_sharded bulb {W}x{H} power 8 over cuda:0 x4: "
           f"4 launches each of bulb_cone_p8 and bulb_march_p8, bit-equal to "
           f"mandelbulb.render; deep_zoom.render(mesh=) config 4 over x4: 4 "
           f"launches of pert_mandelbrot_dd, one reference orbit, rebase "
@@ -1508,6 +1509,7 @@ def animation_phase(dev, kernels, entry, verb, orbit_log,
     from fractalrenderer_tpu_torch.anim import franim, qtpng
     from fractalrenderer_tpu_torch.anim.keyframes import Animation, Keyframe
     from fractalrenderer_tpu_torch.models import common
+    from fractalrenderer_tpu_torch.ops.coloring import quantize_image
     from fractalrenderer_tpu_torch.models.julia import render_c_sweep
     from fractalrenderer_tpu_torch.ops import escape
     from fractalrenderer_tpu_torch.utils.image import to_export_orientation
@@ -1518,7 +1520,7 @@ def animation_phase(dev, kernels, entry, verb, orbit_log,
     def flipped8(img):
         """The uint8 PNG pixels of a device image (f32 or uint8)."""
         if img.dtype == torch.float32:
-            img = common.quantize_image(img, bit_depth=8)
+            img = quantize_image(img, bit_depth=8)
         return to_export_orientation(img).cpu().numpy()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1752,13 +1754,14 @@ def main() -> int:
     from fractalrenderer_tpu_torch import bench, bench_all  # noqa: F401
     from fractalrenderer_tpu_torch.deepzoom import orbit as orbit_mod
     from fractalrenderer_tpu_torch.deepzoom.hp import HPFloat
-    from fractalrenderer_tpu_torch.models import common, deep_zoom
+    from fractalrenderer_tpu_torch.models import deep_zoom
     from fractalrenderer_tpu_torch.models.mandelbrot import (distance_field,
                                                              render_dd)
     from fractalrenderer_tpu_torch.models import mandelbulb
     from fractalrenderer_tpu_torch.ops import (_cuda, bulb_kernel, bulb_math,
                                                dd, dd_escape, escape,
                                                perturbation)
+    from fractalrenderer_tpu_torch.ops.coloring import quantize_image
     from fractalrenderer_tpu_torch.utils import diag, png
     from fractalrenderer_tpu_torch.utils.image import to_export_orientation
 
@@ -1958,8 +1961,8 @@ def main() -> int:
                                    family=family, fused=fused, **extra))
         assert torch.isfinite(rgb_k).all(), f"fused {name}: non-finite"
         err = (rgb_k - rgb_p).abs().max().item()
-        q_k = common.quantize_image(rgb_k, bit_depth=8).int()
-        q_p = common.quantize_image(rgb_p, bit_depth=8).int()
+        q_k = quantize_image(rgb_k, bit_depth=8).int()
+        q_p = quantize_image(rgb_p, bit_depth=8).int()
         lsb = (q_k - q_p).abs().max().item()
         assert err <= COLOR_ATOL, f"fused {family} {name}: max |diff| {err}"
         assert lsb <= 1, f"fused {family} {name}: uint8 differs by {lsb} LSB"
@@ -2511,7 +2514,7 @@ def main() -> int:
                     cli.build_parser().parse_args(argv))
                 with plain_kernels():
                     if "dd" in flags:
-                        ref = common.quantize_image(
+                        ref = quantize_image(
                             render_dd(scene, pw, ph, device=dev), bit_depth=8)
                     else:
                         ref = models.render(
@@ -2946,7 +2949,7 @@ def main() -> int:
                 scene, W, H, keep_device=True, device=dev)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            img = common.quantize_image(
+            img = quantize_image(
                 deep_zoom.color_fields_device(n_f, zx_f, zy_f, p),
                 bit_depth=8)
             torch.cuda.synchronize()

@@ -340,8 +340,8 @@ def cmd_render(args) -> int:
                     return_info=True, quantize=args.bit_depth, device=dev,
                     **dz_kw)
         elif args.precision == "dd":
-            from .models.common import quantize_image
             from .models.mandelbrot import render_dd
+            from .ops.coloring import quantize_image
 
             img = quantize_image(render_dd(scene, args.width, args.height,
                                            device=dev),
@@ -349,19 +349,10 @@ def cmd_render(args) -> int:
         elif args.sharded:
             # row bands across devices, bit-identical to the one-device
             # render (gather-free: parallel/tiled.py), joined on the host
-            if scene.fractal_type == FractalType.MANDELBULB:
-                from .models.common import quantize_image
-                from .models.mandelbulb import render_sharded
+            from .parallel import render_sharded
 
-                img = quantize_image(render_sharded(
-                    scene, args.width, args.height, mesh=_mesh_for(dev)),
-                    bit_depth=args.bit_depth)
-            else:
-                from .parallel import render_sharded
-
-                img = render_sharded(scene, args.width, args.height,
-                                     mesh=_mesh_for(dev),
-                                     quantize=args.bit_depth)
+            img = render_sharded(scene, args.width, args.height,
+                                 mesh=_mesh_for(dev), quantize=args.bit_depth)
         else:
             img = models.render(scene, args.width, args.height, device=dev,
                                 quantize=args.bit_depth)

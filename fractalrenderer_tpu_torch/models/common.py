@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..ops import coloring, mapping
-from ..ops.coloring import ColorParams
+from ..ops.coloring import ColorParams, quantize_image
 from ..ops.escape import escape_fields
 from ..scene import Scene
 from ..utils.diag import span
@@ -306,17 +306,15 @@ def _into(out, img: torch.Tensor) -> torch.Tensor:
     return img if out is None else out.copy_(img)
 
 
-def quantize_image(img: torch.Tensor, *, bit_depth: int,
-                   out=None) -> torch.Tensor:
-    """Clip/scale/round an f32 [0,1] image to uint8/uint16 on its device —
-    the exact utils.png._prepare_rows expression, so a device-quantized
-    frame produces byte-identical PNGs.  ``out``, a uint8/uint16 tensor of
-    the image's shape, receives the result (the same cast as ``.to``)."""
-    img = torch.clamp(img, 0.0, 1.0)
-    img = img * (255.0 if bit_depth == 8 else 65535.0) + 0.5
-    if out is not None:
-        return out.copy_(img)
-    return img.to(torch.uint8 if bit_depth == 8 else torch.uint16)
+def band_renderer(scene: Scene, width: int, height: int, *, device="cuda",
+                  orbit_cache=None):
+    """The 2D families' ``models.band_renderer`` (``orbit_cache`` unused),
+    through :func:`band_render_fn`."""
+    fam, conv, clamp = family_map()[scene.fractal_type]
+    cfg = scene_static_cfg(scene, width, height, fam, conv, clamp,
+                           device=str(device))
+    dyn = scene_dyn_params(scene)
+    return lambda row0, rows: band_render_fn(cfg, rows, height)(dyn, row0)
 
 
 def render_fn(cfg: StaticCfg):

@@ -24,7 +24,7 @@ spp² subpixel samples per pixel, stacked into one K3 launch (power-of-two
 spp, rebasing) and averaged in sample order.
 
 ``mesh``: a parallel.RenderMesh routes every kernel pass through the
-gather-free row bands of parallel/tiled.py.
+gather-free row bands of parallel/mesh.py.
 """
 from __future__ import annotations
 
@@ -45,6 +45,11 @@ from ..ops.perturbation import perturbation_fields
 from ..scene import Scene
 from ..utils.diag import span
 
+
+# A row band's stacked-AA budget: the largest stacked map (spp² · rows ·
+# width pixels) it materializes on the device before falling back to
+# sequential offsets, since banded renders exist for images too large to fit.
+_STACKED_BAND_PIXELS = 1 << 25
 
 # Suspect threshold of the exact-dust tier: a pixel whose error ledger
 # (log2 absolute error, ops/perturbation track_err) exceeds 2^-8 joins the
@@ -108,7 +113,7 @@ def render_fields(scene: Scene, width: int, height: int,
     ``orbit_cache``: optional dict keyed by exact HP center values and the
     recurrence; reuses reference orbits across calls.
     ``mesh``: a parallel.RenderMesh with a 'rows' axis routes every kernel
-    pass through the gather-free row bands (parallel/tiled.py) on the
+    pass through the gather-free row bands (parallel/mesh.py) on the
     mesh's devices instead of ``device``; with ``keep_device`` the planes
     stay on the device where every band sits on one, else they are joined
     on the host.
@@ -155,7 +160,7 @@ def render_fields(scene: Scene, width: int, height: int,
         else:
             band_h = height
         if mesh is not None:
-            from ..parallel.tiled import perturbation_fields_sharded
+            from ..parallel.mesh import perturbation_fields_sharded
 
             field_fn = functools.partial(perturbation_fields_sharded,
                                          mesh=mesh, keep_device=keep_device)
@@ -488,6 +493,52 @@ class SampleAccumulator:
         return _average(self._acc, nsamp)
 
 
+def _render_samples(scene: Scene, width: int, height: int, *, orbit_cache,
+                    quantize, device, row_band=None, **kw):
+    """The deep zoom's sample policy, for ``render`` and ``band_renderer``:
+    the image, or its ``row_band`` (render_fields' options in ``kw``),
+    coloured on ``device`` and averaged over its spp² samples, then
+    quantized with ``quantize`` 8/16.  A power-of-two spp under the
+    rebasing pipeline stacks the samples in one K3 launch — a row band
+    only while the stacked map fits ``_STACKED_BAND_PIXELS`` — otherwise
+    each offset (sx/spp, sy/spp) takes a launch of its own.  Returns
+    (image, the first render_fields call's info)."""
+    p = ColorParams(
+        max_iterations=scene.max_iterations, bailout=scene.bailout,
+        palette_mode=scene.palette_mode,
+        color_offset=scene.color_offset, color_scale=scene.color_scale)
+    spp = max(int(scene.samples_per_pixel), 1)
+    stacked = (spp > 1 and (spp & (spp - 1)) == 0
+               and kw.get("rebasing", True)
+               and (row_band is None or spp * spp * int(row_band[1]) * width
+                    <= _STACKED_BAND_PIXELS))
+    if stacked:
+        n, zx, zy, _, info = render_fields(
+            scene, width, height, orbit_cache=orbit_cache, aa_spp=spp,
+            row_band=row_band, keep_device=True, device=device, **kw)
+        info = dict(info, aa_samples=spp * spp, aa_batched=True)
+    else:
+        accu = SampleAccumulator(p, device)
+        infos = []
+        for s in range(spp * spp):  # at ((s mod spp) / spp, (s div spp) / spp)
+            n, zx, zy, _, i = render_fields(
+                scene, width, height, offset=(s % spp / spp, s // spp / spp),
+                orbit_cache=orbit_cache, row_band=row_band, keep_device=True,
+                device=device, **kw)
+            with span("deep.colour"):
+                accu.add(n, zx, zy)
+            infos.append(i)
+        info = infos[0]
+    with span("deep.colour"):
+        if stacked:
+            img = color_stacked_samples(n, zx, zy, p, spp * spp, device)
+        else:
+            img = accu.average(spp * spp)
+        if quantize in (8, 16):
+            img = coloring.quantize_image(img, bit_depth=quantize)
+    return img, info
+
+
 def render(scene: Scene, width: int, height: int,
            return_info: bool = False, orbit_cache: dict = None,
            quantize: int = 0, device="cuda", **kw):
@@ -501,42 +552,11 @@ def render(scene: Scene, width: int, height: int,
 
     The call runs in the span ``deep.frame``, its colour and quantize in
     ``deep.colour``; ``render.frames`` counts the frames finished."""
-    from .common import quantize_image
-
     with span("deep.frame"):
-        p = ColorParams(
-            max_iterations=scene.max_iterations, bailout=scene.bailout,
-            palette_mode=scene.palette_mode,
-            color_offset=scene.color_offset, color_scale=scene.color_scale)
-        spp = max(int(scene.samples_per_pixel), 1)
-        cache = orbit_cache if orbit_cache is not None else {}
-        stacked = spp > 1 and (spp & (spp - 1)) == 0 \
-            and kw.get("rebasing", True)
-        if stacked:
-            n, zx, zy, _, info = render_fields(
-                scene, width, height, orbit_cache=cache, aa_spp=spp,
-                keep_device=True, device=device, **kw)
-            info = dict(info, aa_samples=spp * spp, aa_batched=True)
-        else:
-            accu = SampleAccumulator(p, device)
-            infos = []
-            for sy in range(spp):
-                for sx in range(spp):
-                    off = (sx / spp, sy / spp) if spp > 1 else (0.0, 0.0)
-                    n, zx, zy, _, i = render_fields(
-                        scene, width, height, offset=off, orbit_cache=cache,
-                        keep_device=True, device=device, **kw)
-                    with span("deep.colour"):
-                        accu.add(n, zx, zy)
-                    infos.append(i)
-            info = infos[0]
-        with span("deep.colour"):
-            if stacked:
-                img = color_stacked_samples(n, zx, zy, p, spp * spp, device)
-            else:
-                img = accu.average(spp * spp)
-            if quantize in (8, 16):
-                img = quantize_image(img, bit_depth=quantize)
+        img, info = _render_samples(
+            scene, width, height,
+            orbit_cache=orbit_cache if orbit_cache is not None else {},
+            quantize=quantize, device=device, **kw)
     render.frames += 1
     if return_info:
         return img, info
@@ -544,3 +564,15 @@ def render(scene: Scene, width: int, height: int,
 
 
 render.frames = 0
+
+
+def band_renderer(scene: Scene, width: int, height: int, *, device="cuda",
+                  orbit_cache=None):
+    """``fn(row0, rows)``: rows [row0, row0 + rows) of the ``width`` ×
+    ``height`` image as f32 (rows, W, 3) on ``device``, equal to those rows
+    of ``render``.  ``orbit_cache`` (a fresh one when None) keeps the one
+    reference orbit every band shares."""
+    cache = {} if orbit_cache is None else orbit_cache
+    return lambda row0, rows: _render_samples(
+        scene, width, height, orbit_cache=cache, quantize=0, device=device,
+        row_band=(row0, rows))[0]

@@ -9,7 +9,8 @@ sweep.
 from __future__ import annotations
 
 from ..scene import Scene
-from .common import render_scene
+# band_renderer: this family's models.band_renderer
+from .common import band_renderer, render_scene  # noqa: F401
 
 
 def render(scene: Scene, width: int, height: int, **kw):

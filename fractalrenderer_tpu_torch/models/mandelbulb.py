@@ -38,7 +38,6 @@ from ..ops import coloring, consts
 from ..ops.bulb_kernel import march_fields
 from ..scene import Scene
 from ..utils.diag import span
-from .common import quantize_image
 
 # The camera/power/colour fields the JAX render traces (one compile serves
 # a whole animation there); here they are the f32 scalars of a frame.
@@ -181,6 +180,16 @@ def band_render_fn(scene: Scene, width: int, band_h: int, full_h: int,
     return fn
 
 
+def band_renderer(scene: Scene, width: int, height: int, *, device="cuda",
+                  orbit_cache=None):
+    """The bulb's ``models.band_renderer`` (``orbit_cache`` unused), through
+    :func:`band_render_fn`: K4a's cone blocks are aligned to the image, not
+    to the band, so every band equals the same rows of the whole frame."""
+    dyn = dyn_params(scene)
+    return lambda row0, rows: band_render_fn(scene, width, rows, height,
+                                             device=device)(dyn, row0)
+
+
 def render(scene: Scene, width: int, height: int, device="cuda",
            quantize: int = 0) -> torch.Tensor:
     """Render the bulb on ``device``: f32 (H, W, 3) in [0, 1], or with
@@ -190,7 +199,7 @@ def render(scene: Scene, width: int, height: int, device="cuda",
 
     The call runs in the span ``bulb.frame``, its quantize in
     ``bulb.post``; ``render.frames`` counts the frames finished.  Every
-    frame or band (``band_render_fn``'s, ``render_sharded``'s too) adds
+    frame or band (``band_render_fn``'s, ``band_renderer``'s too) adds
     one to ``render.param_uploads``, its copy of the frame's vector, and
     to ``render.const_builds`` the constant tensors it built
     (``ops/consts.f32``'s misses): a warm frame builds none."""
@@ -199,7 +208,7 @@ def render(scene: Scene, width: int, height: int, device="cuda",
                              device=device)(dyn_params(scene), 0)
         if quantize:
             with span("bulb.post"):
-                img = quantize_image(img, bit_depth=quantize)
+                img = coloring.quantize_image(img, bit_depth=quantize)
     render.frames += 1
     return img
 
@@ -207,24 +216,3 @@ def render(scene: Scene, width: int, height: int, device="cuda",
 render.frames = 0
 render.param_uploads = 0
 render.const_builds = 0
-
-
-def render_sharded(scene: Scene, width: int, height: int,
-                   mesh=None) -> torch.Tensor:
-    """Row-band bulb render (gather-free, the decomposition of the 2D
-    families in parallel/tiled.py): each device raymarches and shades its
-    own contiguous band, every band dispatched before the first fetch, and
-    the bands are joined on the host as an f32 (H, W, 3) tensor.  K4a's
-    cone blocks are aligned to the image, not to the band, so every band
-    equals the same rows of the whole frame."""
-    from ..parallel.mesh import make_render_mesh, row_bands
-    from ..utils.diag import validate_scene
-
-    scene = validate_scene(scene)  # parity with models.render dispatch
-    if mesh is None:
-        mesh = make_render_mesh()
-    devs = mesh.devices[0]
-    dyn = dyn_params(scene)
-    bands = [band_render_fn(scene, width, rows, height, device=dev)(dyn, row0)
-             for dev, (row0, rows) in zip(devs, row_bands(height, len(devs)))]
-    return torch.cat([b.cpu() for b in bands])

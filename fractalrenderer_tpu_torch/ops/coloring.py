@@ -160,6 +160,19 @@ def post_chain(color, brightness: float, saturation: float, contrast: float,
     return gamma_correct(aces_tonemap(color))
 
 
+def quantize_image(img: torch.Tensor, *, bit_depth: int,
+                   out=None) -> torch.Tensor:
+    """Clip/scale/round an f32 [0,1] image to uint8/uint16 on its device —
+    the exact utils.png._prepare_rows expression, so a device-quantized
+    frame produces byte-identical PNGs.  ``out``, a uint8/uint16 tensor of
+    the image's shape, receives the result (the same cast as ``.to``)."""
+    img = torch.clamp(img, 0.0, 1.0)
+    img = img * (255.0 if bit_depth == 8 else 65535.0) + 0.5
+    if out is not None:
+        return out.copy_(img)
+    return img.to(torch.uint8 if bit_depth == 8 else torch.uint16)
+
+
 # ---------------------------------------------------------------------------
 # Per-family sample colouring (pre-post-chain; applied per AA sample)
 # ---------------------------------------------------------------------------

@@ -27,8 +27,9 @@ Outputs per pixel (fields mode), in this order:
   dzx, dzy (f32, ``track_deriv``, Mandelbrot only) — dz/dc, dz ← 2·z·dz + 1
       on the pre-update z
 With ``fused_color`` the colour planes r, g, b (f32) come out instead, or,
-given ``quantized``, the same planes quantized (models/common.quantize_image's
-expression) into that uint8/uint16 (3, height, width) tensor.
+given ``quantized``, the same planes quantized
+(ops/coloring.quantize_image's expression) into that uint8/uint16 (3,
+height, width) tensor.
 """
 from __future__ import annotations
 

@@ -5,7 +5,10 @@ BASELINE config #5: a 16K×16K still in a gather-free row-band
 decomposition.  Each band renders on its own device from its global first
 row and the full image's mapping height (every kernel wrapper takes both),
 so no device reads anything another device wrote; the only traffic between
-devices is the final assembly on the host.
+devices is the final assembly on the host.  Every kind renders its bands
+through one seam, ``models.band_renderer``, so nothing here depends on the
+fractal kind; only ``render_frames_sharded``, the 2D batch, calls
+``models/common`` itself.
 
 The JAX package traces one ``shard_map`` program over its mesh.  Here each
 band is dispatched to its device in turn, every band before the first
@@ -36,58 +39,51 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import models
 from ..models import common
-from ..scene import FractalType, Scene
+from ..ops.coloring import quantize_image
+from ..scene import Scene
 from ..utils import png
 from ..utils.image import downsample2x
-from .mesh import RenderMesh, make_render_mesh, pad_to_multiple, row_bands
+from .mesh import (RenderMesh, make_render_mesh, pad_to_multiple, row_bands,
+                   to_host)
 
-_FAMILY = common.family_map()
-
-# Stacked deep-zoom AA budget for giant bands (see produce_band): the
-# largest stacked map (spp^2 * band_rows * width pixels) a band may
-# materialize on the device before falling back to sequential offsets.
-_STACKED_BAND_PIXELS = 1 << 25
+# zlib level of the giant's final IDAT chunks (the resume tiles take 1)
+_FINAL_LEVEL = 3
 
 
-def _to_host(parts: List[torch.Tensor], dim: int = 0) -> torch.Tensor:
-    """Concatenate band tensors on the host, each fetched from its
-    device."""
-    return torch.cat([p.cpu() for p in parts], dim=dim)
-
-
-def _cfg_on(cfg: common.StaticCfg, device) -> common.StaticCfg:
-    return dataclasses.replace(cfg, device=str(device))
+def _band_renderers(scene: Scene, width: int, height: int, devices,
+                    orbit_cache: Optional[Dict] = None) -> Dict:
+    """One ``models.band_renderer`` per distinct device of a job, all
+    sharing one orbit cache (so a deep zoom computes its orbit once)."""
+    cache = {} if orbit_cache is None else orbit_cache
+    return {d: models.band_renderer(scene, width, height, device=d,
+                                    orbit_cache=cache) for d in devices}
 
 
 def render_sharded(scene: Scene, width: int, height: int,
                    mesh: Optional[RenderMesh] = None,
                    quantize: int = 0) -> torch.Tensor:
-    """Render one frame with its rows split across the mesh's 'rows' axis
-    (gather-free: each device computes its band) and return it on the host
-    as an (H, W, 3) tensor.
+    """Render one frame of any kind with its rows split across the mesh's
+    'rows' axis (gather-free: each device computes its band through
+    ``models.band_renderer``) and return it on the host as an (H, W, 3)
+    tensor.
 
     ``quantize``: 8/16 quantizes INSIDE each band, on its device (the PNG
     writer's exact clip/scale/round), so each fetch moves 1-2 B per channel
     instead of 4 — byte-identical files to the single-device quantized
     path."""
-    from ..utils.diag import validate_scene
-
-    scene = validate_scene(scene)  # parity with models.render dispatch
     if mesh is None:
         mesh = make_render_mesh()
-    fam, conv, clamp = _FAMILY[scene.fractal_type]
-    cfg = common.scene_static_cfg(scene, width, height, fam, conv, clamp)
-    dyn = common.scene_dyn_params(scene)
     devs = mesh.devices[0]
+    fns = _band_renderers(scene, width, height, devs)
     parts = []
     for dev, (row0, rows) in zip(devs, row_bands(height, len(devs))):
-        out = common.band_render_fn(_cfg_on(cfg, dev), rows, height)(dyn,
-                                                                    row0)
+        out = fns[dev](row0, rows)
         if quantize:
-            out = common.quantize_image(out, bit_depth=quantize)
+            out = quantize_image(out, bit_depth=quantize)
         parts.append(out)
-    return _to_host(parts)
+    return to_host(parts)
 
 
 def render_frames_sharded(scenes, width: int, height: int,
@@ -105,7 +101,7 @@ def render_frames_sharded(scenes, width: int, height: int,
     the JAX package's batch splits over its 'frames' axis."""
     if mesh is None:
         mesh = make_render_mesh(frames=1)
-    fam, conv, clamp = _FAMILY[scenes[0].fractal_type]
+    fam, conv, clamp = common.family_map()[scenes[0].fractal_type]
     if cap is None:
         cap = max(s.max_iterations for s in scenes)
     cfg = dataclasses.replace(
@@ -115,8 +111,9 @@ def render_frames_sharded(scenes, width: int, height: int,
         // mesh.shape["frames"]
     groups = []
     for devs in mesh.devices:
-        groups.append([(row0, common.band_render_fn(_cfg_on(cfg, dev), rows,
-                                                    height))
+        groups.append([(row0, common.band_render_fn(
+                           dataclasses.replace(cfg, device=str(dev)), rows,
+                           height))
                        for dev, (row0, rows)
                        in zip(devs, row_bands(height, len(devs)))])
     frames = []
@@ -126,53 +123,10 @@ def render_frames_sharded(scenes, width: int, height: int,
         for row0, fn in groups[i // per_group]:
             out = fn(dyn, row0)
             if quantize:
-                out = common.quantize_image(out, bit_depth=quantize)
+                out = quantize_image(out, bit_depth=quantize)
             parts.append(out)
         frames.append(parts)
-    return torch.stack([_to_host(parts) for parts in frames])
-
-
-def perturbation_fields_sharded(orbit, width, height, *, mesh=None,
-                                keep_device: bool = False, **pert_kw):
-    """Row-band perturbation deep zoom: one reference orbit (small and
-    read-only) serves every band; each device computes its band's deltas —
-    still gather-free.  Same signature and result as
-    ops.perturbation.perturbation_fields, but for ``device``, which the
-    mesh gives; ``passes`` is the most any band took.
-
-    A ``row0``/``map_height`` band of a taller image (a giant still's
-    ``render_fields(row_band=...)``) composes with the per-device bands;
-    with ``aa_spp`` each device renders the spp² segment stack of its own
-    band (the Q_AROW0 mapping of ops/perturbation.py).
-
-    ``keep_device``: where every band sits on one device, the planes are
-    joined there, so callers colour and quantize on the device and fetch
-    only uint RGB; otherwise they are joined on the host."""
-    from ..ops.perturbation import perturbation_fields
-
-    if mesh is None:
-        mesh = make_render_mesh()
-    devs = mesh.devices[0]
-    row0_base = int(pert_kw.pop("row0", 0))
-    map_h = int(pert_kw.pop("map_height", height))
-    bands, used = [], set()
-    for dev, (r0, rows) in zip(devs, row_bands(height, len(devs))):
-        bands.append(perturbation_fields(orbit, width, rows,
-                                         row0=float(row0_base + r0),
-                                         map_height=map_h, device=dev,
-                                         **pert_kw))
-        used.add(dev)
-    on_one = keep_device and len(used) == 1
-
-    def join(key):
-        parts = [b[key] for b in bands]
-        # planes are (rows, W), or (spp², rows, W) stacked
-        return torch.cat(parts, dim=-2) if on_one else _to_host(parts, -2)
-
-    res = {k: join(k) for k in bands[0] if k != "passes"}
-    if "passes" in bands[0]:
-        res["passes"] = max(int(b["passes"]) for b in bands)
-    return res
+    return torch.stack([to_host(parts) for parts in frames])
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +176,6 @@ def render_giant_still(scene: Scene, width: int, height: int, out_path: str,
                        dpi: Optional[float] = 300.0,
                        mesh: Optional[RenderMesh] = None,
                        use_mesh: bool = False,
-                       compress_level: int = 3,
                        supersample: bool = False,
                        extra_metadata: Optional[Dict] = None,
                        orbit_cache: Optional[Dict] = None,
@@ -238,10 +191,9 @@ def render_giant_still(scene: Scene, width: int, height: int, out_path: str,
 
     Every fractal family is supported, matching the reference's
     print-export of whatever fractal is active (vk_engine.cpp:1796-2232):
-    the 2D escape families and the mandelbulb render through their
-    ``(dyn, row0)`` band pipelines; DEEP_ZOOM scenes stream through
-    ``models.deep_zoom.render_fields(row_band=...)`` with one reference
-    orbit shared across all bands.
+    each band renders through ``models.band_renderer``, one per device
+    for the job; a deep zoom's bands share one reference orbit
+    (``orbit_cache``, or a fresh one).
 
     ``supersample``: render each band at 2x and 2x2-box-downsample before
     quantizing — the banded form of export-print's --supersample
@@ -293,99 +245,28 @@ def render_giant_still(scene: Scene, width: int, height: int, out_path: str,
     n_bands = -(-height // band_rows)
     rendered = 0
     skipped = 0
-    ft = scene.fractal_type
     # Supersampled exports render bands at 2x geometry and box-downsample
     # back to output rows before quantizing; every row index below is in
-    # OUTPUT rows — the producers scale by ``ss`` where they touch the
-    # render-resolution map, so 2x2 pairs never straddle a band edge.
+    # OUTPUT rows, scaled by ``ss`` where it meets the render-resolution
+    # map, so 2x2 pairs never straddle a band edge.
     ss = 2 if supersample else 1
-    r_w, r_h = width * ss, height * ss
+    devs = mesh.devices[0] if use_mesh else (dev,)
+    fns = _band_renderers(scene, width * ss, height * ss, devs, orbit_cache)
 
-    def _quantize(x):
-        # on the band's device, the PNG writer's clip/scale/truncate, so
-        # the link carries uint16/uint8 instead of f32 RGB
-        return common.quantize_image(x, bit_depth=bit_depth)
+    def render_rows(d, row0: int, rows: int) -> torch.Tensor:
+        # rendered, downsampled and quantized on the band's device (the PNG
+        # writer's clip/scale/truncate), so the link carries uint16/uint8
+        # instead of f32 RGB
+        img = fns[d](row0 * ss, rows * ss)
+        return quantize_image(downsample2x(img) if supersample else img,
+                              bit_depth=bit_depth)
 
-    if ft == FractalType.DEEP_ZOOM:
-        # Deep-zoom giants: one reference orbit (orbit_cache) serves every
-        # band; render_fields(row_band=...) windows the full-image mapping
-        # so each band is bit-identical to the same rows of a full render.
-        # Bands colour, average, downsample and quantize on the device;
-        # planes from the HP fallback (host arrays) are coloured there too,
-        # with the same expression, as deep_zoom.render colours them.
-        from ..models import deep_zoom as _dz
-        from ..ops.coloring import ColorParams
-
-        spp = max(int(scene.samples_per_pixel), 1)
-        dz_cp = ColorParams(
-            max_iterations=scene.max_iterations, bailout=scene.bailout,
-            palette_mode=scene.palette_mode,
-            color_offset=scene.color_offset, color_scale=scene.color_scale)
-        dz_cache: Dict = {} if orbit_cache is None else orbit_cache
-        # Stacked AA multiplies the band's device footprint by spp^2 (the
-        # kernel materializes its planes and rebase state at the stacked
-        # height) — the giant exporter exists because the image does NOT
-        # fit at once, so fall back to the sequential offset loop when the
-        # stacked map would exceed the budget.
-        stacked = (spp > 1 and (spp & (spp - 1)) == 0 and not use_mesh
-                   and spp * spp * band_rows * ss * r_w
-                   <= _STACKED_BAND_PIXELS)
-
-        def produce_band(row0: int, rows: int) -> List[torch.Tensor]:
-            band = (row0 * ss, rows * ss)
-            if stacked:
-                # all spp^2 subpixel samples of the band in ONE kernel call
-                # sharing the orbit operands and rebase passes
-                n, zx, zy, _g, _i = _dz.render_fields(
-                    scene, r_w, r_h, orbit_cache=dz_cache, row_band=band,
-                    aa_spp=spp, keep_device=True, device=dev)
-                avg = _dz.color_stacked_samples(n, zx, zy, dz_cp, spp * spp,
-                                                dev)
-            else:
-                accu = _dz.SampleAccumulator(dz_cp, dev)
-                for sy in range(spp):
-                    for sx in range(spp):
-                        off = ((sx / spp, sy / spp) if spp > 1
-                               else (0.0, 0.0))
-                        n, zx, zy, _g, _i = _dz.render_fields(
-                            scene, r_w, r_h, offset=off,
-                            orbit_cache=dz_cache, row_band=band,
-                            mesh=mesh if use_mesh else None,
-                            keep_device=True, device=dev)
-                        accu.add(n, zx, zy)
-                avg = accu.average(spp * spp)
-            if supersample:
-                avg = downsample2x(avg)
-            return [_quantize(avg)]
-    else:
-        if ft == FractalType.MANDELBULB:
-            from ..models import mandelbulb as _mb
-
-            def make_band_fn(d, rows):
-                return _mb.band_render_fn(scene, r_w, rows, r_h, device=d)
-
-            dyn = _mb.dyn_params(scene)
-        else:
-            fam, conv, clamp = _FAMILY[ft]
-            cfg = common.scene_static_cfg(scene, r_w, r_h, fam, conv, clamp)
-
-            def make_band_fn(d, rows):
-                return common.band_render_fn(_cfg_on(cfg, d), rows, r_h)
-
-            dyn = common.scene_dyn_params(scene)
-
-        def render_rows(d, row0: int, rows: int) -> torch.Tensor:
-            img = make_band_fn(d, rows * ss)(dyn, row0 * ss)
-            return _quantize(downsample2x(img) if supersample else img)
-
-        def produce_band(row0: int, rows: int) -> List[torch.Tensor]:
-            if not use_mesh:
-                return [render_rows(dev, row0, rows)]
-            # the band's rows split over the mesh's devices, each part
-            # rendered, downsampled and quantized on its own device
-            devs = mesh.devices[0]
-            return [render_rows(d, row0 + r, n)
-                    for d, (r, n) in zip(devs, row_bands(rows, len(devs)))]
+    def produce_band(row0: int, rows: int) -> List[torch.Tensor]:
+        if not use_mesh:
+            return [render_rows(dev, row0, rows)]
+        # the band's rows split over the mesh's devices
+        return [render_rows(d, row0 + r, n)
+                for d, (r, n) in zip(devs, row_bands(rows, len(devs)))]
 
     # Fully pipelined export: bands render in FINAL scanline order
     # (reversed — export orientation is a vertical flip), dispatching band
@@ -438,7 +319,7 @@ def render_giant_still(scene: Scene, width: int, height: int, out_path: str,
             raw = png.band_raw_bytes(band_np[::-1], bit_depth)
             final_q.append((band_np.shape[0],
                             pool.submit(timed, png.deflate_chunk, raw,
-                                        compress_level), raw))
+                                        _FINAL_LEVEL), raw))
             flush_final()
             done_ct += 1
             if progress_cb:

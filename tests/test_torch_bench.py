@@ -260,7 +260,7 @@ def test_config5_giant_is_the_whole_render(tmp_path):
     # its scene (16-bit, flipped at export); the device seconds of three
     # bands, the worker and fetch seconds and the sizes are reported
     from fractalrenderer_tpu_torch import Scene, models
-    from fractalrenderer_tpu_torch.models import common
+    from fractalrenderer_tpu_torch.ops.coloring import quantize_image
     from fractalrenderer_tpu_torch.utils.png import read_png
 
     out = str(tmp_path / "g.png")
@@ -270,9 +270,9 @@ def test_config5_giant_is_the_whole_render(tmp_path):
     assert row["bytes_over_link"] == 64 * 48 * 6
     assert row["png_bytes"] == os.path.getsize(out)
     assert "link_probe_mb_s" not in row  # no link on the CPU
-    want = common.quantize_image(models.render(Scene(max_iterations=256), 64,
-                                               48, device="cpu"),
-                                 bit_depth=16).numpy()[::-1]
+    want = quantize_image(models.render(Scene(max_iterations=256), 64,
+                                        48, device="cpu"),
+                          bit_depth=16).numpy()[::-1]
     assert (read_png(out) == want).all()
 
 

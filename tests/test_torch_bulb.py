@@ -28,12 +28,12 @@ from fractalrenderer_tpu.ops import palettes as jpal
 from fractalrenderer_tpu.ops import trig as jtrig
 from fractalrenderer_tpu_torch import FractalType, Scene, cli
 from fractalrenderer_tpu_torch.models import mandelbulb
-from fractalrenderer_tpu_torch.models.common import quantize_image
 from fractalrenderer_tpu_torch.ops import bulb_kernel as bk
 from fractalrenderer_tpu_torch.ops import bulb_math as bm
 from fractalrenderer_tpu_torch.ops import consts
 from fractalrenderer_tpu_torch.ops import palettes as pal
 from fractalrenderer_tpu_torch.ops import trig
+from fractalrenderer_tpu_torch.ops.coloring import quantize_image
 from fractalrenderer_tpu_torch.utils.image import to_export_orientation
 
 ITERS = 32  # DE iteration limit of the march comparisons

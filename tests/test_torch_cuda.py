@@ -174,7 +174,7 @@ def test_fused_kernel_quantizes_as_quantize_image(dev, family, bits, band):
     # the quantized planes are quantize_image of the same launch's f32
     # planes, bit for bit: with the post chain (the planar export) and
     # without it, where palette 0's ends put pixels at exactly 0 and 1
-    from fractalrenderer_tpu_torch.models import common
+    from fractalrenderer_tpu_torch.ops.coloring import quantize_image
 
     w, h, full_h, row0 = (200, 40, 120, 50) if band else (200, 120, 120, 0)
     params = escape.pack_params(family=family, iter_limit=256, row0=row0,
@@ -197,7 +197,7 @@ def test_fused_kernel_quantizes_as_quantize_image(dev, family, bits, band):
         assert escape.escape_fields_cuda.launches == launches + 1
         assert escape.escape_fields_cuda.quantized_launches == quantized + 1
         assert [g.data_ptr() for g in got] == [p.data_ptr() for p in q]
-        want = common.quantize_image(torch.stack(planes), bit_depth=bits)
+        want = quantize_image(torch.stack(planes), bit_depth=bits)
         assert torch.equal(q, want)
         ends |= {v for v in (0, top) if bool((want == v).any())}
     assert ends == {0, top}
@@ -1003,6 +1003,7 @@ def test_planar_batch_is_k1_quantized_stores(dev, family, bits):
     import numpy as np
 
     from fractalrenderer_tpu_torch.models import common
+    from fractalrenderer_tpu_torch.ops.coloring import quantize_image
 
     scenes = _batch_scenes(family)
     conv, clamp = common.family_map()[scenes[0].fractal_type][1:]
@@ -1020,8 +1021,8 @@ def test_planar_batch_is_k1_quantized_stores(dev, family, bits):
     assert (escape.escape_fields_cuda.quantized_launches - quantized
             == len(scenes))
     f32 = common.batch_render_fn(cfg)(batch)
-    assert torch.equal(out, common.quantize_image(f32.permute(0, 3, 1, 2),
-                                                  bit_depth=bits))
+    assert torch.equal(out, quantize_image(f32.permute(0, 3, 1, 2),
+                                           bit_depth=bits))
 
 
 def test_c_sweep_is_one_launch_per_c(dev):
@@ -1065,7 +1066,7 @@ def test_sharded_1080p_equals_whole_frame(dev, kind, n):
         want = models.render(s, 1920, 1080, device=dev)
     elif kind == "bulb":
         s = Scene(fractal_type=FractalType.MANDELBULB, time=1.0)
-        got = mandelbulb.render_sharded(s, 1920, 1080, mesh=mesh)
+        got = render_sharded(s, 1920, 1080, mesh=mesh)
         want = mandelbulb.render(s, 1920, 1080, device=dev)
     else:
         s = Scene(fractal_type=FractalType.DEEP_ZOOM, use_perturbation=True,
@@ -1079,7 +1080,7 @@ def test_sharded_1080p_equals_whole_frame(dev, kind, n):
 
 def test_giant_2048_equals_the_whole_render(dev, tmp_path):
     from fractalrenderer_tpu_torch import Scene, models
-    from fractalrenderer_tpu_torch.models import common
+    from fractalrenderer_tpu_torch.ops.coloring import quantize_image
     from fractalrenderer_tpu_torch.parallel import render_giant_still
     from fractalrenderer_tpu_torch.utils.png import read_png
 
@@ -1091,8 +1092,8 @@ def test_giant_2048_equals_the_whole_render(dev, tmp_path):
                               device=dev)
     assert escape.escape_fields_cuda.launches - before == 7
     assert info["rendered"] == 7 and info["fetch_seconds"] >= 0
-    want = common.quantize_image(models.render(s, 2048, 2048, device=dev),
-                                 bit_depth=16).flip(0).cpu().numpy()
+    want = quantize_image(models.render(s, 2048, 2048, device=dev),
+                          bit_depth=16).flip(0).cpu().numpy()
     got = read_png(out)
     assert (got == want).all()
     # the 2x supersampled giant over a 3-band grid of the card
@@ -1102,7 +1103,7 @@ def test_giant_2048_equals_the_whole_render(dev, tmp_path):
                        mesh=_card_mesh(dev, 3))
     from fractalrenderer_tpu_torch.utils.image import downsample2x
 
-    want2 = common.quantize_image(downsample2x(models.render(
+    want2 = quantize_image(downsample2x(models.render(
         s, 2048, 2048, device=dev)), bit_depth=16).flip(0).cpu().numpy()
     assert (read_png(out2) == want2).all()
 

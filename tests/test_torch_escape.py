@@ -521,7 +521,7 @@ _QUANTIZED_VIEWS = {
 def test_plain_quantized_planes_equal_quantize_image(family, bits, band):
     # the plain K1's quantized store is quantize_image of its f32 planes,
     # and the result's planes are views of the tensor it was given
-    from fractalrenderer_tpu_torch.models import common
+    from fractalrenderer_tpu_torch.ops.coloring import quantize_image
 
     w, h, full_h, row0 = (48, 10, 30, 12) if band else (48, 30, 30, 0)
     dtype = torch.uint8 if bits == 8 else torch.uint16
@@ -533,7 +533,7 @@ def test_plain_quantized_planes_equal_quantize_image(family, bits, band):
     f32 = escape.escape_fields(family, **kw)
     q = torch.full((3, h, w), 7, dtype=dtype)
     got = escape.escape_fields(family, quantized=q, **kw)
-    want = common.quantize_image(torch.stack([f32[c] for c in "rgb"]),
-                                 bit_depth=bits)
+    want = quantize_image(torch.stack([f32[c] for c in "rgb"]),
+                          bit_depth=bits)
     assert torch.equal(q, want)
     assert [got[c].data_ptr() for c in "rgb"] == [p.data_ptr() for p in q]

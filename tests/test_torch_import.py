@@ -144,7 +144,6 @@ def test_batch_paths_on_cuda_never_fall_back(monkeypatch, tmp_path):
 def test_band_paths_on_cuda_never_fall_back(monkeypatch, tmp_path):
     # the row-band renders and the giant still raise on a CUDA device
     # without CUDA, before any launch or file
-    from fractalrenderer_tpu_torch.models import mandelbulb
     from fractalrenderer_tpu_torch.parallel import (make_render_mesh,
                                                     render_giant_still,
                                                     render_sharded)
@@ -156,9 +155,8 @@ def test_band_paths_on_cuda_never_fall_back(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         render_sharded(scene, 8, 8, mesh=mesh)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        mandelbulb.render_sharded(
-            frt.Scene(fractal_type=frt.FractalType.MANDELBULB), 8, 8,
-            mesh=mesh)
+        render_sharded(frt.Scene(fractal_type=frt.FractalType.MANDELBULB),
+                       8, 8, mesh=mesh)
     out = tmp_path / "g.png"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         render_giant_still(scene, 8, 8, str(out), band_rows=4)

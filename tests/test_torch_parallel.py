@@ -38,6 +38,7 @@ from fractalrenderer_tpu_torch.anim.keyframes import Animation, Keyframe
 from fractalrenderer_tpu_torch.anim.renderer import AnimationRenderer
 from fractalrenderer_tpu_torch.models import common
 from fractalrenderer_tpu_torch.ops import escape
+from fractalrenderer_tpu_torch.ops.coloring import quantize_image
 from fractalrenderer_tpu_torch.parallel import (make_render_mesh,
                                                 render_frames_sharded,
                                                 render_giant_still,
@@ -70,7 +71,7 @@ def _jax_scene(scene):
 
 def _png_pixels(img, bit_depth):
     """An f32 render as the PNG writer stores it (quantized, flipped)."""
-    return common.quantize_image(img, bit_depth=bit_depth).numpy()[::-1]
+    return quantize_image(img, bit_depth=bit_depth).numpy()[::-1]
 
 
 def _near_jax(mine, theirs, lsb=1):
@@ -240,7 +241,7 @@ def test_frames_sharded_quantized_bytes():
     out = render_frames_sharded(scenes, 64, 32, mesh, quantize=8)
     assert out.dtype == torch.uint8 and out.shape == (4, 32, 64, 3)
     f32 = render_frames_sharded(scenes, 64, 32, mesh)
-    assert torch.equal(out, common.quantize_image(f32, bit_depth=8))
+    assert torch.equal(out, quantize_image(f32, bit_depth=8))
     theirs = jax_tiled.render_frames_sharded(
         [_jax_scene(s) for s in scenes], 64, 32,
         jax_mesh.make_render_mesh(frames=2), quantize=8)

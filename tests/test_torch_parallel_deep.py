@@ -33,12 +33,14 @@ from fractalrenderer_tpu.parallel import tiled as jax_tiled
 from fractalrenderer_tpu.utils.png import read_png as jax_read_png
 from fractalrenderer_tpu_torch import FractalType, Scene
 from fractalrenderer_tpu_torch.deepzoom import orbit as om
-from fractalrenderer_tpu_torch.models import common, deep_zoom, mandelbulb
+from fractalrenderer_tpu_torch.models import deep_zoom, mandelbulb
+from fractalrenderer_tpu_torch.ops.coloring import quantize_image
 from fractalrenderer_tpu_torch.ops.dd import dd_from_string
 from fractalrenderer_tpu_torch.ops.perturbation import perturbation_fields
 from fractalrenderer_tpu_torch.parallel import (make_render_mesh,
-                                                render_giant_still)
-from fractalrenderer_tpu_torch.parallel.tiled import \
+                                                render_giant_still,
+                                                render_sharded)
+from fractalrenderer_tpu_torch.parallel.mesh import \
     perturbation_fields_sharded
 from fractalrenderer_tpu_torch.utils.image import downsample2x
 from fractalrenderer_tpu_torch.utils.png import read_png
@@ -62,7 +64,7 @@ def _dz(zoom="1e-8", iters=300, **kw):
 
 
 def _png_pixels(img, bit_depth):
-    return common.quantize_image(img, bit_depth=bit_depth).numpy()[::-1]
+    return quantize_image(img, bit_depth=bit_depth).numpy()[::-1]
 
 
 def _counts_near_jax(n, jn):
@@ -229,7 +231,7 @@ def test_mandelbulb_sharded_matches_single():
     s = Scene(fractal_type=FractalType.MANDELBULB, max_iterations=12)
     W, H = 64, 48
     single = mandelbulb.render(s, W, H, device="cpu")
-    sharded = mandelbulb.render_sharded(s, W, H, mesh=_mesh())
+    sharded = render_sharded(s, W, H, mesh=_mesh())
     assert sharded.shape == single.shape
     assert torch.equal(sharded, single)
     theirs = jax_mb.render_sharded(_jax_scene(s), W, H)
@@ -244,8 +246,7 @@ def test_mandelbulb_sharded_uneven_bands():
     s = Scene(fractal_type=FractalType.MANDELBULB, max_iterations=10)
     W, H = 48, 30
     single = mandelbulb.render(s, W, H, device="cpu")
-    assert torch.equal(mandelbulb.render_sharded(s, W, H, mesh=_mesh()),
-                       single)
+    assert torch.equal(render_sharded(s, W, H, mesh=_mesh()), single)
 
 
 def test_mandelbulb_cpu_glue_on_ragged_bands():
@@ -272,7 +273,7 @@ def test_mandelbulb_cpu_glue_on_ragged_bands():
     for k in whole:
         assert torch.equal(torch.cat([q[k] for q in parts]), whole[k]), k
     single = mandelbulb.render(s, W, H, device="cpu")
-    sharded = mandelbulb.render_sharded(s, W, H, mesh=_mesh(7))
+    sharded = render_sharded(s, W, H, mesh=_mesh(7))
     d = (sharded - single).abs()
     assert float(d.max()) <= 1e-6
     assert (d > 0).any(axis=-1).float().mean() < 0.01
@@ -319,7 +320,7 @@ def test_giant_still_deep_zoom(tmp_path):
 
 def test_giant_still_deep_zoom_mesh(tmp_path):
     # use_mesh composes with deep-zoom bands: the giant band's global row
-    # offset and the per-device bands add up in perturbation_fields_sharded
+    # offset and the per-device sub-bands add up in their row_band
     s = _dz()
     plain = str(tmp_path / "deep.png")
     meshed = str(tmp_path / "deep_mesh.png")
@@ -372,13 +373,11 @@ def test_giant_still_deep_zoom_spp_sequential_fallback(tmp_path,
                                                        monkeypatch):
     # over the stacked budget, the band's samples render one offset at a
     # time: the same pixels
-    from fractalrenderer_tpu_torch.parallel import tiled
-
     s = _dz(samples_per_pixel=2)
     a, b = str(tmp_path / "a.png"), str(tmp_path / "b.png")
     render_giant_still(s, 24, 12, a, band_rows=8, bit_depth=16, dpi=None,
                        device="cpu")
-    monkeypatch.setattr(tiled, "_STACKED_BAND_PIXELS", 1)
+    monkeypatch.setattr(deep_zoom, "_STACKED_BAND_PIXELS", 1)
     calls = []
     real = deep_zoom.render_fields
 

@@ -32,6 +32,7 @@ def main(argv=None) -> int:
         os.path.abspath(__file__))))
     from fractalrenderer_tpu_torch import Scene
     from fractalrenderer_tpu_torch.models import common
+    from fractalrenderer_tpu_torch.ops.coloring import quantize_image
     from fractalrenderer_tpu_torch.utils import png
 
     side = args.side
@@ -43,7 +44,7 @@ def main(argv=None) -> int:
     for k in range(5):
         row0 = k * (side // 2 - args.rows) // 4
         img = strip(common.scene_dyn_params(scene), row0)
-        rows = common.quantize_image(img, bit_depth=16).cpu().numpy()
+        rows = quantize_image(img, bit_depth=16).cpu().numpy()
         raw = png.band_raw_bytes(rows[::-1], 16)
         for level, acc in levels.items():
             t0 = time.perf_counter()
