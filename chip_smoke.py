@@ -11,8 +11,9 @@ four 2D families; K2, the double-double Mandelbrot kernel; K3, the
 perturbation deep-zoom kernel of the Mandelbrot, Julia, Burning Ship and
 Phoenix families in their f32, dd and floatexp tiers, with stacked spp²
 supersampling, the Burning Ship's exact-dust error ledger and the
-Mandelbrot single pass of the legacy pipeline; K4a and K4b, the
-Mandelbulb's cone prepass and march + shading kernels; K5, the FP32 peak
+Mandelbrot single pass of the legacy pipeline; K4a, K4b and K4c, the
+Mandelbulb's cone prepass, march + shading kernel and frame colour (hit
+and sky shading, AA sum, post chain, store); K5, the FP32 peak
 probe, and K6, the fresh-compile probe, built apart with a random salt),
 holds every kernel instance against its plain PyTorch version on the card
 (K5 at the JAX probe's 2048x1024 x 8 chains x 2000 steps, bit-equal; K6
@@ -22,7 +23,8 @@ on the plain version, which is launch-bound; K3's stacked spp-2 launch
 segment by segment against sequential launches and on a band of every
 segment against the stacked plain version, with and without the ledger;
 K4a on the whole 1080p coarse grid; the bulb's other integer powers at
-64x48), drives each ported path through ``cli render`` (the default
+64x48; K4c on the 1080p trig frame's K4b planes in its f32, uint8 and
+uint16 stores), drives each ported path through ``cli render`` (the default
 Mandelbrot frame, Julia, Burning Ship with traps and stripes, Phoenix, AA
 2, ``--precision dd``, ``--type deep-zoom`` at configs 4 and 7, with
 ``--deep-julia``, ``--deep-ship`` (and ``--exact-dust``), ``--deep-phoenix``
@@ -65,7 +67,7 @@ frame popped by its CUDA event, fetched and composed to sixel; its
 launches per frame and each frame bit-equal to the plain versions, the
 deep and bulb frames on their middle 64 rows; each rung's first render
 against a warm one at scales 1 and 2).  It times kernel
-against plain version (K1 and K2, K3, K4a and K4b by the profiler's
+against plain version (K1 and K2, K3, K4a, K4b and K4c by the profiler's
 kernel records; the CUDA-event time of queued wrapper calls (K1, K2) or
 of one wrapper call (K3, K4) printed beside them as "call ms"; K4a also by
 the records
@@ -145,6 +147,9 @@ K2_TPU = "fractalrenderer_tpu/ops/dd_escape.py:35"
 K3_TPU = "fractalrenderer_tpu/ops/perturbation.py:245"
 K4A_TPU = "fractalrenderer_tpu/ops/bulb_kernel.py:210"
 K4B_TPU = "fractalrenderer_tpu/ops/bulb_kernel.py:637"
+# K4c replaces no TPU kernel: the JAX package leaves the bulb's shading to
+# XLA there
+K4C_TPU = "none (XLA: fractalrenderer_tpu/models/mandelbulb.py:189-237)"
 K5_TPU = "fractalrenderer_tpu/utils/diag.py:199"
 K6_TPU = "bench_all.py:144"
 
@@ -213,6 +218,10 @@ OPS_PER_PIXEL = {"fused": 90, "fields": 12, "dd": 32, "pert": 52}
 # (de_finish, threshold, relaxation, the next position: 30) and a hit
 # lane's esc recovery + 11 shading-tap events (12 x 20)
 OPS_BULB_EVAL, OPS_BULB_HIT = 30, 240
+# csrc/bulb.cu bulb_shade_kernel, math-library calls one each: a pixel's ray
+# (the camera is the block's), the select, the AA sum, the post chain and
+# the store (110); a hit's shading adds shade_hit and two bulb_color (420)
+OPS_SHADE_PIXEL, OPS_SHADE_HIT = 110, 420
 
 
 def bulb_ops_per_iter(p) -> int:
@@ -413,6 +422,7 @@ def bands_phase(dev, kernels, verb, reset_counts, counts,
 
     esc_w, pert_w = "escape_fields_cuda", "perturbation_fields_cuda"
     cone_w, march_w = "cone_fields_cuda", "march_fields_cuda"
+    shade_w = "shade_fields_cuda"
 
     def add(launches, **want):
         """Hold a path's launches to ``want`` (wrapper -> (instance, n))
@@ -462,7 +472,8 @@ def bands_phase(dev, kernels, verb, reset_counts, counts,
     reset_counts()
     out = render_sharded(bulb, W, H, mesh=mesh4)
     add(counts(), cone_fields_cuda=("bulb_cone_p8", 4),
-        march_fields_cuda=("bulb_march_p8", 4))
+        march_fields_cuda=("bulb_march_p8", 4),
+        shade_fields_cuda=("bulb_shade", 4))
     assert torch.equal(out, whole.cpu()), "bulb render_sharded != render"
     dz = dz_scene("config4")
     whole, info1 = deep_zoom.render(dz, W, H, device=dev, quantize=16,
@@ -480,7 +491,8 @@ def bands_phase(dev, kernels, verb, reset_counts, counts,
     assert info["rebase_passes"] == info1["rebase_passes"], (info, info1)
     assert torch.equal(out, whole), "config 4 over 4 bands != whole frame"
     print(f"path parallel.render_sharded bulb {W}x{H} power 8 over cuda:0 x4: "
-          f"4 launches each of bulb_cone_p8 and bulb_march_p8, bit-equal to "
+          f"4 launches each of bulb_cone_p8, bulb_march_p8 and bulb_shade, "
+          f"bit-equal to "
           f"mandelbulb.render; deep_zoom.render(mesh=) config 4 over x4: 4 "
           f"launches of pert_mandelbrot_dd, one reference orbit, rebase "
           f"passes {info['rebase_passes']} (the whole frame's), uint16 "
@@ -612,8 +624,8 @@ def bands_phase(dev, kernels, verb, reset_counts, counts,
         for label, scene, w_, inst, whole in (
                 ("config 4 deep zoom", dz, (pert_w,), ("pert_mandelbrot_dd",),
                  deep_zoom.render(dz, W, H, device=dev, quantize=16)),
-                ("bulb power 8", bulb, (cone_w, march_w),
-                 ("bulb_cone_p8", "bulb_march_p8"),
+                ("bulb power 8", bulb, (cone_w, march_w, shade_w),
+                 ("bulb_cone_p8", "bulb_march_p8", "bulb_shade"),
                  mandelbulb.render(bulb, W, H, device=dev, quantize=16))):
             out = os.path.join(tmp, "g.png")
             reset_counts()
@@ -738,7 +750,8 @@ def live_phase(dev, kernels, plain_kernels, reset_counts, counts) -> None:
             "deep": {"perturbation_fields_cuda":
                      f"pert_mandelbrot_{tiers[0]}"},
             "bulb": {"cone_fields_cuda": "bulb_cone_p8",
-                     "march_fields_cuda": "bulb_march_p8"}}
+                     "march_fields_cuda": "bulb_march_p8",
+                     "shade_fields_cuda": "bulb_shade"}}
     per_path = {}
     for path, _, _, _, launches, _ in frames:
         got = {w: n for w, n in launches.items() if n}
@@ -1011,12 +1024,15 @@ def ptxas_report(log: str) -> dict:
             t = re.search(r"pert_kernelILi(\d)ELi(\d)ELi(\d)E",
                           m.group(1))
             b = re.search(r"bulb_(cone|march)_kernelILi(\d+)E", m.group(1))
+            shade = "bulb_shade_kernel" in m.group(1)
             c = re.search(r"peak_kernelILi(\d+)E", m.group(1))
             if c:
                 name = f"fma_peak_c{c.group(1)}"
             elif b:
                 p = int(b.group(2))
                 name = f"bulb_{b.group(1)}_" + (f"p{p}" if p else "trig")
+            elif shade:
+                name = "bulb_shade"
             elif d:
                 # the twin that keeps the per-warp counters: "_counting"
                 name = "dd_escape_mandelbrot" + ("", "_counting")[
@@ -1329,12 +1345,13 @@ def diagnostics_phase(dev) -> None:
     kernel twice exceeds); the link probe, pageable and pinned."""
     from fractalrenderer_tpu_torch import FractalType, Scene, bench_all, models
     from fractalrenderer_tpu_torch.models import deep_zoom, mandelbulb
-    from fractalrenderer_tpu_torch.ops import bulb_kernel, escape, perturbation
+    from fractalrenderer_tpu_torch.ops import (bulb_kernel, bulb_shade, escape,
+                                               perturbation)
     from fractalrenderer_tpu_torch.utils import diag
 
     assert diag.params_layout_selfcheck()
-    print("params_layout_selfcheck: the packers' P_*/D_*/Q_* equal the CUDA "
-          "sources' constants", flush=True)
+    print("params_layout_selfcheck: the packers' P_*/D_*/Q_*/S_* equal the "
+          "CUDA sources' constants", flush=True)
 
     k1 = [(escape, "escape_fields_cuda")]
     julia = Scene(fractal_type=FractalType.JULIA, zoom=3.0,
@@ -1353,9 +1370,10 @@ def diagnostics_phase(dev) -> None:
          [(perturbation, "perturbation_fields_cuda")], ("pert_kernel<",)),
         ("the config-6 frame (bench config 6)", lambda: mandelbulb.render(
             bulb, W, H, device=dev),
-         [(bulb_kernel, "cone_fields_cuda"), (bulb_kernel,
-                                              "march_fields_cuda")],
-         ("bulb_cone_kernel<", "bulb_march_kernel<")),
+         [(bulb_kernel, "cone_fields_cuda"),
+          (bulb_kernel, "march_fields_cuda"),
+          (bulb_shade, "shade_fields_cuda")],
+         ("bulb_cone_kernel<", "bulb_march_kernel<", "bulb_shade_kernel")),
     ]
     lanes = []
     for label, run, wrappers, prefixes in frames:
@@ -1516,6 +1534,7 @@ def animation_phase(dev, kernels, entry, verb, orbit_log,
 
     esc_w, pert_w = "escape_fields_cuda", "perturbation_fields_cuda"
     cone_w, march_w = "cone_fields_cuda", "march_fields_cuda"
+    shade_w = "shade_fields_cuda"
 
     def flipped8(img):
         """The uint8 PNG pixels of a device image (f32 or uint8)."""
@@ -1677,7 +1696,8 @@ def animation_phase(dev, kernels, entry, verb, orbit_log,
                                              "--out-dir", m_dir])
         assert rc == 0, f"cli animate (mixed) exited {rc}"
         launches = {w_: n for w_, n in launches.items() if n}
-        assert launches == {esc_w: 4, cone_w: 4, march_w: 4, pert_w: 4}, \
+        assert launches == {esc_w: 4, cone_w: 4, march_w: 4, shade_w: 4,
+                            pert_w: 4}, \
             launches
         assert tiers == ["f32"] * 4, tiers
         assert len(orbit_log) == n_orb + 1 and len(fallback_log) == n_fb, \
@@ -1685,6 +1705,7 @@ def animation_phase(dev, kernels, entry, verb, orbit_log,
         for inst, w_ in (("escape_mandelbrot_fused", esc_w),
                          ("bulb_cone_trig", cone_w),
                          ("bulb_march_trig", march_w),
+                         ("bulb_shade", shade_w),
                          ("pert_mandelbrot_f32", pert_w)):
             kernels[inst]["launches"] += launches[w_]
         lsbs = []
@@ -1759,8 +1780,8 @@ def main() -> int:
                                                              render_dd)
     from fractalrenderer_tpu_torch.models import mandelbulb
     from fractalrenderer_tpu_torch.ops import (_cuda, bulb_kernel, bulb_math,
-                                               dd, dd_escape, escape,
-                                               perturbation)
+                                               bulb_shade, dd, dd_escape,
+                                               escape, perturbation)
     from fractalrenderer_tpu_torch.ops.coloring import quantize_image
     from fractalrenderer_tpu_torch.utils import diag, png
     from fractalrenderer_tpu_torch.utils.image import to_export_orientation
@@ -1799,7 +1820,7 @@ def main() -> int:
     # the bulb's 32 instances: the three the slice runs, then the range
     shown = {k: r for k, r in report.items()
              if not k.startswith("bulb_")
-             or k.rsplit("_", 1)[1] in ("p8", "trig", "p16")}
+             or k.rsplit("_", 1)[1] in ("p8", "trig", "p16", "shade")}
     rest = [r["regs"] for k, r in report.items() if k not in shown]
     print(f"build: {build_s:.2f} s, one nvcc per source in parallel; "
           "ptxas (registers/stack frame bytes/spill bytes): " + ", ".join(
@@ -2357,6 +2378,38 @@ def main() -> int:
     print(f"K4 integer powers {swept} at 64x48: K4a and K4b (all "
           f"{len(names)} planes) bit-equal to the plain versions", flush=True)
 
+    # K4c on the 1080p trig frame's K4b planes (the benchmark cell's
+    # instance): each store against the plain version (the torch glue) on
+    # the same planes, on the card
+    shade_bp = bulb_math.BulbParams(**{t: kw for t, _, kw in BULB_CASES}[
+        "trig"]).clamped()
+    shade_ro, shade_dyn = bulb_math.camera_setup(shade_bp)
+    trig_frame = bulb_frames["trig"]
+    shade_fields = dict(zip(bulb_shade.PLANES, bulb_kernel.march_fields_cuda(
+        trig_frame[0], bulb_kernel.cone_fields_cuda(trig_frame[1],
+                                                    **trig_frame[2]),
+        stats=False, **trig_frame[3])))
+    shade_params = bulb_shade.pack_shade_params(shade_bp, shade_ro,
+                                                shade_dyn)
+    shade_kw = dict(aa=1, last=True, row0=0, map_height=H,
+                    palette_mode=shade_bp.palette_mode)
+    plain_shade_ms = {}
+    for q in (0, 8, 16):
+        got = bulb_shade.shade_fields_cuda(shade_fields, None, shade_params,
+                                           quantize=q, **shade_kw)
+        want, plain_shade_ms[q] = cuda_event_ms(
+            lambda: bulb_shade.shade_fields_plain(
+                shade_fields, None, shade_params, quantize=q, **shade_kw))
+        assert got.dtype == want.dtype and torch.equal(got, want), \
+            f"K4c store {q or 'f32'}: not bit-equal to the plain version"
+    e = entry("bulb_shade", BULB_SRC, K4C_TPU, 0.0)
+    e["plain_ms"] = plain_shade_ms[8]
+    print(f"K4c trig {W}x{H}: the f32, uint8 and uint16 frames bit-equal to "
+          f"the plain version (the torch glue) on the same K4b planes "
+          f"(plain {plain_shade_ms[0]:.2f} / {plain_shade_ms[8]:.2f} / "
+          f"{plain_shade_ms[16]:.2f} ms on the card); hit fraction "
+          f"{trig_frame[5]['hits'] / (W * H):.4f}", flush=True)
+
     lap("K4")
 
     # -- the paths, through the entry points a user calls --------------------
@@ -2372,6 +2425,8 @@ def main() -> int:
          K4A_TPU),
         (bulb_kernel, "march_fields_cuda", "march_fields_plain", BULB_SRC,
          K4B_TPU),
+        (bulb_shade, "shade_fields_cuda", "shade_fields_plain", BULB_SRC,
+         K4C_TPU),
     ]
     source_of = {w[1]: (w[3], w[4]) for w in wrappers}
 
@@ -2397,12 +2452,14 @@ def main() -> int:
     esc_w, dd_w = "escape_fields_cuda", "dd_escape_fields_cuda"
     pert_w = "perturbation_fields_cuda"
     cone_w, march_w = "cone_fields_cuda", "march_fields_cuda"
+    shade_w = "shade_fields_cuda"
 
     def bulb(tag, n=1):
         """A bulb path's launches: n of each of K4a and K4b (instance
-        ``tag``)."""
+        ``tag``) and of K4c."""
         return {cone_w: (f"bulb_cone_{tag}", n),
-                march_w: (f"bulb_march_{tag}", n)}
+                march_w: (f"bulb_march_{tag}", n),
+                shade_w: ("bulb_shade", n)}
 
     bulb_flags = ["--type", "mandelbulb"]
     paths = [
@@ -3130,8 +3187,12 @@ def main() -> int:
             *((f"bulb_cone_{tag} {which}", lambda c=v[4], k=v[5]:
                bulb_kernel.cone_fields_cuda(c, **k), 50)
               for which, v in lanes.items())]
-    k4_rec = records_ms(dev, k4_cases,
-                        ("bulb_cone_kernel<", "bulb_march_kernel<"))
+    # K4c's uint8 store on the 1080p trig frame's planes, the cell's frame
+    k4_cases.append(("bulb_shade", lambda: bulb_shade.shade_fields_cuda(
+        shade_fields, None, shade_params, quantize=8, **shade_kw), 50))
+    k4_rec = records_ms(dev, k4_cases, ("bulb_cone_kernel<",
+                                        "bulb_march_kernel<",
+                                        "bulb_shade_kernel"))
     for key, fn, reps in k4_cases:
         ms, kname = k4_rec[key]
         if key in kernels:
@@ -3143,7 +3204,8 @@ def main() -> int:
                   f"wrapper call, runs {[round(t, 4) for t in calls]}); plain "
                   f"version {kernels[key]['plain_ms']:.1f} ms on "
                   + ("the whole coarse grid" if "cone" in key else
-                     f"its {W}x{bh} band"), flush=True)
+                     f"its {W}x{bh} band" if "march" in key else
+                     "the same planes"), flush=True)
     for tag, label, _ in BULB_CASES:
         params, cparams, ckw, mkw, ip, st, tr, lanes = bulb_frames[tag]
         # the issue slots the card had per warp trip of the frame: the
@@ -3186,6 +3248,12 @@ def main() -> int:
                   extra=f" (sum(work); {st['evals']:.0f} evaluations x "
                   f"{OPS_BULB_EVAL}, {st['hits']} hits x {OPS_BULB_HIT})")
 
+    # K4c: bytes, K4b's 8 planes in and the uint8 frame out, bound it
+    set_bound("bulb_shade", trig_frame[5]["hits"], OPS_SHADE_HIT,
+              W * H * OPS_SHADE_PIXEL,
+              8 * 4 * W * H + 3 * W * H + 4 * len(shade_params),
+              extra=f" (the trig frame's hits x {OPS_SHADE_HIT}, every pixel "
+              f"{OPS_SHADE_PIXEL})")
     set_bound("compile_probe", 0, 0, 0, 2 * 16 * 128 * 4,
               extra=" (16 x 128 f32 in and out)")
 
@@ -3195,9 +3263,10 @@ def main() -> int:
     assert not missing, f"instances no path launched: {missing}"
     print(f"profiler sessions taken again for want of device events: "
           f"{diag.measure_device_seconds.retries}", flush=True)
-    assert len(kernels) == 35, \
+    assert len(kernels) == 36, \
         f"expected K1 x8, K2, K3 x12 + its stacked spp-2 launch + the two " \
-        f"ledger and three single-pass instances, K4a x3, K4b x3, K5 and " \
+        f"ledger and three single-pass instances, K4a x3, K4b x3, K4c, K5 " \
+        f"and " \
         f"K6: {list(kernels)}"
     assert all(e["bound_ms"] and e["ms"] and e["plain_ms"]
                for e in kernels.values()), kernels

@@ -51,8 +51,8 @@ def headline(width: int = W, height: int = H, iters: int = ITERS,
            "mean_iters_per_pixel": mean_iters,
            "timing_method": bench_all.TIMING}
 
-    # the bulb at 100 iterations (the whole render: K4a, K4b and the
-    # shading glue; bench_all config 6 is the heavier default scene)
+    # the bulb at 100 iterations (the whole render: K4a, K4b and K4c's
+    # shading; bench_all config 6 is the heavier default scene)
     bulb = Scene(fractal_type=FractalType.MANDELBULB,
                  max_iterations=bulb_iters)
 

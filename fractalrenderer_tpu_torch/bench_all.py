@@ -579,8 +579,8 @@ def bench_giant(width: int = 16384, height: int = 16384,
 
 def bench_mandelbulb(width: int = W, height: int = H, iters: int = 256,
                      device="cuda") -> dict:
-    """Config 6: the Mandelbulb's default scene (K4a + K4b + the shading
-    glue), best of 3 by device seconds."""
+    """Config 6: the Mandelbulb's default scene (K4a + K4b + K4c's
+    shading), best of 3 by device seconds."""
     from .models import mandelbulb
 
     dev = resolve_device(device)

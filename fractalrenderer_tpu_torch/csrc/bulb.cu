@@ -1,5 +1,6 @@
-// K4a and K4b on Hopper: the Mandelbulb raymarcher's cone prepass and its
-// march + shading kernel.
+// K4a, K4b and K4c on Hopper: the Mandelbulb raymarcher's cone prepass, its
+// march + shading kernel, and the frame's colour (K4c, further down: the
+// hit and sky shading, the AA sum, the post chain and the store).
 //
 // Replaces fractalrenderer_tpu/ops/bulb_kernel.py:_make_cone_kernel (K4a,
 // pallas_call at :349) and :_make_kernel (K4b, pallas_call at :911) with
@@ -64,6 +65,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cstdint>
 #include <cstring>
 
 namespace {
@@ -857,6 +859,330 @@ int march_blocks(int power, int width, int height, int* blocks,
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// K4c: one AA sample of a bulb band's shading, then, on the frame's last
+// sample, its AA sum, post chain and store.
+//
+// Replaces no TPU kernel: the JAX package leaves this shading to XLA
+// (fractalrenderer_tpu/models/mandelbulb.py _render_sample, shade_hit and
+// sky_color at :189-237).  The plain version is
+// fractalrenderer_tpu_torch/ops/bulb_shade.py:shade_fields_plain, the torch
+// glue the port ran after K4b before this kernel; the two agree bit for bit.
+//
+// What bounds it: bytes.  A pixel reads K4b's 8 f32 planes (32 B) and,
+// after the first sample, the f32 accumulator (12 B), and writes 3 B
+// (uint8), 6 B (uint16) or 12 B (f32, or the accumulator); its ~30
+// math-library calls and ~350 other f32 operations are ~0.01 ms of a 1080p
+// frame at the FP32 peak.  One thread per pixel keeps every intermediate
+// in registers, where the glue it replaces wrote and read f32 planes.
+//
+// Exactness: each expression in the plain code's order, as PyTorch's CUDA
+// kernels evaluate it one operation at a time: a Python float meets the f32
+// image as static_cast<float> of the same double (f32c below), a tensor
+// divisor divides exactly, pow with a scalar exponent takes PyTorch's own
+// special cases (2 is x * x, 0.5 is sqrtf, any other powf), sinf, expf,
+// logf, floorf, fmodf and powf are the calls PyTorch's kernels make, and
+// max/min/clamp keep a NaN as torch.maximum/minimum/clamp do.  0-dim
+// values the glue computes on the card (the log of the dynamic power, the
+// palette mix) are computed here in f32 the same way.
+
+// A Python float as PyTorch's CUDA kernels take it: rounded to f32 once.
+__host__ __device__ constexpr float f32c(double x) {
+  return static_cast<float>(x);
+}
+
+// ops/bulb_shade.py S_*: the march vector's camera slots first (camera()
+// and pixel_ray() read them as K4b does), then the dynamic power, the
+// colour scalars, the iteration limit and the sample's offset.
+enum { S_ROX, S_ROY, S_ROZ, S_FOV, S_POWER, S_TIME, S_COFF, S_CSCALE,
+       S_BRIGHT, S_SAT, S_CONTRAST, S_MAXIT, S_OFFX, S_OFFY };
+constexpr int kNS = 14;
+static_assert(static_cast<int>(S_ROX) == B_ROX &&
+                  static_cast<int>(S_ROY) == B_ROY &&
+                  static_cast<int>(S_ROZ) == B_ROZ &&
+                  static_cast<int>(S_FOV) == B_FOV,
+              "pixel_ray reads the camera from the march vector's slots");
+
+struct ShadeParams {
+  float v[kNS];
+  int width, rows, row0, map_height, aa, first, last;
+};
+struct ShadeIn {
+  const float *hit, *t, *d, *esc, *nx, *ny, *nz, *ao;
+};
+
+// bulb_math.shade_hit's light direction: math.sqrt(1.0 + 1.0 + 0.8 * 0.8)
+// and its quotients, in double as Python folds them.
+constexpr double kLl = 1.624807680927192;
+constexpr double kLx = 1.0 / kLl, kLz = 0.8 / kLl;
+
+__device__ __forceinline__ float tmin(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : fminf(a, b));
+}
+// palettes._clamp: torch.maximum, then torch.minimum.
+__device__ __forceinline__ float pclamp(float t, float lo, float hi) {
+  return tmin(tmax(t, lo), hi);
+}
+__device__ __forceinline__ float fract(float t) { return t - floorf(t); }
+// torch.remainder on f32 (PyTorch's CUDA kernel: fmod, moved to the
+// divisor's sign).
+__device__ __forceinline__ float tremainder(float a, float b) {
+  float mod = fmodf(a, b);
+  if (mod != 0.0f && ((b < 0.0f) != (mod < 0.0f))) mod += b;
+  return mod;
+}
+
+// palettes._bulb_hsv2rgb.
+__device__ __forceinline__ void bulb_hsv2rgb(float h, float s, float val,
+                                             float* c) {
+  const float shift[3] = {0.0f, 4.0f, 2.0f};
+  const float rest = 1.0f * (1.0f - s);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float rgb = pclamp(
+        fabsf(tremainder(h * 6.0f + shift[k], 6.0f) - 3.0f) - 1.0f, 0.0f,
+        1.0f);
+    c[k] = val * (rest + rgb * s);
+  }
+}
+
+// palettes._hash and _noise.
+__device__ __forceinline__ float bulb_hash(float px, float py) {
+  return fract(sinf(px * f32c(127.1) + py * f32c(311.7)) *
+               f32c(43758.5453123));
+}
+__device__ __forceinline__ float bulb_noise(float px, float py) {
+  const float ix = floorf(px), iy = floorf(py);
+  const float fx = px - ix, fy = py - iy;
+  const float a = bulb_hash(ix, iy);
+  const float b = bulb_hash(ix + 1.0f, iy);
+  const float c = bulb_hash(ix, iy + 1.0f);
+  const float d = bulb_hash(ix + 1.0f, iy + 1.0f);
+  const float ux = fx * fx * (3.0f - 2.0f * fx);
+  const float uy = fy * fy * (3.0f - 2.0f * fy);
+  return (a * (1.0f - ux) + b * ux) + (c - a) * uy * (1.0f - ux) +
+         (d - b) * ux * uy;
+}
+
+// palettes.bulb_dynamic, bulb_fire_and_ice, bulb_lava, bulb_neon.
+__device__ __forceinline__ void bulb_dynamic(float t, float* c) {
+  const float hue = fract(t + f32c(0.3) * sinf(t * 12.0f));
+  const float sat = f32c(0.6) + f32c(0.4) * sinf(t * 7.0f);
+  bulb_hsv2rgb(hue, sat, powf(t, f32c(0.4)), c);
+}
+__device__ __forceinline__ void bulb_fire_and_ice(float t, float* c) {
+  const float tc = pclamp(t, 0.0f, 1.0f);
+  const float blend = tc * tc * (3.0f - 2.0f * tc);
+  const float f = fract(t * 3.0f);
+  const float rest = 1.0f - f;
+  // fire (blend^2, blend/2, 0) and ice (0, 0.5 + blend/2, 1), each times
+  // 1.0 (exact), mixed by f
+  c[0] = (blend * blend) * rest + 0.0f * f;
+  c[1] = (blend * 0.5f) * rest + (0.5f + 0.5f * blend) * f;
+  c[2] = 0.0f * rest + 1.0f * f;
+}
+__device__ __forceinline__ void bulb_lava(float t, float* c) {
+  const float cols[5][3] = {{f32c(0.1), 0.0f, 0.0f},
+                            {f32c(0.8), f32c(0.1), 0.0f},
+                            {1.0f, 0.5f, 0.0f},
+                            {1.0f, f32c(0.9), f32c(0.3)},
+                            {1.0f, 1.0f, f32c(0.8)}};
+  const float bounds[5] = {0.0f, 0.25f, 0.5f, 0.75f, 1.0f};
+  // palettes._piecewise5_planar: the first segment with t < its upper
+  // bound, else the last stop (a NaN too)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (t < bounds[i + 1]) {
+      const float f = (t - bounds[i]) / f32c(0.25);
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        c[k] = (1.0f - f) * cols[i][k] + f * cols[i + 1][k];
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) c[k] = cols[4][k];
+}
+__device__ __forceinline__ void bulb_neon(float t, float* c) {
+  const float a[3] = {0.0f, 0.0f, f32c(0.1)}, b[3] = {0.0f, f32c(0.2),
+                                                       f32c(0.6)};
+  const float e[3] = {0.0f, f32c(0.8), 1.0f}, g[3] = {0.5f, 1.0f, 1.0f};
+  const float t2 = t * t;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float lo = a[k] * (1.0f - t) + b[k] * t;
+    const float hi = e[k] * (1.0f - t) + g[k] * t;
+    c[k] = lo * (1.0f - t2) + hi * t2;
+  }
+}
+
+// palettes.bulb_color: fract, the hash noise, the mode's palette (the mode
+// is the launch's, so the branch is uniform).
+__device__ __forceinline__ void bulb_color(float t, int mode, float* c) {
+  t = fract(t);
+  const float n = bulb_noise(t * 100.0f, t * 57.0f) * f32c(0.02);
+  switch (mode) {
+    case 1:
+      bulb_fire_and_ice(t + n, c);
+      break;
+    case 2:
+      bulb_lava(t + n, c);
+      break;
+    case 3:
+      bulb_neon(t + n, c);
+      break;
+    case 4:
+      bulb_dynamic(sqrtf(t) + n, c);
+      break;
+    case 5:
+      bulb_fire_and_ice(powf(t, f32c(0.6)) + n, c);
+      break;
+    default:
+      bulb_dynamic(t + n, c);
+  }
+}
+
+// bulb_math.shade_hit at a hit pixel: the ray, K4b's planes there, log(dyn
+// power + 1e-4) and the palette mix weight.
+__device__ __forceinline__ void shade_hit(const float* v, const Ray& ray,
+                                          float t, float d, float esc,
+                                          float nx, float ny, float nz,
+                                          float ao_sum, float log_power,
+                                          float mixw, int mode, float* c) {
+  const float lx = f32c(kLx), ly = f32c(kLx), lz = f32c(kLz);
+  const float diffuse = tmax(nx * lx + ny * ly + nz * lz, 0.0f);
+  const float vx = -ray.dx, vy = -ray.dy, vz = -ray.dz;
+  const float ndl = nx * lx + ny * ly + nz * lz;
+  const float rx = -lx + 2.0f * ndl * nx;
+  const float ry = -ly + 2.0f * ndl * ny;
+  const float rz = -lz + 2.0f * ndl * nz;
+  const float spec = powf(tmax(vx * rx + vy * ry + vz * rz, 0.0f), 64.0f);
+  const float rim_b = 1.0f - tmax(nx * vx + ny * vy + nz * vz, 0.0f);
+  const float rim = rim_b * rim_b;
+  const float glow = expf(-8.0f * d);
+  const float filament = expf(-30.0f * d);
+
+  const float px = v[S_ROX] + ray.dx * t, py = v[S_ROY] + ray.dy * t,
+              pz = v[S_ROZ] + ray.dz * t;
+  const float pr = sqrtf(px * px + py * py + pz * pz);
+  const float log_pr = logf(tmax(pr, f32c(1e-12)));
+  float it = esc + 1.0f - logf(tmax(log_pr, f32c(1e-12))) / log_power;
+  it = it / v[S_MAXIT];
+  it = fract(v[S_COFF] + powf(tmax(it, 0.0f), f32c(0.6)) * v[S_CSCALE]);
+  float base[3], alt[3];
+  bulb_color(it, mode, base);
+  bulb_color(fract(it + f32c(0.33)), (mode + 1) % 6, alt);
+  const float keep = 1.0f - mixw;
+  const float shade = f32c(0.15) + diffuse * f32c(0.9);
+  const float fil[3] = {1.0f, f32c(0.8), 0.5f};
+  const float fog_col[3] = {0.0f, 0.0f, f32c(0.1)};
+  const float ao = 1.0f - ao_sum / 8.0f;
+  const float fog = tclamp(t / kMaxDist, 0.0f, 1.0f) * f32c(0.6);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float x = base[k] * keep + alt[k] * mixw;
+    x = x * shade;
+    x = x + spec * 0.5f;
+    x = x + rim * 0.25f;
+    x = x + glow * 0.5f;
+    x = x + fil[k] * filament * 0.5f;
+    x = x * (ao * f32c(0.8) + f32c(0.2));
+    c[k] = x * (1.0f - fog) + fog_col[k] * fog;
+  }
+}
+
+// coloring.enhance_color, aces_tonemap and gamma_correct on one pixel.
+__device__ __forceinline__ void post_chain(const float* v, float* c) {
+  const float br = v[S_BRIGHT], sat = v[S_SAT], con = v[S_CONTRAST];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) c[k] = (c[k] * br - 0.5f) * con + 0.5f;
+  const float gray = c[0] * f32c(0.299) + c[1] * f32c(0.587) +
+                     c[2] * f32c(0.114);
+  const float rest = 1.0f - sat;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float x = tclamp(gray * rest + c[k] * sat, 0.0f, 1.0f);
+    const float y = tclamp((x * (f32c(2.51) * x + f32c(0.03))) /
+                               (x * (f32c(2.43) * x + f32c(0.59)) +
+                                f32c(0.14)),
+                           0.0f, 1.0f);
+    c[k] = powf(tmax(y, 0.0f), f32c(1.0 / 2.2));
+  }
+}
+
+// coloring.quantize_image on one value (csrc/escape.cu quantize8/16):
+// torch.clamp(x, 0, 1), an f32 multiply, a separate f32 add of 0.5, then
+// the cast of PyTorch's CUDA copy_ (through int64 for uint8).
+__device__ __forceinline__ uint8_t quantize8(float x) {
+  const float v = tclamp(x, 0.0f, 1.0f) * 255.0f + 0.5f;
+  return static_cast<uint8_t>(static_cast<int64_t>(v));
+}
+__device__ __forceinline__ uint16_t quantize16(float x) {
+  const float v = tclamp(x, 0.0f, 1.0f) * 65535.0f + 0.5f;
+  return static_cast<uint16_t>(v);
+}
+
+// K4c.  One thread per pixel of the band (rows x width, row-major): the
+// glue's ray grid (x + ox, (y + oy) + row0) through pixel_ray, the hit or
+// sky colour, the select on hit > 0.5, then acc = acc + colour (from zero
+// on the first sample) into `acc` (rows, width, 3) f32 unless this is the
+// last sample; on the last, acc / aa^2, the post chain and the store into
+// `out` (rows, width, 3) as f32 (store 0), uint8 (8) or uint16 (16).
+__global__ void __launch_bounds__(256)
+    bulb_shade_kernel(ShadeParams p, int mode, int store, ShadeIn in,
+                      float* acc, void* out) {
+  const float* v = p.v;
+  __shared__ Camera cam;
+  if (threadIdx.x == 0) cam = camera(v);
+  __syncthreads();
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i >= p.width * p.rows) return;
+  const int x = i % p.width, y = i / p.width;
+  const float px = static_cast<float>(x) + v[S_OFFX];
+  const float py = (static_cast<float>(y) + v[S_OFFY]) +
+                   static_cast<float>(p.row0);
+  const Ray ray = pixel_ray(cam, v, px, py, p.width, p.map_height);
+
+  float c[3];
+  if (in.hit[i] > 0.5f) {
+    const float log_power = logf(v[S_POWER] + f32c(1e-4));
+    const float mixw = f32c(0.3) + f32c(0.3) * sinf(v[S_TIME] * 0.5f);
+    shade_hit(v, ray, in.t[i], in.d[i], in.esc[i], in.nx[i], in.ny[i],
+              in.nz[i], in.ao[i], log_power, mixw, mode, c);
+  } else {
+    // bulb_math.sky_color
+    const float sky = tclamp(ray.dy * 0.5f + 0.5f, 0.0f, 1.0f);
+    const float rest = 1.0f - sky;
+    c[0] = f32c(0.02) * rest + 0.5f * sky;
+    c[1] = f32c(0.02) * rest + f32c(0.6) * sky;
+    c[2] = f32c(0.05) * rest + f32c(0.8) * sky;
+  }
+  const size_t o = static_cast<size_t>(i) * 3;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) c[k] = (p.first ? 0.0f : acc[o + k]) + c[k];
+  if (!p.last) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) acc[o + k] = c[k];
+    return;
+  }
+  const float n = static_cast<float>(p.aa * p.aa);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) c[k] = c[k] / n;
+  post_chain(v, c);
+  if (store == 8) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      static_cast<uint8_t*>(out)[o + k] = quantize8(c[k]);
+  } else if (store == 16) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      static_cast<uint16_t*>(out)[o + k] = quantize16(c[k]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) static_cast<float*>(out)[o + k] = c[k];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -932,6 +1258,44 @@ int fr_bulb_march(int power, const float* params, const void* tc,
 int fr_bulb_march_grid(int power, int width, int height, int* blocks,
                        int* blocks_per_sm) {
   return march_blocks(power, width, height, blocks, blocks_per_sm);
+}
+
+// Launch K4c on `stream` for one AA sample of a rows x width band from
+// global row `row0` of a `map_height`-row image: `params` is the 14-float
+// shade vector (ops/bulb_shade.py S_*, copied into the by-value argument);
+// `mode` the palette (0..5); hit ... ao K4b's (rows, width) f32 planes.
+// Unless `first`, adds the sample to `acc` ((rows, width, 3) f32); unless
+// `last`, writes the sum there; on the last sample writes the finished
+// band to `out` ((rows, width, 3): f32 for store 0, uint8 for 8, uint16
+// for 16).  Returns the cudaError_t of the launch.
+int fr_bulb_shade(const float* params, int width, int rows, int row0,
+                  int map_height, int aa, int first, int last, int mode,
+                  int store, const void* hit, const void* t, const void* d,
+                  const void* esc, const void* nx, const void* ny,
+                  const void* nz, const void* ao, void* acc, void* out,
+                  void* stream) {
+  if ((store != 0 && store != 8 && store != 16) || mode < 0 || mode > 5 ||
+      width < 1 || rows < 1 || aa < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ShadeParams p;
+  std::memcpy(p.v, params, sizeof(p.v));
+  p.width = width;
+  p.rows = rows;
+  p.row0 = row0;
+  p.map_height = map_height;
+  p.aa = aa;
+  p.first = first;
+  p.last = last;
+  const ShadeIn in = {
+      static_cast<const float*>(hit), static_cast<const float*>(t),
+      static_cast<const float*>(d),   static_cast<const float*>(esc),
+      static_cast<const float*>(nx),  static_cast<const float*>(ny),
+      static_cast<const float*>(nz),  static_cast<const float*>(ao)};
+  const long long n = static_cast<long long>(width) * rows;
+  bulb_shade_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      p, mode, store, in, static_cast<float*>(acc), out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

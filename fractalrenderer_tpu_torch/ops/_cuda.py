@@ -143,6 +143,11 @@ def load_library() -> ctypes.CDLL:
     # fr_bulb_march_grid(power, width, height, &blocks, &blocks_per_sm)
     lib.fr_bulb_march_grid.argtypes = [ci] * 3 + [vp] * 2
     lib.fr_bulb_march_grid.restype = ci
+    # fr_bulb_shade(params, width, rows, row0, map_height, aa, first, last,
+    #               mode, store, hit, t, d, esc, nx, ny, nz, ao, acc, out,
+    #               stream)
+    lib.fr_bulb_shade.argtypes = [vp] + [ci] * 9 + [vp] * 11
+    lib.fr_bulb_shade.restype = ci
     # fr_fma_peak(x, out, n, k, chains, stream)
     lib.fr_fma_peak.argtypes = [vp, vp, ci, ci, ci, vp]
     lib.fr_fma_peak.restype = ci

@@ -16,7 +16,9 @@ divides exactly rather than by a rounded reciprocal; the constant ones and
 the fixed colours come from ``consts.f32``, built once per device, so the
 glue makes no copy that waits for the stream.  ``csrc/bulb.cu``
 repeats the DE steps, ``ray_dirs`` and ``de_finish`` operation for
-operation; the shading is tensor glue after the kernels.
+operation in K4a and K4b, and ``ray_dirs``, ``shade_hit`` and
+``sky_color`` in K4c, the kernel that colours the frame after K4b
+(``ops/bulb_shade.py``, whose plain version calls these functions).
 """
 from __future__ import annotations
 

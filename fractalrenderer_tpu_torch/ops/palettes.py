@@ -10,8 +10,9 @@ planar half of ``fractalrenderer_tpu/ops/palettes.py``).
 - ``deepzoom_color`` (4): shaders/test_deep_zoom.comp:86-100, stacked
   (..., 3) — deep-zoom colouring is tensor glue, in no kernel.
 - ``bulb_color`` (6): shaders/mandelbulb.comp:34-75 — procedural dynamic /
-  fire_and_ice / lava / neon with hash noise, stacked (..., 3); the
-  Mandelbulb's shading is tensor glue after its kernels.
+  fire_and_ice / lava / neon with hash noise, stacked (..., 3): the
+  Mandelbulb's plain shading (``ops/bulb_shade.py``), which K4c repeats
+  operation for operation on the card.
 
 ``palette_table``
 flattens one spec into the f32 constant table the CUDA escape kernel reads,

@@ -119,10 +119,12 @@ def params_layout_selfcheck() -> bool:
     ``csrc/dd_escape.cu`` ``kND``/``D_*``, the ``Q_*`` enum of
     ``csrc/pert_kernel.cuh``, the ``T_*`` enums of K4b's counters in
     ``csrc/bulb.cu`` and of K1's and K2's in ``csrc/warp_counters.cuh``,
+    K4c's ``S_*`` shade vector in ``csrc/bulb.cu``,
     which both sources include), so a packer and its kernel cannot drift
     apart.  The row0 slots of K1 and K2 are launch arguments there, not
     constants.  Raises AssertionError on a mismatch."""
-    from ..ops import _cuda, bulb_kernel, dd_escape, escape, perturbation
+    from ..ops import (_cuda, bulb_kernel, bulb_shade, dd_escape, escape,
+                       perturbation)
 
     _require(escape.NPARAMS == 19, "escape.NPARAMS")
     _require(escape.P_ROW0 == 11, "escape.P_ROW0")
@@ -175,6 +177,15 @@ def params_layout_selfcheck() -> bool:
              "bulb.cu T_* enum differs from bulb_kernel.TRIP_FIELDS")
     _require(_cuda_constants(bulb, "T_", "kTripFields").get("kTripFields")
              == len(trips), "bulb.cu kTripFields != len(TRIP_FIELDS)")
+    # K4c's shade vector: the S_* enum of csrc/bulb.cu
+    shade = sorted((n for n in dir(bulb_shade) if n.startswith("S_")),
+                   key=lambda n: getattr(bulb_shade, n))
+    _require([getattr(bulb_shade, n) for n in shade]
+             == list(range(bulb_shade.NS)), "bulb_shade S_* not dense")
+    _require(_cuda_enum(bulb, "S_") == shade,
+             "bulb.cu S_* enum differs from ops/bulb_shade")
+    _require(_cuda_constants(bulb, "S_", "kNS").get("kNS") == bulb_shade.NS,
+             "bulb.cu kNS != bulb_shade.NS")
     # K1's and K2's: the T_* enum of csrc/warp_counters.cuh
     wc = os.path.join(src, "warp_counters.cuh")
     trips = [f"T_{n.upper()}" for n in escape.TRIP_FIELDS]

@@ -15,7 +15,9 @@ continuation, on a band and against a shifted reference), and in the dd
 tier at 1e-20, where the products' errors are subnormal; K4a's start
 depths and K4b's planes (hit, t, d, esc, normals, AO, msteps, work)
 bit-equal in the integer-power and trig instances, at ragged sizes and on
-bands; K4b's counters count every DE step and change no output.
+bands; K4b's counters count every DE step and change no output; K4c's
+bulb band (f32, uint8, uint16) bit-equal to its plain version, the torch
+glue, on the same K4b planes.
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere.  The GPU machine has no
 jax, so run it there without the suite's conftest:
@@ -27,8 +29,8 @@ from fractions import Fraction
 import pytest
 import torch
 
-from fractalrenderer_tpu_torch.ops import (bulb_kernel, bulb_math, dd,
-                                           dd_escape, escape)
+from fractalrenderer_tpu_torch.ops import (bulb_kernel, bulb_math,
+                                           bulb_shade, dd, dd_escape, escape)
 
 pytestmark = pytest.mark.cuda
 
@@ -800,10 +802,13 @@ def test_bulb_render_launches_one_cone_and_one_march_per_sample(
                       max_iterations=32, antialiasing_samples=2, time=0.7)
     cone = bulb_kernel.cone_fields_cuda.launches
     march = bulb_kernel.march_fields_cuda.launches
+    shade = bulb_shade.shade_fields_cuda.launches
     img = mandelbulb.render(scene, 40, 24)
     assert img.device.type == "cuda"
     assert bulb_kernel.cone_fields_cuda.launches == cone + 4
     assert bulb_kernel.march_fields_cuda.launches == march + 4
+    # one K4c a sample, the last storing the frame
+    assert bulb_shade.shade_fields_cuda.launches == shade + 4
     # the same pipeline on the plain versions, on the card: equal
     monkeypatch.setattr(bulb_kernel, "cone_fields_cuda",
                         bulb_kernel.cone_fields_plain)
@@ -847,6 +852,7 @@ def test_warm_bulb_frames_make_no_synchronising_copy(dev):
     torch.cuda.synchronize()
     builds = mandelbulb.render.const_builds
     uploads = mandelbulb.render.param_uploads
+    shades = bulb_shade.shade_fields_cuda.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         frames = {k: frt.render(s, w, h, device=dev, quantize=8)
@@ -854,8 +860,11 @@ def test_warm_bulb_frames_make_no_synchronising_copy(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+    # K4c takes the scalars by value: no constant, no upload; one launch a
+    # sample (the trig and int frames 1 each, AA 2 four)
     assert mandelbulb.render.const_builds == builds
-    assert mandelbulb.render.param_uploads == uploads + 3
+    assert mandelbulb.render.param_uploads == uploads + 0
+    assert bulb_shade.shade_fields_cuda.launches == shades + 1 + 1 + 4
     # the cell's check: every 64th row equal to the plain reference's
     ref = _bulb_reference()
     rows = list(range(0, h, _BULB_EXPORT["row_stride"]))
@@ -871,6 +880,125 @@ def test_warm_bulb_frames_make_no_synchronising_copy(dev):
     got = frames["trig"][rows]
     assert got.dtype == img.dtype == torch.uint8
     assert int((got.int() - img.int()).abs().max()) == 0
+
+
+# -- K4c (csrc/bulb.cu bulb_shade_kernel) against its plain version --------
+
+_STORES = {0: torch.float32, 8: torch.uint8, 16: torch.uint16}
+
+
+def _k4c_and_plain(dev, scene, width, height, quantize, *, row0=0,
+                   map_height=None):
+    """A bulb band through ``band_render_fn`` on the card twice: with K4c,
+    then with K4c's plain version (the torch glue) on the card in its
+    place.  K4a and K4b are deterministic, so both colour the same planes.
+    Returns (K4c's band, the plain version's, K4c's launches)."""
+    from fractalrenderer_tpu_torch.models import mandelbulb
+
+    def band():
+        return mandelbulb.band_render_fn(
+            scene, width, height, map_height or height, device=dev,
+            quantize=quantize)(mandelbulb.dyn_params(scene), row0)
+
+    before = bulb_shade.shade_fields_cuda.launches
+    got = band()
+    launches = bulb_shade.shade_fields_cuda.launches - before
+    kernel = bulb_shade.shade_fields_cuda
+    bulb_shade.shade_fields_cuda = bulb_shade.shade_fields_plain
+    try:
+        want = band()
+    finally:
+        bulb_shade.shade_fields_cuda = kernel
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == _STORES[quantize]
+    assert got.shape == want.shape == (height, width, 3)
+    return got, want, launches
+
+
+def _bulb_scene(**kw):
+    import fractalrenderer_tpu_torch as frt
+
+    return frt.Scene(fractal_type=frt.FractalType.MANDELBULB, **kw)
+
+
+# the benchmark cell's orbit: the camera 3.9 away (t = pi), 2.1 away
+# (t = 3 pi) and two times between, each a non-integer dynamic power
+_ORBIT_TIMES = [3.141592653589793, 9.42477796076938, 5.0, 11.0]
+
+
+@pytest.mark.parametrize("quantize", [0, 8, 16])
+@pytest.mark.parametrize("time", _ORBIT_TIMES, ids=str)
+def test_k4c_1080p_orbit_frames_equal_plain(dev, time, quantize):
+    got, want, launches = _k4c_and_plain(dev, _bulb_scene(time=time), 1920,
+                                         1080, quantize)
+    assert launches == 1
+    assert torch.equal(got, want)
+    assert float(got.float().std()) > 0  # bulb and sky
+
+
+@pytest.mark.parametrize("quantize", [0, 8, 16])
+def test_k4c_integer_power_frame_equals_plain(dev, quantize):
+    # time 0: power 8, K4b's integer instance
+    got, want, _ = _k4c_and_plain(dev, _bulb_scene(), 1920, 1080, quantize)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", range(6))
+def test_k4c_every_palette_equals_plain(dev, mode):
+    for quantize in _STORES:
+        got, want, _ = _k4c_and_plain(
+            dev, _bulb_scene(time=2.0, palette_mode=mode), 160, 90,
+            quantize)
+        assert torch.equal(got, want), quantize
+
+
+@pytest.mark.parametrize("quantize", [0, 8, 16])
+def test_k4c_aa2_equals_plain(dev, quantize):
+    got, want, launches = _k4c_and_plain(
+        dev, _bulb_scene(time=5.0, antialiasing_samples=2), 480, 270,
+        quantize)
+    assert launches == 4
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("aa", [1, 2, 3])
+def test_k4c_ragged_band_equals_plain_and_the_frame(dev, aa):
+    # rows [29, 38) of a 64-row image, 37 columns
+    scene = _bulb_scene(time=1.1, antialiasing_samples=aa)
+    for quantize in _STORES:
+        got, want, launches = _k4c_and_plain(dev, scene, 37, 9, quantize,
+                                             row0=29, map_height=64)
+        assert launches == aa * aa
+        assert torch.equal(got, want), quantize
+        if aa < 3:
+            # the glue's ray grid adds the offset, then row0: exact for
+            # the offsets 0 and 1/2 only, so a band of a 3x3 frame may
+            # differ from the frame's rows
+            whole, _, _ = _k4c_and_plain(dev, scene, 37, 64, quantize)
+            assert torch.equal(got, whole[29:38]), quantize
+
+
+def test_k4c_wrapper_checks_raise(dev):
+    p = bulb_math.BulbParams(time=1.3).clamped()
+    ro, dyn = bulb_math.camera_setup(p)
+    f = bulb_kernel.march_fields(40, 24, ro=ro, fov=p.fov, power=dyn,
+                                 max_iter=64, shade=True, device=dev)
+    fields = {k: f[k] for k in bulb_shade.PLANES}
+    params = bulb_shade.pack_shade_params(p, ro, dyn)
+    kw = dict(aa=1, last=True, row0=0, map_height=24, palette_mode=0)
+    before = bulb_shade.shade_fields_cuda.launches
+    for bad, match in (
+            ({k: v.cpu() for k, v in fields.items()}, "CUDA device"),
+            (dict(fields, d=fields["d"].cpu()), "plane d"),
+            (dict(fields, esc=fields["esc"][:, :-1]), "plane esc"),
+            (dict(fields, ny=fields["ny"].t().contiguous().t()),
+             "plane ny")):
+        with pytest.raises(ValueError, match=match):
+            bulb_shade.shade_fields_cuda(bad, None, params, **kw)
+    assert bulb_shade.shade_fields_cuda.launches == before
+    out = bulb_shade.shade_fields_cuda(fields, None, params, **kw)
+    assert out.device == fields["hit"].device
+    assert bulb_shade.shade_fields_cuda.launches == before + 1
 
 
 # -- K5 (csrc/peak.cu) and K6 (csrc/probe/compile_probe.cu), and the
@@ -1171,7 +1299,8 @@ def _plain_on_card(monkeypatch):
             (perturbation, "perturbation_fields_cuda",
              "perturbation_fields_plain"),
             (bulb_kernel, "cone_fields_cuda", "cone_fields_plain"),
-            (bulb_kernel, "march_fields_cuda", "march_fields_plain")):
+            (bulb_kernel, "march_fields_cuda", "march_fields_plain"),
+            (bulb_shade, "shade_fields_cuda", "shade_fields_plain")):
         monkeypatch.setattr(mod, cuda, getattr(mod, plain))
 
 

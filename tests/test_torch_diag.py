@@ -16,8 +16,8 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from fractalrenderer_tpu_torch.ops import _cuda, dd_escape, escape, \
-    perturbation
+from fractalrenderer_tpu_torch.ops import _cuda, bulb_shade, dd_escape, \
+    escape, perturbation
 from fractalrenderer_tpu_torch.utils import diag
 
 
@@ -41,7 +41,9 @@ def test_selfcheck_catches_a_reordered_trip_field(monkeypatch):
     (escape, "P_BRIGHT", "P_SAT", "escape.cu"),
     (dd_escape, "D_CXH", "D_CXL", "dd_escape.cu"),
     (perturbation, "Q_AR", "Q_AI", "pert_kernel.cuh"),
-], ids=["escape_cx_cy", "escape_bright_sat", "dd_cx", "pert_ar_ai"])
+    (bulb_shade, "S_TIME", "S_COFF", "bulb.cu"),
+], ids=["escape_cx_cy", "escape_bright_sat", "dd_cx", "pert_ar_ai",
+        "shade_time_coff"])
 def test_selfcheck_catches_a_swapped_python_constant(monkeypatch, module, a,
                                                      b, where):
     # the swap keeps the Python indices dense, so only the CUDA half sees it
@@ -60,8 +62,11 @@ def test_selfcheck_catches_a_swapped_python_constant(monkeypatch, module, a,
     ("warp_counters.cuh", "kTripFields = 13", "kTripFields = 14"),
     ("escape.cu", '#include "warp_counters.cuh"', '#include "dd.cuh"'),
     ("dd_escape.cu", '#include "warp_counters.cuh"', ""),
+    ("bulb.cu", "S_BRIGHT, S_SAT,", "S_SAT, S_BRIGHT,"),
+    ("bulb.cu", "kNS = 14", "kNS = 15"),
 ], ids=["enum_order", "escape_value", "dd_count", "trips_order",
-        "trips_count", "escape_counters", "dd_counters"])
+        "trips_count", "escape_counters", "dd_counters", "shade_order",
+        "shade_count"])
 def test_selfcheck_catches_an_edited_cuda_source(tmp_path, monkeypatch, src,
                                                  old, new):
     csrc = tmp_path / "csrc"
