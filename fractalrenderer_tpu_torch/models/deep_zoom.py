@@ -551,19 +551,22 @@ def render(scene: Scene, width: int, height: int,
     arrays) are colored on the device too, with the same expression.
 
     The call runs in the span ``deep.frame``, its colour and quantize in
-    ``deep.colour``; ``render.frames`` counts the frames finished."""
+    ``deep.colour``; ``render.frames`` counts the frames finished and
+    ``render.rebase_passes`` sums their ``info["rebase_passes"]``."""
     with span("deep.frame"):
         img, info = _render_samples(
             scene, width, height,
             orbit_cache=orbit_cache if orbit_cache is not None else {},
             quantize=quantize, device=device, **kw)
     render.frames += 1
+    render.rebase_passes += info["rebase_passes"]
     if return_info:
         return img, info
     return img
 
 
 render.frames = 0
+render.rebase_passes = 0
 
 
 def band_renderer(scene: Scene, width: int, height: int, *, device="cuda",

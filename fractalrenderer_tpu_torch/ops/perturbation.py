@@ -245,19 +245,20 @@ def pack_pert_operands(orbit: np.ndarray, width: int, height: int, *,
     if scaled_delta:
         if step_fr == 0:
             raise ValueError("scaled_delta requires a nonzero zoom")
-        # scale so step' ~ 2^-14: delta-c mantissas land in [2^-14, ~2]
-        s_exp = -14 - (step_fr.numerator.bit_length()
-                       - step_fr.denominator.bit_length())
-        step_fr *= Fraction(2) ** s_exp
-    step_dd = dd.dd_from_fraction(step_fr)
-    if scaled_delta:
-        sh_x = Fraction(ref_shift_x_frac) if ref_shift_x_frac is not None \
-            else Fraction(0)
-        sh_y = Fraction(ref_shift_y_frac) if ref_shift_y_frac is not None \
-            else Fraction(0)
-        two_s = Fraction(2) ** s_exp
-        ref_shift_x = dd.dd_from_fraction(sh_x * two_s)
-        ref_shift_y = dd.dd_from_fraction(sh_y * two_s)
+        with span("k3.fx_scale"):
+            # scale so step' ~ 2^-14: delta-c mantissas land in [2^-14, ~2]
+            s_exp = -14 - (step_fr.numerator.bit_length()
+                           - step_fr.denominator.bit_length())
+            two_s = Fraction(2) ** s_exp
+            step_dd = dd.dd_from_fraction(step_fr * two_s)
+            sh_x = Fraction(ref_shift_x_frac) \
+                if ref_shift_x_frac is not None else Fraction(0)
+            sh_y = Fraction(ref_shift_y_frac) \
+                if ref_shift_y_frac is not None else Fraction(0)
+            ref_shift_x = dd.dd_from_fraction(sh_x * two_s)
+            ref_shift_y = dd.dd_from_fraction(sh_y * two_s)
+    else:
+        step_dd = dd.dd_from_fraction(step_fr)
     if max_iter >= 1 << 24:
         # per-pixel counters (and LIMIT/REFLEN params) are f32: n+1 == n
         # past 2^24, which would wedge the interior latch
@@ -1169,7 +1170,8 @@ def perturbation_fields(orbit: np.ndarray, width: int, height: int, *,
     width).  ``passes`` is the most rounds any pixel took, ``rounds_plane``
     the per-pixel rounds.  ``rebase=False`` (Mandelbrot) runs the single
     pass and returns {"n", "zx", "zy", "glitch"}.  The packing runs in
-    the span ``k3.prepare``."""
+    the span ``k3.prepare``, the floatexp tier's pre-scale of the step and
+    the shift in ``k3.fx_scale`` inside it."""
     if rebase and not rebase_inkernel:
         raise NotImplementedError("the multi-pass rebase form is the JAX "
                                   "package's oracle and is not ported")

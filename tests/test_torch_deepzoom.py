@@ -70,6 +70,33 @@ def test_render_fields_matches_jax(center, zoom, iters, tier):
                                rtol=1e-3 if tier == "f32" else 1e-6)
 
 
+@pytest.mark.parametrize("zoom", ["1e-306", "1e-318", "1e-326", "3e-325"])
+def test_render_fields_past_the_f64_floor_matches_jax(zoom):
+    # the floor cell's frames (c = i jittered, a shared reference off the
+    # scene centre): the zoom subnormal or 0 as a double, 1152- and
+    # 1216-bit orbits, the shift at ~380 digits, against the JAX package
+    from test_torch_deep_fx import MI, W, H, _view
+
+    ref, ctr = _view(zoom, W, H)
+    s = _scene(ctr, zoom, MI, use_series_approximation=False)
+    n, zx, zy, glitch, info = deep_zoom.render_fields(s, W, H, device="cpu",
+                                                      ref_center=ref)
+    jn, jzx, jzy, jglitch, jinfo = jax_dz.render_fields(_jax_scene(s), W, H,
+                                                        ref_center=ref)
+    for k in ("precision_mode", "precision_bits", "dd_delta",
+              "scaled_delta", "algorithm", "rebase_passes",
+              "reference_iterations", "references_used", "series_skip",
+              "glitched_pixels_initial", "fallback_pixels",
+              "glitched_pixels_remaining"):
+        assert info[k] == jinfo[k], k
+    assert info["scaled_delta"] and info["precision_bits"] >= 1152
+    assert len(np.unique(n)) > 10  # the frame has structure
+    np.testing.assert_array_equal(n, np.asarray(jn))
+    np.testing.assert_array_equal(glitch, np.asarray(jglitch))
+    np.testing.assert_allclose(zx, np.asarray(jzx), rtol=1e-6)
+    np.testing.assert_allclose(zy, np.asarray(jzy), rtol=1e-6)
+
+
 def test_series_skip_with_rebasing():
     # the first round starts at the series-skip index; later rounds at 0
     base = _scene(SEAHORSE, "1e-9", 2500)
