@@ -40,7 +40,7 @@ from ..deepzoom import orbit as orbit_mod
 from ..deepzoom.hp import HPFloat, precision_mode_for_zoom_frac
 from ..ops import coloring
 from ..ops.coloring import ColorParams
-from ..ops.dd import dd_from_string
+from ..ops.dd import dd_from_fraction, dd_from_string
 from ..ops.perturbation import perturbation_fields
 from ..scene import Scene
 from ..utils.diag import span
@@ -58,10 +58,53 @@ _STACKED_BAND_PIXELS = 1 << 25
 _DUST_SUSPECT_LOG2 = -8.0
 
 
-def _dd_of(value, fallback: float) -> Tuple[float, float]:
-    if value is not None:
-        return dd_from_string(str(value))
-    return dd_from_string(repr(float(fallback)))
+class _OrbitEntry:
+    """A reference orbit in the caller's ``orbit_cache`` and what every
+    frame rendered against it shares, kept by name (``get``): the
+    reference's dd and HP values, the scene centre's shift from it, and
+    K3's packed streams and card tables (ops/perturbation.py's
+    ``orbit_store``).  ``render_fields.plan_builds`` and ``plan_hits``
+    count the lookups."""
+
+    __slots__ = ("orbit", "orbit_exp", "_kept")
+
+    def __init__(self, orbit):
+        # emit_fx orbits come back as (mantissas, exponents); plain ones bare
+        self.orbit, self.orbit_exp = orbit if isinstance(orbit, tuple) \
+            else (orbit, None)
+        self._kept = {}
+
+    def get(self, name, build, key=None):
+        """The value kept under ``name`` if it was built for ``key``, else
+        ``build()``'s, kept in its place: one slot per name, so a name
+        whose key moves from frame to frame holds one value."""
+        kept = self._kept.get(name)
+        if kept is not None and kept[0] == key:
+            _plan_counts.plan_hits += 1
+            return kept[1]
+        _plan_counts.plan_builds += 1
+        value = build()
+        self._kept[name] = (key, value)
+        return value
+
+
+def _reference(ocx, ocy, hp_bits: int):
+    """An orbit centre's values: its dd pair on each axis (the kernel's
+    centre), as doubles (the Julia start Z0) and as ``hp_bits`` HPFloats
+    (the shift's minuend)."""
+    fx, fy = Fraction(str(ocx)), Fraction(str(ocy))
+    return (dd_from_fraction(fx), dd_from_fraction(fy), (float(fx), float(fy)),
+            (HPFloat(str(ocx), hp_bits), HPFloat(str(ocy), hp_bits)))
+
+
+def _shift(cx, cy, ref_hp, hp_bits: int, digs: int) -> dict:
+    """The shift (scene centre - reference) of K3's launch, written out to
+    ``digs`` digits as the kernel's dd and as exact fractions."""
+    sx, sy = (Fraction((HPFloat(str(c), hp_bits) - r).to_string(digs))
+              for c, r in zip((cx, cy), ref_hp))
+    return dict(ref_shift_x=dd_from_fraction(sx),
+                ref_shift_y=dd_from_fraction(sy),
+                ref_shift_x_frac=sx, ref_shift_y_frac=sy)
 
 
 def _host_int(t: torch.Tensor) -> int:
@@ -111,7 +154,12 @@ def render_fields(scene: Scene, width: int, height: int,
     the full ``height``-tall image starting at global row ``row0`` (the
     pixel mapping, series bound and HP fallback keep the full geometry).
     ``orbit_cache``: optional dict keyed by exact HP center values and the
-    recurrence; reuses reference orbits across calls.
+    recurrence; reuses reference orbits across calls, and with each orbit
+    what the frames against it share (``_OrbitEntry``: the reference's
+    values, the shift from the scene centre, K3's streams and card
+    tables), so a frame that finds them builds only its zoom's values.
+    ``render_fields.plan_builds`` and ``plan_hits`` count their builds
+    and reuses.
     ``mesh``: a parallel.RenderMesh with a 'rows' axis routes every kernel
     pass through the gather-free row bands (parallel/mesh.py) on the
     mesh's devices instead of ``device``; with ``keep_device`` the planes
@@ -167,7 +215,7 @@ def render_fields(scene: Scene, width: int, height: int,
         else:
             field_fn = functools.partial(perturbation_fields, device=device)
         cx, cy, zoom = _scene_coords(scene)
-        zoom_fr = Fraction(str(zoom))
+        zoom_fr = Fraction(str(zoom))  # the frame's one parse of its zoom
         zoom_f = float(zoom_fr)
         mode, bits = precision_mode_for_zoom_frac(zoom_fr)
         # Bucket the orbit precision UP to the next 64-bit step, so one orbit
@@ -179,10 +227,6 @@ def render_fields(scene: Scene, width: int, height: int,
             # chaotically just like the delta's
             bits = max(bits + 96, 160)
         max_iter = scene.max_iterations
-
-        center_x_dd = _dd_of(cx, 0.0)
-        center_y_dd = _dd_of(cy, 0.0)
-        zoom_dd = _dd_of(zoom, 0.0)
 
         # Deltas iterate in double-double past 1e-7 (f32's 2^-24 relative
         # error is below pixel scale above it) and in floatexp in ARBITRARY
@@ -204,7 +248,7 @@ def render_fields(scene: Scene, width: int, height: int,
             return (v.man, v.bits) if isinstance(v, HPFloat) \
                 else Fraction(str(v))
 
-        def cached_orbit(ocx, ocy):
+        def cached_orbit(ocx, ocy) -> _OrbitEntry:
             # the orbit depends on the recurrence too: the key carries every
             # field of the JAX package's key, so the two caches key alike
             key = (_ckey(ocx), _ckey(ocy), bits, max_iter, julia,
@@ -230,33 +274,27 @@ def render_fields(scene: Scene, width: int, height: int,
                         force_python=force_python_orbit,
                         kind=1 if ship else (2 if phoenix else 0),
                         pp=float(scene.phoenix_p), rr=float(scene.phoenix_r))
+            entry = _OrbitEntry(o)
             if orbit_cache is not None:
-                orbit_cache[key] = o
-            return o
+                orbit_cache[key] = entry
+            return entry
 
         hp_bits = max(bits, 128)
         digs = max(40, int(hp_bits * 0.302) + 12)
         shift_kw = {}
+        # the reference is the orbit's centre: ref_center, else the scene's
+        ocx, ocy = ref_center if ref_center is not None else (cx, cy)
+        entry = cached_orbit(ocx, ocy)
+        center_x_dd, center_y_dd, ref_f, ref_hp = entry.get(
+            "reference", lambda: _reference(ocx, ocy, hp_bits))
         if ref_center is not None:
             # One shared orbit at ref_center; the pixel deltas pick up
-            # shift = (scene center - ref), exactly like a secondary reference.
-            rcx_s, rcy_s = ref_center
-            orbit = cached_orbit(rcx_s, rcy_s)
-            center_x_dd = dd_from_string(rcx_s)
-            center_y_dd = dd_from_string(rcy_s)
-            sx_s = (HPFloat(str(cx), hp_bits)
-                    - HPFloat(rcx_s, hp_bits)).to_string(digs)
-            sy_s = (HPFloat(str(cy), hp_bits)
-                    - HPFloat(rcy_s, hp_bits)).to_string(digs)
-            shift_kw = dict(ref_shift_x=dd_from_string(sx_s),
-                            ref_shift_y=dd_from_string(sy_s),
-                            ref_shift_x_frac=sx_s, ref_shift_y_frac=sy_s)
-            orbit_center = (rcx_s, rcy_s)
-        else:
-            orbit = cached_orbit(cx, cy)
-            orbit_center = (cx, cy)
-        # emit_fx orbits come back as (mantissas, exponents); plain ones bare
-        orbit, orbit_exp = orbit if isinstance(orbit, tuple) else (orbit, None)
+            # shift = (scene center - ref), exactly like a secondary
+            # reference.  One slot: a moved centre builds it anew.
+            shift_kw = entry.get(
+                "shift", lambda: _shift(cx, cy, ref_hp, hp_bits, digs),
+                key=(_ckey(cx), _ckey(cy), hp_bits, digs))
+        orbit, orbit_exp = entry.orbit, entry.orbit_exp
 
         series = None
         if scene.use_series_approximation and max(scene.bailout, 2.0) >= 4.0 \
@@ -281,15 +319,14 @@ def render_fields(scene: Scene, width: int, height: int,
 
     f = field_fn(
         orbit, width, band_h, center_x_dd=center_x_dd,
-        center_y_dd=center_y_dd, zoom_dd=zoom_dd, max_iter=max_iter,
+        center_y_dd=center_y_dd, max_iter=max_iter,
         bailout=scene.bailout, glitch_tol=glitch_tol, offset=offset,
         float_continuation=float_cont, series=series, dd_delta=dd_delta,
-        scaled_delta=scaled, zoom_frac=str(zoom), rebase=rebasing,
+        scaled_delta=scaled, zoom_frac=zoom_fr, rebase=rebasing,
         max_passes=max_passes, julia=julia, ship=ship, phoenix=phoenix,
         phoenix_p=float(scene.phoenix_p), phoenix_r=float(scene.phoenix_r),
-        julia_z0=((float(Fraction(str(orbit_center[0]))),
-                   float(Fraction(str(orbit_center[1])))) if julia else None),
-        orbit_exp=orbit_exp, aa_spp=aa_spp, track_err=exact_dust,
+        julia_z0=ref_f if julia else None, orbit_exp=orbit_exp,
+        aa_spp=aa_spp, track_err=exact_dust, orbit_store=entry,
         **band_kw, **shift_kw)
     # rebasing: lanes still wanting a round after max_passes (a
     # pathological short-orbit case); legacy: the Pauldelbrot and starved
@@ -332,7 +369,7 @@ def render_fields(scene: Scene, width: int, height: int,
     # exact-rational pixel mapping, identical to the kernel's
     # dc = step * (p - size/2) with step = zoom*4/height^2, so secondary
     # references and the HP fallback sample the c the kernel does
-    step_fr = Fraction(str(zoom)) * 4 / (height * height)
+    step_fr = zoom_fr * 4 / (height * height)
 
     def pixel_c(py, px, off=None):
         # py is band-local when row_band is set; the mapping is global
@@ -357,26 +394,26 @@ def render_fields(scene: Scene, width: int, height: int,
         best = None
         for k in np.linspace(0, len(ys) - 1, min(12, len(ys))).astype(int):
             cxy = pixel_c(int(ys[k]), int(xs[k]))
-            o = cached_orbit(cxy[0], cxy[1])
-            if best is None or len(o) > len(best[0]):
-                best = (o, cxy)
-            if len(o) >= max_iter + 1:
+            e = cached_orbit(cxy[0], cxy[1])
+            if best is None or len(e.orbit) > len(best[0].orbit):
+                best = (e, cxy)
+            if len(e.orbit) >= max_iter + 1:
                 break  # a non-escaping reference
-        orbit2, (ref_cx, ref_cy) = best
+        entry2, (ref_cx, ref_cy) = best
         # the delta against the new reference needs shift = center - ref
         sx_str = (cx_hp - ref_cx).to_string(digs)
         sy_str = (cy_hp - ref_cy).to_string(digs)
         f2 = field_fn(
-            orbit2, width, band_h,
+            entry2.orbit, width, band_h,
             center_x_dd=dd_from_string(ref_cx.to_string(40)),
             center_y_dd=dd_from_string(ref_cy.to_string(40)),
-            zoom_dd=zoom_dd, max_iter=max_iter, bailout=scene.bailout,
+            max_iter=max_iter, bailout=scene.bailout,
             glitch_tol=glitch_tol, ref_shift_x=dd_from_string(sx_str),
             ref_shift_y=dd_from_string(sy_str), offset=offset,
             float_continuation=float_cont, dd_delta=dd_delta,
-            scaled_delta=scaled, zoom_frac=str(zoom),
+            scaled_delta=scaled, zoom_frac=zoom_fr,
             ref_shift_x_frac=sx_str, ref_shift_y_frac=sy_str, rebase=False,
-            **band_kw)
+            orbit_store=entry2, **band_kw)
         fix = glitch & ~_host_array(f2["glitch"] > 0.5)
         n[fix] = _host_array(f2["n"])[fix]
         zx[fix] = _host_array(f2["zx"])[fix]
@@ -567,6 +604,11 @@ def render(scene: Scene, width: int, height: int,
 
 render.frames = 0
 render.rebase_passes = 0
+render_fields.plan_builds = 0
+render_fields.plan_hits = 0
+# what _OrbitEntry counts into, under a name of its own: a caller may
+# wrap render_fields
+_plan_counts = render_fields
 
 
 def band_renderer(scene: Scene, width: int, height: int, *, device="cuda",

@@ -60,6 +60,7 @@ oracle, is not ported and raises NotImplementedError.
 """
 from __future__ import annotations
 
+import functools
 import math
 from fractions import Fraction
 from typing import Dict, Optional, Sequence, Tuple, Union
@@ -146,6 +147,41 @@ def _fx_streams(vals: np.ndarray, exps: Optional[np.ndarray] = None):
     return hi, lo, ex
 
 
+def _orbit_streams(orbit: np.ndarray, orbit_exp: Optional[np.ndarray],
+                   L: int, cap: int, julia_fx: bool, lo: bool):
+    """The orbit's first ``L`` entries as K3's streams of length ``cap``:
+    re and im as f32, with ``lo`` the lo parts of the f64 values, and for
+    the Julia floatexp tier (``julia_fx``) the floatexp split of the drift
+    with its exponents."""
+    orbit_re = np.zeros(cap, np.float32)
+    orbit_im = np.zeros(cap, np.float32)
+    if julia_fx:
+        orbit_re_lo = np.zeros(cap, np.float32)
+        orbit_im_lo = np.zeros(cap, np.float32)
+        orbit_re_ex = np.full(cap, float(E_ZERO), np.float32)
+        orbit_im_ex = np.full(cap, float(E_ZERO), np.float32)
+        (orbit_re[:L], orbit_re_lo[:L], orbit_re_ex[:L]) = _fx_streams(
+            orbit[:L, 0], None if orbit_exp is None else orbit_exp[:L, 0])
+        (orbit_im[:L], orbit_im_lo[:L], orbit_im_ex[:L]) = _fx_streams(
+            orbit[:L, 1], None if orbit_exp is None else orbit_exp[:L, 1])
+        streams = (orbit_re, orbit_im, orbit_re_lo, orbit_im_lo,
+                   orbit_re_ex, orbit_im_ex)
+    else:
+        orbit_re[:L] = orbit[:L, 0].astype(np.float32)
+        orbit_im[:L] = orbit[:L, 1].astype(np.float32)
+        streams = (orbit_re, orbit_im)
+        if lo:
+            # hi/lo split of the f64 orbit: the dd/floatexp loops need dd Z
+            orbit_re_lo = np.zeros(cap, np.float32)
+            orbit_im_lo = np.zeros(cap, np.float32)
+            orbit_re_lo[:L] = (orbit[:L, 0] - orbit_re[:L]
+                               .astype(np.float64)).astype(np.float32)
+            orbit_im_lo[:L] = (orbit[:L, 1] - orbit_im[:L]
+                               .astype(np.float64)).astype(np.float32)
+            streams += (orbit_re_lo, orbit_im_lo)
+    return streams
+
+
 def pack_pert_operands(orbit: np.ndarray, width: int, height: int, *,
                        center_x_dd: DD, center_y_dd: DD,
                        zoom_dd: DD = (0.0, 0.0), max_iter: int,
@@ -166,7 +202,7 @@ def pack_pert_operands(orbit: np.ndarray, width: int, height: int, *,
                        orbit_exp: Optional[np.ndarray] = None,
                        rebase: bool = True,
                        float_continuation: bool = False,
-                       track_err: bool = False
+                       track_err: bool = False, orbit_store=None
                        ) -> Tuple[np.ndarray, Tuple[np.ndarray, ...], dict]:
     """The parameters (NQ,) f32, the orbit streams and the launch geometry
     of one K3 launch, packed as the JAX ``perturbation_fields`` packs its
@@ -181,6 +217,10 @@ def pack_pert_operands(orbit: np.ndarray, width: int, height: int, *,
     streams, the same bits).  The geometry is a dict of the launch's
     ``tier``, ``family``, ``form``, ``float_cont``, ``width``, ``height``
     (the band's rows), ``map_height`` (the full image's) and ``spp``.
+    ``orbit_store``: None, or what the caller keeps beside ``orbit`` across
+    launches (models/deep_zoom.py), an object with ``get(name, build)``
+    that returns the value kept under ``name`` or keeps ``build()``'s: the
+    streams are then packed once per layout (their count and length).
     Raises ValueError where the JAX package asserts: the families and
     stacked AA need ``rebase``; float continuation is the single pass's f32
     tier; ``track_err`` is the Burning Ship dd / floatexp rebasing
@@ -283,32 +323,14 @@ def pack_pert_operands(orbit: np.ndarray, width: int, height: int, *,
             b *= 2
         cap = int(min(b, bucket_max))
     L = int(min(len(orbit), cap))
-    orbit_re = np.zeros(cap, np.float32)
-    orbit_im = np.zeros(cap, np.float32)
-    if julia_fx:
-        orbit_re_lo = np.zeros(cap, np.float32)
-        orbit_im_lo = np.zeros(cap, np.float32)
-        orbit_re_ex = np.full(cap, float(E_ZERO), np.float32)
-        orbit_im_ex = np.full(cap, float(E_ZERO), np.float32)
-        (orbit_re[:L], orbit_re_lo[:L], orbit_re_ex[:L]) = _fx_streams(
-            orbit[:L, 0], None if orbit_exp is None else orbit_exp[:L, 0])
-        (orbit_im[:L], orbit_im_lo[:L], orbit_im_ex[:L]) = _fx_streams(
-            orbit[:L, 1], None if orbit_exp is None else orbit_exp[:L, 1])
-        streams = (orbit_re, orbit_im, orbit_re_lo, orbit_im_lo,
-                   orbit_re_ex, orbit_im_ex)
-    else:
-        orbit_re[:L] = orbit[:L, 0].astype(np.float32)
-        orbit_im[:L] = orbit[:L, 1].astype(np.float32)
-        streams = (orbit_re, orbit_im)
-        if dd_delta or scaled_delta:
-            # hi/lo split of the f64 orbit: the dd/floatexp loops need dd Z
-            orbit_re_lo = np.zeros(cap, np.float32)
-            orbit_im_lo = np.zeros(cap, np.float32)
-            orbit_re_lo[:L] = (orbit[:L, 0] - orbit_re[:L]
-                               .astype(np.float64)).astype(np.float32)
-            orbit_im_lo[:L] = (orbit[:L, 1] - orbit_im[:L]
-                               .astype(np.float64)).astype(np.float32)
-            streams += (orbit_re_lo, orbit_im_lo)
+    tier = "fx" if scaled_delta else ("dd" if dd_delta else "f32")
+
+    def pack():
+        return _orbit_streams(orbit, orbit_exp, L, cap, julia_fx,
+                              tier != "f32")
+
+    streams = pack() if orbit_store is None else orbit_store.get(
+        ("k3.streams", n_streams(tier, family), cap), pack)
 
     params = np.zeros(NQ, np.float32)
     params[Q_CXH], params[Q_CXL] = center_x_dd
@@ -373,7 +395,6 @@ def pack_pert_operands(orbit: np.ndarray, width: int, height: int, *,
         params[Q_AROW0] = row0
     else:
         params[Q_ROW0] = row0
-    tier = "fx" if scaled_delta else ("dd" if dd_delta else "f32")
     form = "single" if not rebase else ("ledger" if track_err else "rebase")
     launch = dict(tier=tier, family=family, form=form,
                   float_cont=bool(float_continuation), width=int(width),
@@ -1076,20 +1097,32 @@ def _orbit_table(streams: Sequence, tier: str, family: str) -> torch.Tensor:
     return torch.stack(cols, dim=1)
 
 
+def _upload_table(streams: Sequence, tier: str, family: str,
+                  dev: torch.device) -> torch.Tensor:
+    """The orbit table of ``streams`` on ``dev``, its copies counted in
+    ``perturbation_fields_cuda.upload_bytes``."""
+    perturbation_fields_cuda.upload_bytes += _upload_bytes(streams, dev)
+    return _orbit_table(_device_streams(streams, dev), tier, family)
+
+
 def perturbation_fields_cuda(params: np.ndarray, streams: Sequence, *,
                              tier: str, family: str = "mandelbrot",
                              form: str = "rebase", float_cont: bool = False,
                              width: int, height: int, map_height: int,
                              max_passes: int, spp: int = 1,
-                             device) -> Tuple[torch.Tensor, ...]:
+                             device, orbit_store=None
+                             ) -> Tuple[torch.Tensor, ...]:
     """Launch the CUDA kernel K3 on ``device`` (same signature and results
     as perturbation_fields_plain; ``streams`` may be numpy arrays or
     tensors already on the device).  One launch per call, stacked spp²
     segments included; counts its launches in
     ``perturbation_fields_cuda.launches`` and the bytes it copies to the
-    card in ``perturbation_fields_cuda.upload_bytes``.  Its checks run in
-    the span ``k3.prepare``, the orbit's copy and interleave in
-    ``deep.upload``, the launch in ``k3.launch``."""
+    card in ``perturbation_fields_cuda.upload_bytes``.  ``orbit_store``
+    (pack_pert_operands') keeps the orbit table of each layout on each
+    device and stream, built from the first launch's ``streams``: a later
+    launch there copies nothing.  Its checks run in the span
+    ``k3.prepare``, the table's lookup, or the orbit's copy and
+    interleave, in ``deep.upload``, the launch in ``k3.launch``."""
     from . import _cuda
 
     with span("k3.prepare"):
@@ -1102,8 +1135,16 @@ def perturbation_fields_cuda(params: np.ndarray, streams: Sequence, *,
         single = form == "single"
     with torch.cuda.device(dev):
         with span("deep.upload"):
-            orbit = _orbit_table(_device_streams(streams, dev), tier, family)
-        perturbation_fields_cuda.upload_bytes += _upload_bytes(streams, dev)
+            if orbit_store is None:
+                orbit = _upload_table(streams, tier, family, dev)
+            else:
+                # one table per stream: the launches that read it queue
+                # behind the interleave that wrote it, and the allocator
+                # frees it for that stream alone
+                orbit = orbit_store.get(
+                    ("k3.table", len(streams), len(streams[0]), dev,
+                     torch.cuda.current_stream(dev).cuda_stream),
+                    lambda: _upload_table(streams, tier, family, dev))
         with span("k3.launch"):
             shape = (nseg * height, width)
             n = torch.empty(shape, dtype=torch.int32, device=dev)
@@ -1158,7 +1199,7 @@ def perturbation_fields(orbit: np.ndarray, width: int, height: int, *,
                         phoenix: bool = False, phoenix_p: float = 0.0,
                         phoenix_r: float = 0.0, aa_spp: int = 1,
                         orbit_exp: Optional[np.ndarray] = None,
-                        track_err: bool = False,
+                        track_err: bool = False, orbit_store=None,
                         device="cuda") -> Dict[str, torch.Tensor]:
     """Perturbation fields on ``device`` against a precomputed reference
     orbit ((L, 2) float64 from deepzoom.orbit; Julia: the drift table, with
@@ -1169,9 +1210,11 @@ def perturbation_fields(orbit: np.ndarray, width: int, height: int, *,
     dd / floatexp); with ``aa_spp`` > 1 the planes are (aa_spp², height,
     width).  ``passes`` is the most rounds any pixel took, ``rounds_plane``
     the per-pixel rounds.  ``rebase=False`` (Mandelbrot) runs the single
-    pass and returns {"n", "zx", "zy", "glitch"}.  The packing runs in
-    the span ``k3.prepare``, the floatexp tier's pre-scale of the step and
-    the shift in ``k3.fx_scale`` inside it."""
+    pass and returns {"n", "zx", "zy", "glitch"}.  ``orbit_store``
+    (pack_pert_operands') keeps the orbit's streams, and on a CUDA device
+    its table, for the launches to come against the same orbit.  The
+    packing runs in the span ``k3.prepare``, the floatexp tier's pre-scale
+    of the step and the shift in ``k3.fx_scale`` inside it."""
     if rebase and not rebase_inkernel:
         raise NotImplementedError("the multi-pass rebase form is the JAX "
                                   "package's oracle and is not ported")
@@ -1189,12 +1232,14 @@ def perturbation_fields(orbit: np.ndarray, width: int, height: int, *,
             julia=julia, julia_z0=julia_z0, ship=ship, phoenix=phoenix,
             phoenix_p=phoenix_p, phoenix_r=phoenix_r, aa_spp=aa_spp,
             orbit_exp=orbit_exp, rebase=rebase,
-            float_continuation=float_continuation, track_err=track_err)
+            float_continuation=float_continuation, track_err=track_err,
+            orbit_store=orbit_store)
         dev = torch.device(device)
         if dev.type == "cpu":
             impl = perturbation_fields_plain
         elif dev.type == "cuda":
-            impl = perturbation_fields_cuda
+            impl = functools.partial(perturbation_fields_cuda,
+                                     orbit_store=orbit_store)
         else:
             raise ValueError(f"unsupported device {dev}")
     outs = impl(params, streams, max_passes=int(max_passes), device=dev,

@@ -413,6 +413,51 @@ def test_perturbation_kernel_equals_plain(dev, tier, case):
     assert int(got[5].max()) >= 2  # the views rebase
 
 
+class _Kept:
+    """An ``orbit_store``: each name's value built once."""
+
+    def __init__(self):
+        self.values = {}
+
+    def get(self, name, build):
+        if name not in self.values:
+            self.values[name] = build()
+        return self.values[name]
+
+
+@pytest.mark.parametrize("tier", ["dd", "fx"])
+def test_perturbation_kept_orbit_table_equals_host_streams(dev, tier):
+    # the orbit table kept on the card by the first launch serves the next
+    # with no copy, and both give the planes of a launch from host streams
+    from fractalrenderer_tpu_torch.deepzoom.orbit import compute_orbit
+    from fractalrenderer_tpu_torch.ops import perturbation
+
+    cx, cy, zoom, iters, kw = _PERT_VIEWS[tier]
+    orb = compute_orbit(cx, cy, 320 if tier == "fx" else 128, iters + 1)
+    args = dict(center_x_dd=dd.dd_from_string(cx),
+                center_y_dd=dd.dd_from_string(cy),
+                zoom_dd=dd.dd_from_string(zoom), max_iter=iters,
+                rebase=True, float_continuation=False, device=dev, **kw)
+    want = perturbation.perturbation_fields(orb, 64, 48, **args)
+    kept = _Kept()
+    uploaded = perturbation.perturbation_fields_cuda.upload_bytes
+    got = [perturbation.perturbation_fields(orb, 64, 48, orbit_store=kept,
+                                            **args) for _ in range(2)]
+    torch.cuda.synchronize()
+    [(name, table)] = [(k, v) for k, v in kept.values.items()
+                       if k[0] == "k3.table"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert name[1:] == (4, table.shape[0], dev, stream)
+    assert table.device == dev and table.shape[1] == 4
+    assert perturbation.perturbation_fields_cuda.upload_bytes \
+        == uploaded + table.numel() * 4
+    for res in got:
+        assert res.keys() == want.keys()
+        for k in want:
+            assert torch.equal(res[k], want[k]), f"{tier}: {k} differs"
+    assert int(want["passes"]) >= 2  # the view rebases
+
+
 # a dd-tier view whose d^2 products have subnormal errors (the needle at
 # 1e-20; tests/test_torch_two_prod.py shows the plain version reaches that
 # zone there): the kernel's fmaf and the plain version's f64 form agree in

@@ -7,6 +7,8 @@ pattern of test_render_dd_close_to_jax_render_dd).  The weights of this
 model are the reference orbit and the parameters, carried across by the
 packing tests of test_torch_perturbation.py.
 """
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import torch
@@ -95,6 +97,116 @@ def test_render_fields_past_the_f64_floor_matches_jax(zoom):
     np.testing.assert_array_equal(glitch, np.asarray(jglitch))
     np.testing.assert_allclose(zx, np.asarray(jzx), rtol=1e-6)
     np.testing.assert_allclose(zy, np.asarray(jzy), rtol=1e-6)
+
+
+def _fx_view():
+    # the floor cell's geometry: one reference off c = i and a scene centre
+    # a few pixels from it, both at the deepest frame's scale
+    from test_torch_deep_fx import _view
+
+    return _view("1e-326", 12, 8)
+
+
+def _dd_view(dx=0):
+    # a reference 2 and -1 pixels of the 1e-10 view off the centre; the
+    # centre panned by ``dx`` pixels
+    step = Fraction("1e-10") * 4 / 64
+    ctr = tuple(Fraction(v) for v in SEAHORSE)
+    ref = (ctr[0] + 2 * step, ctr[1] - step)
+    return tuple(map(str, ref)), (str(ctr[0] + dx * step), str(ctr[1]))
+
+
+_JULIA = dict(deep_zoom_julia=True, julia_c_real=-0.7, julia_c_imag=0.27015)
+
+
+def _sequence(case):
+    """The case's frames as (scene, ref_center) and, for the run with one
+    shared cache, the plan's builds, its orbits and the values they keep."""
+    if case == "fx_fixed_centre":
+        # 1e-306 and 2e-307 in one bits bucket, 1e-318 to 1e-326 in the
+        # next: two orbits, each building its reference, shift and streams
+        ref, ctr = _fx_view()
+        frames = [(_scene(ctr, z, 1000, use_series_approximation=False), ref)
+                  for z in ("1e-306", "2e-307", "1e-318", "5e-319",
+                            "1e-326")]
+        return frames, 6, 2, 6
+    if case == "dd_fixed_centre":
+        ref, ctr = _dd_view()
+        return [(_scene(ctr, z, 400), ref)
+                for z in ("1e-9", "5e-10", "2e-10", "1e-10")], 3, 1, 3
+    if case == "moving_centre":
+        # the shift slot is rebuilt at every move (back to the first centre
+        # too: one slot), the reference and the streams are kept
+        frames = []
+        for dx in (0, 1, 2, 0):
+            ref, ctr = _dd_view(dx)
+            frames.append((_scene(ctr, "1e-10", 400), ref))
+        return frames, 2 + 4, 1, 3
+    if case == "bits_bucket":
+        # 1e-20 takes a bucket of its own, so an orbit, reference, shift
+        # and streams of its own; 1e-9 comes back to the first
+        ref, ctr = _dd_view()
+        return [(_scene(ctr, z, 400), ref)
+                for z in ("1e-9", "1e-20", "5e-10")], 6, 2, 6
+    # families sharing the dict: an orbit per recurrence, each keeping its
+    # reference and streams (no ref_center: no shift)
+    kinds = [{}, dict(deep_zoom_ship=True), _JULIA]
+    return [(_scene(SEAHORSE, z, 300, **k), None)
+            for z in ("1e-9", "5e-10") for k in kinds], 6, 3, 6
+
+
+@pytest.mark.parametrize("case", ["fx_fixed_centre", "dd_fixed_centre",
+                                  "moving_centre", "bits_bucket",
+                                  "families"])
+def test_a_shared_cache_renders_every_frame_bit_equal(case):
+    # frames against one orbit_cache keep the reference's values, the shift
+    # and K3's streams across frames; each frame equals a render with a
+    # cache of its own, bit for bit, info included
+    frames, builds, orbits, kept = _sequence(case)
+    fresh = [deep_zoom.render_fields(s, 12, 8, ref_center=ref,
+                                     orbit_cache={}, device="cpu")
+             for s, ref in frames]
+    cache = {}
+    b0, h0 = (deep_zoom.render_fields.plan_builds,
+              deep_zoom.render_fields.plan_hits)
+    shared = [deep_zoom.render_fields(s, 12, 8, ref_center=ref,
+                                      orbit_cache=cache, device="cpu")
+              for s, ref in frames]
+    lookups = sum(2 + (ref is not None) for _, ref in frames)
+    assert deep_zoom.render_fields.plan_builds - b0 == builds
+    assert deep_zoom.render_fields.plan_hits - h0 == lookups - builds
+    # no entry per zoom or per centre: an orbit each, one slot per value
+    assert len(cache) == orbits
+    assert sum(len(e._kept) for e in cache.values()) == kept
+    for a, b in zip(shared, fresh):
+        for x, y in zip(a[:4], b[:4]):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            assert x.tobytes() == y.tobytes()
+        assert a[4] == b[4]
+    infos = [f[4] for f in shared]
+    if case == "fx_fixed_centre":
+        assert all(i["scaled_delta"] for i in infos)
+        assert len({i["precision_bits"] for i in infos}) == 2
+    elif case == "families":
+        assert len({i["deep_zoom_julia"] + 2 * i["deep_zoom_ship"]
+                    for i in infos}) == 3
+    else:
+        assert all(i["dd_delta"] for i in infos)
+
+
+def test_a_cache_for_one_call_behaves_as_none():
+    # a fresh cache, or none, builds every value the frame uses once
+    ref, ctr = _dd_view()
+    s = _scene(ctr, "1e-10", 300)
+    b0, h0 = (deep_zoom.render_fields.plan_builds,
+              deep_zoom.render_fields.plan_hits)
+    a = deep_zoom.render_fields(s, 12, 8, ref_center=ref, device="cpu")
+    b = deep_zoom.render_fields(s, 12, 8, ref_center=ref, orbit_cache={},
+                                device="cpu")
+    assert deep_zoom.render_fields.plan_builds - b0 == 6
+    assert deep_zoom.render_fields.plan_hits == h0
+    for x, y in zip(a[:4], b[:4]):
+        assert x.tobytes() == y.tobytes()
 
 
 def test_series_skip_with_rebasing():

@@ -327,16 +327,19 @@ def test_card_trig_launches_count_the_trig_instance_alone(dev):
 @pytest.mark.cuda
 def test_card_upload_bytes_grow_by_the_orbit_streams(dev):
     cache = {}
-    deep_zoom.render(_deep_scene(), 24, 16, orbit_cache=cache, device=dev)
     before = perturbation.perturbation_fields_cuda.upload_bytes
+    deep_zoom.render(_deep_scene(), 24, 16, orbit_cache=cache, device=dev)
+    # dd deltas at 1e-9: four f32 streams (re, im and their lo parts), each
+    # the orbit's 301 entries padded to the 512-entry bucket, copied by the
+    # orbit's first frame; the next frames read its table on the card
+    streams = 4 * 512 * 4
+    assert perturbation.perturbation_fields_cuda.upload_bytes \
+        == before + streams
     for z in ("1e-9", "5e-10"):
         deep_zoom.render(_deep_scene(z), 24, 16, orbit_cache=cache,
                          device=dev)
-    # dd deltas at 1e-9: four f32 streams (re, im and their lo parts), each
-    # the orbit's 301 entries padded to the 512-entry bucket
-    per_frame = 4 * 512 * 4
     assert perturbation.perturbation_fields_cuda.upload_bytes \
-        == before + 2 * per_frame
+        == before + streams
 
 
 @pytest.mark.cuda
