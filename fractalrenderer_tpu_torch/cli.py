@@ -645,8 +645,8 @@ def cmd_giant(args) -> int:
 
 
 def cmd_sweep(args) -> int:
-    """BASELINE config #2: render a batch of Julia c values (one K1 launch
-    each, on one stream) and write a PNG per c."""
+    """BASELINE config #2: render a batch of Julia c values (aa² K1
+    launches each, on one stream) and write a PNG per c."""
     from .models.julia import render_c_sweep
 
     if not _size_ok(args):

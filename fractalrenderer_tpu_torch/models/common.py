@@ -128,9 +128,11 @@ def _track_flags(cfg: StaticCfg) -> Tuple[bool, bool]:
 def _color_params(cfg: StaticCfg, dyn: dict) -> ColorParams:
     """ColorParams of the unfused branch from the f32 dynamic scalars;
     max_iterations is the iteration limit clamped to the static cap, as
-    the kernel clamps n."""
+    the kernel clamps n.  The cap's copy counts in
+    ``band_render_fn.param_uploads``."""
     cap = torch.tensor(float(cfg.max_iter), dtype=torch.float32,
                        device=dyn["iter_limit"].device)
+    band_render_fn.param_uploads += 1
     return ColorParams(
         max_iterations=torch.minimum(dyn["iter_limit"], cap),
         bailout=dyn["bailout"],
@@ -177,10 +179,12 @@ def planar_export_ok(cfg: StaticCfg) -> bool:
 def _dyn_f32(dyn: dict, device) -> dict:
     """The dynamic scalars as f32 tensors on the device (the JAX pipeline
     casts every value to jnp.float32 before the pipeline sees it), copied
-    to the device in one transfer."""
+    to the device in one transfer, counted in
+    ``band_render_fn.param_uploads``."""
     keys = list(dyn)
     vals = torch.tensor([float(dyn[k]) for k in keys], dtype=torch.float32,
                         device=device)
+    band_render_fn.param_uploads += 1
     return {k: vals[i] for i, k in enumerate(keys)}
 
 
@@ -200,9 +204,11 @@ def _sample(cfg: StaticCfg, dyn: dict, band_h: int, full_h: int, row0: int,
 
 def _average_then_post(cfg: StaticCfg, dyn: dict, acc: torch.Tensor,
                        count: int) -> torch.Tensor:
-    """Sample average, divided by a device tensor, then the post chain."""
+    """Sample average, divided by a device tensor (its copy counted in
+    ``band_render_fn.param_uploads``), then the post chain."""
     denom = torch.tensor(float(count), dtype=torch.float32,
                          device=acc.device)
+    band_render_fn.param_uploads += 1
     return coloring.post_chain_traced(
         acc / denom, dyn["brightness"], dyn["saturation"], dyn["contrast"],
         clamp_mins=cfg.clamp_mins)
@@ -216,7 +222,16 @@ def band_render_fn(cfg: StaticCfg, band_h: int, full_h: int,
     when ``planar_export_ok(cfg)``).  ``out``, a tensor of that shape and
     dtype, receives the result in the pipeline's last operation; on the
     card the quantized planes are K1's own stores, into ``out`` (which
-    must then be contiguous) or a tensor made for the call."""
+    must then be contiguous) or a tensor made for the call.
+
+    A frame of more than one sample, or of the unfused branch, runs its
+    sample average, the post chain and the copy into ``out`` in the span
+    ``batch.post``; a fused single-sample frame opens none.  Each copy of
+    a frame's host scalars to the device (``_dyn_f32``, the average's
+    divisor, the unfused colouring's cap; on the card each a synchronising
+    pageable copy) adds one to ``band_render_fn.param_uploads``: two a
+    fused multi-sample frame, three an unfused one, none a fused
+    single-sample one."""
     if torch.device(cfg.device).type == "cuda":
         from ..ops._cuda import cuda_device
 
@@ -273,8 +288,9 @@ def band_render_fn(cfg: StaticCfg, band_h: int, full_h: int,
                         return torch.stack([f["r"], f["g"], f["b"]], dim=-1,
                                            out=out)
                     acc = acc + torch.stack([f["r"], f["g"], f["b"]], dim=-1)
-            return _into(out, _average_then_post(
-                cfg, _dyn_f32(dyn, cfg.device), acc, len(offsets)))
+            with span("batch.post"):
+                return _into(out, _average_then_post(
+                    cfg, _dyn_f32(dyn, cfg.device), acc, len(offsets)))
 
         return fused
 
@@ -297,9 +313,14 @@ def band_render_fn(cfg: StaticCfg, band_h: int, full_h: int,
                     f["n"], f["zx"], f["zy"], trap, stripe, p)
             acc = acc + color
         # julia.comp:319-322 clamp floors live inside post_chain_traced
-        return _into(out, _average_then_post(cfg, dyn_t, acc, len(offsets)))
+        with span("batch.post"):
+            return _into(out, _average_then_post(cfg, dyn_t, acc,
+                                                 len(offsets)))
 
     return unfused
+
+
+band_render_fn.param_uploads = 0
 
 
 def _into(out, img: torch.Tensor) -> torch.Tensor:
@@ -347,8 +368,10 @@ def batch_render_fn(cfg: StaticCfg, quantize: int = 0, planar: bool = False):
     is K1's quantized stores into its slot alone.  The parameters are f32
     first, as the JAX batch casts them, so a frame equals a single render
     of its scene bit for bit.  Each frame runs in the span
-    ``batch.frame``, its glue's launches in ``batch.glue``; the chunk's
-    parameter columns and each frame's parameters are ``k1.prepare``."""
+    ``batch.frame``, its glue's launches in ``batch.glue``, a multi-sample
+    or unfused frame's average and post chain in ``batch.post``; the
+    chunk's parameter columns and each frame's parameters are
+    ``k1.prepare``."""
     if planar and not (quantize and planar_export_ok(cfg)):
         raise ValueError("planar batch export requires quantize=8|16 and "
                          "planar_export_ok(cfg)")

@@ -21,8 +21,9 @@ def render(scene: Scene, width: int, height: int, **kw):
 def render_c_sweep(scene: Scene, c_values, width: int, height: int,
                    device="cuda"):
     """Batched c-parameter sweep (BASELINE config #2): render the same
-    viewport for a batch of Julia c constants, one K1 launch per c on one
-    stream.
+    viewport for a batch of Julia c constants on one stream, one K1
+    launch per c and AA sample (aa² launches per c; with more than one
+    sample the frame's average and post chain follow as tensor glue).
 
     ``c_values``: sequence of (re, im) pairs → (N, H, W, 3) f32 tensor on
     ``device``.  The reference's equivalent is interactively dragging the c

@@ -1,5 +1,7 @@
 """The program's stage spans (``utils.diag.span``) and counters in the
-export paths: the batch path (``models/common.batch_render_fn``), the
+export paths: the batch path (``models/common.batch_render_fn``, with
+``batch.post`` and ``band_render_fn.param_uploads`` in its multi-sample
+and unfused frames), the
 deep zoom (``models/deep_zoom.render``) and the Mandelbulb
 (``models/mandelbulb.render``).
 
@@ -123,6 +125,66 @@ def test_batch_frames_nest_their_stages(tmp_path, quantize, planar, stages):
     assert len(frames) == 2
     for f in frames:
         assert _children(spans, f) == stages
+
+
+def _batch_of(scene, device="cpu", frames=2):
+    """A batch of ``frames`` frames of ``scene``'s static configuration
+    (its family's fused or unfused branch, its AA) at 32 x 24."""
+    fam, conv, clamp = common.family_map()[scene.fractal_type]
+    cfg = common.scene_static_cfg(scene, 32, 24, fam, conv, clamp,
+                                  device=str(device))
+    dyn = common.scene_dyn_params(scene)
+    batch = {k: np.asarray([v] * frames, np.float32) for k, v in dyn.items()}
+    batch["zoom"] = np.linspace(3.0, 1.5, frames).astype(np.float32)
+    return common.batch_render_fn(cfg), batch
+
+
+# a fused multi-sample frame (Julia at 2x2 AA), an unfused one (the
+# Mandelbrot orbit trap) and fused single-sample ones: the spans
+# batch.post opens in each frame, and the host-scalar copies a frame adds
+# to band_render_fn.param_uploads
+POST_CASES = {
+    "julia_aa2": (dict(fractal_type=FractalType.JULIA,
+                       antialiasing_samples=2), 1, 2),
+    "unfused": (dict(orbit_trap_enabled=True), 1, 3),
+    "unfused_aa2": (dict(orbit_trap_enabled=True,
+                         antialiasing_samples=2), 1, 3),
+    "julia_aa1": (dict(fractal_type=FractalType.JULIA), 0, 0),
+    "mandelbrot_aa1": ({}, 0, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(POST_CASES))
+def test_batch_post_opens_in_multi_sample_and_unfused_frames(tmp_path,
+                                                             case):
+    kw, posts, _ = POST_CASES[case]
+    fn, batch = _batch_of(Scene(max_iterations=48, **kw))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn(batch)
+    spans = _spans(prof, tmp_path)
+    frames = _frames(spans, "batch.frame")
+    assert len(frames) == 2
+    for f in frames:
+        kids = _children(spans, f)
+        assert kids.count("batch.post") == posts
+        if posts:  # the frame's last stage, after every sample
+            assert kids[-1] == "batch.post"
+
+
+@pytest.mark.parametrize("case", list(POST_CASES))
+def test_param_uploads_count_a_frames_scalar_copies(case):
+    kw, _, per_frame = POST_CASES[case]
+    fn, batch = _batch_of(Scene(max_iterations=48, **kw), frames=3)
+    before = common.band_render_fn.param_uploads
+    fn(batch)
+    assert common.band_render_fn.param_uploads - before == 3 * per_frame
+
+
+def test_planar_frames_copy_no_scalars():
+    fn, batch = _batch(8, True)
+    before = common.band_render_fn.param_uploads
+    fn(batch)
+    assert common.band_render_fn.param_uploads == before
 
 
 def test_deep_frames_nest_their_stages(tmp_path):
@@ -286,6 +348,25 @@ def test_card_batch_frames_nest_the_wrappers_stages(tmp_path, dev):
     for f in frames:  # K1 stores the quantized planes: no glue
         assert _children(spans, f) == ["k1.prepare", "k1.prepare",
                                        "k1.prepare", "k1.launch"]
+
+
+@pytest.mark.cuda
+def test_card_multi_sample_frames_nest_the_post_stage(tmp_path, dev):
+    # four K1 launches, each sample's stack and sum, then the average and
+    # post chain with the frame's two synchronising scalar copies
+    fn, batch = _batch_of(Scene(fractal_type=FractalType.JULIA,
+                                antialiasing_samples=2, max_iterations=48),
+                          device=dev)
+    fn(batch)  # build and load the library outside the session
+    before = common.band_render_fn.param_uploads
+    spans = _card_spans(lambda: fn(batch), tmp_path)
+    assert common.band_render_fn.param_uploads - before == 2 * 2
+    frames = _frames(spans, "batch.frame")
+    assert len(frames) == 2
+    sample = ["k1.prepare", "k1.prepare", "k1.launch", "batch.glue"]
+    for f in frames:
+        assert _children(spans, f) == ["k1.prepare"] + sample * 4 \
+            + ["batch.post"]
 
 
 @pytest.mark.cuda
